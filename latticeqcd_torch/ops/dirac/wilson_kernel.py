@@ -1,0 +1,263 @@
+"""wilson_hop: the hand-written CUDA Wilson hopping kernel and its plain version.
+
+Replaces the Pallas kernel dslash_planes of
+latticeqcd_tpu/ops/dirac/wilson_pallas.py (see csrc/wilson_hop.cu for
+the design and what bounds it). Two modes, r = 1, csw = 0, boundary
+phases already in the links:
+
+* full:   D psi = psi - kappa H psi on [X,Y,Z,T,4,NC] (WilsonDirac.apply);
+* packed: H psi_s on target-parity sites of the even-odd packed layout
+  (WilsonDirac.hop_packed), the mat-vec of every CG iteration and of
+  the fermion force on the HMC path.
+
+The public entry points are autograd Functions. A tensor on the CPU
+takes the plain PyTorch version (``dslash_reference``,
+``hop_packed_reference``: rolls and einsums as in
+latticeqcd_tpu/ops/dirac/wilson.py); a tensor on a CUDA device launches
+the kernel, or the wrapper raises. The backward with respect to the
+spinor is the kernel again (the adjoint hop is gamma5 H gamma5 with the
+link roles swapped); the backward with respect to the links is written
+with tensor ops: outer products of the projected half spinors with the
+incoming gradient, summed over spin.
+
+``launches`` counts kernel launches (forward and backward alike).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from latticeqcd_torch import _nvcc
+from latticeqcd_torch.ops import rolls
+from latticeqcd_torch.ops.dirac import eo_pack, gammas
+
+DIRS = 4
+launches = 0
+
+_SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
+_LIB = None
+
+
+# --------------------------------------------------------------- plain version
+
+
+@functools.lru_cache(maxsize=None)
+def _half_factors(dtype, device):
+    vm, vp = gammas.half_spinor_factors()
+    return (torch.as_tensor(vm, dtype=dtype, device=device),
+            torch.as_tensor(vp, dtype=dtype, device=device))
+
+
+def gamma5(psi: torch.Tensor) -> torch.Tensor:
+    """gamma5 psi = diag(1, 1, -1, -1) on the spin axis (-2)."""
+    return torch.cat([psi[..., :2, :], -psi[..., 2:, :]], dim=-2)
+
+
+def _hop(u_fwd, u_bwd, psi, gplus, gminus):
+    """sum_mu 2 Vm[mu] U_fwd(x) (Vm^dag psi)(x+mu)
+            + 2 Vp[mu] U_bwd(x-mu)^dag (Vp^dag psi)(x-mu),
+    with the neighbour gathers given (half-spinor form, r = 1)."""
+    vm, vp = _half_factors(psi.dtype, psi.device)
+    hop = 0.0
+    for mu in range(DIRS):
+        half = torch.einsum("sh,...sc->...hc", vm[mu].conj(), gplus(psi, mu))
+        half = torch.einsum("...ab,...hb->...ha", u_fwd[mu], half)
+        hop = hop + 2.0 * torch.einsum("sh,...hc->...sc", vm[mu], half)
+        half = torch.einsum("sh,...sc->...hc", vp[mu].conj(), gminus(psi, mu))
+        half = torch.einsum("...ba,...hb->...ha", gminus(u_bwd[mu], mu).conj(), half)
+        hop = hop + 2.0 * torch.einsum("sh,...hc->...sc", vp[mu], half)
+    return hop
+
+
+def full_plus(f, mu):
+    """f(x + mu) on the full lattice."""
+    return rolls.roll(f, -1, mu)
+
+
+def full_minus(f, mu):
+    """f(x - mu) on the full lattice."""
+    return rolls.roll(f, 1, mu)
+
+
+def packed_gathers(psi_s, target_parity):
+    """(gather_plus, gather_minus, scatter_minus) seen from the target-parity
+    sites of the packed layout, as callables f(field, mu)."""
+    lattice = (2 * psi_s.shape[0],) + tuple(psi_s.shape[1:4])
+    s_t = eo_pack.offset_field(lattice, target_parity)
+    return (lambda f, mu: eo_pack.gather_plus(f, mu, s_t),
+            lambda f, mu: eo_pack.gather_minus(f, mu, s_t),
+            lambda g, mu: eo_pack.scatter_minus(g, mu, s_t))
+
+
+def hop_full_reference(u, psi):
+    """Plain full-volume H psi (r = 1)."""
+    return _hop(u, u, psi, full_plus, full_minus)
+
+
+def dslash_reference(u, psi, kappa):
+    """Plain full-volume D psi = psi - kappa H psi (r = 1)."""
+    return psi - kappa * hop_full_reference(u, psi)
+
+
+def hop_packed_reference(u_t, u_s, psi_s, target_parity: int):
+    """Plain H psi_s on target-parity sites (packed layout, r = 1)."""
+    gplus, gminus, _ = packed_gathers(psi_s, target_parity)
+    return _hop(u_t, u_s, psi_s, gplus, gminus)
+
+
+def _link_grads(g, psi, gplus, gminus):
+    """Gradients of Re<g, H psi> (PyTorch's convention for a real loss of
+    complex inputs) w.r.t. the forward links U_fwd(x) and the backward
+    links U_bwd(x - mu), the latter still held at the target site x."""
+    vm, vp = _half_factors(psi.dtype, psi.device)
+    fwd, bwd = [], []
+    for mu in range(DIRS):
+        gh = torch.einsum("sh,...sc->...hc", vm[mu].conj(), g)
+        ph = torch.einsum("sh,...sc->...hc", vm[mu].conj(), gplus(psi, mu))
+        fwd.append(2.0 * torch.einsum("...hi,...hj->...ij", gh, ph.conj()))
+        gh = torch.einsum("sh,...sc->...hc", vp[mu].conj(), g)
+        ph = torch.einsum("sh,...sc->...hc", vp[mu].conj(), gminus(psi, mu))
+        bwd.append(2.0 * torch.einsum("...hi,...hj->...ij", ph, gh.conj()))
+    return fwd, bwd
+
+
+# ----------------------------------------------------------------- the kernel
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _nvcc.load("wilson_hop")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for suffix in _SUFFIX.values():
+            full = getattr(lib, f"wilson_hop_full_{suffix}")
+            full.argtypes = [vp, vp, vp, ci, ci, ci, ci, ctypes.c_double, vp]
+            full.restype = ci
+            packed = getattr(lib, f"wilson_hop_packed_{suffix}")
+            packed.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            packed.restype = ci
+        _LIB = lib
+    return _LIB
+
+
+def _check(psi, *links):
+    """Raise on anything the kernel does not take."""
+    if psi.device.type != "cuda":
+        raise ValueError(f"wilson_hop runs on CUDA tensors, got {psi.device}")
+    if psi.dtype not in _SUFFIX:
+        raise TypeError(f"wilson_hop takes complex64 or complex128, got {psi.dtype}")
+    if psi.ndim != 6 or tuple(psi.shape[4:]) != (4, 3):
+        raise ValueError(f"spinor must be [X,Y,Z,T,4,3], got {tuple(psi.shape)}")
+    want = (DIRS,) + tuple(psi.shape[:4]) + (3, 3)
+    vol = psi.shape[0] * psi.shape[1] * psi.shape[2] * psi.shape[3]
+    if vol == 0 or 36 * vol >= 2**31:
+        raise ValueError(f"lattice volume {vol} outside the kernel's 32-bit indexing")
+    for t in (psi,) + links:
+        if t.device != psi.device or t.dtype != psi.dtype:
+            raise TypeError("wilson_hop fields must share device and dtype")
+        if not t.is_contiguous():
+            raise ValueError("wilson_hop fields must be contiguous")
+    for u in links:
+        if tuple(u.shape) != want:
+            raise ValueError(f"links must be {want}, got {tuple(u.shape)}")
+
+
+def _launched(err: int, mode: str):
+    global launches
+    if err != 0:
+        raise RuntimeError(f"wilson_hop {mode} launch failed: CUDA error {err}")
+    launches += 1
+
+
+def _dslash(u, psi, kappa):
+    if psi.device.type == "cpu":
+        return dslash_reference(u, psi, kappa)
+    _check(psi, u)
+    out = torch.empty_like(psi)
+    fn = getattr(_lib(), f"wilson_hop_full_{_SUFFIX[psi.dtype]}")
+    with torch.cuda.device(psi.device):
+        err = fn(u.data_ptr(), psi.data_ptr(), out.data_ptr(), *psi.shape[:4], float(kappa),
+                 torch.cuda.current_stream().cuda_stream)
+    _launched(err, "full")
+    return out
+
+
+def _hop_packed(u_t, u_s, psi_s, target_parity):
+    if psi_s.device.type == "cpu":
+        return hop_packed_reference(u_t, u_s, psi_s, target_parity)
+    _check(psi_s, u_t, u_s)
+    out = torch.empty_like(psi_s)
+    fn = getattr(_lib(), f"wilson_hop_packed_{_SUFFIX[psi_s.dtype]}")
+    with torch.cuda.device(psi_s.device):
+        err = fn(u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(),
+                 *psi_s.shape[:4], int(target_parity), torch.cuda.current_stream().cuda_stream)
+    _launched(err, "packed")
+    return out
+
+
+# ------------------------------------------------------------------- autograd
+
+
+class WilsonDslash(torch.autograd.Function):
+    """D psi = psi - kappa H psi (full volume, r = 1)."""
+
+    @staticmethod
+    def forward(ctx, u, psi, kappa):
+        ctx.save_for_backward(u, psi)
+        ctx.kappa = kappa
+        return _dslash(u, psi, kappa)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        u, psi = ctx.saved_tensors
+        g = g.contiguous()
+        d_u = d_psi = None
+        if ctx.needs_input_grad[1]:
+            d_psi = gamma5(_dslash(u, gamma5(g), ctx.kappa))  # D^dag = g5 D g5
+        if ctx.needs_input_grad[0]:
+            fwd, bwd = _link_grads(g, psi, full_plus, full_minus)
+            d_u = -ctx.kappa * torch.stack(
+                [fwd[mu] + rolls.roll(bwd[mu], -1, mu) for mu in range(DIRS)])
+        return d_u, d_psi, None
+
+
+class WilsonHopPacked(torch.autograd.Function):
+    """H psi_s on target-parity sites (packed even-odd layout, r = 1)."""
+
+    @staticmethod
+    def forward(ctx, u_t, u_s, psi_s, target_parity):
+        ctx.save_for_backward(u_t, u_s, psi_s)
+        ctx.parity = target_parity
+        return _hop_packed(u_t, u_s, psi_s, target_parity)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        u_t, u_s, psi_s = ctx.saved_tensors
+        g = g.contiguous()
+        d_ut = d_us = d_psi = None
+        if ctx.needs_input_grad[2]:
+            # H_ts^dag = g5 H_st g5: the source parity becomes the target,
+            # u_s supplies the forward links and u_t the backward ones
+            d_psi = gamma5(_hop_packed(u_s, u_t, gamma5(g), 1 - ctx.parity))
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            gplus, gminus, scatter = packed_gathers(psi_s, ctx.parity)
+            fwd, bwd = _link_grads(g, psi_s, gplus, gminus)
+            d_ut = torch.stack(fwd)
+            d_us = torch.stack([scatter(bwd[mu], mu) for mu in range(DIRS)])
+        return d_ut, d_us, d_psi, None
+
+
+def wilson_dslash(u, psi, kappa):
+    """Full D psi (r = 1) through the kernel on CUDA, the plain version on the CPU."""
+    return WilsonDslash.apply(u, psi, float(kappa))
+
+
+def wilson_hop_packed(u_t, u_s, psi_s, target_parity: int):
+    """Packed H psi_s (r = 1) through the kernel on CUDA, the plain version on the CPU."""
+    return WilsonHopPacked.apply(u_t, u_s, psi_s, int(target_parity))

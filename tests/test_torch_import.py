@@ -1,0 +1,103 @@
+"""The PyTorch port stands alone: no jax, no JAX package, and its chip
+script refuses to run without a CUDA device or without the port beside it.
+Also pins the port's numpy-only copies (params, gammas) to the JAX
+package's originals."""
+
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PORT_MODULES = [
+    "latticeqcd_torch",
+    "latticeqcd_torch.run",
+    "latticeqcd_torch.convert",
+    "latticeqcd_torch.system.lqcd",
+    "latticeqcd_torch.system.universe",
+    "latticeqcd_torch.updates.hmc",
+    "latticeqcd_torch.md.integrators",
+    "latticeqcd_torch.ops.fermion_action",
+    "latticeqcd_torch.ops.solvers",
+    "latticeqcd_torch.ops.dirac.wilson",
+    "latticeqcd_torch.ops.dirac.wilson_kernel",
+    "latticeqcd_torch.measurements.observables",
+    "latticeqcd_torch.measurements.scheduler",
+    "chip_smoke",
+]
+
+
+def _run(args, cwd, timeout=120):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in PORT_MODULES)
+        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'latticeqcd_tpu'))\n"
+        + "assert not bad, bad\n"
+        + "print('clean')\n"
+    )
+    out = _run(["-c", code], cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
+def test_chip_smoke_fails_without_cuda():
+    # no visible CUDA device, also on a machine that has one
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_params_copy_matches_jax_package(tmp_path):
+    from latticeqcd_tpu.system import params as jp
+    from latticeqcd_torch.system import params as tp
+
+    assert [(f.name, f.default) for f in dataclasses.fields(tp.Params)
+            if f.default is not dataclasses.MISSING] == \
+        [(f.name, f.default) for f in dataclasses.fields(jp.Params)
+         if f.default is not dataclasses.MISSING]
+    toml = {
+        "Physical setting": {"L": [4, 4, 4, 8], "β": 6.0, "initial": "hot", "Nsteps": 3},
+        "Physical setting(fermions)": {"quench": False, "Dirac_operator": "Wilson",
+                                       "hop": 0.141139},
+        "HMC related": {"Δτ": 0.1, "MDsteps": 10, "eps": 1e-16},
+        "Measurement set": {"measurement_methods": [{"methodname": "Plaquette"}]},
+    }
+    a = jp.construct_params_from_toml(dict(toml), make_dirs=False)
+    b = tp.construct_params_from_toml(dict(toml), make_dirs=False)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+def test_gammas_copy_matches_jax_package():
+    from latticeqcd_tpu.ops.dirac import gammas as jg
+    from latticeqcd_torch.ops.dirac import gammas as tg
+
+    np.testing.assert_array_equal(jg.GAMMA, tg.GAMMA)
+    np.testing.assert_array_equal(jg.GAMMA5, tg.GAMMA5)
+    for a, b in zip(jg.half_spinor_factors(), tg.half_spinor_factors()):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(jg.projectors(0.5), tg.projectors(0.5)):
+        np.testing.assert_array_equal(a, b)
