@@ -9,12 +9,22 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
   3. kernels against their plain PyTorch versions on the card, at 4^4, 4x8x2x4 and 16^3x32,
      in complex64 (bar 1e-5) and complex128 (bar 1e-12): wilson_hop full and packed modes and
      the backward of WilsonHopPacked;
-  4. timing at 16^3x32 with CUDA events (median of 50 after warm-up): kernel and plain;
+  4. timing at 16^3x32 (CUDA graphs between CUDA events): kernel and plain, each beside its
+     bound, the least time the card could take (bytes over 3.35 TB/s, operations over the peak);
+     the kernel cold (three input sets taken in turn, beyond the L2) and warm (one set);
   5. one 4^4 complex128 Wilson HMC trajectory through the kernel and through the plain path on
      the card (the wrappers' plain versions swapped in for this run only) from the same injected
      draws, and an MD reversibility check;
-  6. the main path: run_lqcd_params at 16^3x32, SU(3), 2-flavour Wilson HMC, complex64, 2
-     trajectories, with the kernels' launch counts set to 0 just before and read just after.
+  6. the Wilson main path: run_lqcd_params at 16^3x32, SU(3), 2-flavour Wilson HMC, complex64,
+     2 trajectories, with wilson_hop's launch count set to 0 just before and read just after;
+  7. staggered_w against its plain version at 4^4, 4x8x2x2, 2x4x2x6 and 16^3x32 in both types:
+     the packed hop for both target parities, W, and the backward of StaggeredHopPacked;
+  8. timing of staggered_w (W and one hop) at 16^3x32, as phase 4;
+  9. 4^4 complex128 staggered trajectories (Nf=2 RHMC, Nf=4 HMC), kernel path against plain
+     path as in phase 5, and Nf=2 MD reversibility;
+ 10. the staggered main path: run_lqcd_params at 16^3x32, SU(3), staggered mass 0.5,
+     complex64, 2 trajectories at Nf=4 and 2 at Nf=2, with staggered_w's launch counts set to
+     0 just before and read just after.
 Then it prints one JSON line describing each kernel, the card's name and power limit as
 nvidia-smi gives them, and, as its last line, {"ok": true, "device": {...}}.
 """
@@ -35,10 +45,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 BARS = {"complex64": 1e-5, "complex128": 1e-12}
 LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (16, 16, 16, 32)]
+STAGGERED_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 2), (2, 4, 2, 6), (16, 16, 16, 32)]
 MAIN = (16, 16, 16, 32)
 KAPPA = 0.141139
+MASS = 0.5
 
-STATE = {"max_err": 0.0, "checks": 0}
+# The H100 SXM's published rates (NVIDIA data sheet): HBM3 bandwidth, and the peak outside
+# the tensor cores for the real type of each complex type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {"complex64": 67e12, "complex128": 34e12}
+
+STATE = {"err": {"wilson_hop": 0.0, "staggered_w": 0.0}, "checks": 0, "timing": {},
+         "launches": {}}
 
 
 def fail(msg: str):
@@ -56,8 +74,10 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check(label: str, err: float, bar: float):
-    STATE["max_err"] = max(STATE["max_err"], err)
+def check(label: str, err: float, bar: float, kernel: str = None):
+    """Fail unless err < bar; a kernel-vs-plain check also counts toward that kernel's max error."""
+    if kernel is not None:
+        STATE["err"][kernel] = max(STATE["err"][kernel], err)
     STATE["checks"] += 1
     ok = math.isfinite(err) and err < bar
     print(f"  {'ok  ' if ok else 'FAIL'} {label}: max|diff| = {err:.3e} (bar {bar:.0e})", flush=True)
@@ -111,7 +131,7 @@ def _fields(torch, lat, dtype, seed):
 
 
 def phase_kernels(torch):
-    print("== 3. kernels against their plain versions", flush=True)
+    print("== 3. wilson_hop against its plain version", flush=True)
     from latticeqcd_torch.ops.dirac import eo_pack
     from latticeqcd_torch.ops.dirac import wilson_kernel as wk
     from latticeqcd_torch.ops.dirac.wilson import gaussian_spinor
@@ -123,7 +143,8 @@ def phase_kernels(torch):
             u, psi, g = _fields(torch, lat, dtype, seed=sum(lat))
             out = wk.wilson_dslash(u, psi, KAPPA)
             torch.cuda.synchronize()
-            check(f"full D {tag}", maxdiff(out, wk.dslash_reference(u, psi, KAPPA)), bar)
+            check(f"full D {tag}", maxdiff(out, wk.dslash_reference(u, psi, KAPPA)), bar,
+                  "wilson_hop")
 
             u_e, u_o = eo_pack.pack_links(u, lat)
             half = (lat[0] // 2,) + lat[1:]
@@ -133,14 +154,15 @@ def phase_kernels(torch):
                 got = wk.wilson_hop_packed(u_t, u_s, x, parity)
                 torch.cuda.synchronize()
                 ref = wk.hop_packed_reference(u_t, u_s, x, parity)
-                check(f"packed hop p={parity} {tag}", maxdiff(got, ref), bar)
+                check(f"packed hop p={parity} {tag}", maxdiff(got, ref), bar, "wilson_hop")
 
                 leaves = [t.detach().clone().requires_grad_(True) for t in (u_t, u_s, x)]
                 grads_k = torch.autograd.grad(wk.wilson_hop_packed(*leaves, parity), leaves, cot)
                 grads_p = torch.autograd.grad(wk.hop_packed_reference(*leaves, parity), leaves, cot)
                 torch.cuda.synchronize()
                 for name, a, b in zip(("u_t", "u_s", "psi"), grads_k, grads_p):
-                    check(f"packed backward d{name} p={parity} {tag}", maxdiff(a, b), bar)
+                    check(f"packed backward d{name} p={parity} {tag}", maxdiff(a, b), bar,
+                          "wilson_hop")
 
 
 def _events(torch):
@@ -163,20 +185,23 @@ def _time_eager(torch, fn, n=50, warm=5) -> float:
     return statistics.median(times)
 
 
-def _time_device(torch, fn, reps=10, n=20) -> float:
+def _time_device(torch, fn, reps=12, n=20) -> float:
     """Median device milliseconds of one call: `reps` calls captured in a
     CUDA graph, the graph replayed `n` times between CUDA events, so the
-    host's launch overhead is not in the number."""
+    host's launch overhead is not in the number. `fn` may be a list of
+    calls on distinct inputs, taken in turn, so that no call finds its
+    inputs in the 50 MB L2 cache where the previous one left them."""
+    fns = fn if isinstance(fn, list) else [fn]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        for f in fns:
+            f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -191,48 +216,67 @@ def _time_device(torch, fn, reps=10, n=20) -> float:
     return statistics.median(times)
 
 
+def _time_case(torch, label, dtype_name, kerns, plain, nbytes, flops):
+    """Device and eager times of a kernel and its plain version, beside the bound: the larger
+    of the least bytes the function must move over the HBM rate and its operations over the
+    peak rate for its type. `kerns` are the kernel's call on three input sets: the cold time
+    takes them in turn (113 MB or more, so the inputs come from HBM), the warm time repeats
+    the first (its links may stay in L2). The line's time is the cold one."""
+    t_k, t_w, t_p = _time_device(torch, kerns), _time_device(torch, kerns[0]), _time_device(torch, plain)
+    e_k, e_p = _time_eager(torch, kerns[0]), _time_eager(torch, plain)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOP_PER_S[dtype_name] * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"  {label:20s} {dtype_name:10s} device: kernel {t_k * 1e3:8.1f} us cold "
+          f"({t_w * 1e3:8.1f} us warm)  plain {t_p * 1e3:9.1f} us  bound {bound * 1e3:6.1f} us "
+          f"({by}; {nbytes / 1e6:.1f} MB, {nbytes / (t_k * 1e-3) / 1e9:6.1f} GB/s cold, "
+          f"{100 * bound / t_k:5.1f}% of bound); eager call: kernel {e_k * 1e3:8.1f} us  plain "
+          f"{e_p * 1e3:9.1f} us  [{STATE['smi']}]", flush=True)
+    STATE["timing"][(label, dtype_name)] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+                                            "bound_by": by}
+
+
 def phase_timing(torch):
-    print("== 4. timing at 16^3x32", flush=True)
+    print("== 4. wilson_hop timing at 16^3x32", flush=True)
     from latticeqcd_torch.ops.dirac import eo_pack
     from latticeqcd_torch.ops.dirac import wilson_kernel as wk
     from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, gaussian_spinor
 
     lat = MAIN
     vol = lat[0] * lat[1] * lat[2] * lat[3]
-    card = STATE["smi"]
     dirac = WilsonDirac(kappa=KAPPA)
-    rows = {}
     with torch.no_grad():
         for dtype in (torch.complex64, torch.complex128):
             name = str(dtype).split(".")[1]
-            bytes_per_site = 480 * (2 if dtype == torch.complex128 else 1)
-            u, psi, g = _fields(torch, lat, dtype, seed=7)
-            u_e, u_o = eo_pack.pack_links(u, lat)
-            x = gaussian_spinor((lat[0] // 2,) + lat[1:], 3, dtype=dtype, device=u.device, generator=g)
+            f = 2 if dtype == torch.complex128 else 1
+            sets = []
+            for seed in (7, 8, 9):
+                u, psi, g = _fields(torch, lat, dtype, seed=seed)
+                x = gaussian_spinor((lat[0] // 2,) + lat[1:], 3, dtype=dtype, device=u.device,
+                                    generator=g)
+                sets.append((u, psi, eo_pack.pack_links(u, lat), x))
+            u, psi, (u_e, u_o), x = sets[0]
 
             def plain_dhat(v):
                 d1 = wk.hop_packed_reference(u_o, u_e, v, 1)
                 return v - KAPPA ** 2 * wk.hop_packed_reference(u_e, u_o, d1, 0)
 
+            # least bytes at complex64: the full D reads each link and spinor once and writes
+            # the output (480 B/site); a packed hop reads the links of both parities (576 B per
+            # target site), its source field and writes its output (768 B per target site);
+            # the packed D^D^dag is charged four hops and its two axpys (3 x 96 B each)
             cases = {
-                "full D": (lambda: wk.wilson_dslash(u, psi, KAPPA),
-                           lambda: wk.dslash_reference(u, psi, KAPPA), vol),
-                "packed hop": (lambda: wk.wilson_hop_packed(u_e, u_o, x, 0),
-                               lambda: wk.hop_packed_reference(u_e, u_o, x, 0), vol // 2),
+                "full D": ([lambda s=s: wk.wilson_dslash(s[0], s[1], KAPPA) for s in sets],
+                           lambda: wk.dslash_reference(u, psi, KAPPA), 480 * vol, 1320 * vol),
+                "packed hop": ([lambda s=s: wk.wilson_hop_packed(*s[2], s[3], 0) for s in sets],
+                               lambda: wk.hop_packed_reference(u_e, u_o, x, 0),
+                               768 * vol // 2, 1320 * vol // 2),
                 "packed DhatDhat^dag": (
-                    lambda: dirac.apply_dhat_ddag((u_e, u_o), x),
-                    lambda: plain_dhat(wk.gamma5(plain_dhat(wk.gamma5(x)))), 2 * vol),
+                    [lambda s=s: dirac.apply_dhat_ddag(s[2], s[3]) for s in sets],
+                    lambda: plain_dhat(wk.gamma5(plain_dhat(wk.gamma5(x)))),
+                    (4 * 768 + 6 * 96) * vol // 2, (4 * 1320 + 2 * 48) * vol // 2),
             }
-            for case, (kern, plain, sites) in cases.items():
-                t_k, t_p = _time_device(torch, kern), _time_device(torch, plain)
-                e_k, e_p = _time_eager(torch, kern), _time_eager(torch, plain)
-                gbs = bytes_per_site * sites / (t_k * 1e-3) / 1e9
-                rows[(case, name)] = (t_k, t_p)
-                print(f"  {case:20s} {name:10s} device: kernel {t_k * 1e3:8.1f} us  plain "
-                      f"{t_p * 1e3:9.1f} us  ({gbs:6.1f} GB/s at {bytes_per_site} B/site); "
-                      f"eager call: kernel {e_k * 1e3:8.1f} us  plain {e_p * 1e3:9.1f} us  [{card}]",
-                      flush=True)
-    STATE["timing"] = rows
+            for case, (kern, plain, nbytes, flops) in cases.items():
+                _time_case(torch, case, name, kern, plain, f * nbytes, flops)
 
 
 def phase_trajectory_agreement(torch):
@@ -290,7 +334,7 @@ def phase_trajectory_agreement(torch):
 
 
 def phase_main_path(torch):
-    print("== 6. main path: run_lqcd_params, 16^3x32 Wilson HMC, complex64", flush=True)
+    print("== 6. Wilson main path: run_lqcd_params, 16^3x32 Wilson HMC, complex64", flush=True)
     from latticeqcd_torch.ops.dirac import wilson_kernel as wk
     from latticeqcd_torch.system.lqcd import run_lqcd_params
     from latticeqcd_torch.system.params import Params
@@ -311,7 +355,7 @@ def phase_main_path(torch):
     plaq = run_lqcd_params(p, make_dirs=False, dtype=torch.complex64, device="cuda", history=history)
     torch.cuda.synchronize()
     launched = wk.launches
-    STATE["launches"] = {"wilson_hop": launched}
+    STATE["launches"]["wilson_hop"] = launched
     for rec in history:
         cg_iters = sum(c["iterations"] for c in rec["cg"])
         worst = max((c["rsq"] / c["target"] for c in rec["cg"]), default=0.0)
@@ -328,11 +372,193 @@ def phase_main_path(torch):
         fail(f"plaquette {plaq} outside (0, 1)")
     if launched == 0:
         fail("the main path launched wilson_hop no time")
-    STATE["history"] = history
+
+
+def _packed_links(torch, lat, dtype, seed):
+    from latticeqcd_torch.ops.dirac import eo_pack
+
+    u, _, g = _fields(torch, lat, dtype, seed)
+    return eo_pack.pack_links(u, lat), g
+
+
+def phase_staggered_kernels(torch):
+    print("== 7. staggered_w against its plain version", flush=True)
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+
+    for lat in STAGGERED_LATTICES:
+        half = (lat[0] // 2,) + lat[1:] + (3,)
+        for dtype in (torch.complex64, torch.complex128):
+            name = str(dtype).split(".")[1]
+            bar = BARS[name]
+            tag = f"{'x'.join(map(str, lat))} {name}"
+            (u_e, u_o), g = _packed_links(torch, lat, dtype, seed=sum(lat) + 1)
+            x = torch.randn(half, dtype=dtype, device=u_e.device, generator=g)
+            cot = torch.randn(half, dtype=dtype, device=u_e.device, generator=g)
+            got = sk.staggered_w(u_e, u_o, x, MASS)
+            torch.cuda.synchronize()
+            check(f"W {tag}", maxdiff(got, sk.staggered_w_reference(u_e, u_o, x, MASS)), bar,
+                  "staggered_w")
+            for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
+                got = sk.staggered_hop_packed(u_t, u_s, x, parity)
+                torch.cuda.synchronize()
+                ref = sk.staggered_hop_packed_reference(u_t, u_s, x, parity)
+                check(f"hop p={parity} {tag}", maxdiff(got, ref), bar, "staggered_w")
+                leaves = [t.detach().clone().requires_grad_(True) for t in (u_t, u_s, x)]
+                grads_k = torch.autograd.grad(sk.staggered_hop_packed(*leaves, parity), leaves, cot)
+                grads_p = torch.autograd.grad(sk.staggered_hop_packed_reference(*leaves, parity),
+                                              leaves, cot)
+                torch.cuda.synchronize()
+                for gname, a, b in zip(("u_t", "u_s", "psi"), grads_k, grads_p):
+                    check(f"hop backward d{gname} p={parity} {tag}", maxdiff(a, b), bar,
+                          "staggered_w")
+
+
+def phase_staggered_timing(torch):
+    print("== 8. staggered_w timing at 16^3x32", flush=True)
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+
+    lat = MAIN
+    sites = lat[0] * lat[1] * lat[2] * lat[3] // 2
+    with torch.no_grad():
+        for dtype in (torch.complex64, torch.complex128):
+            name = str(dtype).split(".")[1]
+            f = 2 if dtype == torch.complex128 else 1
+            sets = []
+            for seed in (8, 9, 10):
+                (u_e, u_o), g = _packed_links(torch, lat, dtype, seed=seed)
+                sets.append((u_e, u_o, torch.randn((lat[0] // 2,) + lat[1:] + (3,), dtype=dtype,
+                                                   device=u_e.device, generator=g)))
+            u_e, u_o, x = sets[0]
+            # least bytes at complex64, per even or target site: the links of both parities
+            # once (576 B), the input field once (24 B), the output once (24 B); about 570 flop
+            # per target site for one hop, 1150 for W
+            _time_case(torch, "staggered W", name,
+                       [lambda s=s: sk.staggered_w(*s, MASS) for s in sets],
+                       lambda: sk.staggered_w_reference(u_e, u_o, x, MASS),
+                       f * 624 * sites, 1150 * sites)
+            _time_case(torch, "staggered hop", name,
+                       [lambda s=s: sk.staggered_hop_packed(*s, 0) for s in sets],
+                       lambda: sk.staggered_hop_packed_reference(u_e, u_o, x, 0),
+                       f * 624 * sites, 570 * sites)
+
+
+def phase_staggered_trajectory_agreement(torch):
+    print("== 9. 4^4 complex128 staggered trajectories: kernel path against plain path", flush=True)
+    from latticeqcd_torch.md import integrators
+    from latticeqcd_torch.ops import fields, gauge_action as ga
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+    from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction
+    from latticeqcd_torch.updates.hmc import HMC, Draws
+
+    dev = torch.device("cuda")
+    lat = (4, 4, 4, 4)
+    u = fields.hot_start(lat, 3, seed=13, dtype=torch.complex128, device=dev)
+    for nf in (2, 4):
+        fa = StaggeredFermiAction(StaggeredDirac(mass=MASS, lattice=lat), nf=nf, eps_cg=1e-19)
+        hmc = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=10, fermi_action=fa)
+        # uniform 0: both trajectories are accepted, so U' compares the evolved links
+        drawn = Draws.sample(hmc, u, torch.Generator(device=dev).manual_seed(14 + nf))
+        draws = Draws(drawn.mom, drawn.xi, 0.0)
+        before = sk.launches
+        u_k, st_k = hmc.step(u, draws=draws)
+        launched = sk.launches - before
+        with mock.patch.object(sk, "_w", sk.staggered_w_reference), \
+                mock.patch.object(sk, "_hop_packed", sk.staggered_hop_packed_reference):
+            u_p, st_p = hmc.step(u, draws=draws)
+        if sk.launches != before + launched:
+            fail("the plain-path staggered trajectory launched the kernel")
+        print(f"  Nf={nf}: kernel dH {st_k['dH']:.12f} accepted {st_k['accepted']} ({launched} "
+              f"launches); plain dH {st_p['dH']:.12f} accepted {st_p['accepted']}")
+        if launched == 0:
+            fail("the kernel path of the staggered trajectory launched no kernel")
+        check(f"Nf={nf} trajectory |ddH|", abs(st_k["dH"] - st_p["dH"]), 1e-9)
+        check(f"Nf={nf} trajectory max|dU|", maxdiff(u_k, u_p), 1e-10)
+        if st_k["accepted"] != st_p["accepted"]:
+            fail(f"Nf={nf}: kernel and plain trajectories disagree on accept")
+
+    # Nf=2 reversibility: integrate forward, flip the momenta, integrate back
+    fa = StaggeredFermiAction(StaggeredDirac(mass=MASS, lattice=lat), nf=2, eps_cg=1e-19)
+    hmc = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=10, fermi_action=fa)
+    draws = Draws.sample(hmc, u, torch.Generator(device=dev).manual_seed(15))
+    _, phi = fa.sample_pseudofermion(u, normals=draws.xi)
+    force_f = lambda uu: fa.force(uu, phi)
+    force_g = lambda uu: ga.force(hmc.action, uu)
+    u1, h1 = integrators.leapfrog_qpq(u, draws.momentum(u), force_g, 0.1, 10, force_f)
+    u2, _ = integrators.leapfrog_qpq(u1, -h1, force_g, 0.1, 10, force_f)
+    check("Nf=2 MD reversibility max|dU|", maxdiff(u2, u), 1e-8)
+
+
+def phase_staggered_main_path(torch):
+    print("== 10. staggered main path: run_lqcd_params, 16^3x32 staggered Nf=4 HMC and Nf=2 "
+          "RHMC, complex64", flush=True)
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+    from latticeqcd_torch.system.params import Params
+    from latticeqcd_torch.updates.hmc import HMC
+
+    step = HMC.step
+    per_trajectory = []
+
+    def counted_step(self, *args, **kwargs):
+        w0 = sk.w_launches
+        out = step(self, *args, **kwargs)
+        per_trajectory.append(sk.w_launches - w0)
+        return out
+
+    torch.cuda.synchronize()
+    sk.launches = sk.w_launches = 0
+    for nf in (4, 2):
+        p = Params(
+            L=MAIN, NC=3, beta=5.7, initial="hot", update_method="HMC", quench=False,
+            Dirac_operator="Staggered", mass=MASS, Nf=nf, BoundaryCondition=(1, 1, 1, -1),
+            QPQ=True, dtau=0.02, MDsteps=10, Nsteps=2, eps=1e-12, MaxCGstep=3000,
+            randomseed=3, verboselevel=2,
+            measurement_methods=[{"methodname": "Plaquette", "measure_every": 1}],
+        )
+        history = []
+        per_trajectory.clear()
+        with mock.patch.object(HMC, "step", counted_step):
+            plaq = run_lqcd_params(p, make_dirs=False, dtype=torch.complex64, device="cuda",
+                                   history=history)
+        torch.cuda.synchronize()
+        for rec, w_count in zip(history, per_trajectory):
+            cg = [c for c in rec["cg"] if "shifts" not in c]
+            ms = [c for c in rec["cg"] if "shifts" in c]
+            poles = max((c["shifts"] for c in ms), default=0)
+            print(f"  Nf={nf} trajectory {rec['itrj']}: {rec['seconds']:.3f} s  CG iterations "
+                  f"{sum(c['iterations'] for c in cg)} in {len(cg)} solves  multi-shift iterations "
+                  f"{sum(c['iterations'] for c in ms)} in {len(ms)} solves of {poles} poles  "
+                  f"dH {rec['dH']:.6f}  accepted {rec['accepted']}  plaquette {rec['plaq']:.8f}  "
+                  f"staggered_w launches {w_count}  [{STATE['smi']}]", flush=True)
+            if not math.isfinite(rec["dH"]):
+                fail(f"non-finite dH {rec['dH']}")
+            if any(c["iterations"] >= p.MaxCGstep for c in rec["cg"]):
+                fail(f"a staggered solve stopped at maxiter {p.MaxCGstep}")
+        if len(per_trajectory) != len(history) or not history:
+            fail("the staggered main path ran no trajectory")
+        print(f"  Nf={nf} final plaquette {plaq:.8f}")
+        if not (math.isfinite(plaq) and 0.0 < plaq < 1.0):
+            fail(f"plaquette {plaq} outside (0, 1)")
+    torch.cuda.synchronize()
+    STATE["launches"]["staggered_w"] = sk.launches
+    print(f"  staggered_w launches on the main path: {sk.launches} ({sk.w_launches} of the fused "
+          f"W, {sk.launches - sk.w_launches} of the hop)")
+    if sk.w_launches == 0 or sk.launches == sk.w_launches:
+        fail("the staggered main path did not launch both staggered_w entry points")
 
 
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
-          phase_trajectory_agreement, phase_main_path]
+          phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
+          phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path]
+
+KERNELS = [
+    # name, source, the TPU kernel it replaces, the timing row of its line
+    ("wilson_hop", "latticeqcd_torch/csrc/wilson_hop.cu",
+     "latticeqcd_tpu/ops/dirac/wilson_pallas.py:414", ("packed hop", "complex64")),
+    ("staggered_w", "latticeqcd_torch/csrc/staggered_w.cu",
+     "latticeqcd_tpu/ops/dirac/staggered_pallas.py:274", ("staggered W", "complex64")),
+]
 
 
 def main() -> int:
@@ -353,18 +579,18 @@ def main() -> int:
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "latticeqcd_tpu"))
     if leaked:
         fail(f"the port imported the JAX side: {leaked}")
-    t_k, t_p = STATE["timing"][("packed hop", "complex64")]
-    kernels = [{
-        "name": "wilson_hop",
-        "route": "cuda",
-        "source": "latticeqcd_torch/csrc/wilson_hop.cu",
-        "replaces": "latticeqcd_tpu/ops/dirac/wilson_pallas.py:414",
-        "launches": STATE["launches"]["wilson_hop"],
-        "max_abs_err": STATE["max_err"],
-        "ms": t_k,
-        "plain_ms": t_p,
-    }]
-    print(f"kernels: wilson_hop ({STATE['checks']} checks against the plain version); "
+    kernels = []
+    for name, source, replaces, row in KERNELS:
+        timing = STATE["timing"][row]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": STATE["launches"][name], "max_abs_err": STATE["err"][name],
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            # no single PyTorch call computes a Wilson or a staggered hop
+            "library_ms": None,
+        })
+    print(f"kernels: {', '.join(k[0] for k in KERNELS)} ({STATE['checks']} checks); "
           f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -1,0 +1,147 @@
+// staggered_w: the even-odd packed staggered operator, written for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel w_planes_window
+// (latticeqcd_tpu/ops/dirac/staggered_pallas.py, _make_w_kernel -> geom, dslash_slice,
+// kernel), which computes on packed even sites
+//
+//   W phi_e = m^2 phi_e - D_eo D_oe phi_e,
+//   D psi(x) = 1/2 sum_mu eta_mu(x) [ U_mu(x) psi(x+mu) - U_mu(x-mu)^dag psi(x-mu) ],
+//
+// with the fermion boundary phases already multiplied into U and the Kogut-Susskind signs
+// eta_1 = 1, eta_mu = (-1)^(x_1 + ... + x_{mu-1}). Fields use the even-odd packed layout
+// [X/2, Y, Z, T, 3] of ops/dirac/eo_pack.py; links are packed by parity, [4, X/2, Y, Z, T, 3, 3].
+// Two entry points:
+//   * hop: out = D psi_s on the target-parity sites (StaggeredDirac._packed_dslash), forward
+//     links u_t from the target parity, backward links u_s from the source parity;
+//   * w:   W phi_e = m^2 phi_e - hop(target 0, hop(target 1, phi_e)) (apply_w_packed).
+//
+// What bounds it: memory traffic. One hop does about 570 flop per target site against at
+// least 624 B (all 576 B of links of both parities once, 24 B in, 24 B out, complex64), and W
+// about 1150 flop per even site against the same 624 B: under 2 flop/B, far below the H100's
+// compute-to-bandwidth line. The design is the simple one: one thread per target site, the
+// packed row offset and the KS signs computed from the thread's coordinates (with
+// x = 2x' + off: eta_2 = (-1)^off, eta_3 = (-1)^(off+y), eta_4 = (-1)^(off+y+z)) and applied
+// as a negation, the colour sums kept in registers, interleaved complex loads of the
+// framework layout. W is two launches of the hop: the odd intermediate d1 = D_oe phi_e goes
+// through device memory (a buffer the caller allocates) and the m^2 axpy is fused into the
+// second launch. That moves about twice the minimum traffic (the links are read once per
+// launch, though at complex64 the 37.7 MB of links at 16^3x32 may stay in the 50 MB L2
+// between the two). The Pallas kernel keeps d1 on chip in a sliding t-window; the one-launch
+// version with a halo of d1 in shared memory is later work.
+#include "lattice_site.h"
+
+namespace {
+
+// One thread per target site of the packed layout (lx = X/2). AXPY: out = m2 phi - D psi,
+// else out = D psi.
+template <typename R, bool AXPY>
+__global__ void __launch_bounds__(128)
+    staggered_hop_kernel(const typename Vec<R>::type* __restrict__ u_fwd,
+                         const typename Vec<R>::type* __restrict__ u_bwd,
+                         const typename Vec<R>::type* __restrict__ psi,
+                         const typename Vec<R>::type* __restrict__ phi,
+                         typename Vec<R>::type* __restrict__ out, int lx, int ly, int lz, int lt,
+                         int parity, R m2) {
+  using V = typename Vec<R>::type;
+  const int vol = lx * ly * lz * lt;
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= vol) return;
+  const SiteNeighbours n = site_neighbours<true>(s, lx, ly, lz, lt, parity);
+  const bool neg[4] = {false, (n.off & 1) != 0, ((n.off + n.y) & 1) != 0,
+                       ((n.off + n.y + n.z) & 1) != 0};
+
+  V acc[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) acc[c] = V{R(0), R(0)};
+
+#pragma unroll
+  for (int mu = 0; mu < 4; ++mu) {
+    const V* uf = u_fwd + 9 * (mu * vol + s);
+    const V* ub = u_bwd + 9 * (mu * vol + n.bw[mu]);
+    const V* pf = psi + 3 * n.fw[mu];
+    const V* pb = psi + 3 * n.bw[mu];
+    V f[3], b[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      f[c] = pf[c];
+      b[c] = pb[c];
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      // U_mu(x) psi(x+mu) - U_mu(x-mu)^dag psi(x-mu), colour row a
+      V d = cmul(uf[3 * a], f[0]);
+      d = cadd(d, cmul(uf[3 * a + 1], f[1]));
+      d = cadd(d, cmul(uf[3 * a + 2], f[2]));
+      d = csub(d, cmulc(ub[a], b[0]));
+      d = csub(d, cmulc(ub[3 + a], b[1]));
+      d = csub(d, cmulc(ub[6 + a], b[2]));
+      acc[a] = neg[mu] ? csub(acc[a], d) : cadd(acc[a], d);
+    }
+  }
+
+  V* o = out + 3 * s;
+  if (AXPY) {
+    const V* p = phi + 3 * s;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const V v = p[c];
+      o[c] = V{m2 * v.x - R(0.5) * acc[c].x, m2 * v.y - R(0.5) * acc[c].y};
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) o[c] = V{R(0.5) * acc[c].x, R(0.5) * acc[c].y};
+  }
+}
+
+template <typename R, bool AXPY>
+int launch(const void* u_fwd, const void* u_bwd, const void* psi, const void* phi, void* out,
+           int x2, int ly, int lz, int lt, int parity, double m2, void* stream) {
+  using V = typename Vec<R>::type;
+  const int vol = x2 * ly * lz * lt;
+  const int threads = 128;
+  const int blocks = (vol + threads - 1) / threads;
+  staggered_hop_kernel<R, AXPY><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(u_fwd), static_cast<const V*>(u_bwd), static_cast<const V*>(psi),
+      static_cast<const V*>(phi), static_cast<V*>(out), x2, ly, lz, lt, parity,
+      static_cast<R>(m2));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename R>
+int apply_w(const void* u_e, const void* u_o, const void* phi, void* d1, void* out, int x2, int ly,
+            int lz, int lt, double m2, void* stream) {
+  // d1 = D_oe phi on odd sites: odd links forward, even links backward
+  const int err = launch<R, false>(u_o, u_e, phi, nullptr, d1, x2, ly, lz, lt, 1, 0.0, stream);
+  if (err != 0) return err;
+  // out = m^2 phi - D_eo d1 on even sites
+  return launch<R, true>(u_e, u_o, d1, phi, out, x2, ly, lz, lt, 0, m2, stream);
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). Each returns cudaGetLastError() after its launches.
+extern "C" {
+
+int staggered_hop_packed_c64(const void* u_t, const void* u_s, const void* psi_s, void* out,
+                             int x2, int ly, int lz, int lt, int target_parity, void* stream) {
+  return launch<float, false>(u_t, u_s, psi_s, nullptr, out, x2, ly, lz, lt, target_parity, 0.0,
+                              stream);
+}
+
+int staggered_hop_packed_c128(const void* u_t, const void* u_s, const void* psi_s, void* out,
+                              int x2, int ly, int lz, int lt, int target_parity, void* stream) {
+  return launch<double, false>(u_t, u_s, psi_s, nullptr, out, x2, ly, lz, lt, target_parity, 0.0,
+                               stream);
+}
+
+int staggered_w_c64(const void* u_e, const void* u_o, const void* phi, void* d1, void* out, int x2,
+                    int ly, int lz, int lt, double m2, void* stream) {
+  return apply_w<float>(u_e, u_o, phi, d1, out, x2, ly, lz, lt, m2, stream);
+}
+
+int staggered_w_c128(const void* u_e, const void* u_o, const void* phi, void* d1, void* out,
+                     int x2, int ly, int lz, int lt, double m2, void* stream) {
+  return apply_w<double>(u_e, u_o, phi, d1, out, x2, ly, lz, lt, m2, stream);
+}
+
+}  // extern "C"

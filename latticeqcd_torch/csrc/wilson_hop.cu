@@ -23,38 +23,10 @@
 // version reads neighbour spinors and backward links again for every site that needs them
 // (through L2); staging t-slabs in shared memory, which is the minimum-traffic design of
 // the Pallas window kernel dslash_planes_window, is later work.
-#include <cuda_runtime.h>
-
+#include "lattice_site.h"
 #include "wilson_spin.h"
 
 namespace {
-
-template <typename R>
-struct Vec;
-template <>
-struct Vec<float> {
-  using type = float2;
-};
-template <>
-struct Vec<double> {
-  using type = double2;
-};
-
-template <typename V>
-__device__ __forceinline__ V cadd(V a, V b) {
-  return V{a.x + b.x, a.y + b.y};
-}
-
-template <typename V>
-__device__ __forceinline__ V cmul(V a, V b) {
-  return V{a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x};
-}
-
-// conj(a) * b
-template <typename V>
-__device__ __forceinline__ V cmulc(V a, V b) {
-  return V{a.x * b.x + a.y * b.y, a.x * b.y - a.y * b.x};
-}
 
 // i^k * a; k is a compile-time constant once the loops are unrolled.
 template <typename V>
@@ -127,26 +99,9 @@ __global__ void __launch_bounds__(128)
   const int vol = lx * ly * lz * lt;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= vol) return;
-  const int t = s % lt;
-  const int z = (s / lt) % lz;
-  const int y = (s / (lt * lz)) % ly;
-  const int x = s / (lt * lz * ly);
-  const int sz = lt, sy = lz * lt, sx = ly * lz * lt;
-
-  // x neighbours: in the packed layout the source x' is x' + s_t forward and
-  // x' - (1 - s_t) backward (eo_pack.gather_plus / gather_minus).
-  int xf = x + 1, xb = x - 1;
-  if (PACKED) {
-    const int s_t = ((y + z + t) & 1) ^ parity;
-    xf = x + s_t;
-    xb = x - (1 - s_t);
-  }
-  xf = xf >= lx ? xf - lx : xf;
-  xb = xb < 0 ? xb + lx : xb;
-  const int fw[4] = {s + (xf - x) * sx, s + (y + 1 == ly ? 1 - ly : 1) * sy,
-                     s + (z + 1 == lz ? 1 - lz : 1) * sz, s + (t + 1 == lt ? 1 - lt : 1)};
-  const int bw[4] = {s + (xb - x) * sx, s + (y == 0 ? ly - 1 : -1) * sy,
-                     s + (z == 0 ? lz - 1 : -1) * sz, s + (t == 0 ? lt - 1 : -1)};
+  const SiteNeighbours n = site_neighbours<PACKED>(s, lx, ly, lz, lt, parity);
+  const int(&fw)[4] = n.fw;
+  const int(&bw)[4] = n.bw;
 
   V acc[4][3];
 #pragma unroll

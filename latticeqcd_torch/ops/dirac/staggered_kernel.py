@@ -1,0 +1,225 @@
+"""staggered_w: the hand-written CUDA staggered kernel and its plain version.
+
+Replaces the Pallas kernel w_planes_window of
+latticeqcd_tpu/ops/dirac/staggered_pallas.py (see csrc/staggered_w.cu
+for the design and what bounds it). On the even-odd packed layout
+(fields [X/2, Y, Z, T, NC], links packed by parity [4, X/2, Y, Z, T, NC,
+NC], boundary phases already in the links, every extent even):
+
+* hop: D psi_s = 1/2 sum_mu eta_mu (U_t,mu(x) psi_s(x+mu)
+  - U_s,mu(x-mu)^dag psi_s(x-mu)) on target-parity sites
+  (StaggeredDirac._packed_dslash), the hop of the fermion force;
+* W:   W phi_e = m^2 phi_e - D_eo D_oe phi_e (StaggeredDirac.apply_w_packed),
+  the mat-vec of every CG and multi-shift CG iteration.
+
+A tensor on the CPU takes the plain PyTorch version
+(``staggered_hop_packed_reference``, ``staggered_w_reference``: eo_pack
+gathers and einsums as in latticeqcd_tpu/ops/dirac/staggered.py); a
+tensor on a CUDA device launches the kernel, or the wrapper raises.
+``StaggeredHopPacked`` differentiates the hop: its backward for the
+field is the kernel again (D is antihermitian, so the adjoint of the
+target<-source hop is minus the source<-target hop), for the links it is
+eta-weighted outer products written with tensor ops.
+
+``launches`` counts calls of both kernel entry points (forward and
+backward alike); ``w_launches`` counts those of the fused W alone. One
+W entry call is two CUDA launches of the hop kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from latticeqcd_torch import _nvcc
+from latticeqcd_torch.ops.dirac import eo_pack
+
+DIRS = 4
+launches = 0
+w_launches = 0
+
+_SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
+_LIB = None
+
+
+# --------------------------------------------------------------- plain version
+
+
+def packed_eta_signs(lattice, parity: int) -> np.ndarray:
+    """eta_mu on the parity-``parity`` packed sites, (X/2, Y, Z, T, 4) of +-1,
+    by the kernel's rule: with x = 2x' + off, off = (y+z+t+parity) mod 2,
+    eta_1 = 1, eta_2 = (-1)^off, eta_3 = (-1)^(off+y), eta_4 = (-1)^(off+y+z)."""
+    x2, ly, lz, lt = lattice[0] // 2, lattice[1], lattice[2], lattice[3]
+    off = eo_pack.offset_field(lattice, parity)
+    gy = np.arange(ly)[:, None, None]
+    gz = np.arange(lz)[None, :, None]
+    k = np.stack(np.broadcast_arrays(np.zeros_like(off), off, off + gy, off + gy + gz), axis=-1)
+    return np.broadcast_to(1.0 - 2.0 * (k % 2), (x2, ly, lz, lt, DIRS))
+
+
+@functools.lru_cache(maxsize=None)
+def _eta(lattice, parity, dtype, device):
+    """packed_eta_signs as a real tensor on ``device``, made once."""
+    return torch.as_tensor(np.array(packed_eta_signs(lattice, parity)), dtype=dtype,
+                           device=device)
+
+
+def _geometry(psi_s, target_parity):
+    lattice = (2 * psi_s.shape[0],) + tuple(psi_s.shape[1:4])
+    eta = _eta(lattice, target_parity, psi_s.real.dtype, psi_s.device)
+    return eo_pack.offset_field(lattice, target_parity), eta
+
+
+def staggered_hop_packed_reference(u_t, u_s, psi_s, target_parity: int):
+    """Plain D psi_s on target-parity sites (packed layout)."""
+    s_t, eta = _geometry(psi_s, target_parity)
+    out = 0.0
+    for mu in range(DIRS):
+        fwd = torch.einsum("...ab,...b->...a", u_t[mu], eo_pack.gather_plus(psi_s, mu, s_t))
+        u_m = eo_pack.gather_minus(u_s[mu], mu, s_t)
+        bwd = torch.einsum("...ba,...b->...a", u_m.conj(), eo_pack.gather_minus(psi_s, mu, s_t))
+        out = out + 0.5 * eta[..., mu, None] * (fwd - bwd)
+    return out
+
+
+def staggered_w_reference(u_e, u_o, phi_e, mass: float):
+    """Plain W phi_e = m^2 phi_e - D_eo D_oe phi_e on packed even sites."""
+    d1 = staggered_hop_packed_reference(u_o, u_e, phi_e, 1)
+    return mass ** 2 * phi_e - staggered_hop_packed_reference(u_e, u_o, d1, 0)
+
+
+def _link_grads(g, psi_s, target_parity):
+    """Gradients of Re<g, D psi_s> (PyTorch's convention for a real loss of
+    complex inputs) w.r.t. the forward links u_t and the backward links u_s."""
+    s_t, eta = _geometry(psi_s, target_parity)
+    d_ut, d_us = [], []
+    for mu in range(DIRS):
+        ge = 0.5 * eta[..., mu, None] * g
+        d_ut.append(torch.einsum("...i,...j->...ij", ge,
+                                 eo_pack.gather_plus(psi_s, mu, s_t).conj()))
+        bwd = torch.einsum("...i,...j->...ij", eo_pack.gather_minus(psi_s, mu, s_t), ge.conj())
+        d_us.append(-eo_pack.scatter_minus(bwd, mu, s_t))
+    return torch.stack(d_ut), torch.stack(d_us)
+
+
+# ----------------------------------------------------------------- the kernel
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _nvcc.load("staggered_w")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for suffix in _SUFFIX.values():
+            hop = getattr(lib, f"staggered_hop_packed_{suffix}")
+            hop.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            hop.restype = ci
+            w = getattr(lib, f"staggered_w_{suffix}")
+            w.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_double, vp]
+            w.restype = ci
+        _LIB = lib
+    return _LIB
+
+
+def _check(psi, *links):
+    """Raise on anything the kernel does not take."""
+    if psi.device.type != "cuda":
+        raise ValueError(f"staggered_w runs on CUDA tensors, got {psi.device}")
+    if psi.dtype not in _SUFFIX:
+        raise TypeError(f"staggered_w takes complex64 or complex128, got {psi.dtype}")
+    if psi.ndim != 5 or psi.shape[4] != 3:
+        raise ValueError(f"packed field must be [X/2,Y,Z,T,3], got {tuple(psi.shape)}")
+    if any(l % 2 for l in psi.shape[1:4]):
+        raise ValueError(f"the packed staggered kernel needs every lattice extent even, "
+                         f"got {(2 * psi.shape[0],) + tuple(psi.shape[1:4])}")
+    vol = psi.shape[0] * psi.shape[1] * psi.shape[2] * psi.shape[3]
+    if vol == 0 or 36 * vol >= 2**31:
+        raise ValueError(f"packed volume {vol} outside the kernel's 32-bit indexing")
+    want = (DIRS,) + tuple(psi.shape[:4]) + (3, 3)
+    for t in (psi,) + links:
+        if t.device != psi.device or t.dtype != psi.dtype:
+            raise TypeError("staggered_w fields must share device and dtype")
+        if not t.is_contiguous():
+            raise ValueError("staggered_w fields must be contiguous")
+    for u in links:
+        if tuple(u.shape) != want:
+            raise ValueError(f"packed links must be {want}, got {tuple(u.shape)}")
+
+
+def _launched(err: int, entry: str):
+    global launches
+    if err != 0:
+        raise RuntimeError(f"staggered_w {entry} launch failed: CUDA error {err}")
+    launches += 1
+
+
+def _hop_packed(u_t, u_s, psi_s, target_parity):
+    if psi_s.device.type == "cpu":
+        return staggered_hop_packed_reference(u_t, u_s, psi_s, target_parity)
+    _check(psi_s, u_t, u_s)
+    out = torch.empty_like(psi_s)
+    fn = getattr(_lib(), f"staggered_hop_packed_{_SUFFIX[psi_s.dtype]}")
+    with torch.cuda.device(psi_s.device):
+        err = fn(u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(),
+                 *psi_s.shape[:4], int(target_parity), torch.cuda.current_stream().cuda_stream)
+    _launched(err, "hop")
+    return out
+
+
+def _w(u_e, u_o, phi_e, mass):
+    global w_launches
+    if phi_e.device.type == "cpu":
+        return staggered_w_reference(u_e, u_o, phi_e, mass)
+    _check(phi_e, u_e, u_o)
+    d1 = torch.empty_like(phi_e)
+    out = torch.empty_like(phi_e)
+    fn = getattr(_lib(), f"staggered_w_{_SUFFIX[phi_e.dtype]}")
+    with torch.cuda.device(phi_e.device):
+        err = fn(u_e.data_ptr(), u_o.data_ptr(), phi_e.data_ptr(), d1.data_ptr(), out.data_ptr(),
+                 *phi_e.shape[:4], float(mass) ** 2, torch.cuda.current_stream().cuda_stream)
+    _launched(err, "W")
+    w_launches += 1
+    return out
+
+
+# ------------------------------------------------------------------- autograd
+
+
+class StaggeredHopPacked(torch.autograd.Function):
+    """D psi_s on target-parity sites (packed even-odd layout)."""
+
+    @staticmethod
+    def forward(ctx, u_t, u_s, psi_s, target_parity):
+        ctx.save_for_backward(u_t, u_s, psi_s)
+        ctx.parity = target_parity
+        return _hop_packed(u_t, u_s, psi_s, target_parity)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        u_t, u_s, psi_s = ctx.saved_tensors
+        g = g.contiguous()
+        d_ut = d_us = d_psi = None
+        if ctx.needs_input_grad[2]:
+            # D_ts^dag = -D_st: the source parity becomes the target, u_s
+            # supplies the forward links and u_t the backward ones
+            d_psi = -_hop_packed(u_s, u_t, g, 1 - ctx.parity)
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            d_ut, d_us = _link_grads(g, psi_s, ctx.parity)
+        return d_ut, d_us, d_psi, None
+
+
+def staggered_hop_packed(u_t, u_s, psi_s, target_parity: int):
+    """Packed D psi_s through the kernel on CUDA, the plain version on the CPU."""
+    return StaggeredHopPacked.apply(u_t, u_s, psi_s, int(target_parity))
+
+
+def staggered_w(u_e, u_o, phi_e, mass: float):
+    """Packed W phi_e through the fused kernel on CUDA, the plain version on
+    the CPU. Not differentiable: callers that need a gradient compose two
+    ``staggered_hop_packed`` (StaggeredDirac.apply_w_packed does)."""
+    return _w(u_e, u_o, phi_e, float(mass))

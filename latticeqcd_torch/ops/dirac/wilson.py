@@ -115,7 +115,7 @@ class WilsonDirac:
         return self.apply(u, self.apply_dagger(u, psi))
 
 
-def gaussian_spinor(lattice, nc, nspin=4, dtype=torch.complex128, device="cpu",
+def gaussian_spinor(lattice, nc, nspin=4, dtype=torch.complex128, device="cuda",
                     generator: Optional[torch.Generator] = None, normals=None) -> torch.Tensor:
     """Unit-variance complex Gaussian spinor, E|psi_i|^2 = 1: (re + i im)/sqrt(2)
     from a Generator, or from injected normals (re, im) of that shape."""

@@ -1,0 +1,89 @@
+"""Lanczos extreme-eigenvalue estimation for Hermitian lattice operators.
+
+Counterpart of latticeqcd_tpu/ops/eigen.py (``_lanczos_basis``,
+``lanczos_tridiag``, ``extreme_eigs``): the spectral guard of the RHMC
+checks that the rational approximation's window covers the spectrum of
+W on the starting configuration. After m operator applications the
+Krylov Ritz values bracket both spectral ends. The recurrence keeps its
+basis on the field's device with two-pass full reorthogonalization
+(classical Gram-Schmidt twice), each pass one matrix-vector product over
+the stacked basis; only the m x m tridiagonal eigenproblem runs on the
+host, with numpy. ``ritz_pairs_low`` and ``deflation_guess`` wait for
+ROADMAP A11.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _inner(a, b):
+    """Global <a, b> = sum conj(a) b."""
+    return torch.sum(a.conj() * b)
+
+
+@torch.no_grad()
+def _lanczos_basis(matvec, v0, m: int):
+    """m-step recurrence returning (basis, alphas, betas, valid): valid[j]
+    marks steps unaffected by an earlier breakdown (after one, basis rows
+    are zero and alphas 0)."""
+    nrm = torch.sqrt(torch.real(_inner(v0, v0)))
+    v0 = v0 / nrm.to(v0.dtype)
+    basis = torch.zeros((m,) + tuple(v0.shape), dtype=v0.dtype, device=v0.device)
+    basis[0] = v0
+    flat = basis.view(m, -1)
+    alphas = torch.zeros((m,), dtype=nrm.dtype, device=v0.device)
+    betas = torch.zeros_like(alphas)
+    valid = torch.zeros((m,), dtype=torch.bool, device=v0.device)
+    valid[0] = True
+    tiny = torch.tensor(1e-30, dtype=nrm.dtype, device=v0.device)
+    floor = torch.tensor(1e-300, dtype=nrm.dtype, device=v0.device)
+    for j in range(m):
+        v = basis[j]
+        w = matvec(v)
+        alphas[j] = torch.real(_inner(v, w))
+        for _ in range(2):
+            coef = flat.conj() @ w.reshape(-1)
+            w = w - (coef @ flat).view(w.shape)
+        beta = torch.sqrt(torch.real(_inner(w, w)))
+        betas[j] = beta
+        ok = beta > tiny
+        if j + 1 < m:
+            basis[j + 1] = torch.where(ok, w / torch.maximum(beta, floor).to(w.dtype),
+                                       torch.zeros_like(w))
+            valid[j + 1] = valid[j] & ok
+    return basis, alphas, betas, valid
+
+
+def lanczos_tridiag(matvec, v0, m: int):
+    """m-step Hermitian Lanczos with full reorthogonalization.
+
+    Returns (alpha[m], beta[m]): alpha are the tridiagonal diagonals,
+    beta[j] couples step j to j+1 (beta[m-1] is the final residual norm,
+    not part of T_m). A breakdown (beta ~ 0: an exact invariant subspace)
+    zeroes the remaining basis vectors; extreme_eigs truncates there."""
+    _, alphas, betas, _ = _lanczos_basis(matvec, v0, m)
+    return alphas, betas
+
+
+def extreme_eigs(matvec, v0, m: int = 32, breakdown_tol: float = 1e-10):
+    """Host-level (lambda_min, lambda_max) Ritz estimates after m Lanczos
+    steps, the tridiagonal truncated at the first interior breakdown.
+    Ritz values approach the spectrum from inside: lambda_max is an
+    underestimate (callers apply a safety factor) and lambda_min an
+    overestimate."""
+    alphas, betas = lanczos_tridiag(matvec, v0, m)
+    a = alphas.cpu().numpy().astype(np.float64)
+    b = betas.cpu().numpy().astype(np.float64)
+    scale = max(float(np.abs(a).max(initial=0.0)), float(b.max(initial=0.0)), 1.0)
+    k = m
+    for j in range(m - 1):  # b[m-1] never couples inside T_m
+        if b[j] < breakdown_tol * scale:
+            k = j + 1
+            break
+    t = np.diag(a[:k])
+    if k > 1:
+        t += np.diag(b[: k - 1], 1) + np.diag(b[: k - 1], -1)
+    ev = np.linalg.eigvalsh(t)
+    return float(ev[0]), float(ev[-1])

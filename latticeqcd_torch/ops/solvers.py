@@ -1,17 +1,19 @@
-"""Conjugate gradient for the fermion solves.
+"""Krylov solvers for the fermion solves: CG and multi-shift CG.
 
-Counterpart of latticeqcd_tpu/ops/solvers.py ``cg``: stopping criterion
-|r|^2 < eps * max(|b|^2, 1), eps clamped per dtype to an attainable
-target, and in reduced precision verified-exit restarts gated on the
-true residual. The loop reads |r|^2 to the host once per iteration for
-its exit test (one device sync per iteration, a known cost). Batched,
-multi-shift and BiCGStab solvers wait for later slices (ROADMAP A5).
+Counterpart of latticeqcd_tpu/ops/solvers.py ``cg`` and
+``multishift_cg``: stopping criterion |r|^2 < eps * max(|b|^2, 1), eps
+clamped per dtype to an attainable target, and for ``cg`` in reduced
+precision verified-exit restarts gated on the true residual. Each loop
+reads |r|^2 to the host once per iteration for its exit test (one device
+sync per iteration, a known cost). Batched CG and BiCGStab wait for a
+later slice (ROADMAP A11).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 # Reduced precision: the attainable relative TRUE |r|^2, and how many
@@ -81,3 +83,72 @@ def cg(apply_a: Callable, b: torch.Tensor, x0=None, eps: float = 1e-19, maxiter:
     if log is not None:
         log.append({"iterations": it, "rsq": float(rsq) / bsq, "target": verify / bsq})
     return x, it, rsq
+
+
+def multishift_cg(apply_a: Callable, b: torch.Tensor, shifts, eps: float = 1e-19,
+                  maxiter: int = 3000, log: Optional[list] = None):
+    """Multi-shift CG: solve (A + sigma_k) x_k = b for all k at once.
+
+    One Krylov space; the shifted iterates follow the Jegerlehner zeta
+    recurrence (hep-lat/9612014) with the positive CG step
+    a_n = rsq/(p,Ap), in the real dtype:
+
+        zeta^{n+1} = zeta^n zeta^{n-1} a_{n-1} /
+            [ a_n b_{n-1} (zeta^{n-1} - zeta^n)
+              + zeta^{n-1} a_{n-1} (1 + sigma a_n) ]
+        x_s  += a_n (zeta^{n+1}/zeta^n) p_s
+        p_s   = zeta^{n+1} r_new + b_n (zeta^{n+1}/zeta^n)^2 p_s
+
+    shifts must be >= 0 and A positive definite. Convergence is tested on
+    the unshifted residual (the slowest). Returns (xs[k], iterations,
+    |r|^2). ``log``, if given, receives one dict per solve as ``cg``'s
+    does, with the number of shifts."""
+    rdtype = b.real.dtype
+    sigma = torch.as_tensor(np.asarray(shifts, dtype=np.float64), dtype=rdtype, device=b.device)
+    ns = sigma.shape[0]
+
+    x = torch.zeros((ns,) + tuple(b.shape), dtype=b.dtype, device=b.device)
+    r = b
+    p = r
+    ps = b.expand((ns,) + tuple(b.shape)).clone()
+    zeta = torch.ones((ns,), dtype=rdtype, device=b.device)
+    zeta_prev = torch.ones_like(zeta)
+    a_prev = torch.ones((), dtype=rdtype, device=b.device)
+    b_prev = torch.zeros((), dtype=rdtype, device=b.device)
+    rsq = torch.real(_vdot(r, r))
+    bsq = max(float(torch.real(_vdot(b, b))), 1.0)
+    target = _effective_eps(eps, b.dtype) * bsq
+
+    it = 0
+    rsq_h = float(rsq)
+    while rsq_h > target and it < maxiter:
+        ap = apply_a(p)
+        a_n = rsq / torch.real(_vdot(p, ap))
+        zeta_new_raw = zeta * zeta_prev * a_prev / (
+            a_n * b_prev * (zeta_prev - zeta) + zeta_prev * a_prev * (1.0 + sigma * a_n))
+        # freeze shifted systems whose residual |r_s|^2 ~ zeta^2 rsq is
+        # already below target: their zeta underflows geometrically and
+        # would poison the recurrence with 0/0 at tight tolerances
+        active = (zeta * zeta) * rsq > target
+        zeta_new = torch.where(active, zeta_new_raw, zeta)
+        ratio = torch.where(active, zeta_new_raw / torch.where(active, zeta, torch.ones_like(zeta)),
+                            torch.zeros_like(zeta))
+        x = x + _bcast(a_n * ratio, ps).to(b.dtype) * ps
+        r_new = r - a_n * ap
+        rsq_new = torch.real(_vdot(r_new, r_new))
+        b_n = rsq_new / rsq
+        p = r_new + b_n * p
+        ps = (_bcast(torch.where(active, zeta_new, torch.zeros_like(zeta)), ps).to(b.dtype)
+              * r_new[None] + _bcast(b_n * ratio ** 2, ps).to(b.dtype) * ps)
+        zeta_prev, zeta, a_prev, b_prev = zeta, zeta_new, a_n, b_n
+        r, rsq = r_new, rsq_new
+        rsq_h = float(rsq)
+        it += 1
+    if log is not None:
+        log.append({"iterations": it, "rsq": rsq_h / bsq, "target": target / bsq, "shifts": ns})
+    return x, it, rsq
+
+
+def _bcast(coeffs, field):
+    """Broadcast per-shift coefficients over field axes."""
+    return coeffs.reshape((-1,) + (1,) * (field.ndim - 1))

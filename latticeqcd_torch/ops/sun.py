@@ -45,7 +45,7 @@ def traceless_hermitian(m: torch.Tensor) -> torch.Tensor:
     return h - tr[..., None, None] * _eye(nc, m)
 
 
-def random_hermitian_momentum(shape_prefix, nc: int, dtype=torch.complex128, device="cpu",
+def random_hermitian_momentum(shape_prefix, nc: int, dtype=torch.complex128, device="cuda",
                               generator: Optional[torch.Generator] = None,
                               normals=None) -> torch.Tensor:
     """Traceless hermitian H with density exp(-tr H^2): complex Ginibre

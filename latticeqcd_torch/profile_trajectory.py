@@ -1,0 +1,131 @@
+"""Where the device time of one HMC trajectory goes, on the card.
+
+    python -m latticeqcd_torch.profile_trajectory [--dirac Staggered|Wilson] [--nf 4 2]
+        [--lattice 16 16 16 32] [--keep-trace DIR]
+
+For each flavour number given, builds the run of run_lqcd_params (hot
+start, seed 3, beta 5.7, mass 0.5 or kappa 0.141139, dtau 0.02 x 10,
+eps 1e-12, complex64), runs one untraced trajectory as a warm-up and
+one more untraced for its host-clock time, then traces a third with
+torch.profiler (CPU and CUDA activity). Kernel events are read from the
+exported chrome trace (kept in DIR if asked, else deleted after reading:
+a trajectory's trace is tens of MB), summed by kernel name and by class,
+and set against the traced trajectory's wall time to give the device's
+busy and idle shares. Prints one JSON object per trajectory. Needs a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+import time
+
+import torch
+
+from latticeqcd_torch.system.params import Params
+from latticeqcd_torch.system.universe import build_universe
+from latticeqcd_torch.updates.hmc import HMC
+
+CLASSES = (  # first match wins, on the lower-cased kernel name
+    ("staggered_w", ("staggered_hop_kernel",)),
+    ("wilson_hop", ("wilson_hop_kernel",)),
+    ("cuBLAS products", ("gemm", "cublas", "cutlass", "gemv")),
+    ("reductions", ("reduce",)),
+    ("elementwise and copies", ("elementwise", "copy", "fill", "cat", "where", "index")),
+)
+
+
+def _class(name: str) -> str:
+    low = name.lower()
+    for label, keys in CLASSES:
+        if any(k in low for k in keys):
+            return label
+    return "other"
+
+
+def _params(dirac: str, nf: int, lattice) -> Params:
+    return Params(L=tuple(lattice), NC=3, beta=5.7, initial="hot", update_method="HMC",
+                  quench=False, Dirac_operator=dirac, mass=0.5, Nf=nf, hop=0.141139,
+                  BoundaryCondition=(1, 1, 1, -1), QPQ=True, dtau=0.02, MDsteps=10, eps=1e-12,
+                  MaxCGstep=3000, randomseed=3, verboselevel=1)
+
+
+def profile(dirac: str, nf: int, lattice, keep_dir=None) -> dict:
+    device = torch.device("cuda")
+    p = _params(dirac, nf, lattice)
+    univ = build_universe(p, dtype=torch.complex64, device=device)
+    fa = univ.fermi_action
+    if hasattr(fa, "ensure_spectral_bounds"):
+        fa, _ = fa.ensure_spectral_bounds(univ.u)
+    hmc = HMC(action=univ.gauge_action, dtau=p.dtau, md_steps=p.MDsteps, fermi_action=fa)
+    gen = torch.Generator(device=device).manual_seed(p.randomseed)
+    u = univ.u
+    u, _ = hmc.step(u, gen)  # warm-up: library loads, kernel builds, allocator
+    torch.cuda.synchronize()
+    t0 = time.time()
+    u, stats = hmc.step(u, gen)
+    torch.cuda.synchronize()
+    untraced = time.time() - t0
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        u, traced_stats = hmc.step(u, gen)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    out_dir = keep_dir or tempfile.mkdtemp(dir=".")
+    os.makedirs(out_dir, exist_ok=True)
+    trace = os.path.join(out_dir, f"trace_{dirac.lower()}_nf{nf}.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    if keep_dir is None:
+        os.remove(trace)
+        os.rmdir(out_dir)
+        trace = None
+    by_name: dict = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] * 1e-6
+    by_class: dict = {}
+    for name, sec in by_name.items():
+        by_class[_class(name)] = by_class.get(_class(name), 0.0) + sec
+    # busy time: the union of kernel intervals
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy *= 1e-6
+    solves = traced_stats["cg"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "dirac": dirac, "nf": nf, "lattice": list(lattice), "dtype": "complex64",
+        "device": torch.cuda.get_device_name(0),
+        "untraced_s": untraced, "traced_wall_s": wall, "device_busy_s": busy,
+        "idle_share_traced": 1.0 - busy / wall, "kernels": len(events),
+        "by_class_s": by_class, "top_kernels_s": dict(top),
+        "solves": len(solves), "iterations": sum(c["iterations"] for c in solves),
+        "dH": traced_stats["dH"], "trace": trace,
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dirac", default="Staggered", choices=("Staggered", "Wilson"))
+    ap.add_argument("--nf", type=int, nargs="+", default=[4, 2])
+    ap.add_argument("--lattice", type=int, nargs=4, default=[16, 16, 16, 32])
+    ap.add_argument("--keep-trace", metavar="DIR", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_trajectory needs a CUDA device")
+    for nf in args.nf:
+        print(json.dumps(profile(args.dirac, nf, args.lattice, args.keep_trace)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,7 +1,8 @@
 """The simulation run: trajectory loop and measurements.
 
-Counterpart of latticeqcd_tpu/system/lqcd.py for this slice: build the
-universe and the HMC updater from Params, run trajectories
+Counterpart of latticeqcd_tpu/system/lqcd.py for the ported slices: build
+the universe and the HMC updater from Params, check a staggered action's
+rational window against the spectrum of W (the RHMC guard), run trajectories
 initialtrj..Nsteps, print the same verbose lines (dH and accept per
 trajectory, acceptance so far) plus the plaquette, measure, and return
 the final mean plaquette. The device is explicit (``cuda`` by default);
@@ -22,6 +23,7 @@ from latticeqcd_torch._version import __version__
 from latticeqcd_torch.measurements.scheduler import MeasurementSet
 from latticeqcd_torch.ops import gauge_action as ga
 from latticeqcd_torch.ops import sun
+from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction
 from latticeqcd_torch.system.params import Params, construct_params_from_toml
 from latticeqcd_torch.system.universe import build_universe
 from latticeqcd_torch.updates.hmc import HMC
@@ -51,12 +53,14 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
                     history: Optional[list] = None):
     """Run the trajectories of p on ``device``; returns the final mean plaquette.
 
+    A staggered action first has its rational window checked against the
+    Lanczos spectrum of W on the starting links (widened if needed).
     history, if given, receives one dict per trajectory: itrj, seconds
-    (host clock, ending in a device sync), dH, accepted, plaq and the CG
-    records of that trajectory."""
+    (host clock, ending in a device sync), dH, accepted, plaq and the
+    solver records of that trajectory (CG and multi-shift CG alike)."""
     device = torch.device(device)
-    generator = torch.Generator(device=device).manual_seed(p.randomseed)
     univ = build_universe(p, dtype=dtype, device=device)
+    generator = torch.Generator(device=device).manual_seed(p.randomseed)
     vp = univ.verbose_print
 
     vp.println_verbose_level1("# ", os.getcwd())
@@ -67,6 +71,17 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
     vp.println_verbose_level1("# effective parameters:")
     for f_ in dc_fields(p):
         vp.println_verbose_level1(f"#   {f_.name} = {getattr(p, f_.name)!r}")
+
+    # RHMC guard: check that the rational window covers the measured
+    # spectrum of W on the starting configuration; widen it if not
+    if isinstance(univ.fermi_action, StaggeredFermiAction):
+        lmin, lmax = univ.fermi_action.spectral_range_w(univ.u)
+        univ.fermi_action, _ = univ.fermi_action.ensure_spectral_bounds(univ.u, lam=lmax)
+        lo_b, hi_b = univ.fermi_action._bounds()
+        vp.println_verbose_level2(
+            f"# staggered W: spectrum ~ [{lmin:.4g}, {lmax:.4g}] "
+            f"(kappa ~ {lmax / max(lmin, 1e-300):.3g}), rational window "
+            f"[{lo_b:.4g}, {hi_b:.4g}]")
 
     updater = HMC(
         action=univ.gauge_action,

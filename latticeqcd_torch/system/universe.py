@@ -1,9 +1,10 @@
 """Simulation state assembly: links, gauge action, fermion action, logger.
 
-Counterpart of latticeqcd_tpu/system/universe.py for this slice: cold or
-hot starts, the Wilson plaquette action, and no fermions or two-flavour
-Wilson fermions with csw = 0. Everything else raises NotImplementedError
-naming the ROADMAP item that will port it.
+Counterpart of latticeqcd_tpu/system/universe.py for the ported slices:
+cold or hot starts, the Wilson plaquette action, and no fermions,
+two-flavour Wilson fermions with csw = 0, or staggered fermions with
+Nf = 1..8. Everything else raises NotImplementedError naming the ROADMAP
+item that will port it.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ from typing import Any, Optional
 import torch
 
 from latticeqcd_torch.ops import fields, gauge_action as ga
+from latticeqcd_torch.ops.dirac import eo_pack
+from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
 from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
-from latticeqcd_torch.ops.fermion_action import WilsonFermiAction
+from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
 from latticeqcd_torch.system.params import Params
 from latticeqcd_torch.utils.logger import VerbosePrint
 
@@ -33,16 +36,20 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
-def check_supported(p: Params) -> None:
-    """Refuse, by name, what this slice of the port does not run."""
+def check_supported(p: Params, device="cuda") -> None:
+    """Refuse, by name, what the port does not run (on ``device``)."""
     if p.initial not in ("cold", "hot"):
         _not_ported(f"initial = {p.initial!r} (file or instanton starts)", "A8/A13")
     if p.update_method != "HMC":
         _not_ported(f"update_method = {p.update_method!r}", "A12")
     if p.couplinglist or p.coupling_loops is not None:
         _not_ported("general gauge actions", "A3")
-    if not p.quench and p.Dirac_operator is not None and p.Dirac_operator != "Wilson":
-        _not_ported(f"Dirac_operator = {p.Dirac_operator!r}", "A10/A12")
+    if not p.quench and p.Dirac_operator not in (None, "Wilson", "Staggered"):
+        _not_ported(f"Dirac_operator = {p.Dirac_operator!r}", "A12")
+    if (not p.quench and p.Dirac_operator == "Staggered"
+            and torch.device(device).type != "cpu" and not eo_pack.packable(p.L)):
+        _not_ported(f"staggered fermions on {device} with an odd lattice extent {tuple(p.L)} "
+                    "(a full-volume mode of the staggered_w kernel)", "A11")
     if getattr(p, "hasenbusch", False):
         _not_ported("Hasenbusch mass preconditioning", "A12")
     if p.smearing_for_fermion != "nothing":
@@ -60,12 +67,16 @@ def check_supported(p: Params) -> None:
 def build_fermi_action(p: Params):
     if p.quench or p.Dirac_operator is None:
         return None
-    dirac = WilsonDirac(kappa=p.hop, r=p.r, bc=tuple(p.BoundaryCondition))
+    bc = tuple(p.BoundaryCondition)
+    if p.Dirac_operator == "Staggered":
+        dirac = StaggeredDirac(mass=p.mass, lattice=tuple(p.L), bc=bc)
+        return StaggeredFermiAction(dirac, nf=p.Nf, eps_cg=p.eps, max_cg=p.MaxCGstep)
+    dirac = WilsonDirac(kappa=p.hop, r=p.r, bc=bc)
     return WilsonFermiAction(dirac, eps_cg=p.eps, max_cg=p.MaxCGstep)
 
 
 def build_universe(p: Params, dtype=torch.complex128, device="cuda") -> Univ:
-    check_supported(p)
+    check_supported(p, device)
     u = fields.initialize_gaugefields(p.NC, p.L, condition=p.initial, seed=p.randomseed,
                                       dtype=dtype, device=device)
     logfilename = None

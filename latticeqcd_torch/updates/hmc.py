@@ -1,4 +1,4 @@
-"""Hybrid Monte Carlo updater (quenched and two-flavour Wilson).
+"""Hybrid Monte Carlo updater (quenched, two-flavour Wilson, staggered Nf 1..8).
 
 Counterpart of latticeqcd_tpu/updates/hmc.py with the semantics of its
 fused trajectory (``HMC._step_fused``): refresh the momenta and the
@@ -6,7 +6,8 @@ pseudofermion, H_old = tr(H^2) + S_g + |xi|^2, integrate, H_new with the
 fermion action solved on the evolved links, Metropolis
 exp(-dH) >= uniform, keep the old links on reject. The fermion force
 CG is warm-started from the previous MD step's solution (chronological
-inverter).
+inverter) where the action returns one; a multi-pole staggered action
+returns None and its next force starts from zero.
 
 The random numbers of one trajectory are a ``Draws``: the momentum
 normals, the pseudofermion normals and the Metropolis uniform, in the
@@ -33,7 +34,8 @@ class Draws:
     """The random numbers of one trajectory.
 
     mom: (re, im) normals of shape [4, X, Y, Z, T, NC, NC];
-    xi: (re, im) normals of the pseudofermion noise, or None (quenched);
+    xi: (re, im) normals of the pseudofermion noise, of the fermion
+        action's noise_shape(u), or None (quenched);
     uniform: the Metropolis uniform in [0, 1)."""
 
     mom: tuple
@@ -48,7 +50,7 @@ class Draws:
         mom = (torch.randn(shape, **kw), torch.randn(shape, **kw))
         xi = None
         if not hmc.quench:
-            xshape = hmc.fermi_action.pseudofermion_shape(u) + (4, u.shape[-1])
+            xshape = hmc.fermi_action.noise_shape(u)
             xi = (torch.randn(xshape, **kw), torch.randn(xshape, **kw))
         uniform = float(torch.rand((), generator=generator, dtype=rdtype, device=u.device))
         return cls(mom, xi, uniform)

@@ -79,7 +79,7 @@ def test_wilson_dynamical_trajectory_matches_jax():
                         staged=False, **kw).step(u, key)
     fa_t = TFA(TW(kappa=KAPPA))
     ut = to_torch(np.asarray(u))
-    draws = jax_draws(key, u, pf_shape=fa_t.pseudofermion_shape(ut) + (4, 3))
+    draws = jax_draws(key, u, pf_shape=fa_t.noise_shape(ut))
     u_t, st_t = THMC(action=tga.wilson_gauge_action(3, 6.0), fermi_action=fa_t, **kw).step(
         ut, draws=draws)
     _compare(st_j, u_j, st_t, u_t)
@@ -90,7 +90,7 @@ def test_wilson_dynamical_trajectory_matches_jax():
 
 
 def test_complex64_trajectory_keeps_dtype():
-    u = tfields.hot_start(LAT, 3, seed=75, dtype=torch.complex64)
+    u = tfields.hot_start(LAT, 3, seed=75, dtype=torch.complex64, device="cpu")
     fa = TFA(TW(kappa=KAPPA), eps_cg=1e-10, max_cg=500)
     hmc = THMC(action=tga.wilson_gauge_action(3, 6.0), dtau=0.1, md_steps=2, fermi_action=fa)
     u2, st = hmc.step(u, torch.Generator().manual_seed(1))
@@ -124,7 +124,7 @@ def test_run_lqcd_params_cpu_smoke(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("update_method", "Heatbath"), ("Dirac_operator", "Staggered"),
+    ("update_method", "Heatbath"), ("Dirac_operator", "Domainwall"),
     ("Dirac_operator", "WilsonClover"), ("initial", "conf.ildg"),
     ("SextonWeingargten", True), ("MDprecision", "mixed"), ("hasenbusch", True),
     ("smearing_for_fermion", "stout"), ("couplinglist", ["rectangular"]),

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no jax, no JAX package, and its chip
 script refuses to run without a CUDA device or without the port beside it.
-Also pins the port's numpy-only copies (params, gammas) to the JAX
-package's originals."""
+Also pins the port's numpy-only copies (params, gammas, rational) to the
+JAX package's originals."""
 
 import dataclasses
 import os
@@ -26,10 +26,15 @@ PORT_MODULES = [
     "latticeqcd_torch.md.integrators",
     "latticeqcd_torch.ops.fermion_action",
     "latticeqcd_torch.ops.solvers",
+    "latticeqcd_torch.ops.eigen",
+    "latticeqcd_torch.ops.rational",
     "latticeqcd_torch.ops.dirac.wilson",
     "latticeqcd_torch.ops.dirac.wilson_kernel",
+    "latticeqcd_torch.ops.dirac.staggered",
+    "latticeqcd_torch.ops.dirac.staggered_kernel",
     "latticeqcd_torch.measurements.observables",
     "latticeqcd_torch.measurements.scheduler",
+    "latticeqcd_torch.profile_trajectory",
     "chip_smoke",
 ]
 
@@ -101,3 +106,19 @@ def test_gammas_copy_matches_jax_package():
         np.testing.assert_array_equal(a, b)
     for a, b in zip(jg.projectors(0.5), tg.projectors(0.5)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_rational_copy_matches_jax_package():
+    """The copy's code is the original's below the module docstring, and it
+    gives the same coefficients."""
+    from latticeqcd_tpu.ops import rational as jr
+    from latticeqcd_torch.ops import rational as tr
+
+    def body(mod):
+        src = open(mod.__file__).read()
+        return src[src.index("from __future__ import annotations"):]
+
+    assert body(jr) == body(tr)
+    for beta in (0.25, 0.5, 0.75, 1.25):
+        a, b = jr.rational_inverse_power(beta, 0.1, 20.0), tr.rational_inverse_power(beta, 0.1, 20.0)
+        assert (a.const, a.residues, a.shifts) == (b.const, b.residues, b.shifts)

@@ -26,7 +26,7 @@ def _herm(rng, shape, nc):
 def test_hot_start_bit_identical(dtype):
     lat = (4, 2, 2, 4)
     a = np.asarray(jfields.hot_start(lat, 3, seed=17, dtype=jnp.dtype(dtype)))
-    b = to_numpy(tfields.hot_start(lat, 3, seed=17, dtype=getattr(torch, dtype)))
+    b = to_numpy(tfields.hot_start(lat, 3, seed=17, dtype=getattr(torch, dtype), device="cpu"))
     assert a.dtype == b.dtype
     np.testing.assert_array_equal(a, b)
 
@@ -37,7 +37,7 @@ def test_cold_start_and_roll():
 
     lat = (2, 4, 2, 2)
     np.testing.assert_array_equal(np.asarray(jfields.cold_start(lat, 3)),
-                                  to_numpy(tfields.cold_start(lat, 3)))
+                                  to_numpy(tfields.cold_start(lat, 3, device="cpu")))
     u = jfields.hot_start(lat, 2, seed=3)
     for mu in range(4):
         np.testing.assert_array_equal(np.asarray(jrolls.roll(u[0], -1, mu)),
@@ -93,7 +93,7 @@ def test_random_hermitian_momentum_from_jax_normals(dtype):
 
 def test_random_hermitian_momentum_from_generator():
     g = torch.Generator().manual_seed(4)
-    h = tsun.random_hermitian_momentum((4, 8, 8), 3, generator=g)
+    h = tsun.random_hermitian_momentum((4, 8, 8), 3, device="cpu", generator=g)
     assert torch.allclose(h, tsun.dagger(h))
     assert float(tsun.trace(h).abs().max()) < 1e-14
     # E tr(H^2) = (NC^2 - 1)/2 per matrix
