@@ -24,9 +24,21 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      path as in phase 5, and Nf=2 MD reversibility;
  10. the staggered main path: run_lqcd_params at 16^3x32, SU(3), staggered mass 0.5,
      complex64, 2 trajectories at Nf=4 and 2 at Nf=2, with staggered_w's launch counts set to
-     0 just before and read just after.
-Then it prints one JSON line describing each kernel, the card's name and power limit as
-nvidia-smi gives them, and, as its last line, {"ok": true, "device": {...}}.
+     0 just before and read just after;
+ 11. wilson_window against its plain version at 4^4, 4x8x2x4, 4x8x2x2 (T=2), 3x5x2x6 (odd
+     extents) and 16^3x32 in both types, forward and the backward for psi and U, and against
+     wilson_hop's full mode;
+ 12. timing of wilson_window at 16^3x32, as phase 4, beside wilson_hop's full D;
+ 13. the fermionic measurements at 4^4 complex128 (Wilson pion correlator, Wilson and
+     staggered condensates per noise from the same Z4 draws, Wilson low spectrum from the same
+     start vector, a CGNE pion correlator on 3x5x2x6), kernel path against plain path;
+ 14. the measurement path: run_lqcd_params at 16^3x32, the phase-6 Wilson action, complex64,
+     1 trajectory, with the pion correlator, the Wilson and staggered condensates (Nr=10) and
+     the Wilson Dirac spectrum at itrj 0 and 1; every kernel's launch count set to 0 just
+     before and read just after, each method's seconds, iterations and launches printed.
+Then it prints one JSON line describing each kernel (its launches summed over the main paths
+that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
+line, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -45,6 +57,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 BARS = {"complex64": 1e-5, "complex128": 1e-12}
 LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (16, 16, 16, 32)]
+# wilson_window: the tile (2 x 4 x 16 sites at complex64, 2 x 4 x 8 at complex128) exceeds,
+# does not divide, or wraps onto itself in every direction of one of these
+WINDOW_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (4, 8, 2, 2), (3, 5, 2, 6), (16, 16, 16, 32)]
 STAGGERED_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 2), (2, 4, 2, 6), (16, 16, 16, 32)]
 MAIN = (16, 16, 16, 32)
 KAPPA = 0.141139
@@ -55,8 +70,8 @@ MASS = 0.5
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"complex64": 67e12, "complex128": 34e12}
 
-STATE = {"err": {"wilson_hop": 0.0, "staggered_w": 0.0}, "checks": 0, "timing": {},
-         "launches": {}}
+STATE = {"err": {"wilson_hop": 0.0, "staggered_w": 0.0, "wilson_window": 0.0}, "checks": 0,
+         "timing": {}, "launches": {}}
 
 
 def fail(msg: str):
@@ -355,7 +370,7 @@ def phase_main_path(torch):
     plaq = run_lqcd_params(p, make_dirs=False, dtype=torch.complex64, device="cuda", history=history)
     torch.cuda.synchronize()
     launched = wk.launches
-    STATE["launches"]["wilson_hop"] = launched
+    STATE["launches"].setdefault("wilson_hop", {})["Wilson main path"] = launched
     for rec in history:
         cg_iters = sum(c["iterations"] for c in rec["cg"])
         worst = max((c["rsq"] / c["target"] for c in rec["cg"]), default=0.0)
@@ -541,16 +556,246 @@ def phase_staggered_main_path(torch):
         if not (math.isfinite(plaq) and 0.0 < plaq < 1.0):
             fail(f"plaquette {plaq} outside (0, 1)")
     torch.cuda.synchronize()
-    STATE["launches"]["staggered_w"] = sk.launches
+    STATE["launches"].setdefault("staggered_w", {})["staggered main path"] = sk.launches
     print(f"  staggered_w launches on the main path: {sk.launches} ({sk.w_launches} of the fused "
           f"W, {sk.launches - sk.w_launches} of the hop)")
     if sk.w_launches == 0 or sk.launches == sk.w_launches:
         fail("the staggered main path did not launch both staggered_w entry points")
 
 
+def phase_window(torch):
+    print("== 11. wilson_window against its plain version and against wilson_hop's full mode",
+          flush=True)
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
+    for lat in WINDOW_LATTICES:
+        for dtype in (torch.complex64, torch.complex128):
+            name = str(dtype).split(".")[1]
+            bar = BARS[name]
+            tag = f"{'x'.join(map(str, lat))} {name}"
+            u, psi, g = _fields(torch, lat, dtype, seed=sum(lat) + 2)
+            got = ww.wilson_window(u, psi, KAPPA)
+            torch.cuda.synchronize()
+            check(f"window D {tag}", maxdiff(got, wk.dslash_reference(u, psi, KAPPA)), bar,
+                  "wilson_window")
+            check(f"window D against wilson_hop full {tag}",
+                  maxdiff(got, wk.wilson_dslash(u, psi, KAPPA)), bar)
+            cot = torch.randn(psi.shape, dtype=dtype, device=psi.device, generator=g)
+            leaves = [t.detach().clone().requires_grad_(True) for t in (u, psi)]
+            grads_k = torch.autograd.grad(ww.wilson_window(*leaves, KAPPA), leaves, cot)
+            grads_p = torch.autograd.grad(wk.dslash_reference(*leaves, KAPPA), leaves, cot)
+            torch.cuda.synchronize()
+            for gname, a, b in zip(("u", "psi"), grads_k, grads_p):
+                check(f"window backward d{gname} {tag}", maxdiff(a, b), bar, "wilson_window")
+
+
+def phase_window_timing(torch):
+    print("== 12. wilson_window timing at 16^3x32, beside wilson_hop's full mode", flush=True)
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
+    lat = MAIN
+    vol = lat[0] * lat[1] * lat[2] * lat[3]
+    with torch.no_grad():
+        for dtype in (torch.complex64, torch.complex128):
+            name = str(dtype).split(".")[1]
+            f = 2 if dtype == torch.complex128 else 1
+            sets = [_fields(torch, lat, dtype, seed=seed)[:2] for seed in (7, 8, 9)]
+            u, psi = sets[0]
+            # least bytes at complex64: each link and spinor read once, the output written
+            # once (480 B/site); 1320 flop per site
+            _time_case(torch, "window D", name,
+                       [lambda s=s: ww.wilson_window(s[0], s[1], KAPPA) for s in sets],
+                       lambda: wk.dslash_reference(u, psi, KAPPA), f * 480 * vol, 1320 * vol)
+            full = STATE["timing"].get(("full D", name))
+            if full is not None:
+                win = STATE["timing"][("window D", name)]
+                print(f"  {name}: window D {win['ms'] * 1e3:.1f} us against wilson_hop full D "
+                      f"{full['ms'] * 1e3:.1f} us (phase 4), bound {win['bound_ms'] * 1e3:.1f} us "
+                      f"[{STATE['smi']}]", flush=True)
+
+
+def _plain_kernels():
+    """Swap every kernel wrapper's launch for its plain version (this run only)."""
+    from contextlib import ExitStack
+
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
+    stack = ExitStack()
+    for mod, name, plain in ((wk, "_dslash", wk.dslash_reference),
+                             (wk, "_hop_packed", wk.hop_packed_reference),
+                             (ww, "_dslash", wk.dslash_reference),
+                             (sk, "_w", sk.staggered_w_reference),
+                             (sk, "_hop_packed", sk.staggered_hop_packed_reference)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
+
+
+def _launch_counts():
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
+    return {"wilson_window": ww.launches, "wilson_hop": wk.launches, "staggered_w": sk.launches}
+
+
+def phase_measurement_agreement(torch):
+    print("== 13. 4^4 complex128 measurements: kernel path against plain path", flush=True)
+    import numpy as np
+
+    from latticeqcd_torch.measurements import fermionic
+    from latticeqcd_torch.ops import fields
+    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, gaussian_spinor
+
+    dev = torch.device("cuda")
+    dtype = torch.complex128
+    rng = np.random.default_rng(16)
+    # relative |r|^2 1e-24: both paths' solutions within ~1e-12 of the exact one, so the
+    # 1e-9 bar compares the kernels and not the solver's stopping point
+    tight = 1e-24
+    wilson = WilsonDirac(kappa=KAPPA)
+
+    def both(label, fn, rtol=1e-9):
+        before = _launch_counts()
+        got = np.asarray(fn(), dtype=np.float64)
+        launched = {k: v - before[k] for k, v in _launch_counts().items() if v > before[k]}
+        with _plain_kernels():
+            ref = np.asarray(fn(), dtype=np.float64)
+        if _launch_counts() != {k: before[k] + launched.get(k, 0) for k in before}:
+            fail(f"{label}: the plain path launched a kernel")
+        if not launched:
+            fail(f"{label}: the kernel path launched no kernel")
+        err = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-300)))
+        print(f"  {label}: {launched} launches", flush=True)
+        check(f"{label} max relative diff", err, rtol)
+
+    lat = (4, 4, 4, 4)
+    u = fields.hot_start(lat, 3, seed=17, dtype=dtype, device=dev)
+    both("Wilson pion correlator", lambda: fermionic.pion_correlator(u, wilson, eps=tight))
+    draws = rng.integers(0, 4, (3,) + lat + (4, 3))
+    both("Wilson pbp per noise",
+         lambda: fermionic.chiral_condensate(u, wilson, nr=3, draws=draws, eps=tight)[1])
+    stag = StaggeredDirac(mass=MASS, lattice=lat)
+    draws = rng.integers(0, 4, (3,) + lat + (3,))
+    both("staggered pbp per noise",
+         lambda: fermionic.chiral_condensate(u, stag, nr=3, nf_factor=0.5, draws=draws,
+                                             eps=tight)[1])
+    v0 = gaussian_spinor(lat, 3, dtype=dtype, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(18))
+    both("Wilson low spectrum", lambda: fermionic.dirac_low_spectrum(u, wilson, k=4, m=32, v0=v0))
+    odd = (3, 5, 2, 6)
+    u_odd = fields.hot_start(odd, 3, seed=19, dtype=dtype, device=dev)
+    both(f"CGNE pion correlator {'x'.join(map(str, odd))}",
+         lambda: fermionic.pion_correlator(u_odd, wilson, eps=tight))
+
+
+def phase_measurement_path(torch):
+    print("== 14. measurement path: run_lqcd_params, 16^3x32 Wilson HMC, complex64, with the "
+          "fermionic measurements at itrj 0 and 1", flush=True)
+    import numpy as np
+
+    from latticeqcd_torch.measurements import scheduler
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+    from latticeqcd_torch.system.params import Params
+
+    maxcg = 3000
+    wilson = {"Dirac_operator": "Wilson", "hop": KAPPA}
+    methods = [
+        {"methodname": "Pion_correlator", "fermion_parameters": wilson, "MaxCGstep": maxcg},
+        {"methodname": "Chiral_condensate", "fermion_parameters": wilson, "Nr": 10,
+         "MaxCGstep": maxcg},
+        {"methodname": "Chiral_condensate", "Nr": 10, "MaxCGstep": maxcg,
+         "fermion_parameters": {"Dirac_operator": "Staggered", "mass": MASS, "Nf": 4}},
+        {"methodname": "Dirac_spectrum", "fermion_parameters": wilson, "Neig": 8,
+         "Nlanczos": 48},
+    ]
+    p = Params(
+        L=MAIN, NC=3, beta=6.0, initial="hot", update_method="HMC", quench=False,
+        Dirac_operator="Wilson", hop=KAPPA, r=1.0, BoundaryCondition=(1, 1, 1, -1),
+        QPQ=True, dtau=0.02, MDsteps=10, Nsteps=1, eps=1e-12, MaxCGstep=3000,
+        randomseed=3, verboselevel=1,
+        measurement_methods=[{**m, "measure_every": 1} for m in methods],
+    )
+    records = []
+
+    def timed(cls):
+        measure = cls.measure
+
+        def wrapper(self, u, itrj):
+            torch.cuda.synchronize()
+            before = _launch_counts()
+            t0 = time.time()
+            line = measure(self, u, itrj)
+            torch.cuda.synchronize()
+            records.append({
+                "method": self.name,
+                "operator": self.params["fermion_parameters"]["Dirac_operator"], "itrj": itrj, "seconds": time.time() - t0, "value": self.value,
+                "solves": self.solves,
+                "launches": {k: v - before[k] for k, v in _launch_counts().items()}})
+            return line
+
+        return mock.patch.object(cls, "measure", wrapper)
+
+    torch.cuda.synchronize()
+    ww.launches = wk.launches = sk.launches = sk.w_launches = 0
+    with timed(scheduler.PionCorrelatorMeasurement), \
+            timed(scheduler.ChiralCondensateMeasurement), \
+            timed(scheduler.DiracSpectrumMeasurement):
+        t0 = time.time()
+        plaq = run_lqcd_params(p, make_dirs=False, dtype=torch.complex64, device="cuda")
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    counts = _launch_counts()
+    for name, n in counts.items():
+        STATE["launches"].setdefault(name, {})["measurement path"] = n
+    for rec in records:
+        value = rec["value"]
+        solves = rec["solves"] or []
+        iters = sum(c["iterations"] for c in solves)
+        if rec["method"] == "Dirac_spectrum":
+            shown = " ".join(f"{v:.6g}" for v in value)
+            work = f"{len(value)} Ritz values from 48 Lanczos steps"
+        elif rec["method"] == "Chiral_condensate":
+            shown = f"pbp {value[0]:.8g}"
+            value = [value[0]] + list(value[1])
+        else:
+            shown = "C(t) " + " ".join(f"{v:.4g}" for v in value[:4]) + " ..."
+        if rec["method"] != "Dirac_spectrum":
+            work = f"CG iterations {iters} in {len(solves)} solve(s) of " \
+                   f"{sum(c.get('rhs', 1) for c in solves)} RHS"
+        print(f"  itrj {rec['itrj']} {rec['method']} ({rec['operator']}): {rec['seconds']:.3f} s  "
+              f"{work}  launches {rec['launches']}  {shown}  [{STATE['smi']}]", flush=True)
+        if not np.all(np.isfinite(np.asarray(value, dtype=np.float64))):
+            fail(f"{rec['method']} gave a value that is not finite")
+        if any(c["iterations"] >= maxcg for c in solves):
+            fail(f"a {rec['method']} solve stopped at MaxCGstep {maxcg}")
+        if rec["method"] == "Pion_correlator" and not np.all(np.asarray(value) > 0):
+            fail("the pion correlator is not positive")
+        if rec["method"] == "Dirac_spectrum" and not (
+                np.all(np.diff(value) >= 0) and np.all(np.asarray(value) > 0)):
+            fail("the Wilson low eigenvalues are not ascending and positive")
+    if sorted({(r["method"], r["operator"], r["itrj"]) for r in records}) != sorted(
+            {(m["methodname"], m["fermion_parameters"]["Dirac_operator"], i)
+             for m in methods for i in (0, 1)}):
+        fail("the measurement path did not run every method at itrj 0 and 1")
+    print(f"  run_lqcd_params {total:.3f} s, final plaquette {plaq:.8f}; launches on the "
+          f"measurement path (trajectory included): {counts}", flush=True)
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"the measurement path launched {name} no time")
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
-          phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path]
+          phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
+          phase_window, phase_window_timing, phase_measurement_agreement, phase_measurement_path]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line
@@ -558,6 +803,8 @@ KERNELS = [
      "latticeqcd_tpu/ops/dirac/wilson_pallas.py:414", ("packed hop", "complex64")),
     ("staggered_w", "latticeqcd_torch/csrc/staggered_w.cu",
      "latticeqcd_tpu/ops/dirac/staggered_pallas.py:274", ("staggered W", "complex64")),
+    ("wilson_window", "latticeqcd_torch/csrc/wilson_window.cu",
+     "latticeqcd_tpu/ops/dirac/wilson_pallas.py:349", ("window D", "complex64")),
 ]
 
 
@@ -584,14 +831,15 @@ def main() -> int:
         timing = STATE["timing"][row]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": STATE["launches"][name], "max_abs_err": STATE["err"][name],
+            # launches summed over the main paths that run the kernel (printed per path)
+            "launches": sum(STATE["launches"][name].values()), "max_abs_err": STATE["err"][name],
             "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
             "bound_by": timing["bound_by"],
             # no single PyTorch call computes a Wilson or a staggered hop
             "library_ms": None,
         })
     print(f"kernels: {', '.join(k[0] for k in KERNELS)} ({STATE['checks']} checks); "
-          f"total {time.time() - t0:.1f} s")
+          f"launches per main path {STATE['launches']}; total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,10 @@ import numpy as np
 import torch
 
 
-def to_torch(a, device="cpu", dtype=None) -> torch.Tensor:
-    """numpy (or array-like) -> tensor on ``device``, cast to ``dtype`` if given."""
+def to_torch(a, device="cuda", dtype=None) -> torch.Tensor:
+    """numpy (or array-like) -> tensor on ``device`` (the card unless the
+    caller asks for the CPU, like every entry point of the port), cast to
+    ``dtype`` if given."""
     return torch.from_numpy(np.array(a, copy=True)).to(device=device, dtype=dtype)
 
 

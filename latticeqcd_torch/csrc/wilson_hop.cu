@@ -19,72 +19,13 @@
 // projection to a half spinor uses the compile-time (0, +-1, +-i) coefficients of
 // wilson_spin.h, so it is adds and re/im swaps; the 3x3 colour product acts on two spin
 // components; the sums stay in registers. Fields are read in the framework's interleaved
-// complex layout (float2 / double2), so no planar copy is made per apply. This first
-// version reads neighbour spinors and backward links again for every site that needs them
-// (through L2); staging t-slabs in shared memory, which is the minimum-traffic design of
-// the Pallas window kernel dslash_planes_window, is later work.
-#include "lattice_site.h"
-#include "wilson_spin.h"
+// complex layout (float2 / double2), so no planar copy is made per apply. It reads
+// neighbour spinors and backward links again for every site that needs them (through L2);
+// the full D with each field read once is wilson_window.cu. The per-direction hop is
+// shared with that kernel (wilson_dir.h).
+#include "wilson_dir.h"
 
 namespace {
-
-// i^k * a; k is a compile-time constant once the loops are unrolled.
-template <typename V>
-__device__ __forceinline__ V ipow(int k, V a) {
-  switch (k & 3) {
-    case 0:
-      return a;
-    case 1:
-      return V{-a.y, a.x};
-    case 2:
-      return V{-a.x, -a.y};
-    default:
-      return V{a.y, -a.x};
-  }
-}
-
-// acc += (1 - g_mu) U psi_f + (1 + g_mu) Ub^dag psi_b for one site, in half-spinor form:
-// project with W^dag, multiply two spin components by the colour matrix, rebuild with W.
-template <int MU, typename V>
-__device__ __forceinline__ void hop_dir(V (&acc)[4][3], const V* __restrict__ psi_f,
-                                        const V* __restrict__ u_f, const V* __restrict__ psi_b,
-                                        const V* __restrict__ u_b) {
-  V u[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) u[i] = u_f[i];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int j = w_j(MU, h);
-    const int k = w_k(MU, h);
-    V half[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) half[c] = cadd(psi_f[3 * h + c], ipow(4 - k, psi_f[3 * j + c]));
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const V phi = cadd(cadd(cmul(u[3 * a], half[0]), cmul(u[3 * a + 1], half[1])),
-                         cmul(u[3 * a + 2], half[2]));
-      acc[h][a] = cadd(acc[h][a], phi);
-      acc[j][a] = cadd(acc[j][a], ipow(k, phi));
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 9; ++i) u[i] = u_b[i];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int j = w_j(MU, h);
-    const int k = w_k(MU, h) + 2;
-    V half[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) half[c] = cadd(psi_b[3 * h + c], ipow(4 - k, psi_b[3 * j + c]));
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const V phi = cadd(cadd(cmulc(u[a], half[0]), cmulc(u[3 + a], half[1])),
-                         cmulc(u[6 + a], half[2]));
-      acc[h][a] = cadd(acc[h][a], phi);
-      acc[j][a] = cadd(acc[j][a], ipow(k, phi));
-    }
-  }
-}
 
 // One thread per output site. Site index s = ((x * ly + y) * lz + z) * lt + t, with lx the
 // x extent of the output layout (X, or X/2 when packed). Links are [4, vol, 3, 3].

@@ -1,0 +1,183 @@
+"""Fermionic measurements: chiral condensate, pion correlator, low Dirac spectrum.
+
+Counterpart of latticeqcd_tpu/measurements/fermionic.py for the Wilson
+(csw = 0) and staggered operators:
+
+* chiral condensate: Nr Z4 noise vectors r, pbp = <Re <r, D^-1 r>> / V
+  times Nf/4 for staggered, 1 for Wilson;
+* pion correlator: NC * Nspinor point sources at the origin, solved as
+  one batch, C_pi(t) = sum over x, source and sink indices of |S|^2;
+* low Dirac spectrum: Ritz estimates of the k lowest eigenvalues of the
+  packed staggered W (even extents, m != 0) or of D^dag D (Wilson,
+  through the wilson_window kernel on the card).
+
+The solves D x = b run in one of three ways (``_solve_dinv_multi``):
+the packed even-odd Schur system of Wilson (the wilson_hop kernel) or of
+staggered (the fused W of the staggered_w kernel) when every extent is
+even, else full-volume CGNE on D^dag D (Wilson through wilson_window;
+staggered on the CPU only, as its full-volume operator is). The noise and
+the Lanczos start vector come from a ``torch.Generator`` or are injected:
+jax.random streams cannot be reproduced in torch, so the tests hand both
+packages the same numbers. Clover and domain-wall operators are ROADMAP
+A12.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from latticeqcd_torch.ops import eigen, solvers
+from latticeqcd_torch.ops.dirac import eo_pack
+from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+from latticeqcd_torch.ops.dirac.wilson import (
+    WilsonDirac,
+    apply_boundary_phases,
+    gaussian_spinor,
+    z4_spinor,
+)
+
+# seed of the Lanczos start vector of dirac_low_spectrum (the JAX package's PRNGKey)
+SPECTRUM_SEED = 20260822
+
+
+def _each(fn, stack):
+    """fn applied to every field of a stack (leading RHS axis)."""
+    return torch.stack([fn(v) for v in stack])
+
+
+@torch.no_grad()
+def _solve_dinv_multi(dirac, up, b, eps, maxiter, deflate_k: int = 0, log: Optional[list] = None,
+                      force_mode: Optional[str] = None):
+    """D x_i = b_i for a stack of right-hand sides b (n, *lattice, [spin,] color),
+    up the links with the boundary phases applied.
+
+    * staggered, m != 0, every extent even: the even-odd Schur system in the
+      packed layout, (m^2 - D_eo D_oe) x_e = m b_e - D_eo b_o and
+      x_o = (b_o - D_oe x_e) / m, the CG on W (with an optional low-mode
+      deflated guess, deflate_k > 0: one Lanczos sweep of W for the batch);
+    * Wilson csw = 0, every extent even: Dhat x_e = b_e + kappa H_eo b_o and
+      x_o = b_o + kappa H_oe x_e, the CG on Dhat^dag Dhat;
+    * otherwise full-volume CGNE on D^dag D.
+    The batch goes through solvers.cg_multi_auto (sequential on the CPU,
+    batched on the card). ``log`` receives the solver records."""
+    lattice = tuple(up.shape[1:5])
+    packable = eo_pack.packable(lattice)
+    solve = lambda op, rhs, x0=None: solvers.cg_multi_auto(  # noqa: E731
+        op, rhs, eps=eps, maxiter=maxiter, force_mode=force_mode, x0=x0, log=log)[0]
+    if isinstance(dirac, StaggeredDirac) and dirac.mass != 0.0 and packable:
+        d = dirac
+        u_e, u_o = d.packed_links(up)
+        b_e = _each(lambda f: d.pack(f, 0), b)
+        b_o = _each(lambda f: d.pack(f, 1), b)
+        rhs_e = d.mass * b_e - _each(lambda v: d._packed_dslash(u_e, u_o, v, 0), b_o)
+        w_one = lambda v: d.apply_w_packed((u_e, u_o), v)  # noqa: E731
+        x0 = None
+        if deflate_k:
+            m_lan = max(3 * deflate_k, deflate_k + 16)
+            evals, vecs = eigen.ritz_pairs_low(w_one, rhs_e[0], m_lan, deflate_k)
+            x0 = eigen.deflation_guess(evals, vecs, rhs_e)
+        x_e = solve(w_one, rhs_e, x0)
+        x_o = (b_o - _each(lambda v: d._packed_dslash(u_o, u_e, v, 1), x_e)) / d.mass
+        return _each(lambda v: d.unpack(v, 0), x_e) + _each(lambda v: d.unpack(v, 1), x_o)
+    if isinstance(dirac, WilsonDirac) and packable:
+        d = dirac
+        u_eo = d.packed_links(up)
+        u_e, u_o = u_eo
+        b_e = _each(lambda f: eo_pack.pack(f, lattice, 0), b)
+        b_o = _each(lambda f: eo_pack.pack(f, lattice, 1), b)
+        rhs_e = _each(lambda v: d.apply_dhat_dagger(u_eo, v),
+                      b_e + d.kappa * _each(lambda v: d.hop_packed(u_e, u_o, v, 0), b_o))
+        x_e = solve(lambda v: d.apply_dhat_dagger(u_eo, d.apply_dhat(u_eo, v)), rhs_e)
+        x_o = b_o + d.kappa * _each(lambda v: d.hop_packed(u_o, u_e, v, 1), x_e)
+        return (_each(lambda v: eo_pack.unpack(v, lattice, 0), x_e)
+                + _each(lambda v: eo_pack.unpack(v, lattice, 1), x_o))
+    rhs = _each(lambda f: dirac.apply_dagger(up, f), b)
+    return solve(lambda v: dirac.apply_ddag_d(up, v), rhs)
+
+
+def _solve_dinv(dirac, up, b, eps, maxiter):
+    """Single-RHS D x = b (the batched path with n = 1)."""
+    return _solve_dinv_multi(dirac, up, b[None], eps, maxiter)[0]
+
+
+def _nspin(dirac) -> int:
+    return 1 if isinstance(dirac, StaggeredDirac) else 4
+
+
+def chiral_condensate(u, dirac, generator: Optional[torch.Generator] = None, nr: int = 10,
+                      nf_factor: float = 1.0, eps: float = 1e-19, maxiter: int = 3000,
+                      deflate_k: int = 0, draws=None, log: Optional[list] = None,
+                      force_mode: Optional[str] = None):
+    """Returns (pbp, per-noise list). The nr Z4 noise vectors come from
+    ``generator``, or from ``draws``: integers 0..3 of shape (nr, *lattice,
+    [4,] NC), noise i^k. deflate_k > 0 (staggered even-odd path only) seeds
+    the batched CG with a k-lowest-Ritz-mode guess; results are the same
+    either way."""
+    up = apply_boundary_phases(u, dirac.bc)
+    lattice = tuple(u.shape[1:5])
+    nv = int(np.prod(lattice))
+    r = torch.stack([
+        z4_spinor(lattice, u.shape[-1], nspin=_nspin(dirac), dtype=u.dtype, device=u.device,
+                  generator=generator, draws=None if draws is None else draws[i])
+        for i in range(nr)])
+    p = _solve_dinv_multi(dirac, up, r, eps, maxiter, deflate_k, log=log, force_mode=force_mode)
+    per_noise = torch.real(torch.sum(r.conj() * p, dim=tuple(range(1, r.ndim))))
+    per_noise = per_noise.double().cpu().numpy()
+    vals = [float(v) / nv for v in per_noise]
+    pbp = float(np.sum(per_noise)) / nr / nv * nf_factor
+    return pbp, vals
+
+
+@torch.no_grad()
+def dirac_low_spectrum(u, dirac, k: int = 8, m: Optional[int] = None, v0=None):
+    """Ritz estimates of the k lowest eigenvalues (ascending float64 numpy)
+    of the Hermitian positive semi-definite operator behind the measurement
+    solves: the packed even-odd W = m^2 - Dslash^2 for staggered with every
+    extent even and m != 0, else D^dag D. After m Lanczos steps (default
+    max(6k, 48)) the Ritz values approach the spectrum from inside.
+
+    The start vector is a unit Gaussian field on the full lattice (masked
+    to even sites and packed for W): ``v0`` if given, else drawn from a
+    Generator seeded with SPECTRUM_SEED."""
+    if m is None:
+        m = max(6 * k, 48)
+    up = apply_boundary_phases(u, dirac.bc)
+    lattice = tuple(u.shape[1:5])
+    if v0 is None:
+        v0 = gaussian_spinor(lattice, u.shape[-1], nspin=_nspin(dirac), dtype=u.dtype,
+                             device=u.device,
+                             generator=torch.Generator(device=u.device).manual_seed(SPECTRUM_SEED))
+    if isinstance(dirac, StaggeredDirac) and dirac.mass != 0.0 and eo_pack.packable(lattice):
+        ueo = dirac.packed_links(up)
+        vals, _ = eigen.ritz_pairs_low(lambda v: dirac.apply_w_packed(ueo, v),
+                                       dirac.pack(dirac.even_part(v0), 0), int(m), int(k))
+    else:
+        vals, _ = eigen.ritz_pairs_low(lambda v: dirac.apply_ddag_d(up, v), v0, int(m), int(k))
+    return np.sort(vals.cpu().numpy().astype(np.float64))
+
+
+def pion_correlator(u, dirac, eps: float = 1e-19, maxiter: int = 3000, deflate_k: int = 0,
+                    log: Optional[list] = None, force_mode: Optional[str] = None):
+    """C_pi(t) (float64 numpy) from the NC * Nspinor point-source
+    propagators at the origin, solved as one batch."""
+    up = apply_boundary_phases(u, dirac.bc)
+    lattice = tuple(u.shape[1:5])
+    nc = u.shape[-1]
+    nspin = _nspin(dirac)
+    if nspin == 1:
+        b = torch.zeros((nc,) + lattice + (nc,), dtype=u.dtype, device=u.device)
+        for ic in range(nc):
+            b[ic, 0, 0, 0, 0, ic] = 1.0
+    else:
+        b = torch.zeros((nspin * nc,) + lattice + (nspin, nc), dtype=u.dtype, device=u.device)
+        for ic in range(nc):
+            for isp in range(nspin):
+                b[ic * nspin + isp, 0, 0, 0, 0, isp, ic] = 1.0
+    prop = _solve_dinv_multi(dirac, up, b, eps, maxiter, deflate_k, log=log,
+                             force_mode=force_mode)
+    mag2 = torch.abs(prop) ** 2
+    axes = (0, 1, 2, 3) + tuple(range(5, mag2.ndim))
+    return torch.sum(mag2, dim=axes).double().cpu().numpy()

@@ -2,7 +2,7 @@
 
 Counterpart of latticeqcd_tpu/measurements/observables.py; topological
 charge, energy density and Wilson loops wait for a later slice
-(ROADMAP A11).
+(ROADMAP A11b).
 """
 
 from __future__ import annotations

@@ -1,24 +1,49 @@
-"""Measurement scheduling and text output: Plaquette and Polyakov_loop.
+"""Measurement scheduling and text output.
 
 Counterpart of latticeqcd_tpu/measurements/scheduler.py with the same
-file names (<measuredir>/<methodname>.txt) and line formats. The other
-methods (topological charge, energy density, Wilson loops, fermionic
-measurements) wait for later slices (ROADMAP A11).
+file names (<measuredir>/<methodname>.txt) and line formats, for
+Plaquette, Polyakov_loop and the fermionic methods Chiral_condensate,
+Pion_correlator and Dirac_spectrum (Wilson csw = 0 and staggered
+operators, built from the method's ``fermion_parameters``). The gauge
+observables Topological_charge, Energy_density and Wilson_loop wait for
+a later slice (ROADMAP A11b), as do flowed measurements.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
-from latticeqcd_torch.measurements import observables
+import torch
+
+from latticeqcd_torch.measurements import fermionic, observables
+from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+
+
+def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1, -1)):
+    """fermion_parameters dict -> Dirac operator, with the JAX package's keys
+    and defaults (Wilson: hop or kappa 0.141139, r 1; staggered: mass 0.5;
+    boundarycondition (1, 1, 1, -1)). Clover and domain-wall operators raise."""
+    kind = params.get("Dirac_operator", "Wilson")
+    bc = tuple(params.get("boundarycondition", default_bc))
+    if kind == "Wilson":
+        return WilsonDirac(kappa=float(params.get("hop", params.get("kappa", 0.141139))),
+                           r=float(params.get("r", 1.0)), bc=bc)
+    if kind in ("Staggered", "staggered"):
+        return StaggeredDirac(mass=float(params.get("mass", 0.5)), lattice=tuple(lattice), bc=bc)
+    if kind in ("WilsonClover", "Domainwall", "domainwall"):
+        raise NotImplementedError(
+            f"measurements with Dirac_operator = {kind!r} are not ported yet (ROADMAP A12)")
+    raise ValueError(f"unknown Dirac_operator {kind!r}")
 
 
 @dataclass
 class Measurement:
     name: str
     interval: int
+    params: Dict[str, Any] = field(default_factory=dict)
     fp: Optional[Any] = None
 
     def measure(self, u, itrj) -> str:
@@ -46,7 +71,86 @@ class PolyakovMeasurement(Measurement):
         return self.emit(f"{itrj} {p.real} {p.imag} # poly")
 
 
-_REGISTRY = {"Plaquette": PlaquetteMeasurement, "Polyakov_loop": PolyakovMeasurement}
+class FermionicMeasurement(Measurement):
+    """A method that solves with the operator of its ``fermion_parameters``.
+    After each call ``value`` holds the measured numbers and ``solves`` the
+    solver records of that call."""
+
+    default_operator = "Wilson"
+    value: Any = None
+    solves: Optional[list] = None
+
+    def _dirac(self, u):
+        fparams = self.params.get("fermion_parameters", {"Dirac_operator": self.default_operator})
+        return fparams, build_dirac_from_params(fparams, u.shape[1:5])
+
+    def _solver_args(self):
+        self.solves = []
+        return dict(eps=float(self.params.get("eps", 1e-19)),
+                    maxiter=int(self.params.get("MaxCGstep", 3000)), log=self.solves)
+
+
+class ChiralCondensateMeasurement(FermionicMeasurement):
+    """Stochastic pbp, factor Nf/4 for staggered. Format: one
+    "# $itrj $irand $value # itrj irand chiralcond" line per noise vector,
+    then "$itrj $pbp # pbp Nr=$Nr". Noise from a Generator seeded with
+    noise_seed + itrj."""
+
+    default_operator = "Staggered"
+
+    def measure(self, u, itrj):
+        fparams, dirac = self._dirac(u)
+        nr = int(self.params.get("Nr", 10))
+        factor = float(fparams.get("Nf", 4)) / 4.0 if isinstance(dirac, StaggeredDirac) else 1.0
+        gen = torch.Generator(device=u.device).manual_seed(
+            int(self.params.get("noise_seed", 4513)) + itrj)
+        pbp, vals = fermionic.chiral_condensate(u, dirac, gen, nr=nr, nf_factor=factor,
+                                                **self._solver_args())
+        self.value = (pbp, vals)
+        lines = [self.emit(f"# {itrj} {ir} {v} # itrj irand chiralcond")
+                 for ir, v in enumerate(vals, start=1)]
+        lines.append(self.emit(f"{itrj} {pbp} # pbp Nr={nr}"))
+        return "\n".join(lines)
+
+
+class PionCorrelatorMeasurement(FermionicMeasurement):
+    """Point-source pion correlator. Format: "$itrj $C(0) ... $C(T-1) "
+    then "#pioncorrelator"."""
+
+    def measure(self, u, itrj):
+        _, dirac = self._dirac(u)
+        cpi = fermionic.pion_correlator(u, dirac, **self._solver_args())
+        self.value = cpi
+        s = self.emit(f"{itrj} " + " ".join(str(float(c)) for c in cpi) + " ")
+        self.emit("#pioncorrelator")
+        return s
+
+
+class DiracSpectrumMeasurement(FermionicMeasurement):
+    """Neig lowest eigenvalues of the measurement operator (packed
+    staggered W, or D^dag D) from Nlanczos Lanczos steps. Format:
+    "$itrj $lam1 ... $lamk # dirac low spectrum"."""
+
+    default_operator = "Staggered"
+
+    def measure(self, u, itrj):
+        _, dirac = self._dirac(u)
+        m = self.params.get("Nlanczos")
+        self.solves = []
+        vals = fermionic.dirac_low_spectrum(u, dirac, k=int(self.params.get("Neig", 8)),
+                                            m=int(m) if m is not None else None)
+        self.value = vals
+        return self.emit(f"{itrj} " + " ".join(f"{v:.10g}" for v in vals)
+                         + " # dirac low spectrum")
+
+
+_REGISTRY = {
+    "Plaquette": PlaquetteMeasurement,
+    "Polyakov_loop": PolyakovMeasurement,
+    "Chiral_condensate": ChiralCondensateMeasurement,
+    "Pion_correlator": PionCorrelatorMeasurement,
+    "Dirac_spectrum": DiracSpectrumMeasurement,
+}
 
 
 @dataclass
@@ -60,13 +164,13 @@ class MeasurementSet:
             name = method.get("methodname")
             if name not in _REGISTRY:
                 raise NotImplementedError(
-                    f"measurement method {name!r} is not ported yet (ROADMAP A11)")
+                    f"measurement method {name!r} is not ported yet (ROADMAP A11b)")
             fp = None
             if measuredir is not None:
                 os.makedirs(measuredir, exist_ok=True)
                 fp = open(os.path.join(measuredir, f"{name}.txt"), "w")
             interval = int(method.get("measure_every", 1))
-            ms.append(_REGISTRY[name](name=name, interval=interval, fp=fp))
+            ms.append(_REGISTRY[name](name=name, interval=interval, params=dict(method), fp=fp))
         return cls(measurements=ms)
 
     def calc_measurement_values(self, itrj, u):

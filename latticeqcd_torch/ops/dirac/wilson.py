@@ -8,9 +8,10 @@ even-odd fields with X halved. Hopping form
       - kappa sum_mu [ (r - g_mu) U_mu(x) psi(x+mu)
                      + (r + g_mu) U_mu(x-mu)^dag psi(x-mu) ]
 
-with boundary phases absorbed into the links. At r = 1 the full D and
-the packed hop go through the wilson_hop kernel (wilson_kernel.py; its
-plain version on the CPU); other r use the generic projector form.
+with boundary phases absorbed into the links. At r = 1 the full D goes
+through the wilson_window kernel (wilson_window_kernel.py) and the
+packed hop through the wilson_hop kernel (wilson_kernel.py), each with
+its plain version on the CPU; other r use the generic projector form.
 The clover term is later work (ROADMAP A12).
 """
 
@@ -22,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from latticeqcd_torch.ops.dirac import eo_pack, gammas, wilson_kernel
+from latticeqcd_torch.ops.dirac import eo_pack, gammas, wilson_kernel, wilson_window_kernel
 from latticeqcd_torch.ops.dirac.wilson_kernel import gamma5
 
 DIRS = 4
@@ -56,7 +57,7 @@ class WilsonDirac:
     def apply(self, u: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
         """D psi; u must already carry the boundary phases."""
         if self.r == 1.0:
-            return wilson_kernel.wilson_dslash(u, psi, self.kappa)
+            return wilson_window_kernel.wilson_window(u, psi, self.kappa)
         return psi - self.kappa * self._hop_generic(u, psi)
 
     def _hop_generic(self, u, psi):
@@ -127,6 +128,21 @@ def gaussian_spinor(lattice, nc, nspin=4, dtype=torch.complex128, device="cuda",
     else:
         re, im = normals
     return (torch.complex(re, im) / math.sqrt(2.0)).to(dtype)
+
+
+def z4_spinor(lattice, nc, nspin=4, dtype=torch.complex128, device="cuda",
+              generator: Optional[torch.Generator] = None, draws=None) -> torch.Tensor:
+    """Z4 noise: entries i^k, k in {0, 1, 2, 3}, uniform; k from a Generator,
+    or the injected integers ``draws`` of that shape (the JAX package's
+    ``z4_spinor`` draws k with jax.random.randint, whose stream torch cannot
+    reproduce, so a test injects the same integers into both)."""
+    shape = tuple(lattice) + ((nspin, nc) if nspin > 1 else (nc,))
+    if draws is None:
+        k = torch.randint(0, 4, shape, generator=generator, device=device)
+    else:
+        k = torch.as_tensor(draws, device=device).reshape(shape)
+    vals = torch.tensor([1, 1j, -1, -1j], dtype=dtype, device=k.device)
+    return vals[k.long()]
 
 
 def inner(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,13 @@ latticeqcd_tpu/ops/dirac/wilson_pallas.py (see csrc/wilson_hop.cu for
 the design and what bounds it). Two modes, r = 1, csw = 0, boundary
 phases already in the links:
 
-* full:   D psi = psi - kappa H psi on [X,Y,Z,T,4,NC] (WilsonDirac.apply);
+* full:   D psi = psi - kappa H psi on [X,Y,Z,T,4,NC]; WilsonDirac.apply
+  runs the wilson_window kernel instead (wilson_window_kernel.py), and
+  this mode stays built, checked and timed beside it;
 * packed: H psi_s on target-parity sites of the even-odd packed layout
   (WilsonDirac.hop_packed), the mat-vec of every CG iteration and of
-  the fermion force on the HMC path.
+  the fermion force on the HMC path, and of the Wilson measurement
+  solves.
 
 The public entry points are autograd Functions. A tensor on the CPU
 takes the plain PyTorch version (``dslash_reference``,
@@ -144,12 +147,12 @@ def _lib():
     return _LIB
 
 
-def _check(psi, *links):
-    """Raise on anything the kernel does not take."""
+def _check(psi, *links, kernel="wilson_hop"):
+    """Raise on anything the kernel (wilson_hop or wilson_window) does not take."""
     if psi.device.type != "cuda":
-        raise ValueError(f"wilson_hop runs on CUDA tensors, got {psi.device}")
+        raise ValueError(f"{kernel} runs on CUDA tensors, got {psi.device}")
     if psi.dtype not in _SUFFIX:
-        raise TypeError(f"wilson_hop takes complex64 or complex128, got {psi.dtype}")
+        raise TypeError(f"{kernel} takes complex64 or complex128, got {psi.dtype}")
     if psi.ndim != 6 or tuple(psi.shape[4:]) != (4, 3):
         raise ValueError(f"spinor must be [X,Y,Z,T,4,3], got {tuple(psi.shape)}")
     want = (DIRS,) + tuple(psi.shape[:4]) + (3, 3)
@@ -158,9 +161,9 @@ def _check(psi, *links):
         raise ValueError(f"lattice volume {vol} outside the kernel's 32-bit indexing")
     for t in (psi,) + links:
         if t.device != psi.device or t.dtype != psi.dtype:
-            raise TypeError("wilson_hop fields must share device and dtype")
+            raise TypeError(f"{kernel} fields must share device and dtype")
         if not t.is_contiguous():
-            raise ValueError("wilson_hop fields must be contiguous")
+            raise ValueError(f"{kernel} fields must be contiguous")
     for u in links:
         if tuple(u.shape) != want:
             raise ValueError(f"links must be {want}, got {tuple(u.shape)}")
@@ -203,13 +206,15 @@ def _hop_packed(u_t, u_s, psi_s, target_parity):
 
 
 class WilsonDslash(torch.autograd.Function):
-    """D psi = psi - kappa H psi (full volume, r = 1)."""
+    """D psi = psi - kappa H psi (full volume, r = 1) through ``dslash``, the
+    launch of a full-D kernel (this module's full mode, or wilson_window's);
+    the spinor gradient runs ``dslash`` again."""
 
     @staticmethod
-    def forward(ctx, u, psi, kappa):
+    def forward(ctx, u, psi, kappa, dslash):
         ctx.save_for_backward(u, psi)
-        ctx.kappa = kappa
-        return _dslash(u, psi, kappa)
+        ctx.kappa, ctx.dslash = kappa, dslash
+        return dslash(u, psi, kappa)
 
     @staticmethod
     @once_differentiable
@@ -218,12 +223,12 @@ class WilsonDslash(torch.autograd.Function):
         g = g.contiguous()
         d_u = d_psi = None
         if ctx.needs_input_grad[1]:
-            d_psi = gamma5(_dslash(u, gamma5(g), ctx.kappa))  # D^dag = g5 D g5
+            d_psi = gamma5(ctx.dslash(u, gamma5(g), ctx.kappa))  # D^dag = g5 D g5
         if ctx.needs_input_grad[0]:
             fwd, bwd = _link_grads(g, psi, full_plus, full_minus)
             d_u = -ctx.kappa * torch.stack(
                 [fwd[mu] + rolls.roll(bwd[mu], -1, mu) for mu in range(DIRS)])
-        return d_u, d_psi, None
+        return d_u, d_psi, None, None
 
 
 class WilsonHopPacked(torch.autograd.Function):
@@ -255,7 +260,7 @@ class WilsonHopPacked(torch.autograd.Function):
 
 def wilson_dslash(u, psi, kappa):
     """Full D psi (r = 1) through the kernel on CUDA, the plain version on the CPU."""
-    return WilsonDslash.apply(u, psi, float(kappa))
+    return WilsonDslash.apply(u, psi, float(kappa), _dslash)
 
 
 def wilson_hop_packed(u_t, u_s, psi_s, target_parity: int):

@@ -1,0 +1,67 @@
+"""wilson_window: the hand-written CUDA full Wilson D with each field read once.
+
+Replaces the Pallas kernel dslash_planes_window of
+latticeqcd_tpu/ops/dirac/wilson_pallas.py (see csrc/wilson_window.cu for
+the design and what bounds it): D psi = psi - kappa H psi on the full
+lattice [X,Y,Z,T,4,NC], r = 1, csw = 0, boundary phases already in the
+links. It is what ``WilsonDirac.apply`` runs at r = 1: the Wilson Dirac
+spectrum (Lanczos on D^dag D) and the full-volume CGNE of the fermionic
+measurements on lattices with an odd extent.
+
+``wilson_window`` goes through ``wilson_kernel.WilsonDslash``, the
+autograd Function of the full D, with this module's launch: the spinor
+gradient is gamma5 D gamma5 through this kernel, the link gradient the
+half-spinor outer products of ``wilson_kernel._link_grads``. A tensor on
+the CPU takes the plain version (``wilson_kernel.dslash_reference``); a
+tensor on a CUDA device launches the kernel, or the wrapper raises.
+
+``launches`` counts kernel launches (forward and backward alike).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from latticeqcd_torch import _nvcc
+from latticeqcd_torch.ops.dirac import wilson_kernel
+
+launches = 0
+
+_SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _nvcc.load("wilson_window")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for suffix in _SUFFIX.values():
+            fn = getattr(lib, f"wilson_window_{suffix}")
+            fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ctypes.c_double, vp]
+            fn.restype = ci
+        _LIB = lib
+    return _LIB
+
+
+def _dslash(u, psi, kappa):
+    global launches
+    if psi.device.type == "cpu":
+        return wilson_kernel.dslash_reference(u, psi, kappa)
+    wilson_kernel._check(psi, u, kernel="wilson_window")
+    out = torch.empty_like(psi)
+    fn = getattr(_lib(), f"wilson_window_{_SUFFIX[psi.dtype]}")
+    with torch.cuda.device(psi.device):
+        err = fn(u.data_ptr(), psi.data_ptr(), out.data_ptr(), *psi.shape[:4], float(kappa),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wilson_window launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def wilson_window(u, psi, kappa):
+    """Full D psi (r = 1) through the kernel on CUDA, the plain version on the CPU."""
+    return wilson_kernel.WilsonDslash.apply(u, psi, float(kappa), _dslash)

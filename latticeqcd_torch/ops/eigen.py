@@ -1,15 +1,16 @@
-"""Lanczos extreme-eigenvalue estimation for Hermitian lattice operators.
+"""Lanczos eigenvalue estimation for Hermitian lattice operators.
 
 Counterpart of latticeqcd_tpu/ops/eigen.py (``_lanczos_basis``,
-``lanczos_tridiag``, ``extreme_eigs``): the spectral guard of the RHMC
-checks that the rational approximation's window covers the spectrum of
-W on the starting configuration. After m operator applications the
-Krylov Ritz values bracket both spectral ends. The recurrence keeps its
-basis on the field's device with two-pass full reorthogonalization
-(classical Gram-Schmidt twice), each pass one matrix-vector product over
-the stacked basis; only the m x m tridiagonal eigenproblem runs on the
-host, with numpy. ``ritz_pairs_low`` and ``deflation_guess`` wait for
-ROADMAP A11.
+``lanczos_tridiag``, ``extreme_eigs``, ``ritz_pairs_low``,
+``deflation_guess``): the spectral guard of the RHMC checks that the
+rational approximation's window covers the spectrum of W on the starting
+configuration; the Dirac-spectrum measurement takes the lowest Ritz
+values, and the staggered measurement solves can start from a low-mode
+guess. After m operator applications the Krylov Ritz values bracket both
+spectral ends. The recurrence keeps its basis on the field's device with
+two-pass full reorthogonalization (classical Gram-Schmidt twice), each
+pass one matrix-vector product over the stacked basis; only the m x m
+tridiagonal eigenproblem runs on the host, with numpy in float64.
 """
 
 from __future__ import annotations
@@ -87,3 +88,44 @@ def extreme_eigs(matvec, v0, m: int = 32, breakdown_tol: float = 1e-10):
         t += np.diag(b[: k - 1], 1) + np.diag(b[: k - 1], -1)
     ev = np.linalg.eigvalsh(t)
     return float(ev[0]), float(ev[-1])
+
+
+def _tridiagonal_eigh(alphas, betas, valid):
+    """Eigenpairs (ascending, float64 numpy) of the Lanczos tridiagonal, on
+    the host. Steps after a breakdown (valid False) get a diagonal sentinel
+    scaled by the spectrum, 1e3 (max|alpha| + 2 max beta + 1), above every
+    genuine Ritz value (each lies below max|alpha| + 2 max beta), and no
+    coupling, so they sort past the genuine values without disturbing them.
+    (The JAX package's 1e30 in the field's dtype leaves a complex64
+    eigensolve no digits for the genuine values; ROADMAP C2.)"""
+    a = alphas.cpu().numpy().astype(np.float64)
+    b = betas.cpu().numpy().astype(np.float64)
+    ok = valid.cpu().numpy()
+    sentinel = 1e3 * (float(np.abs(a[ok]).max(initial=0.0)) + 2.0 * float(b.max(initial=0.0))
+                      + 1.0)
+    off = b[:-1] * ok[1:]
+    t = np.diag(np.where(ok, a, sentinel)) + np.diag(off, 1) + np.diag(off, -1)
+    return np.linalg.eigh(t)
+
+
+def ritz_pairs_low(matvec, v0, m: int, k: int):
+    """k lowest Ritz pairs of a Hermitian positive semi-definite operator
+    from m Lanczos steps: (evals[k] in the field's real dtype, vecs[(k,
+    *v0.shape)]), ascending. The tridiagonal goes to the host in float64
+    (``_tridiagonal_eigh``); steps after a breakdown sort past the genuine
+    values and their basis rows are zero, so a deflation guess takes
+    nothing from them. The basis lives only inside this call."""
+    basis, alphas, betas, valid = _lanczos_basis(matvec, v0, m)
+    w, y = _tridiagonal_eigh(alphas, betas, valid)
+    yk = torch.as_tensor(y[:, :k], dtype=basis.dtype, device=basis.device)
+    vecs = torch.einsum("jk,j...->k...", yk, basis)
+    return torch.as_tensor(w[:k], dtype=alphas.dtype, device=basis.device), vecs
+
+
+def deflation_guess(evals, vecs, b):
+    """Galerkin initial guess from Ritz pairs for a stack of right-hand
+    sides: x0_i = sum_k <v_k, b_i> / lambda_k v_k. Exact on the spanned
+    subspace and zero outside it, so the CG that follows corrects any Ritz
+    imprecision; sentinel eigenvalues divide to ~0."""
+    c = torch.einsum("k...,n...->nk", vecs.conj(), b)
+    return torch.einsum("nk,k...->n...", c / evals[None, :].to(c.dtype), vecs)

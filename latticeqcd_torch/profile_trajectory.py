@@ -1,18 +1,23 @@
-"""Where the device time of one HMC trajectory goes, on the card.
+"""Where the device time of one HMC trajectory, or of one fermionic measurement, goes.
 
     python -m latticeqcd_torch.profile_trajectory [--dirac Staggered|Wilson] [--nf 4 2]
         [--lattice 16 16 16 32] [--keep-trace DIR]
+    python -m latticeqcd_torch.profile_trajectory --measurements [--lattice 16 16 16 32]
 
 For each flavour number given, builds the run of run_lqcd_params (hot
 start, seed 3, beta 5.7, mass 0.5 or kappa 0.141139, dtau 0.02 x 10,
 eps 1e-12, complex64), runs one untraced trajectory as a warm-up and
 one more untraced for its host-clock time, then traces a third with
-torch.profiler (CPU and CUDA activity). Kernel events are read from the
+torch.profiler (CPU and CUDA activity). With --measurements it does the
+same for each fermionic measurement method of chip_smoke.py's
+measurement path (Wilson pion correlator, Wilson and staggered chiral
+condensate with Nr = 10, Wilson Dirac spectrum, 8 values from 48 Lanczos
+steps) on the hot start, complex64. Kernel events are read from the
 exported chrome trace (kept in DIR if asked, else deleted after reading:
 a trajectory's trace is tens of MB), summed by kernel name and by class,
-and set against the traced trajectory's wall time to give the device's
-busy and idle shares. Prints one JSON object per trajectory. Needs a
-CUDA device.
+and set against the traced wall time to give the device's busy and idle
+shares. Prints one JSON object per trajectory or method. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import time
 
 import torch
 
+from latticeqcd_torch.measurements.scheduler import MeasurementSet
+from latticeqcd_torch.ops import fields
 from latticeqcd_torch.system.params import Params
 from latticeqcd_torch.system.universe import build_universe
 from latticeqcd_torch.updates.hmc import HMC
@@ -32,6 +39,7 @@ from latticeqcd_torch.updates.hmc import HMC
 CLASSES = (  # first match wins, on the lower-cased kernel name
     ("staggered_w", ("staggered_hop_kernel",)),
     ("wilson_hop", ("wilson_hop_kernel",)),
+    ("wilson_window", ("wilson_window_kernel",)),
     ("cuBLAS products", ("gemm", "cublas", "cutlass", "gemv")),
     ("reductions", ("reduce",)),
     ("elementwise and copies", ("elementwise", "copy", "fill", "cat", "where", "index")),
@@ -70,15 +78,31 @@ def profile(dirac: str, nf: int, lattice, keep_dir=None) -> dict:
     torch.cuda.synchronize()
     untraced = time.time() - t0
 
+    traced = {}
+    breakdown = _traced(lambda: traced.update(stats=hmc.step(u, gen)[1]),
+                        f"trace_{dirac.lower()}_nf{nf}.json", keep_dir)
+    traced_stats = traced["stats"]
+    solves = traced_stats["cg"]
+    return {
+        "dirac": dirac, "nf": nf, "lattice": list(lattice), "dtype": "complex64",
+        "device": torch.cuda.get_device_name(0), "untraced_s": untraced, **breakdown,
+        "solves": len(solves), "iterations": sum(c["iterations"] for c in solves),
+        "dH": traced_stats["dH"],
+    }
+
+
+def _traced(fn, trace_name: str, keep_dir=None) -> dict:
+    """Run fn once under torch.profiler; its wall time, the device's busy time
+    (the union of kernel intervals), idle share and kernel time by class."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.time()
-        u, traced_stats = hmc.step(u, gen)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     out_dir = keep_dir or tempfile.mkdtemp(dir=".")
     os.makedirs(out_dir, exist_ok=True)
-    trace = os.path.join(out_dir, f"trace_{dirac.lower()}_nf{nf}.json")
+    trace = os.path.join(out_dir, trace_name)
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
@@ -100,17 +124,47 @@ def profile(dirac: str, nf: int, lattice, keep_dir=None) -> dict:
             busy += b - max(a, end)
             end = b
     busy *= 1e-6
-    solves = traced_stats["cg"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {
-        "dirac": dirac, "nf": nf, "lattice": list(lattice), "dtype": "complex64",
-        "device": torch.cuda.get_device_name(0),
-        "untraced_s": untraced, "traced_wall_s": wall, "device_busy_s": busy,
-        "idle_share_traced": 1.0 - busy / wall, "kernels": len(events),
-        "by_class_s": by_class, "top_kernels_s": dict(top),
-        "solves": len(solves), "iterations": sum(c["iterations"] for c in solves),
-        "dH": traced_stats["dH"], "trace": trace,
-    }
+    return {"traced_wall_s": wall, "device_busy_s": busy, "idle_share_traced": 1.0 - busy / wall,
+            "kernels": len(events), "by_class_s": by_class, "top_kernels_s": dict(top),
+            "trace": trace}
+
+
+# the fermionic measurements of chip_smoke.py's measurement path
+MEASUREMENT_METHODS = [
+    {"methodname": "Pion_correlator",
+     "fermion_parameters": {"Dirac_operator": "Wilson", "hop": 0.141139}},
+    {"methodname": "Chiral_condensate", "Nr": 10,
+     "fermion_parameters": {"Dirac_operator": "Wilson", "hop": 0.141139}},
+    {"methodname": "Chiral_condensate", "Nr": 10,
+     "fermion_parameters": {"Dirac_operator": "Staggered", "mass": 0.5, "Nf": 4}},
+    {"methodname": "Dirac_spectrum", "Neig": 8, "Nlanczos": 48,
+     "fermion_parameters": {"Dirac_operator": "Wilson", "hop": 0.141139}},
+]
+
+
+def profile_measurements(lattice, keep_dir=None) -> list:
+    """One record per method: a warm-up call (itrj 0), an untraced call
+    (itrj 1) for its host-clock time, a traced call (itrj 2)."""
+    device = torch.device("cuda")
+    u = fields.hot_start(tuple(lattice), 3, seed=3, dtype=torch.complex64, device=device)
+    out = []
+    for meas in MeasurementSet.from_methods(MEASUREMENT_METHODS).measurements:
+        meas.measure(u, 0)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        meas.measure(u, 1)
+        torch.cuda.synchronize()
+        untraced = time.time() - t0
+        op = meas.params["fermion_parameters"]["Dirac_operator"]
+        breakdown = _traced(lambda: meas.measure(u, 2), f"trace_{meas.name}_{op}.json".lower(),
+                            keep_dir)
+        out.append({
+            "method": meas.name, "dirac": op, "lattice": list(lattice), "dtype": "complex64",
+            "device": torch.cuda.get_device_name(0), "untraced_s": untraced, **breakdown,
+            "iterations": sum(c["iterations"] for c in meas.solves or []),
+        })
+    return out
 
 
 def main(argv=None):
@@ -119,9 +173,15 @@ def main(argv=None):
     ap.add_argument("--nf", type=int, nargs="+", default=[4, 2])
     ap.add_argument("--lattice", type=int, nargs=4, default=[16, 16, 16, 32])
     ap.add_argument("--keep-trace", metavar="DIR", default=None)
+    ap.add_argument("--measurements", action="store_true",
+                    help="profile the fermionic measurements instead of trajectories")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_trajectory needs a CUDA device")
+    if args.measurements:
+        for rec in profile_measurements(args.lattice, args.keep_trace):
+            print(json.dumps(rec), flush=True)
+        return 0
     for nf in args.nf:
         print(json.dumps(profile(args.dirac, nf, args.lattice, args.keep_trace)), flush=True)
     return 0

@@ -1,6 +1,8 @@
 """Port parity: CG on the even-odd normal operator and the two-flavour
 Wilson pseudofermion action, its sampling and its force."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,10 +15,13 @@ from latticeqcd_tpu.ops import fields as jfields  # noqa: E402
 from latticeqcd_tpu.ops import solvers as jsolvers  # noqa: E402
 from latticeqcd_tpu.ops.dirac import wilson as jw  # noqa: E402
 from latticeqcd_tpu.ops.fermion_action import WilsonFermiAction as JFA  # noqa: E402
-from latticeqcd_torch.convert import to_numpy, to_torch  # noqa: E402
+from latticeqcd_torch import convert  # noqa: E402
+from latticeqcd_torch.convert import to_numpy  # noqa: E402
 from latticeqcd_torch.ops import solvers as tsolvers  # noqa: E402
 from latticeqcd_torch.ops.dirac import wilson as tw  # noqa: E402
 from latticeqcd_torch.ops.fermion_action import WilsonFermiAction as TFA  # noqa: E402
+
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 LAT = (4, 4, 4, 4)
 KAPPA = 0.141139

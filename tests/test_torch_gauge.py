@@ -1,5 +1,7 @@
 """Port parity: the Wilson plaquette gauge action and gauge observables."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -9,9 +11,12 @@ torch.set_num_threads(1)
 from latticeqcd_tpu.measurements import observables as jobs  # noqa: E402
 from latticeqcd_tpu.ops import fields as jfields  # noqa: E402
 from latticeqcd_tpu.ops import gauge_action as jga  # noqa: E402
-from latticeqcd_torch.convert import to_numpy, to_torch  # noqa: E402
+from latticeqcd_torch import convert  # noqa: E402
+from latticeqcd_torch.convert import to_numpy  # noqa: E402
 from latticeqcd_torch.measurements import observables as tobs  # noqa: E402
 from latticeqcd_torch.ops import gauge_action as tga  # noqa: E402
+
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 TOL = 1e-12
 

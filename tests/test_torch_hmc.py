@@ -1,6 +1,7 @@
 """Port parity: HMC trajectories replayed from the JAX package's own draws,
 and the port's run_lqcd_params end to end on the CPU."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -18,7 +19,8 @@ from latticeqcd_tpu.ops import gauge_action as jga  # noqa: E402
 from latticeqcd_tpu.ops.dirac.wilson import WilsonDirac as JW  # noqa: E402
 from latticeqcd_tpu.ops.fermion_action import WilsonFermiAction as JFA  # noqa: E402
 from latticeqcd_tpu.updates.hmc import HMC as JHMC  # noqa: E402
-from latticeqcd_torch.convert import to_numpy, to_torch  # noqa: E402
+from latticeqcd_torch import convert  # noqa: E402
+from latticeqcd_torch.convert import to_numpy  # noqa: E402
 from latticeqcd_torch.ops import fields as tfields  # noqa: E402
 from latticeqcd_torch.ops import gauge_action as tga  # noqa: E402
 from latticeqcd_torch.ops.dirac.wilson import WilsonDirac as TW  # noqa: E402
@@ -26,6 +28,8 @@ from latticeqcd_torch.ops.fermion_action import WilsonFermiAction as TFA  # noqa
 from latticeqcd_torch.system.lqcd import run_lqcd_params  # noqa: E402
 from latticeqcd_torch.system.params import Params  # noqa: E402
 from latticeqcd_torch.updates.hmc import HMC as THMC, Draws  # noqa: E402
+
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 LAT = (4, 4, 4, 4)
 KAPPA = 0.141139

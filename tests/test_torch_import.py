@@ -30,10 +30,12 @@ PORT_MODULES = [
     "latticeqcd_torch.ops.rational",
     "latticeqcd_torch.ops.dirac.wilson",
     "latticeqcd_torch.ops.dirac.wilson_kernel",
+    "latticeqcd_torch.ops.dirac.wilson_window_kernel",
     "latticeqcd_torch.ops.dirac.staggered",
     "latticeqcd_torch.ops.dirac.staggered_kernel",
     "latticeqcd_torch.measurements.observables",
     "latticeqcd_torch.measurements.scheduler",
+    "latticeqcd_torch.measurements.fermionic",
     "latticeqcd_torch.profile_trajectory",
     "chip_smoke",
 ]

@@ -3,6 +3,8 @@ the multi-shift CG, the Lanczos spectral guard, StaggeredFermiAction
 (sampling, action, force) and staggered HMC trajectories replayed from the
 JAX package's own draws, and run_lqcd_params end to end on the CPU."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,8 @@ from latticeqcd_tpu.ops.dirac import staggered as js  # noqa: E402
 from latticeqcd_tpu.ops.dirac import wilson as jw  # noqa: E402
 from latticeqcd_tpu.ops.fermion_action import StaggeredFermiAction as JSFA  # noqa: E402
 from latticeqcd_tpu.updates.hmc import HMC as JHMC  # noqa: E402
-from latticeqcd_torch.convert import to_numpy, to_torch  # noqa: E402
+from latticeqcd_torch import convert  # noqa: E402
+from latticeqcd_torch.convert import to_numpy  # noqa: E402
 from latticeqcd_torch.ops import eigen as teigen  # noqa: E402
 from latticeqcd_torch.ops import gauge_action as tga  # noqa: E402
 from latticeqcd_torch.ops import rational as trational  # noqa: E402
@@ -31,6 +34,8 @@ from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction as TSFA  # 
 from latticeqcd_torch.system.lqcd import run_lqcd_params  # noqa: E402
 from latticeqcd_torch.system.params import Params  # noqa: E402
 from latticeqcd_torch.updates.hmc import HMC as THMC, Draws  # noqa: E402
+
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 LAT = (4, 4, 4, 4)
 MASS = 0.5

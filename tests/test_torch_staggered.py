@@ -8,6 +8,8 @@ autograd. The CUDA kernel itself is held against the plain version by
 the ``gpu`` test below and by chip_smoke.py, on the card.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,10 +20,13 @@ torch.set_num_threads(1)
 from latticeqcd_tpu.ops import fields as jfields  # noqa: E402
 from latticeqcd_tpu.ops.dirac import staggered as js  # noqa: E402
 from latticeqcd_tpu.ops.dirac import wilson as jw  # noqa: E402
-from latticeqcd_torch.convert import to_numpy, to_torch  # noqa: E402
+from latticeqcd_torch import convert  # noqa: E402
+from latticeqcd_torch.convert import to_numpy  # noqa: E402
 from latticeqcd_torch.ops.dirac import eo_pack, staggered as ts  # noqa: E402
 from latticeqcd_torch.ops.dirac import staggered_kernel as sk  # noqa: E402
 from latticeqcd_torch.ops.dirac import wilson as tw  # noqa: E402
+
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 MASS = 0.5
 BARS = {"complex128": 1e-12, "complex64": 1e-5}
@@ -169,7 +174,7 @@ def test_kernel_matches_plain_on_gpu():
     for lat in LATTICES:
         for dtype, bar in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
             u = tw.apply_boundary_phases(to_torch(np.asarray(jfields.hot_start(lat, 3, seed=9)),
-                                                  dev, dtype))
+                                                  device=dev, dtype=dtype))
             u_e, u_o = eo_pack.pack_links(u, lat)
             g = torch.Generator(device=dev).manual_seed(2)
             x = torch.randn((lat[0] // 2,) + lat[1:] + (3,), dtype=dtype, device=dev, generator=g)

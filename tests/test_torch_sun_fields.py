@@ -1,5 +1,7 @@
 """Port parity: field starts and SU(N) algebra against the JAX package."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,9 +12,12 @@ torch.set_num_threads(1)
 
 from latticeqcd_tpu.ops import fields as jfields  # noqa: E402
 from latticeqcd_tpu.ops import sun as jsun  # noqa: E402
-from latticeqcd_torch.convert import to_numpy, to_torch  # noqa: E402
+from latticeqcd_torch import convert  # noqa: E402
+from latticeqcd_torch.convert import to_numpy  # noqa: E402
 from latticeqcd_torch.ops import fields as tfields  # noqa: E402
 from latticeqcd_torch.ops import sun as tsun  # noqa: E402
+
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 TOL = 1e-13
 

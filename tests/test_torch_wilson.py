@@ -8,6 +8,7 @@ autograd. The CUDA kernel itself is held against the plain version by
 the ``gpu`` test below and by chip_smoke.py, on the card.
 """
 
+import functools
 import os
 import shutil
 import subprocess
@@ -22,9 +23,12 @@ torch.set_num_threads(1)
 from latticeqcd_tpu.ops import fields as jfields  # noqa: E402
 from latticeqcd_tpu.ops.dirac import gammas as jgammas  # noqa: E402
 from latticeqcd_tpu.ops.dirac import wilson as jw  # noqa: E402
-from latticeqcd_torch.convert import to_numpy, to_torch  # noqa: E402
+from latticeqcd_torch import convert  # noqa: E402
+from latticeqcd_torch.convert import to_numpy  # noqa: E402
 from latticeqcd_torch.ops.dirac import eo_pack, wilson_kernel as wk  # noqa: E402
 from latticeqcd_torch.ops.dirac import wilson as tw  # noqa: E402
+
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 KAPPA = 0.141139
 BARS = {"complex128": 1e-12, "complex64": 1e-5}
@@ -200,7 +204,8 @@ def test_kernel_matches_plain_on_gpu():
     dev = torch.device("cuda")
     lat = (4, 8, 2, 4)
     for dtype, bar in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
-        u = tw.apply_boundary_phases(to_torch(jfields.hot_start(lat, 3, seed=9), dev, dtype))
+        u = tw.apply_boundary_phases(
+            to_torch(jfields.hot_start(lat, 3, seed=9), device=dev, dtype=dtype))
         g = torch.Generator(device=dev).manual_seed(2)
         psi = torch.randn(lat + (4, 3), dtype=dtype, device=dev, generator=g)
         before = wk.launches
