@@ -6,17 +6,20 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, in order; the first failure ends the run with a non-zero exit code:
   1. environment: torch, CUDA, the card and its power limit (no CUDA device: exit 1);
   2. build: compile every kernel source under latticeqcd_torch/csrc with nvcc, in parallel;
-  3. kernels against their plain PyTorch versions on the card, at 4^4, 4x8x2x4 and 16^3x32,
-     in complex64 (bar 1e-5) and complex128 (bar 1e-12): wilson_hop full and packed modes and
-     the backward of WilsonHopPacked;
+  3. kernels against their plain PyTorch versions on the card, at 4^4, 4x8x2x4, 2x4x2x6
+     (X/2 = 1), 4x2x6x2 (extent-2 y and T), 8x6x10x4 and 16^3x32, in complex64 (bar 1e-5) and
+     complex128 (bar 1e-12): wilson_hop_packed for both target parities and the backward of
+     WilsonHopPacked through it; wilson_hop's full mode and its packed mode (the yardstick);
   4. timing at 16^3x32 (CUDA graphs between CUDA events): kernel and plain, each beside its
      bound, the least time the card could take (bytes over 3.35 TB/s, operations over the peak);
      the kernel cold (three input sets taken in turn, beyond the L2) and warm (one set);
+     wilson_hop_packed and wilson_hop's packed mode also in turns (site, brick, brick, site);
   5. one 4^4 complex128 Wilson HMC trajectory through the kernel and through the plain path on
      the card (the wrappers' plain versions swapped in for this run only) from the same injected
      draws, and an MD reversibility check;
   6. the Wilson main path: run_lqcd_params at 16^3x32, SU(3), 2-flavour Wilson HMC, complex64,
-     2 trajectories, with wilson_hop's launch count set to 0 just before and read just after;
+     2 trajectories, with the Wilson kernels' launch counts set to 0 just before and read just
+     after: wilson_hop_packed must have run, wilson_hop's packed mode never;
   7. staggered_w against its plain version at 4^4, 4x8x2x2, 2x4x2x6 and 16^3x32 in both types:
      the packed hop for both target parities, W, and the backward of StaggeredHopPacked;
   8. timing of staggered_w (W and one hop) at 16^3x32, as phase 4;
@@ -35,7 +38,8 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
  14. the measurement path: run_lqcd_params at 16^3x32, the phase-6 Wilson action, complex64,
      1 trajectory, with the pion correlator, the Wilson and staggered condensates (Nr=10) and
      the Wilson Dirac spectrum at itrj 0 and 1; every kernel's launch count set to 0 just
-     before and read just after, each method's seconds, iterations and launches printed.
+     before and read just after (wilson_hop's packed mode must stay at 0), each method's
+     seconds, iterations and launches printed.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -56,7 +60,10 @@ from unittest import mock
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 BARS = {"complex64": 1e-5, "complex128": 1e-12}
-LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (16, 16, 16, 32)]
+# wilson_hop_packed: its brick (1 x 2 rows with t whole up to 32 sites at complex64, 2 x 1 rows
+# with t segments of at most 16 at complex128) wraps onto itself in x (X/2 = 1), y, z or t
+# (extent 2), and the complex128 segments cut T = 32 and T = 6 unevenly
+LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (2, 4, 2, 6), (4, 2, 6, 2), (8, 6, 10, 4), (16, 16, 16, 32)]
 # wilson_window: the tile (2 x 4 x 16 sites at complex64, 2 x 4 x 8 at complex128) exceeds,
 # does not divide, or wraps onto itself in every direction of one of these
 WINDOW_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (4, 8, 2, 2), (3, 5, 2, 6), (16, 16, 16, 32)]
@@ -70,7 +77,8 @@ MASS = 0.5
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"complex64": 67e12, "complex128": 34e12}
 
-STATE = {"err": {"wilson_hop": 0.0, "staggered_w": 0.0, "wilson_window": 0.0}, "checks": 0,
+STATE = {"err": {"wilson_hop_packed": 0.0, "wilson_hop": 0.0, "staggered_w": 0.0,
+                 "wilson_window": 0.0}, "checks": 0,
          "timing": {}, "launches": {}}
 
 
@@ -146,7 +154,7 @@ def _fields(torch, lat, dtype, seed):
 
 
 def phase_kernels(torch):
-    print("== 3. wilson_hop against its plain version", flush=True)
+    print("== 3. wilson_hop_packed and wilson_hop against their plain version", flush=True)
     from latticeqcd_torch.ops.dirac import eo_pack
     from latticeqcd_torch.ops.dirac import wilson_kernel as wk
     from latticeqcd_torch.ops.dirac.wilson import gaussian_spinor
@@ -166,10 +174,17 @@ def phase_kernels(torch):
             x = gaussian_spinor(half, 3, dtype=dtype, device=u.device, generator=g)
             cot = gaussian_spinor(half, 3, dtype=dtype, device=u.device, generator=g)
             for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
+                before = wk.launches
                 got = wk.wilson_hop_packed(u_t, u_s, x, parity)
                 torch.cuda.synchronize()
+                if wk.launches != before + 1:
+                    fail("wilson_hop_packed did not launch")
                 ref = wk.hop_packed_reference(u_t, u_s, x, parity)
-                check(f"packed hop p={parity} {tag}", maxdiff(got, ref), bar, "wilson_hop")
+                check(f"packed hop p={parity} {tag}", maxdiff(got, ref), bar, "wilson_hop_packed")
+                site = wk.hop_packed_site(u_t, u_s, x, parity)
+                torch.cuda.synchronize()
+                check(f"site kernel packed hop p={parity} {tag}", maxdiff(site, ref), bar,
+                      "wilson_hop")
 
                 leaves = [t.detach().clone().requires_grad_(True) for t in (u_t, u_s, x)]
                 grads_k = torch.autograd.grad(wk.wilson_hop_packed(*leaves, parity), leaves, cot)
@@ -177,7 +192,7 @@ def phase_kernels(torch):
                 torch.cuda.synchronize()
                 for name, a, b in zip(("u_t", "u_s", "psi"), grads_k, grads_p):
                     check(f"packed backward d{name} p={parity} {tag}", maxdiff(a, b), bar,
-                          "wilson_hop")
+                          "wilson_hop_packed")
 
 
 def _events(torch):
@@ -251,7 +266,7 @@ def _time_case(torch, label, dtype_name, kerns, plain, nbytes, flops):
 
 
 def phase_timing(torch):
-    print("== 4. wilson_hop timing at 16^3x32", flush=True)
+    print("== 4. wilson_hop_packed and wilson_hop timing at 16^3x32", flush=True)
     from latticeqcd_torch.ops.dirac import eo_pack
     from latticeqcd_torch.ops.dirac import wilson_kernel as wk
     from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, gaussian_spinor
@@ -285,6 +300,9 @@ def phase_timing(torch):
                 "packed hop": ([lambda s=s: wk.wilson_hop_packed(*s[2], s[3], 0) for s in sets],
                                lambda: wk.hop_packed_reference(u_e, u_o, x, 0),
                                768 * vol // 2, 1320 * vol // 2),
+                "packed hop, site": ([lambda s=s: wk.hop_packed_site(*s[2], s[3], 0) for s in sets],
+                                     lambda: wk.hop_packed_reference(u_e, u_o, x, 0),
+                                     768 * vol // 2, 1320 * vol // 2),
                 "packed DhatDhat^dag": (
                     [lambda s=s: dirac.apply_dhat_ddag(s[2], s[3]) for s in sets],
                     lambda: plain_dhat(wk.gamma5(plain_dhat(wk.gamma5(x)))),
@@ -292,6 +310,20 @@ def phase_timing(torch):
             }
             for case, (kern, plain, nbytes, flops) in cases.items():
                 _time_case(torch, case, name, kern, plain, f * nbytes, flops)
+            # the redesigned packed hop against wilson_hop's packed mode, cold, in turns
+            turns = {"site": [], "brick": []}
+            for label in ("site", "brick", "brick", "site"):
+                kerns = cases["packed hop" if label == "brick" else "packed hop, site"][0]
+                turns[label].append(_time_device(torch, kerns))
+            bound = STATE["timing"][("packed hop", name)]["bound_ms"]
+            print(f"  packed hop {name} in turns (site, brick, brick, site), cold: brick "
+                  f"{' '.join(f'{t * 1e3:.1f}' for t in turns['brick'])} us, site "
+                  f"{' '.join(f'{t * 1e3:.1f}' for t in turns['site'])} us, bound "
+                  f"{bound * 1e3:.1f} us: brick {100 * bound / statistics.mean(turns['brick']):.1f}%"
+                  f", site {100 * bound / statistics.mean(turns['site']):.1f}% of bound "
+                  f"[{STATE['smi']}]", flush=True)
+            if statistics.mean(turns["brick"]) > statistics.mean(turns["site"]):
+                fail(f"wilson_hop_packed is slower than wilson_hop's packed mode at {name}")
 
 
 def phase_trajectory_agreement(torch):
@@ -313,9 +345,11 @@ def phase_trajectory_agreement(torch):
     drawn = Draws.sample(hmc, u, torch.Generator(device=dev).manual_seed(12))
     draws = Draws(drawn.mom, drawn.xi, 0.0)
 
-    before = wk.launches
+    before, site_before = wk.launches, dict(wk.site_launches)
     u_k, st_k = hmc.step(u, draws=draws)
     launched = wk.launches - before
+    if wk.site_launches != site_before:
+        fail("the kernel-path trajectory launched wilson_hop")
     with mock.patch.object(wk, "_dslash", wk.dslash_reference), \
             mock.patch.object(wk, "_hop_packed", wk.hop_packed_reference):
         u_p, st_p = hmc.step(u, draws=draws)
@@ -367,10 +401,11 @@ def phase_main_path(torch):
     history = []
     torch.cuda.synchronize()
     wk.launches = 0
+    wk.site_launches.update(full=0, packed=0)
     plaq = run_lqcd_params(p, make_dirs=False, dtype=torch.complex64, device="cuda", history=history)
     torch.cuda.synchronize()
-    launched = wk.launches
-    STATE["launches"].setdefault("wilson_hop", {})["Wilson main path"] = launched
+    launched, site = wk.launches, dict(wk.site_launches)
+    STATE["launches"].setdefault("wilson_hop_packed", {})["Wilson main path"] = launched
     for rec in history:
         cg_iters = sum(c["iterations"] for c in rec["cg"])
         worst = max((c["rsq"] / c["target"] for c in rec["cg"]), default=0.0)
@@ -382,11 +417,14 @@ def phase_main_path(torch):
             fail(f"non-finite dH {rec['dH']}")
         if worst > 1.0:
             fail("a CG returned a verified residual above its target")
-    print(f"  final plaquette {plaq:.8f}; wilson_hop launches on the main path: {launched}")
+    print(f"  final plaquette {plaq:.8f}; launches on the main path: wilson_hop_packed {launched}, "
+          f"wilson_hop {site}")
     if not (math.isfinite(plaq) and 0.0 < plaq < 1.0):
         fail(f"plaquette {plaq} outside (0, 1)")
     if launched == 0:
-        fail("the main path launched wilson_hop no time")
+        fail("the main path launched wilson_hop_packed no time")
+    if site["packed"]:
+        fail("the main path launched wilson_hop's packed mode")
 
 
 def _packed_links(torch, lat, dtype, seed):
@@ -639,7 +677,8 @@ def _launch_counts():
     from latticeqcd_torch.ops.dirac import wilson_kernel as wk
     from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
 
-    return {"wilson_window": ww.launches, "wilson_hop": wk.launches, "staggered_w": sk.launches}
+    return {"wilson_window": ww.launches, "wilson_hop_packed": wk.launches,
+            "staggered_w": sk.launches}
 
 
 def phase_measurement_agreement(torch):
@@ -745,6 +784,7 @@ def phase_measurement_path(torch):
 
     torch.cuda.synchronize()
     ww.launches = wk.launches = sk.launches = sk.w_launches = 0
+    wk.site_launches.update(full=0, packed=0)
     with timed(scheduler.PionCorrelatorMeasurement), \
             timed(scheduler.ChiralCondensateMeasurement), \
             timed(scheduler.DiracSpectrumMeasurement):
@@ -790,6 +830,8 @@ def phase_measurement_path(torch):
     for name, n in counts.items():
         if n == 0:
             fail(f"the measurement path launched {name} no time")
+    if wk.site_launches["packed"]:
+        fail(f"the measurement path launched wilson_hop's packed mode {wk.site_launches}")
 
 
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
@@ -799,7 +841,7 @@ PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line
-    ("wilson_hop", "latticeqcd_torch/csrc/wilson_hop.cu",
+    ("wilson_hop_packed", "latticeqcd_torch/csrc/wilson_hop_packed.cu",
      "latticeqcd_tpu/ops/dirac/wilson_pallas.py:414", ("packed hop", "complex64")),
     ("staggered_w", "latticeqcd_torch/csrc/staggered_w.cu",
      "latticeqcd_tpu/ops/dirac/staggered_pallas.py:274", ("staggered W", "complex64")),
@@ -838,7 +880,8 @@ def main() -> int:
             # no single PyTorch call computes a Wilson or a staggered hop
             "library_ms": None,
         })
-    print(f"kernels: {', '.join(k[0] for k in KERNELS)} ({STATE['checks']} checks); "
+    print(f"kernels: {', '.join(k[0] for k in KERNELS)} ({STATE['checks']} checks; the yardstick "
+          f"wilson_hop's largest error {STATE['err']['wilson_hop']:.3e}); "
           f"launches per main path {STATE['launches']}; total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

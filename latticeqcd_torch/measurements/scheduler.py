@@ -19,18 +19,22 @@ import torch
 
 from latticeqcd_torch.measurements import fermionic, observables
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
-from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, refuse_r_off_cpu
 
 
-def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1, -1)):
-    """fermion_parameters dict -> Dirac operator, with the JAX package's keys
-    and defaults (Wilson: hop or kappa 0.141139, r 1; staggered: mass 0.5;
-    boundarycondition (1, 1, 1, -1)). Clover and domain-wall operators raise."""
+def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1, -1),
+                            device="cpu"):
+    """fermion_parameters dict -> Dirac operator for fields on ``device``, with
+    the JAX package's keys and defaults (Wilson: hop or kappa 0.141139, r 1;
+    staggered: mass 0.5; boundarycondition (1, 1, 1, -1)). Clover and
+    domain-wall operators raise, and so does Wilson r != 1 off the CPU."""
     kind = params.get("Dirac_operator", "Wilson")
     bc = tuple(params.get("boundarycondition", default_bc))
     if kind == "Wilson":
+        r = float(params.get("r", 1.0))
+        refuse_r_off_cpu(r, device)
         return WilsonDirac(kappa=float(params.get("hop", params.get("kappa", 0.141139))),
-                           r=float(params.get("r", 1.0)), bc=bc)
+                           r=r, bc=bc)
     if kind in ("Staggered", "staggered"):
         return StaggeredDirac(mass=float(params.get("mass", 0.5)), lattice=tuple(lattice), bc=bc)
     if kind in ("WilsonClover", "Domainwall", "domainwall"):
@@ -82,7 +86,7 @@ class FermionicMeasurement(Measurement):
 
     def _dirac(self, u):
         fparams = self.params.get("fermion_parameters", {"Dirac_operator": self.default_operator})
-        return fparams, build_dirac_from_params(fparams, u.shape[1:5])
+        return fparams, build_dirac_from_params(fparams, u.shape[1:5], device=u.device)
 
     def _solver_args(self):
         self.solves = []

@@ -10,9 +10,10 @@ even-odd fields with X halved. Hopping form
 
 with boundary phases absorbed into the links. At r = 1 the full D goes
 through the wilson_window kernel (wilson_window_kernel.py) and the
-packed hop through the wilson_hop kernel (wilson_kernel.py), each with
-its plain version on the CPU; other r use the generic projector form.
-The clover term is later work (ROADMAP A12).
+packed hop through the wilson_hop_packed kernel (wilson_kernel.py), each
+with its plain version on the CPU. Other r take the generic projector
+form on the CPU and raise on any other device, since the kernels hold
+r = 1 (ROADMAP A4b). The clover term is later work (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -27,6 +28,13 @@ from latticeqcd_torch.ops.dirac import eo_pack, gammas, wilson_kernel, wilson_wi
 from latticeqcd_torch.ops.dirac.wilson_kernel import gamma5
 
 DIRS = 4
+
+
+def refuse_r_off_cpu(r: float, device) -> None:
+    """Wilson r != 1 has no kernel: raise unless it runs on the CPU."""
+    if r != 1.0 and torch.device(device).type != "cpu":
+        raise NotImplementedError(f"Wilson r = {r} on {device} is not ported yet "
+                                  "(ROADMAP A4b: Wilson r != 1 kernels)")
 
 
 def apply_boundary_phases(u: torch.Tensor, bc=(1, 1, 1, -1)) -> torch.Tensor:
@@ -58,6 +66,7 @@ class WilsonDirac:
         """D psi; u must already carry the boundary phases."""
         if self.r == 1.0:
             return wilson_window_kernel.wilson_window(u, psi, self.kappa)
+        refuse_r_off_cpu(self.r, psi.device)
         return psi - self.kappa * self._hop_generic(u, psi)
 
     def _hop_generic(self, u, psi):
@@ -92,6 +101,7 @@ class WilsonDirac:
         source parity (packed layout)."""
         if self.r == 1.0:
             return wilson_kernel.wilson_hop_packed(u_t, u_s, psi_s, target_parity)
+        refuse_r_off_cpu(self.r, psi_s.device)
         gplus, gminus, _ = wilson_kernel.packed_gathers(psi_s, target_parity)
         return self._hop_projectors(u_t, u_s, psi_s, gplus, gminus)
 

@@ -1,17 +1,21 @@
-"""wilson_hop: the hand-written CUDA Wilson hopping kernel and its plain version.
+"""The hand-written CUDA Wilson hopping kernels and their plain version.
 
-Replaces the Pallas kernel dslash_planes of
-latticeqcd_tpu/ops/dirac/wilson_pallas.py (see csrc/wilson_hop.cu for
-the design and what bounds it). Two modes, r = 1, csw = 0, boundary
-phases already in the links:
+Replace the Pallas kernel dslash_planes of
+latticeqcd_tpu/ops/dirac/wilson_pallas.py. r = 1, csw = 0, boundary
+phases already in the links. Two kernels:
 
-* full:   D psi = psi - kappa H psi on [X,Y,Z,T,4,NC]; WilsonDirac.apply
-  runs the wilson_window kernel instead (wilson_window_kernel.py), and
-  this mode stays built, checked and timed beside it;
-* packed: H psi_s on target-parity sites of the even-odd packed layout
-  (WilsonDirac.hop_packed), the mat-vec of every CG iteration and of
-  the fermion force on the HMC path, and of the Wilson measurement
-  solves.
+* wilson_hop_packed (csrc/wilson_hop_packed.cu, see there for the
+  design and what bounds it): H psi_s on target-parity sites of the
+  even-odd packed layout (WilsonDirac.hop_packed), the mat-vec of every
+  CG iteration and of the fermion force on the HMC path, and of the
+  Wilson measurement solves. ``launches`` counts its launches;
+* wilson_hop (csrc/wilson_hop.cu), one thread per site, with two modes:
+  full, D psi = psi - kappa H psi on [X,Y,Z,T,4,NC] (``wilson_dslash``;
+  WilsonDirac.apply runs the wilson_window kernel instead,
+  wilson_window_kernel.py), and packed (``hop_packed_site``), the same
+  function as wilson_hop_packed. Neither mode is on a path: both stay
+  built, checked and timed as yardsticks. ``site_launches`` counts them
+  per mode.
 
 The public entry points are autograd Functions. A tensor on the CPU
 takes the plain PyTorch version (``dslash_reference``,
@@ -22,8 +26,6 @@ spinor is the kernel again (the adjoint hop is gamma5 H gamma5 with the
 link roles swapped); the backward with respect to the links is written
 with tensor ops: outer products of the projected half spinors with the
 incoming gradient, summed over spin.
-
-``launches`` counts kernel launches (forward and backward alike).
 """
 
 from __future__ import annotations
@@ -40,9 +42,10 @@ from latticeqcd_torch.ops.dirac import eo_pack, gammas
 
 DIRS = 4
 launches = 0
+site_launches = {"full": 0, "packed": 0}
 
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
-_LIB = None
+_FNS: dict = {}
 
 
 # --------------------------------------------------------------- plain version
@@ -131,24 +134,30 @@ def _link_grads(g, psi, gplus, gminus):
 # ----------------------------------------------------------------- the kernel
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = _nvcc.load("wilson_hop")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for suffix in _SUFFIX.values():
-            full = getattr(lib, f"wilson_hop_full_{suffix}")
-            full.argtypes = [vp, vp, vp, ci, ci, ci, ci, ctypes.c_double, vp]
-            full.restype = ci
-            packed = getattr(lib, f"wilson_hop_packed_{suffix}")
-            packed.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-            packed.restype = ci
-        _LIB = lib
-    return _LIB
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_PACKED_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _VP]
+# csrc/<name>.cu -> its C entry points (each with a _c64 and a _c128 form) and their arguments
+_ENTRY_POINTS = {
+    "wilson_hop": {"wilson_hop_full": [_VP, _VP, _VP, _CI, _CI, _CI, _CI, ctypes.c_double, _VP],
+                   "wilson_hop_packed": _PACKED_ARGS},
+    "wilson_hop_packed": {"wilson_hop_brick": _PACKED_ARGS},
+}
+
+
+def _fn(lib, entry, dtype):
+    """The C entry point `entry` of csrc/<lib>.cu for `dtype`, its library built
+    and loaded at first use."""
+    key = (lib, entry, dtype)
+    fn = _FNS.get(key)
+    if fn is None:
+        fn = getattr(_nvcc.load(lib), f"{entry}_{_SUFFIX[dtype]}")
+        fn.argtypes, fn.restype = _ENTRY_POINTS[lib][entry], _CI
+        _FNS[key] = fn
+    return fn
 
 
 def _check(psi, *links, kernel="wilson_hop"):
-    """Raise on anything the kernel (wilson_hop or wilson_window) does not take."""
+    """Raise on anything the kernel (any of the Wilson kernels) does not take."""
     if psi.device.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA tensors, got {psi.device}")
     if psi.dtype not in _SUFFIX:
@@ -169,11 +178,9 @@ def _check(psi, *links, kernel="wilson_hop"):
             raise ValueError(f"links must be {want}, got {tuple(u.shape)}")
 
 
-def _launched(err: int, mode: str):
-    global launches
+def _raise_on_error(err: int, lib: str, entry: str):
     if err != 0:
-        raise RuntimeError(f"wilson_hop {mode} launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{lib} {entry} launch failed: CUDA error {err}")
 
 
 def _dslash(u, psi, kappa):
@@ -181,24 +188,47 @@ def _dslash(u, psi, kappa):
         return dslash_reference(u, psi, kappa)
     _check(psi, u)
     out = torch.empty_like(psi)
-    fn = getattr(_lib(), f"wilson_hop_full_{_SUFFIX[psi.dtype]}")
+    fn = _fn("wilson_hop", "wilson_hop_full", psi.dtype)
     with torch.cuda.device(psi.device):
         err = fn(u.data_ptr(), psi.data_ptr(), out.data_ptr(), *psi.shape[:4], float(kappa),
                  torch.cuda.current_stream().cuda_stream)
-    _launched(err, "full")
+    _raise_on_error(err, "wilson_hop", "wilson_hop_full")
+    site_launches["full"] += 1
+    return out
+
+
+def _packed(lib, entry, u_t, u_s, psi_s, target_parity):
+    """Launch the packed-hop entry point `entry` of csrc/<lib>.cu."""
+    out = torch.empty_like(psi_s)
+    fn = _fn(lib, entry, psi_s.dtype)
+    with torch.cuda.device(psi_s.device):
+        err = fn(u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(),
+                 *psi_s.shape[:4], int(target_parity), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(err, lib, entry)
     return out
 
 
 def _hop_packed(u_t, u_s, psi_s, target_parity):
+    """The packed hop on the paths: the wilson_hop_packed kernel."""
+    global launches
+    if psi_s.device.type == "cpu":
+        return hop_packed_reference(u_t, u_s, psi_s, target_parity)
+    _check(psi_s, u_t, u_s, kernel="wilson_hop_packed")
+    if psi_s.data_ptr() % 16:  # the kernel's bulk copies read 16-byte aligned rows
+        psi_s = psi_s.clone()
+    out = _packed("wilson_hop_packed", "wilson_hop_brick", u_t, u_s, psi_s, target_parity)
+    launches += 1
+    return out
+
+
+def hop_packed_site(u_t, u_s, psi_s, target_parity: int):
+    """The same packed hop through wilson_hop's one-thread-per-site packed
+    mode (forward only), kept as the yardstick of wilson_hop_packed."""
     if psi_s.device.type == "cpu":
         return hop_packed_reference(u_t, u_s, psi_s, target_parity)
     _check(psi_s, u_t, u_s)
-    out = torch.empty_like(psi_s)
-    fn = getattr(_lib(), f"wilson_hop_packed_{_SUFFIX[psi_s.dtype]}")
-    with torch.cuda.device(psi_s.device):
-        err = fn(u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(),
-                 *psi_s.shape[:4], int(target_parity), torch.cuda.current_stream().cuda_stream)
-    _launched(err, "packed")
+    out = _packed("wilson_hop", "wilson_hop_packed", u_t, u_s, psi_s, target_parity)
+    site_launches["packed"] += 1
     return out
 
 

@@ -15,10 +15,11 @@ from typing import Any, Optional
 
 import torch
 
+from latticeqcd_torch.measurements.scheduler import build_dirac_from_params
 from latticeqcd_torch.ops import fields, gauge_action as ga
 from latticeqcd_torch.ops.dirac import eo_pack
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
-from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, refuse_r_off_cpu
 from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
 from latticeqcd_torch.system.params import Params
 from latticeqcd_torch.utils.logger import VerbosePrint
@@ -50,6 +51,11 @@ def check_supported(p: Params, device="cuda") -> None:
             and torch.device(device).type != "cpu" and not eo_pack.packable(p.L)):
         _not_ported(f"staggered fermions on {device} with an odd lattice extent {tuple(p.L)} "
                     "(a full-volume mode of the staggered_w kernel)", "A11")
+    if not p.quench and p.Dirac_operator == "Wilson":
+        refuse_r_off_cpu(p.r, device)
+    for method in p.measurement_methods or ():  # refused here, before any trajectory
+        if "fermion_parameters" in method:
+            build_dirac_from_params(method["fermion_parameters"], p.L, device=device)
     if getattr(p, "hasenbusch", False):
         _not_ported("Hasenbusch mass preconditioning", "A12")
     if p.smearing_for_fermion != "nothing":

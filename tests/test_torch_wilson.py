@@ -1,11 +1,12 @@
-"""Port parity: the Wilson operator, its even-odd pieces and the wilson_hop
-kernel module.
+"""Port parity: the Wilson operator, its even-odd pieces and the Wilson
+kernel module (wilson_hop_packed, wilson_hop).
 
 On the CPU the kernel wrappers take their plain versions, so these tests
 pin the plain versions against the JAX package (and against the Pallas
 kernels B1/B2 in interpret mode) and the hand-written backward against
-autograd. The CUDA kernel itself is held against the plain version by
-the ``gpu`` test below and by chip_smoke.py, on the card.
+autograd. The CUDA kernels themselves are held against the plain version
+by the ``gpu`` test below and by chip_smoke.py, on the card, and the
+body of wilson_hop_packed on the CPU by test_torch_hop_packed.py.
 """
 
 import functools
@@ -25,8 +26,11 @@ from latticeqcd_tpu.ops.dirac import gammas as jgammas  # noqa: E402
 from latticeqcd_tpu.ops.dirac import wilson as jw  # noqa: E402
 from latticeqcd_torch import convert  # noqa: E402
 from latticeqcd_torch.convert import to_numpy  # noqa: E402
+from latticeqcd_torch.measurements.scheduler import build_dirac_from_params  # noqa: E402
 from latticeqcd_torch.ops.dirac import eo_pack, wilson_kernel as wk  # noqa: E402
 from latticeqcd_torch.ops.dirac import wilson as tw  # noqa: E402
+from latticeqcd_torch.system.params import Params  # noqa: E402
+from latticeqcd_torch.system.universe import check_supported  # noqa: E402
 
 to_torch = functools.partial(convert.to_torch, device="cpu")
 
@@ -168,6 +172,53 @@ def test_wrapper_never_falls_back_off_cpu():
         wk.wilson_dslash(u, psi, KAPPA)
     with pytest.raises(ValueError):
         wk.wilson_hop_packed(u[:, :1], u[:, :1], psi[:1], 0)
+    with pytest.raises(ValueError):
+        wk.hop_packed_site(u[:, :1], u[:, :1], psi[:1], 0)
+
+
+def test_wilson_r_not_one_refused_off_cpu():
+    """r != 1 has no kernel (the half-spinor form holds at r = 1 only): off the
+    CPU, apply and hop_packed raise naming ROADMAP A4b, never the plain path."""
+    d = tw.WilsonDirac(kappa=KAPPA, r=0.5)
+    u = torch.empty((4, 2, 2, 2, 2, 3, 3), dtype=torch.complex64, device="meta")
+    psi = torch.empty((2, 2, 2, 2, 4, 3), dtype=torch.complex64, device="meta")
+    with pytest.raises(NotImplementedError, match="A4b"):
+        d.apply(u, psi)
+    with pytest.raises(NotImplementedError, match="A4b"):
+        d.hop_packed(u[:, :1], u[:, :1], psi[:1], 0)
+
+
+@pytest.mark.parametrize("device,refused", [("cuda", True), ("cpu", False)])
+def test_check_supported_refuses_r_not_one_off_cpu(device, refused):
+    p = Params(L=(4, 4, 4, 4), NC=3, quench=False, Dirac_operator="Wilson", hop=KAPPA, r=0.5,
+               update_method="HMC")
+    if refused:
+        with pytest.raises(NotImplementedError, match="A4b"):
+            check_supported(p, device=device)
+    else:
+        check_supported(p, device=device)
+    check_supported(Params(L=(4, 4, 4, 4), NC=3, quench=False, Dirac_operator="Wilson",
+                           hop=KAPPA, r=1.0, update_method="HMC"), device=device)
+
+
+@pytest.mark.parametrize("device,refused", [("meta", True), ("cpu", False)])
+def test_wilson_r_not_one_measurement_refused_before_any_trajectory(device, refused):
+    """A measurement's own Wilson r != 1 is refused off the CPU when its
+    operator is built, and by check_supported, which runs before the first
+    trajectory; on the CPU it builds the generic-r operator."""
+    fparams = {"Dirac_operator": "Wilson", "hop": KAPPA, "r": 0.5}
+    p = Params(L=(4, 4, 4, 4), NC=3, quench=True, update_method="HMC",
+               measurement_methods=[{"methodname": "Pion_correlator", "fermion_parameters": fparams}])
+    if refused:
+        with pytest.raises(NotImplementedError, match="A4b"):
+            build_dirac_from_params(fparams, p.L, device=device)
+        with pytest.raises(NotImplementedError, match="A4b"):
+            check_supported(p, device=device)
+    else:
+        assert build_dirac_from_params(fparams, p.L, device=device).r == 0.5
+        check_supported(p, device=device)
+    fparams["r"] = 1.0
+    check_supported(p, device=device)
 
 
 def test_kernel_spin_tables_match_gammas(tmp_path):
@@ -198,23 +249,35 @@ def test_kernel_spin_tables_match_gammas(tmp_path):
 
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_gpu():
-    """On the card: both kernel modes and the backward against the plain version."""
+    """On the card: wilson_hop_packed (forward and psi backward) against the plain
+    version and against wilson_hop's packed mode, and wilson_hop's full mode."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run: python -m pytest -m gpu tests/test_torch_wilson.py)")
     dev = torch.device("cuda")
-    lat = (4, 8, 2, 4)
-    for dtype, bar in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
-        u = tw.apply_boundary_phases(
-            to_torch(jfields.hot_start(lat, 3, seed=9), device=dev, dtype=dtype))
-        g = torch.Generator(device=dev).manual_seed(2)
-        psi = torch.randn(lat + (4, 3), dtype=dtype, device=dev, generator=g)
-        before = wk.launches
-        out = wk.wilson_dslash(u, psi, KAPPA)
-        assert wk.launches == before + 1
-        assert float((out - wk.dslash_reference(u, psi, KAPPA)).abs().max()) < bar
-        u_e, u_o = eo_pack.pack_links(u, lat)
-        x = psi[:2].contiguous()
-        for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
-            got = wk.wilson_hop_packed(u_t, u_s, x, parity)
-            ref = wk.hop_packed_reference(u_t, u_s, x, parity)
-            assert float((got - ref).abs().max()) < bar
+    for lat in ((4, 8, 2, 4), (2, 4, 2, 6)):
+        for dtype, bar in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
+            u = tw.apply_boundary_phases(
+                to_torch(jfields.hot_start(lat, 3, seed=9), device=dev, dtype=dtype))
+            g = torch.Generator(device=dev).manual_seed(2)
+            psi = torch.randn(lat + (4, 3), dtype=dtype, device=dev, generator=g)
+            before = wk.site_launches["full"]
+            out = wk.wilson_dslash(u, psi, KAPPA)
+            assert wk.site_launches["full"] == before + 1
+            assert float((out - wk.dslash_reference(u, psi, KAPPA)).abs().max()) < bar
+            u_e, u_o = eo_pack.pack_links(u, lat)
+            half = (lat[0] // 2,) + lat[1:] + (4, 3)
+            x = torch.randn(half, dtype=dtype, device=dev, generator=g)
+            cot = torch.randn(half, dtype=dtype, device=dev, generator=g)
+            for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
+                before = wk.launches
+                got = wk.wilson_hop_packed(u_t, u_s, x, parity)
+                assert wk.launches == before + 1
+                ref = wk.hop_packed_reference(u_t, u_s, x, parity)
+                assert float((got - ref).abs().max()) < bar
+                site = wk.hop_packed_site(u_t, u_s, x, parity)
+                assert float((got - site).abs().max()) < bar
+                leaf = x.clone().requires_grad_(True)
+                d_k, = torch.autograd.grad(wk.wilson_hop_packed(u_t, u_s, leaf, parity), leaf, cot)
+                d_p, = torch.autograd.grad(wk.hop_packed_reference(u_t, u_s, leaf, parity), leaf,
+                                           cot)
+                assert float((d_k - d_p).abs().max()) < bar
