@@ -20,14 +20,19 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
   6. the Wilson main path: run_lqcd_params at 16^3x32, SU(3), 2-flavour Wilson HMC, complex64,
      2 trajectories, with the Wilson kernels' launch counts set to 0 just before and read just
      after: wilson_hop_packed must have run, wilson_hop's packed mode never;
-  7. staggered_w against its plain version at 4^4, 4x8x2x2, 2x4x2x6 and 16^3x32 in both types:
-     the packed hop for both target parities, W, and the backward of StaggeredHopPacked;
-  8. timing of staggered_w (W and one hop) at 16^3x32, as phase 4;
+  7. staggered_w against its plain version at 4^4, 4x8x2x2, 2x4x2x6, 4x2x6x2 (extent-2 y and
+     T), 8x6x10x4 (extents the fused W's tile does not divide) and 16^3x32 in both types: the
+     packed hop for both target parities, the two-launch W of the paths, the backward of
+     StaggeredHopPacked, and the one-launch W (staggered_w_fused, thread-block clusters);
+  8. timing of staggered_w (W and one hop) and of staggered_w_fused at 16^3x32, as phase 4,
+     beside the W's bound; the one-launch and the two-launch W also in turns (fused,
+     two-launch, two-launch, fused);
   9. 4^4 complex128 staggered trajectories (Nf=2 RHMC, Nf=4 HMC), kernel path against plain
      path as in phase 5, and Nf=2 MD reversibility;
  10. the staggered main path: run_lqcd_params at 16^3x32, SU(3), staggered mass 0.5,
      complex64, 2 trajectories at Nf=4 and 2 at Nf=2, with staggered_w's launch counts set to
-     0 just before and read just after;
+     0 just before and read just after (the W's launches printed per trajectory;
+     staggered_w_fused must stay at 0);
  11. wilson_window against its plain version at 4^4, 4x8x2x4, 4x8x2x2 (T=2), 3x5x2x6 (odd
      extents) and 16^3x32 in both types, forward and the backward for psi and U, and against
      wilson_hop's full mode;
@@ -38,7 +43,8 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
  14. the measurement path: run_lqcd_params at 16^3x32, the phase-6 Wilson action, complex64,
      1 trajectory, with the pion correlator, the Wilson and staggered condensates (Nr=10) and
      the Wilson Dirac spectrum at itrj 0 and 1; every kernel's launch count set to 0 just
-     before and read just after (wilson_hop's packed mode must stay at 0), each method's
+     before and read just after (wilson_hop's packed mode and staggered_w_fused must stay at
+     0), each method's
      seconds, iterations and launches printed.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
@@ -67,7 +73,10 @@ LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (2, 4, 2, 6), (4, 2, 6, 2), (8, 6, 10, 4
 # wilson_window: the tile (2 x 4 x 16 sites at complex64, 2 x 4 x 8 at complex128) exceeds,
 # does not divide, or wraps onto itself in every direction of one of these
 WINDOW_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (4, 8, 2, 2), (3, 5, 2, 6), (16, 16, 16, 32)]
-STAGGERED_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 2), (2, 4, 2, 6), (16, 16, 16, 32)]
+# staggered_w_fused: its 8 x 4 x 4-row cluster tile (2 x 2 x 2 rows a block) wraps onto itself
+# or does not divide x', y or z in all but the last, and cuts T = 32 at complex128
+STAGGERED_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 2), (2, 4, 2, 6), (4, 2, 6, 2), (8, 6, 10, 4),
+                      (16, 16, 16, 32)]
 MAIN = (16, 16, 16, 32)
 KAPPA = 0.141139
 MASS = 0.5
@@ -78,6 +87,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"complex64": 67e12, "complex128": 34e12}
 
 STATE = {"err": {"wilson_hop_packed": 0.0, "wilson_hop": 0.0, "staggered_w": 0.0,
+                 "staggered_w_fused": 0.0,
                  "wilson_window": 0.0}, "checks": 0,
          "timing": {}, "launches": {}}
 
@@ -447,10 +457,16 @@ def phase_staggered_kernels(torch):
             (u_e, u_o), g = _packed_links(torch, lat, dtype, seed=sum(lat) + 1)
             x = torch.randn(half, dtype=dtype, device=u_e.device, generator=g)
             cot = torch.randn(half, dtype=dtype, device=u_e.device, generator=g)
+            ref = sk.staggered_w_reference(u_e, u_o, x, MASS)
             got = sk.staggered_w(u_e, u_o, x, MASS)
             torch.cuda.synchronize()
-            check(f"W {tag}", maxdiff(got, sk.staggered_w_reference(u_e, u_o, x, MASS)), bar,
-                  "staggered_w")
+            check(f"W {tag}", maxdiff(got, ref), bar, "staggered_w")
+            before = sk.fused_launches
+            got = sk.staggered_w_fused(u_e, u_o, x, MASS)
+            torch.cuda.synchronize()
+            if sk.fused_launches != before + 1:
+                fail("staggered_w_fused did not launch")
+            check(f"one-launch W {tag}", maxdiff(got, ref), bar, "staggered_w_fused")
             for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
                 got = sk.staggered_hop_packed(u_t, u_s, x, parity)
                 torch.cuda.synchronize()
@@ -493,6 +509,23 @@ def phase_staggered_timing(torch):
                        [lambda s=s: sk.staggered_hop_packed(*s, 0) for s in sets],
                        lambda: sk.staggered_hop_packed_reference(u_e, u_o, x, 0),
                        f * 624 * sites, 570 * sites)
+            fused = [lambda s=s: sk.staggered_w_fused(*s, MASS) for s in sets]
+            _time_case(torch, "staggered W, one launch", name, fused,
+                       lambda: sk.staggered_w_reference(u_e, u_o, x, MASS),
+                       f * 624 * sites, 1150 * sites)
+            # the one-launch W against the paths' two-launch W, cold, in turns
+            two = [lambda s=s: sk.staggered_w(*s, MASS) for s in sets]
+            turns = {"fused": [], "two": []}
+            for label in ("fused", "two", "two", "fused"):
+                turns[label].append(_time_device(torch, fused if label == "fused" else two))
+            bound = STATE["timing"][("staggered W", name)]["bound_ms"]
+            print(f"  staggered W {name} in turns (fused, two-launch, two-launch, fused), cold: "
+                  f"one launch {' '.join(f'{t * 1e3:.1f}' for t in turns['fused'])} us, two "
+                  f"launches {' '.join(f'{t * 1e3:.1f}' for t in turns['two'])} us, bound "
+                  f"{bound * 1e3:.1f} us (aim, 50% of the bound: {bound * 2e3:.1f} us): one launch "
+                  f"{100 * bound / statistics.mean(turns['fused']):.1f}%, two launches "
+                  f"{100 * bound / statistics.mean(turns['two']):.1f}% of bound [{STATE['smi']}]",
+                  flush=True)
 
 
 def phase_staggered_trajectory_agreement(torch):
@@ -554,13 +587,13 @@ def phase_staggered_main_path(torch):
     per_trajectory = []
 
     def counted_step(self, *args, **kwargs):
-        w0 = sk.w_launches
+        w0, f0 = sk.w_launches, sk.fused_launches
         out = step(self, *args, **kwargs)
-        per_trajectory.append(sk.w_launches - w0)
+        per_trajectory.append((sk.w_launches - w0, sk.fused_launches - f0))
         return out
 
     torch.cuda.synchronize()
-    sk.launches = sk.w_launches = 0
+    sk.launches = sk.w_launches = sk.fused_launches = 0
     for nf in (4, 2):
         p = Params(
             L=MAIN, NC=3, beta=5.7, initial="hot", update_method="HMC", quench=False,
@@ -575,7 +608,7 @@ def phase_staggered_main_path(torch):
             plaq = run_lqcd_params(p, make_dirs=False, dtype=torch.complex64, device="cuda",
                                    history=history)
         torch.cuda.synchronize()
-        for rec, w_count in zip(history, per_trajectory):
+        for rec, (w_count, fused_count) in zip(history, per_trajectory):
             cg = [c for c in rec["cg"] if "shifts" not in c]
             ms = [c for c in rec["cg"] if "shifts" in c]
             poles = max((c["shifts"] for c in ms), default=0)
@@ -583,7 +616,8 @@ def phase_staggered_main_path(torch):
                   f"{sum(c['iterations'] for c in cg)} in {len(cg)} solves  multi-shift iterations "
                   f"{sum(c['iterations'] for c in ms)} in {len(ms)} solves of {poles} poles  "
                   f"dH {rec['dH']:.6f}  accepted {rec['accepted']}  plaquette {rec['plaq']:.8f}  "
-                  f"staggered_w launches {w_count}  [{STATE['smi']}]", flush=True)
+                  f"W launches: two-launch {w_count}, one-launch {fused_count}  "
+                  f"[{STATE['smi']}]", flush=True)
             if not math.isfinite(rec["dH"]):
                 fail(f"non-finite dH {rec['dH']}")
             if any(c["iterations"] >= p.MaxCGstep for c in rec["cg"]):
@@ -595,10 +629,13 @@ def phase_staggered_main_path(torch):
             fail(f"plaquette {plaq} outside (0, 1)")
     torch.cuda.synchronize()
     STATE["launches"].setdefault("staggered_w", {})["staggered main path"] = sk.launches
-    print(f"  staggered_w launches on the main path: {sk.launches} ({sk.w_launches} of the fused "
-          f"W, {sk.launches - sk.w_launches} of the hop)")
+    print(f"  staggered_w launches on the main path: {sk.launches} ({sk.w_launches} of the "
+          f"two-launch W, {sk.launches - sk.w_launches} of the hop); staggered_w_fused "
+          f"{sk.fused_launches}")
     if sk.w_launches == 0 or sk.launches == sk.w_launches:
         fail("the staggered main path did not launch both staggered_w entry points")
+    if sk.fused_launches:
+        fail("the staggered main path launched staggered_w_fused, which no path calls")
 
 
 def phase_window(torch):
@@ -783,7 +820,7 @@ def phase_measurement_path(torch):
         return mock.patch.object(cls, "measure", wrapper)
 
     torch.cuda.synchronize()
-    ww.launches = wk.launches = sk.launches = sk.w_launches = 0
+    ww.launches = wk.launches = sk.launches = sk.w_launches = sk.fused_launches = 0
     wk.site_launches.update(full=0, packed=0)
     with timed(scheduler.PionCorrelatorMeasurement), \
             timed(scheduler.ChiralCondensateMeasurement), \
@@ -832,6 +869,9 @@ def phase_measurement_path(torch):
             fail(f"the measurement path launched {name} no time")
     if wk.site_launches["packed"]:
         fail(f"the measurement path launched wilson_hop's packed mode {wk.site_launches}")
+    print(f"  staggered_w's two-launch W {sk.w_launches}, staggered_w_fused {sk.fused_launches}")
+    if sk.fused_launches:
+        fail("the measurement path launched staggered_w_fused, which no path calls")
 
 
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
@@ -880,8 +920,9 @@ def main() -> int:
             # no single PyTorch call computes a Wilson or a staggered hop
             "library_ms": None,
         })
-    print(f"kernels: {', '.join(k[0] for k in KERNELS)} ({STATE['checks']} checks; the yardstick "
-          f"wilson_hop's largest error {STATE['err']['wilson_hop']:.3e}); "
+    print(f"kernels: {', '.join(k[0] for k in KERNELS)} ({STATE['checks']} checks; largest error "
+          f"off the paths: the yardstick wilson_hop {STATE['err']['wilson_hop']:.3e}, the one-launch "
+          f"staggered W {STATE['err']['staggered_w_fused']:.3e}); "
           f"launches per main path {STATE['launches']}; total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

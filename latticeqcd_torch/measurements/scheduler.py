@@ -23,7 +23,7 @@ from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, refuse_r_off_cpu
 
 
 def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1, -1),
-                            device="cpu"):
+                            device="cuda"):
     """fermion_parameters dict -> Dirac operator for fields on ``device``, with
     the JAX package's keys and defaults (Wilson: hop or kappa 0.141139, r 1;
     staggered: mass 0.5; boundarycondition (1, 1, 1, -1)). Clover and

@@ -1,16 +1,24 @@
-"""staggered_w: the hand-written CUDA staggered kernel and its plain version.
+"""staggered_w: the hand-written CUDA staggered kernels and their plain versions.
 
-Replaces the Pallas kernel w_planes_window of
-latticeqcd_tpu/ops/dirac/staggered_pallas.py (see csrc/staggered_w.cu
-for the design and what bounds it). On the even-odd packed layout
-(fields [X/2, Y, Z, T, NC], links packed by parity [4, X/2, Y, Z, T, NC,
-NC], boundary phases already in the links, every extent even):
+Replace the Pallas kernel w_planes_window of
+latticeqcd_tpu/ops/dirac/staggered_pallas.py (see csrc/staggered_w.cu and
+csrc/staggered_w_fused.cu for the designs and what bounds them). On the
+even-odd packed layout (fields [X/2, Y, Z, T, NC], links packed by parity
+[4, X/2, Y, Z, T, NC, NC], boundary phases already in the links, every
+extent even):
 
 * hop: D psi_s = 1/2 sum_mu eta_mu (U_t,mu(x) psi_s(x+mu)
   - U_s,mu(x-mu)^dag psi_s(x-mu)) on target-parity sites
   (StaggeredDirac._packed_dslash), the hop of the fermion force;
 * W:   W phi_e = m^2 phi_e - D_eo D_oe phi_e (StaggeredDirac.apply_w_packed),
-  the mat-vec of every CG and multi-shift CG iteration.
+  the mat-vec of every CG and multi-shift CG iteration: two launches of
+  the hop kernel of csrc/staggered_w.cu, d1 = D_oe phi_e through device
+  memory.
+
+``staggered_w_fused`` computes the same W in one launch that keeps d1
+on chip (csrc/staggered_w_fused.cu, thread-block clusters). It is
+slower on the H100 than the two-launch W (PERF.md, sec. 6), so no path
+calls it; it stays built and checked beside it.
 
 A tensor on the CPU takes the plain PyTorch version
 (``staggered_hop_packed_reference``, ``staggered_w_reference``: eo_pack
@@ -21,9 +29,10 @@ field is the kernel again (D is antihermitian, so the adjoint of the
 target<-source hop is minus the source<-target hop), for the links it is
 eta-weighted outer products written with tensor ops.
 
-``launches`` counts calls of both kernel entry points (forward and
-backward alike); ``w_launches`` counts those of the fused W alone. One
-W entry call is two CUDA launches of the hop kernel.
+``launches`` counts calls of csrc/staggered_w.cu's entry points, the
+kernels of the paths (hop, forward and backward alike, and W);
+``w_launches`` counts those of its W alone (each two CUDA launches of the
+hop kernel). ``fused_launches`` counts launches of the one-launch W.
 """
 
 from __future__ import annotations
@@ -41,9 +50,16 @@ from latticeqcd_torch.ops.dirac import eo_pack
 DIRS = 4
 launches = 0
 w_launches = 0
+fused_launches = 0
 
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
-_LIB = None
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# entry point -> (library, argument types)
+_ENTRY_POINTS = {
+    "staggered_hop_packed": ("staggered_w", [_VP] * 4 + [_CI] * 5 + [_VP]),
+    "staggered_w": ("staggered_w", [_VP] * 5 + [_CI] * 4 + [ctypes.c_double, _VP]),
+    "staggered_w_fused": ("staggered_w_fused", [_VP] * 4 + [_CI] * 4 + [ctypes.c_double, _VP]),
+}
 
 
 # --------------------------------------------------------------- plain version
@@ -109,20 +125,13 @@ def _link_grads(g, psi_s, target_parity):
 # ----------------------------------------------------------------- the kernel
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = _nvcc.load("staggered_w")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for suffix in _SUFFIX.values():
-            hop = getattr(lib, f"staggered_hop_packed_{suffix}")
-            hop.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-            hop.restype = ci
-            w = getattr(lib, f"staggered_w_{suffix}")
-            w.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_double, vp]
-            w.restype = ci
-        _LIB = lib
-    return _LIB
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, dtype):
+    """The C entry point `name` for `dtype`, its library built and loaded at first use."""
+    lib, argtypes = _ENTRY_POINTS[name]
+    fn = getattr(_nvcc.load(lib), f"{name}_{_SUFFIX[dtype]}")
+    fn.argtypes, fn.restype = argtypes, _CI
+    return fn
 
 
 def _check(psi, *links):
@@ -150,39 +159,61 @@ def _check(psi, *links):
             raise ValueError(f"packed links must be {want}, got {tuple(u.shape)}")
 
 
-def _launched(err: int, entry: str):
-    global launches
+def _raise_on_error(err: int, entry: str):
+    if err == -1:
+        raise RuntimeError(f"{entry}: no cluster of the kernel's tile fits on this device")
     if err != 0:
-        raise RuntimeError(f"staggered_w {entry} launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
 def _hop_packed(u_t, u_s, psi_s, target_parity):
+    global launches
     if psi_s.device.type == "cpu":
         return staggered_hop_packed_reference(u_t, u_s, psi_s, target_parity)
     _check(psi_s, u_t, u_s)
     out = torch.empty_like(psi_s)
-    fn = getattr(_lib(), f"staggered_hop_packed_{_SUFFIX[psi_s.dtype]}")
     with torch.cuda.device(psi_s.device):
-        err = fn(u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(),
-                 *psi_s.shape[:4], int(target_parity), torch.cuda.current_stream().cuda_stream)
-    _launched(err, "hop")
+        err = _entry("staggered_hop_packed", psi_s.dtype)(
+            u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(), *psi_s.shape[:4],
+            int(target_parity), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(err, "staggered_hop_packed")
+    launches += 1
     return out
 
 
 def _w(u_e, u_o, phi_e, mass):
-    global w_launches
+    """W on the paths: csrc/staggered_w.cu's two launches, d1 through device memory."""
+    global launches, w_launches
     if phi_e.device.type == "cpu":
         return staggered_w_reference(u_e, u_o, phi_e, mass)
     _check(phi_e, u_e, u_o)
     d1 = torch.empty_like(phi_e)
     out = torch.empty_like(phi_e)
-    fn = getattr(_lib(), f"staggered_w_{_SUFFIX[phi_e.dtype]}")
     with torch.cuda.device(phi_e.device):
-        err = fn(u_e.data_ptr(), u_o.data_ptr(), phi_e.data_ptr(), d1.data_ptr(), out.data_ptr(),
-                 *phi_e.shape[:4], float(mass) ** 2, torch.cuda.current_stream().cuda_stream)
-    _launched(err, "W")
+        err = _entry("staggered_w", phi_e.dtype)(
+            u_e.data_ptr(), u_o.data_ptr(), phi_e.data_ptr(), d1.data_ptr(), out.data_ptr(),
+            *phi_e.shape[:4], float(mass) ** 2, torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(err, "staggered_w")
+    launches += 1
     w_launches += 1
+    return out
+
+
+def staggered_w_fused(u_e, u_o, phi_e, mass: float):
+    """The same W in one launch of csrc/staggered_w_fused.cu, d1 kept on chip
+    (no d1 buffer), on a CUDA tensor; the plain version on the CPU. Built and
+    checked beside the paths' W, which it does not beat (PERF.md, sec. 6)."""
+    global fused_launches
+    if phi_e.device.type == "cpu":
+        return staggered_w_reference(u_e, u_o, phi_e, mass)
+    _check(phi_e, u_e, u_o)
+    out = torch.empty_like(phi_e)
+    with torch.cuda.device(phi_e.device):
+        err = _entry("staggered_w_fused", phi_e.dtype)(
+            u_e.data_ptr(), u_o.data_ptr(), phi_e.data_ptr(), out.data_ptr(), *phi_e.shape[:4],
+            float(mass) ** 2, torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(err, "staggered_w_fused")
+    fused_launches += 1
     return out
 
 
@@ -219,7 +250,7 @@ def staggered_hop_packed(u_t, u_s, psi_s, target_parity: int):
 
 
 def staggered_w(u_e, u_o, phi_e, mass: float):
-    """Packed W phi_e through the fused kernel on CUDA, the plain version on
-    the CPU. Not differentiable: callers that need a gradient compose two
+    """Packed W phi_e through the two-launch kernel on CUDA, the plain version
+    on the CPU. Not differentiable: callers that need a gradient compose two
     ``staggered_hop_packed`` (StaggeredDirac.apply_w_packed does)."""
     return _w(u_e, u_o, phi_e, float(mass))

@@ -45,6 +45,7 @@ from latticeqcd_torch.updates.hmc import HMC
 
 CLASSES = (  # first match wins, on the lower-cased kernel name
     ("staggered_w", ("staggered_hop_kernel",)),
+    ("staggered_w_fused (off the paths)", ("staggered_w_fused_kernel",)),
     ("wilson_hop_packed", ("wilson_hop_brick_kernel",)),
     ("wilson_hop", ("wilson_hop_kernel",)),
     ("wilson_window", ("wilson_window_kernel",)),

@@ -158,6 +158,8 @@ def test_wrappers_never_fall_back_off_cpu():
     with pytest.raises(ValueError):
         sk.staggered_w(u, u, psi, MASS)
     with pytest.raises(ValueError):
+        sk.staggered_w_fused(u, u, psi, MASS)
+    with pytest.raises(ValueError):
         sk.staggered_hop_packed(u, u, psi, 0)
     d = ts.StaggeredDirac(MASS, (4, 2, 2, 2))
     with pytest.raises(NotImplementedError, match="A11"):
@@ -167,7 +169,8 @@ def test_wrappers_never_fall_back_off_cpu():
 
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_gpu():
-    """On the card: the packed hop for both parities and W against the plain version."""
+    """On the card: the packed hop for both parities, the paths' two-launch W
+    and the one-launch W against the plain version, with their counters."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run: python -m pytest -m gpu tests/test_torch_staggered.py)")
     dev = torch.device("cuda")
@@ -178,10 +181,16 @@ def test_kernel_matches_plain_on_gpu():
             u_e, u_o = eo_pack.pack_links(u, lat)
             g = torch.Generator(device=dev).manual_seed(2)
             x = torch.randn((lat[0] // 2,) + lat[1:] + (3,), dtype=dtype, device=dev, generator=g)
-            before = sk.launches
+            ref = sk.staggered_w_reference(u_e, u_o, x, MASS)
+            before = (sk.launches, sk.w_launches, sk.fused_launches)
             got = sk.staggered_w(u_e, u_o, x, MASS)
-            assert sk.launches == before + 1
-            assert float((got - sk.staggered_w_reference(u_e, u_o, x, MASS)).abs().max()) < bar
+            assert (sk.launches, sk.w_launches, sk.fused_launches) == (
+                before[0] + 1, before[1] + 1, before[2])
+            assert float((got - ref).abs().max()) < bar
+            got = sk.staggered_w_fused(u_e, u_o, x, MASS)
+            assert (sk.launches, sk.w_launches, sk.fused_launches) == (
+                before[0] + 1, before[1] + 1, before[2] + 1)
+            assert float((got - ref).abs().max()) < bar
             for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
                 got = sk.staggered_hop_packed(u_t, u_s, x, parity)
                 ref = sk.staggered_hop_packed_reference(u_t, u_s, x, parity)

@@ -201,6 +201,14 @@ def test_check_supported_refuses_r_not_one_off_cpu(device, refused):
                            hop=KAPPA, r=1.0, update_method="HMC"), device=device)
 
 
+def test_build_dirac_from_params_defaults_to_the_card():
+    """With no device given, a measurement's operator is built for the card
+    (the port's default device), so Wilson r != 1 is refused, naming A4b."""
+    with pytest.raises(NotImplementedError, match="A4b"):
+        build_dirac_from_params({"Dirac_operator": "Wilson", "hop": KAPPA, "r": 0.5}, (4, 4, 4, 4))
+    assert build_dirac_from_params({"Dirac_operator": "Wilson", "hop": KAPPA}, (4, 4, 4, 4)).r == 1.0
+
+
 @pytest.mark.parametrize("device,refused", [("meta", True), ("cpu", False)])
 def test_wilson_r_not_one_measurement_refused_before_any_trajectory(device, refused):
     """A measurement's own Wilson r != 1 is refused off the CPU when its
