@@ -34,9 +34,10 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      0 just before and read just after (the W's launches printed per trajectory;
      staggered_w_fused must stay at 0);
  11. wilson_window against its plain version at 4^4, 4x8x2x4, 4x8x2x2 (T=2), 3x5x2x6 (odd
-     extents) and 16^3x32 in both types, forward and the backward for psi and U, and against
-     wilson_hop's full mode;
- 12. timing of wilson_window at 16^3x32, as phase 4, beside wilson_hop's full D;
+     extents), 2x1x9x3 (extent 1), 5x6x9x30 and 16^3x32 in both types, forward and the
+     backward for psi and U, and against wilson_hop's full mode;
+ 12. timing of wilson_window at 16^3x32, as phase 4, and in turns with wilson_hop's full D
+     (window, full, full, window), which it must beat;
  13. the fermionic measurements at 4^4 complex128 (Wilson pion correlator, Wilson and
      staggered condensates per noise from the same Z4 draws, Wilson low spectrum from the same
      start vector, a CGNE pion correlator on 3x5x2x6), kernel path against plain path;
@@ -70,9 +71,12 @@ BARS = {"complex64": 1e-5, "complex128": 1e-12}
 # with t segments of at most 16 at complex128) wraps onto itself in x (X/2 = 1), y, z or t
 # (extent 2), and the complex128 segments cut T = 32 and T = 6 unevenly
 LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (2, 4, 2, 6), (4, 2, 6, 2), (8, 6, 10, 4), (16, 16, 16, 32)]
-# wilson_window: the tile (2 x 4 x 16 sites at complex64, 2 x 4 x 8 at complex128) exceeds,
-# does not divide, or wraps onto itself in every direction of one of these
-WINDOW_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (4, 8, 2, 2), (3, 5, 2, 6), (16, 16, 16, 32)]
+# wilson_window: its tile (1 x 2 rows with t whole up to 32 sites at complex64, one row over t
+# segments of at most 16 at complex128, marching along x over chunks) wraps onto itself in y
+# (extent 1) or z (extent 2), does not divide z (extent 9) or x into equal chunks, and
+# its complex128 segments cut T = 30 and T = 32
+WINDOW_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (4, 8, 2, 2), (3, 5, 2, 6), (2, 1, 9, 3),
+                   (5, 6, 9, 30), (16, 16, 16, 32)]
 # staggered_w_fused: its 8 x 4 x 4-row cluster tile (2 x 2 x 2 rows a block) wraps onto itself
 # or does not divide x', y or z in all but the last, and cuts T = 32 at complex128
 STAGGERED_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 2), (2, 4, 2, 6), (4, 2, 6, 2), (8, 6, 10, 4),
@@ -683,12 +687,22 @@ def phase_window_timing(torch):
             _time_case(torch, "window D", name,
                        [lambda s=s: ww.wilson_window(s[0], s[1], KAPPA) for s in sets],
                        lambda: wk.dslash_reference(u, psi, KAPPA), f * 480 * vol, 1320 * vol)
-            full = STATE["timing"].get(("full D", name))
-            if full is not None:
-                win = STATE["timing"][("window D", name)]
-                print(f"  {name}: window D {win['ms'] * 1e3:.1f} us against wilson_hop full D "
-                      f"{full['ms'] * 1e3:.1f} us (phase 4), bound {win['bound_ms'] * 1e3:.1f} us "
-                      f"[{STATE['smi']}]", flush=True)
+            # the redesigned window D against wilson_hop's full D, cold, in turns
+            full = [lambda s=s: wk.wilson_dslash(s[0], s[1], KAPPA) for s in sets]
+            window = [lambda s=s: ww.wilson_window(s[0], s[1], KAPPA) for s in sets]
+            turns = {"window": [], "full": []}
+            for label in ("window", "full", "full", "window"):
+                turns[label].append(_time_device(torch, window if label == "window" else full))
+            bound = STATE["timing"][("window D", name)]["bound_ms"]
+            print(f"  window D {name} in turns (window, full, full, window), cold: window "
+                  f"{' '.join(f'{t * 1e3:.1f}' for t in turns['window'])} us, wilson_hop full D "
+                  f"{' '.join(f'{t * 1e3:.1f}' for t in turns['full'])} us, bound "
+                  f"{bound * 1e3:.1f} us: window "
+                  f"{100 * bound / statistics.mean(turns['window']):.1f}%, full "
+                  f"{100 * bound / statistics.mean(turns['full']):.1f}% of bound [{STATE['smi']}]",
+                  flush=True)
+            if statistics.mean(turns["window"]) > statistics.mean(turns["full"]):
+                fail(f"wilson_window is slower than wilson_hop's full D at {name}")
 
 
 def _plain_kernels():

@@ -36,6 +36,12 @@ __device__ __forceinline__ V cmulc(V a, V b) {
   return V{a.x * b.x + a.y * b.y, a.x * b.y - a.y * b.x};
 }
 
+// a mod n in [0, n), for a coordinate one tile or halo away from the lattice
+__device__ __forceinline__ int wrap(int a, int n) {
+  a %= n;
+  return a < 0 ? a + n : a;
+}
+
 // Site s = ((x * ly + y) * lz + z) * lt + t of a layout with x extent lx, its coordinates,
 // and the site indices of its neighbours fw[mu] (x + mu) and bw[mu] (x - mu), periodic.
 // In the even-odd packed layout (PACKED, lx = X/2) a site of parity `parity` sits at the

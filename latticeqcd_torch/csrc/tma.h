@@ -48,3 +48,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
         : "memory");
   } while (!done);
 }
+
+// Prefetch [p, p + bytes) from device memory into L2 (cp.async.bulk.prefetch, no completion to
+// wait for); p and bytes are multiples of 16.
+__device__ __forceinline__ void prefetch_l2(const void* p, unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p), "r"(bytes) : "memory");
+}

@@ -107,3 +107,66 @@ __device__ __forceinline__ void hop_dir(V (&acc)[4][3], const V* __restrict__ ps
   load_link(u_b, u);
   hop_one<MU, true>(acc, psi_b, u);
 }
+
+// The per-lane forms, for kernels that give each site three lanes, one per colour row a of
+// the output (wilson_hop_packed, wilson_window): a lane needs row a of a forward link and
+// column a of a backward one, keeps a 4-spin accumulator of its colour and writes its own
+// 4 outputs, so no reduction between lanes is needed.
+
+// The 12 complex values of one spinor site, as 16-byte loads.
+__device__ __forceinline__ void load_site(const float2* __restrict__ p, float2 (&v)[12]) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float4 f = q[i];
+    v[2 * i] = float2{f.x, f.y};
+    v[2 * i + 1] = float2{f.z, f.w};
+  }
+}
+
+__device__ __forceinline__ void load_site(const double2* __restrict__ p, double2 (&v)[12]) {
+#pragma unroll
+  for (int i = 0; i < 12; ++i) v[i] = p[i];
+}
+
+// phi[h] = colour a of U half[h] (forward, ul = row a of U) or of U^dag half[h] (backward,
+// ul = column a of U).
+template <bool BWD, typename V>
+__device__ __forceinline__ void lane_mul(const V (&ul)[3], const V (&half)[2][3], V (&phi)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (BWD)
+      phi[h] = cadd(cadd(cmulc(ul[0], half[h][0]), cmulc(ul[1], half[h][1])),
+                    cmulc(ul[2], half[h][2]));
+    else
+      phi[h] = cadd(cadd(cmul(ul[0], half[h][0]), cmul(ul[1], half[h][1])),
+                    cmul(ul[2], half[h][2]));
+}
+
+// acc += W phi for one colour: rebuild() of a single lane.
+template <int MU, bool BWD, typename V>
+__device__ __forceinline__ void lane_rebuild(V (&acc)[4], const V (&phi)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    acc[h] = cadd(acc[h], phi[h]);
+    acc[w_j(MU, h)] = cadd(acc[w_j(MU, h)], ipow(w_k(MU, h) + (BWD ? 2 : 0), phi[h]));
+  }
+}
+
+// acc[sp] += colour a of (1 - g_mu) U psi (forward, ul = row a of U) or of
+// (1 + g_mu) U^dag psi (backward, ul = column a of U) for the neighbour spinor at nb.
+template <int MU, bool BWD, typename V>
+__device__ __forceinline__ void lane_hop(V (&acc)[4], const V* __restrict__ nb, const V (&ul)[3]) {
+  V site[12], half[2][3], phi[2];
+  load_site(nb, site);
+  project<MU, BWD>(site, half);
+  lane_mul<BWD>(ul, half, phi);
+  lane_rebuild<MU, BWD>(acc, phi);
+}
+
+// Row a (forward) or column a (backward) of the 3 x 3 link at u.
+template <bool BWD, typename V>
+__device__ __forceinline__ void load_link_line(const V* __restrict__ u, int a, V (&ul)[3]) {
+#pragma unroll
+  for (int b = 0; b < 3; ++b) ul[b] = BWD ? u[3 * b + a] : u[3 * a + b];
+}

@@ -55,11 +55,6 @@
 
 namespace {
 
-__device__ __forceinline__ int wrap(int a, int n) {
-  a %= n;
-  return a < 0 ? a + n : a;
-}
-
 // Row slots of a BY x BZ brick in shared memory, each holding one t segment of a source row:
 // the x' + dx rows (dx = -1, 0, +1) of the brick's (y, z) rows, then the y halo rows
 // (y0 - 1 and y0 + BY, per z of the brick), then the z halo rows (z0 - 1 and z0 + BZ, per y).
@@ -90,49 +85,6 @@ struct Slots {
     }
   }
 };
-
-// The 12 complex values of one spinor site, as 16-byte loads.
-__device__ __forceinline__ void load_site(const float2* __restrict__ p, float2 (&v)[12]) {
-  const float4* q = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    const float4 f = q[i];
-    v[2 * i] = float2{f.x, f.y};
-    v[2 * i + 1] = float2{f.z, f.w};
-  }
-}
-
-__device__ __forceinline__ void load_site(const double2* __restrict__ p, double2 (&v)[12]) {
-#pragma unroll
-  for (int i = 0; i < 12; ++i) v[i] = p[i];
-}
-
-// acc[sp] += colour a of (1 - g_mu) U psi (forward, ul = row a of U) or of
-// (1 + g_mu) U^dag psi (backward, ul = column a of U) for the neighbour spinor at nb.
-template <int MU, bool BWD, typename V>
-__device__ __forceinline__ void lane_hop(V (&acc)[4], const V* __restrict__ nb, const V (&ul)[3]) {
-  V site[12], half[2][3];
-  load_site(nb, site);
-  project<MU, BWD>(site, half);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    V phi;
-    if (BWD)
-      phi = cadd(cadd(cmulc(ul[0], half[h][0]), cmulc(ul[1], half[h][1])),
-                 cmulc(ul[2], half[h][2]));
-    else
-      phi = cadd(cadd(cmul(ul[0], half[h][0]), cmul(ul[1], half[h][1])), cmul(ul[2], half[h][2]));
-    acc[h] = cadd(acc[h], phi);
-    acc[w_j(MU, h)] = cadd(acc[w_j(MU, h)], ipow(w_k(MU, h) + (BWD ? 2 : 0), phi));
-  }
-}
-
-// Row a (forward) or column a (backward) of the 3 x 3 link at u.
-template <bool BWD, typename V>
-__device__ __forceinline__ void load_link_line(const V* __restrict__ u, int a, V (&ul)[3]) {
-#pragma unroll
-  for (int b = 0; b < 3; ++b) ul[b] = BWD ? u[3 * b + a] : u[3 * a + b];
-}
 
 // One block per brick: (x', BY y rows from y0, BZ z rows from z0, t segment [t0, t0 + ts)).
 // Thread tid is colour a = tid % 3 of brick site tid / 3, t fastest. Thread 0 first copies

@@ -1,5 +1,5 @@
 // wilson_window: the full Wilson D at r = 1 with each field read from device memory once,
-// written for Hopper (sm_90a).
+// redesigned for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel dslash_planes_window
 // (latticeqcd_tpu/ops/dirac/wilson_pallas.py, _make_window_kernel), which computes
@@ -7,259 +7,293 @@
 //   D psi(x) = psi(x) - kappa sum_mu [ (1 - g_mu) U_mu(x) psi(x+mu)
 //                                    + (1 + g_mu) U_mu(x-mu)^dag psi(x-mu) ]
 //
-// on the full lattice (csw = 0, fermion boundary phases already in U) by streaming
-// t-slices of psi and U through a rotating VMEM window, so that every slice is read from
-// HBM once: the 480 B/site minimum at complex64 (12 + 36 link + 12 out complex values).
+// on the full lattice [X, Y, Z, T, 4, 3] (csw = 0, fermion boundary phases already in U) by
+// streaming t-slices of psi and U through a rotating VMEM window, so that every slice is read
+// from HBM once: the 480 B/site minimum at complex64 (12 + 36 link + 12 out complex values).
 //
 // What bounds it: memory traffic, 1320 flop against 480 B per site (2.75 flop/B), far under
-// the H100's compute-to-bandwidth line. The port's layout is [X, Y, Z, T, 4, 3] with t
-// fastest (site s = ((x Y + y) Z + z) T + t), so streaming t-slices does not carry over.
-// The design is 2.5-D blocking:
-//   * a block owns a BY x BZ x BT tile of the (y, z, t) slice, one thread per site with t
-//     fastest, and marches along x over a chunk of slices;
-//   * x, the marching axis, stays in registers: each thread reads its +x neighbour's spinor
-//     one step ahead (and stores it into shared memory when that slice becomes current),
-//     and carries the -x term to the next step as the half spinor
-//     U_0(x)^dag (1 + g_0) psi(x) (6 complex values), so psi and U_0 are read once;
-//   * y, z, t: the current slice's spinors on the tile and on a one-site halo (the six
-//     faces; edges and corners are never read) are staged in shared memory, the halo by
-//     cp.async; each forward link U_mu(x) is read by its owner thread, used for its forward
-//     hop and written to shared memory, where the site x + mu reads it as its backward
-//     link; the tile's lower face in mu comes in by cp.async.
-// What is read again: the halo faces (from L2 when the neighbouring tile's block has just
-// read them) and, per x chunk, the slice before it (psi and U_0 for the carried term) and
-// the look-ahead slice after it. Extents smaller than the tile, extents that the tile does
-// not divide, odd extents and T = 2 (t + 1 and t - 1 the same slice) need no special case:
-// every box slot holds the field at its wrapped coordinate, and only threads whose site lies
-// inside the lattice write. The spin rule is wilson_dir.h, shared with wilson_hop.
-#include <cuda_pipeline.h>
+// the H100's compute-to-bandwidth line. The port's layout has t fastest (site
+// s = ((x Y + y) Z + z) T + t), so the design marches along x instead:
+//   * three lanes per site, one per colour row a of the output (as wilson_hop_packed.cu): a
+//     lane reads row a of each forward link and column a of each backward link, keeps a 4-spin
+//     accumulator of its colour and writes its own 4 outputs, no reduction between lanes;
+//   * a block owns BY x BZ whole (y, z) rows, t whole up to TSMAX sites (else cut into
+//     segments), and marches along x over a chunk of slices. Each slice's own rows and its
+//     y and z halo rows are contiguous runs of spinors, staged in shared memory by one bulk
+//     copy (cp.async.bulk, tma.h) per row on an mbarrier. The own rows sit in a ring of three
+//     slices (x, the x + 1 neighbour, x + 2 in flight), the halo rows in a ring of two, so
+//     one step issues the next step's copies, waits once and passes one __syncthreads;
+//   * x stays in the march: psi(x + 1) is the next slice's own row, and the -x term is
+//     carried from the previous step as colour a of U_0(x - 1)^dag (1 + g_0) psi(x - 1) (two
+//     complex values a lane), so psi and U_0 are read once per chunk;
+//   * links are read straight from device memory, not staged: each forward link by its
+//     owner, the backward links U_mu(x - mu) for mu = y, z, t from L2 or L1, where the
+//     neighbouring row's owner read them a moment earlier;
+//   * the grid is sized for one wave: x is cut into the fewest chunks that give every block
+//     the card holds at once (blocks per SM from the occupancy calculator) a chunk.
+// What each step did (cold, 16^3 x 32, NVIDIA H100 80GB HBM3 at 700 W, beside this file's
+// earlier design, one thread per site over a 2 x 4 x 16 tile with a one-site halo copied in
+// 8-byte pieces and 8 barriers per x step, 66.5-68.2 us at complex64 and 101.8-104.0 at
+// complex128, and wilson_hop.cu's full D, 49.9-50.7 and 98.8-99.9, in the same calls):
+//   1. this design at 1 x 2 rows x 32, 4 blocks per SM (80 registers, a 16-byte spill) and
+//      2 x 1 rows x 16, 4 per SM, at complex128 (166 registers): 33.3 us and 72.4-73.1 us;
+//   2. tiles: at complex64 1 x 2 rows at 3 blocks per SM (96 registers, no spill) 29.8-30.8
+//      us, 2 x 2 rows at 2 (a spill) 31.8-32.3, 1 x 1 at 6 (96 registers) 32.1-32.6, t cut
+//      at 16 slower (34.8-35.0); at complex128 one row over t segments of 16 at 6 per SM
+//      (166 registers) 68.1-69.7 us, 1 x 2 or 2 x 1 rows 71.4-73.9, 2 x 2 rows 69.7-71.0;
+//   3. all seven link loads issued before the wait: within the runs' spread (29.8-30.4 us,
+//      68.3-69.5; 1 x 1 rows at 4-5 per SM, 118-120 registers, 29.8-30.2), so the links are
+//      loaded one direction at a time;
+//   4. psi(x + 1) kept in registers for the next step's carry and output: 46.9-48.0 us at
+//      1 x 2 rows (a stack frame under the 96-register cap), 30.3-30.4 at 1 x 1 rows, 4 per SM
+//      (148 registers), 89.7-89.9 us at complex128 (a stack frame);
+//   5. the tile's forward link rows of a slice prefetched into L2 (cp.async.bulk.prefetch) with
+//      the copies a step ahead: complex128 66.0-66.6 us against 68.1-68.7 in the same calls,
+//      where 9 warps per SM cannot hide the links' latency (kept there); complex64 30.4-31.1
+//      against 30.0-30.7 (not used there); two steps ahead slower in both (33.8-34.5, 69.8-70.4).
+// A device copy of as many bytes (62.9 MB at complex64) takes 23.2-23.8 us there: the landed
+// tiles run at 77-79% of a copy's rate, 61-63% of the least-bytes bound (complex128: 43.9-44.7
+// us, 66-67%; 56-57%). Tiles of the entry points: 1 x 2 rows, t whole up to 32 sites, at
+// complex64 (192 threads, 55 KB of shared memory, 96 registers, 3 blocks per SM, x cut into
+// chunks of 6 at 16^3 x 32); one row over t segments of at most 16 sites, with the prefetch,
+// at complex128 (48 threads, 34 KB, 166 registers, 6 blocks per SM, x whole).
+// Shapes: every row slot holds the row at its wrapped coordinate, so X = 1 or 2, extents
+// smaller than the tile, extents that the tile does not divide, odd extents and T = 2 (t + 1
+// and t - 1 one site) need no special case; lanes whose site lies outside the lattice
+// compute on wrapped coordinates and do not write. A t neighbour outside a cut segment is
+// read from device memory. The spin rule is wilson_dir.h, shared with wilson_hop and
+// wilson_hop_packed.
+#include <atomic>
 
+#include "tma.h"
 #include "wilson_dir.h"
+
+// The tiles of the C entry points: BY, BZ (the block's y and z rows), TSMAX (its longest t
+// segment), MINB (blocks per SM for __launch_bounds__), PREFETCH (the link rows of each slice
+// prefetched into L2 a step ahead).
+#define WILSON_WINDOW_TILE_C64 1, 2, 32, 3, false
+#define WILSON_WINDOW_TILE_C128 1, 1, 16, 6, true
 
 namespace {
 
-__device__ __forceinline__ int wrap(int a, int n) {
-  a %= n;
-  return a < 0 ? a + n : a;
-}
-
-template <typename V>
-__device__ __forceinline__ void async_copy(V* dst_shared, const V* src) {
-  __pipeline_memcpy_async(dst_shared, src, sizeof(V));
-}
-
-struct Geo {
-  int ly, lz, lt;  // slice extents
-  int y0, z0, t0;  // tile origin
+// Row slots of a BY x BZ tile in shared memory, each holding one t segment of a spinor row:
+// a ring of three slices of the tile's own rows, then a ring of two slices of its halo rows
+// (y0 - 1 and y0 + BY per z of the tile, then z0 - 1 and z0 + BZ per y).
+template <int BY, int BZ>
+struct Ring {
+  static constexpr int OWN = BY * BZ, HALO = 2 * BZ + 2 * BY;
+  static constexpr int ROWS = 3 * OWN + 2 * HALO;
+  __device__ static int own(int k, int iy, int iz) { return k * OWN + iy * BZ + iz; }
+  __device__ static int yhalo(int k, int side, int iz) {
+    return 3 * OWN + k * HALO + side * BZ + iz;
+  }
+  __device__ static int zhalo(int k, int side, int iy) {
+    return 3 * OWN + k * HALO + 2 * BZ + side * BY + iy;
+  }
 };
 
-// The six halo faces of the spinor box (BY+2) x (BZ+2) x (BT+2) of slice `psi_slice`.
-template <int BY, int BZ, int BT, typename V>
-__device__ __forceinline__ void load_psi_halo(V* spsi, const V* __restrict__ psi_slice,
-                                              const Geo& g, int tid) {
-  constexpr int EX = BT + 2, EZ = BZ + 2;
-  constexpr int FY = BZ * BT, FZ = BY * BT, FT = BY * BZ;
-  constexpr int N = 2 * (FY + FZ + FT) * 12;
-  for (int i = tid; i < N; i += BY * BZ * BT) {
-    const int k = i % 12;
-    int f = i / 12;
-    int iy, iz, it;
-    if (f < 2 * FY) {
-      iy = f < FY ? 0 : BY + 1;
-      f %= FY;
-      iz = f / BT + 1;
-      it = f % BT + 1;
-    } else if ((f -= 2 * FY) < 2 * FZ) {
-      iz = f < FZ ? 0 : BZ + 1;
-      f %= FZ;
-      iy = f / BT + 1;
-      it = f % BT + 1;
-    } else {
-      f -= 2 * FZ;
-      it = f < FT ? 0 : BT + 1;
-      f %= FT;
-      iy = f / BZ + 1;
-      iz = f % BZ + 1;
-    }
-    const int y = wrap(g.y0 - 1 + iy, g.ly), z = wrap(g.z0 - 1 + iz, g.lz),
-              t = wrap(g.t0 - 1 + it, g.lt);
-    async_copy(spsi + 12 * ((iy * EZ + iz) * EX + it) + k,
-               psi_slice + 12 * ((y * g.lz + z) * g.lt + t) + k);
-  }
-}
-
-// The lower face in direction MU (1 = y, 2 = z, 3 = t) of the link box
-// (BY+1) x (BZ+1) x (BT+1): the backward links of the tile's first row in MU.
-template <int MU, int BY, int BZ, int BT, typename V>
-__device__ __forceinline__ void load_link_face(V* slink, const V* __restrict__ u_slice,
-                                               const Geo& g, int tid) {
-  constexpr int LX = BT + 1, LZ = BZ + 1;
-  constexpr int NB = MU == 3 ? BZ : BT;
-  constexpr int N = (MU == 1 ? BZ * BT : MU == 2 ? BY * BT : BY * BZ) * 9;
-  for (int i = tid; i < N; i += BY * BZ * BT) {
-    const int k = i % 9, f = i / 9;
-    const int a = f / NB + 1, b = f % NB + 1;
-    const int iy = MU == 1 ? 0 : a;
-    const int iz = MU == 1 ? a : MU == 2 ? 0 : b;
-    const int it = MU == 3 ? 0 : b;
-    const int y = wrap(g.y0 - 1 + iy, g.ly), z = wrap(g.z0 - 1 + iz, g.lz),
-              t = wrap(g.t0 - 1 + it, g.lt);
-    async_copy(slink + 9 * ((iy * LZ + iz) * LX + it) + k,
-               u_slice + 9 * ((y * g.lz + z) * g.lt + t) + k);
-  }
-}
-
-// acc += both hops of direction MU in {1, 2, 3} for this thread's site: the forward link from
-// device memory (the owner's one read), the backward link from the link box.
-template <int MU, int BY, int BZ, int BT, typename V>
-__device__ __forceinline__ void tile_dir(V (&acc)[4][3], const V* spsi, V* slink,
-                                         const V* __restrict__ u_slice, int me, int mel, int s3,
-                                         const Geo& g, int tid) {
-  constexpr int PS = MU == 1 ? (BZ + 2) * (BT + 2) : MU == 2 ? BT + 2 : 1;
-  constexpr int LS = MU == 1 ? (BZ + 1) * (BT + 1) : MU == 2 ? BT + 1 : 1;
-  V uu[9];
-  load_link(u_slice + 9 * s3, uu);
-  hop_one<MU, false>(acc, spsi + 12 * (me + PS), uu);
-  __syncthreads();  // every thread is done with the previous direction's link box
-#pragma unroll
-  for (int i = 0; i < 9; ++i) slink[9 * mel + i] = uu[i];
-  load_link_face<MU, BY, BZ, BT>(slink, u_slice, g, tid);
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  load_link(slink + 9 * (mel - LS), uu);
-  hop_one<MU, true>(acc, spsi + 12 * (me - PS), uu);
-}
-
-template <typename R, int BY, int BZ, int BT>
-__global__ void __launch_bounds__(BY * BZ * BT)
+// One block per (x chunk, BY y rows from y0, BZ z rows from z0, t segment [t0, t0 + ts)).
+// Thread tid is colour a = tid % 3 of tile site tid / 3, t fastest. Step i of the march
+// computes slice xs + i; copy group i (own rows of slice xs + i + 1 and halo rows of slice
+// xs + i, and at i = 0 the own rows of slice xs) completes on bar[i % 2]: thread 0 issues
+// group 0 before the march and group i + 1 in step i, after the barrier that frees its slots,
+// and with PREFETCH the tile's forward link rows of slice xs + i into L2 with group i.
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH>
+__global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
     wilson_window_kernel(const typename Vec<R>::type* __restrict__ u,
                          const typename Vec<R>::type* __restrict__ psi,
                          typename Vec<R>::type* __restrict__ out, int lx, int ly, int lz, int lt,
-                         int chunk, R kappa) {
+                         int ts, int chunk, R kappa) {
   using V = typename Vec<R>::type;
-  constexpr int EX = BT + 2, EZ = BZ + 2, EY = BY + 2;  // spinor box, halo on both sides
-  constexpr int LX = BT + 1, LZ = BZ + 1;               // link box, lower halo only
+  using S = Ring<BY, BZ>;
   extern __shared__ __align__(16) unsigned char smem[];
-  V* spsi = reinterpret_cast<V*>(smem);
-  V* slink = spsi + 12 * EY * EZ * EX;
+  __shared__ uint64_t bar[2];
+  const V* rows = reinterpret_cast<const V*>(smem);
 
-  const int tt = threadIdx.x, tz = threadIdx.y, ty = threadIdx.z;
-  const int tid = (ty * BZ + tz) * BT + tt;
-  const int ntt = (lt + BT - 1) / BT, ntz = (lz + BZ - 1) / BZ;
-  const Geo g{ly, lz, lt, static_cast<int>(blockIdx.x) / (ntt * ntz) * BY,
-              static_cast<int>(blockIdx.x) / ntt % ntz * BZ,
-              static_cast<int>(blockIdx.x) % ntt * BT};
-  const int xs = blockIdx.y * chunk;
-  const int xe = min(xs + chunk, lx);
-  const bool valid = g.y0 + ty < ly && g.z0 + tz < lz && g.t0 + tt < lt;
-  const int s3 = (wrap(g.y0 + ty, ly) * lz + wrap(g.z0 + tz, lz)) * lt + wrap(g.t0 + tt, lt);
-  const int slice = ly * lz * lt, vol = lx * slice;
-  const int me = ((ty + 1) * EZ + tz + 1) * EX + tt + 1;   // own slot in the spinor box
-  const int mel = ((ty + 1) * LZ + tz + 1) * LX + tt + 1;  // own slot in the link box
-  V* own = spsi + 12 * me;
+  const int nts = (lt + ts - 1) / ts, nzb = (lz + BZ - 1) / BZ, nyb = (ly + BY - 1) / BY;
+  int b = blockIdx.x;
+  const int t0 = b % nts * ts;
+  b /= nts;
+  const int z0 = b % nzb * BZ;
+  b /= nzb;
+  const int y0 = b % nyb * BY;
+  const int xs = b / nyb * chunk;
+  const int steps = min(chunk, lx - xs);
+  const int cnt = min(ts, lt - t0);  // sites of this t segment inside the lattice
+  const int sy = lz * lt, slice = ly * sy, vol = lx * slice;
+  const unsigned row_bytes = cnt * 12 * sizeof(V);
 
-  // the -x term of the chunk's first slice: U_0(x-1)^dag (1 + g_0) psi(x-1), in half-spinor form
-  V carry[2][3];
-  {
-    const int xm = wrap(xs - 1, lx);
-    V uu[9], half[2][3];
-    load_link(u + 9 * (xm * slice + s3), uu);
-    project<0, true>(psi + 12 * (xm * slice + s3), half);
-    mul_udag(uu, half, carry);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
   }
-  V nxt[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) nxt[i] = psi[12 * (xs * slice + s3) + i];
+  __syncthreads();
 
-  for (int x = xs; x < xe; ++x) {
-    __syncthreads();  // every thread is done with the previous slice's boxes
-#pragma unroll
-    for (int i = 0; i < 12; ++i) own[i] = nxt[i];
-    load_psi_halo<BY, BZ, BT>(spsi, psi + 12 * x * slice, g, tid);
-    __pipeline_commit();
-    const int xn = wrap(x + 1, lx);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) nxt[i] = psi[12 * (xn * slice + s3) + i];
-
-    V acc[4][3];
-#pragma unroll
-    for (int sp = 0; sp < 4; ++sp)
-#pragma unroll
-      for (int c = 0; c < 3; ++c) acc[sp][c] = V{R(0), R(0)};
-    rebuild<0, true>(acc, carry);
-    {
-      V uu[9], half[2][3];
-      load_link(u + 9 * (x * slice + s3), uu);
-      hop_one<0, false>(acc, nxt, uu);
-      project<0, true>(own, half);
-      mul_udag(uu, half, carry);
+  // thread 0: the copies of group i into the ring slots of steps i (halo) and i + 1 (own)
+  auto issue = [&](int i) {
+    const int x = xs + i, xn = x + 1 == lx ? 0 : x + 1;
+    uint64_t* bi = &bar[i & 1];
+    mbar_arrive_expect_tx(bi, ((i == 0 ? 2 : 1) * S::OWN + S::HALO) * row_bytes);
+    auto copy = [&](int slot, int rx, int ry, int rz) {
+      bulk_copy_g2s(smem + slot * ts * 12 * sizeof(V),
+                    psi + 12 * (rx * slice + wrap(ry, ly) * sy + wrap(rz, lz) * lt + t0),
+                    row_bytes, bi);
+    };
+    for (int iy = 0; iy < BY; ++iy)
+      for (int iz = 0; iz < BZ; ++iz) {
+        if (i == 0) copy(S::own(0, iy, iz), x, y0 + iy, z0 + iz);
+        copy(S::own((i + 1) % 3, iy, iz), xn, y0 + iy, z0 + iz);
+      }
+    if (PREFETCH)  // the 16-byte aligned part of each row
+      for (int mu = 0; mu < 4; ++mu)
+        for (int iy = 0; iy < BY; ++iy)
+          for (int iz = 0; iz < BZ; ++iz) {
+            const size_t p = reinterpret_cast<size_t>(
+                u + 9 * (mu * vol + x * slice + wrap(y0 + iy, ly) * sy + wrap(z0 + iz, lz) * lt +
+                         t0));
+            const size_t lo = p & ~size_t(15), hi = (p + cnt * 9 * sizeof(V)) & ~size_t(15);
+            if (hi > lo) prefetch_l2(reinterpret_cast<const void*>(lo), hi - lo);
+          }
+    for (int side = 0; side < 2; ++side) {
+      for (int iz = 0; iz < BZ; ++iz)
+        copy(S::yhalo(i & 1, side, iz), x, y0 - 1 + side * (BY + 1), z0 + iz);
+      for (int iy = 0; iy < BY; ++iy)
+        copy(S::zhalo(i & 1, side, iy), x, y0 + iy, z0 - 1 + side * (BZ + 1));
     }
-    __pipeline_wait_prior(0);
-    __syncthreads();
+  };
+  if (tid == 0) issue(0);
 
-    tile_dir<1, BY, BZ, BT>(acc, spsi, slink, u + 9 * (vol + x * slice), me, mel, s3, g, tid);
-    tile_dir<2, BY, BZ, BT>(acc, spsi, slink, u + 9 * (2 * vol + x * slice), me, mel, s3, g, tid);
-    tile_dir<3, BY, BZ, BT>(acc, spsi, slink, u + 9 * (3 * vol + x * slice), me, mel, s3, g, tid);
+  const int a = tid % 3, it = tid / 3 % ts, iz = tid / (3 * ts) % BZ, iy = tid / (3 * ts * BZ);
+  const bool valid = y0 + iy < ly && z0 + iz < lz && it < cnt;
+  const int y = wrap(y0 + iy, ly), z = wrap(z0 + iz, lz), t = wrap(t0 + it, lt);
+  const int s3 = y * sy + z * lt + t;  // the site within its slice
+  const int by = s3 + (y == 0 ? ly - 1 : -1) * sy, bz = s3 + (z == 0 ? lz - 1 : -1) * lt;
+  const int tf = t + 1 == lt ? 0 : t + 1, tb = t == 0 ? lt - 1 : t - 1;
+  const bool fin = tf - t0 >= 0 && tf - t0 < cnt, bin = tb - t0 >= 0 && tb - t0 < cnt;
+  // the spinor held at index j of row slot `slot`
+  auto nb = [&](int slot, int j) { return rows + 12 * (slot * ts + j); };
+
+  // the -x term of the chunk's first slice, colour a of U_0(x-1)^dag (1 + g_0) psi(x-1)
+  V carry[2];
+  {
+    const int xm = xs == 0 ? lx - 1 : xs - 1;
+    V site[12], half[2][3], ul[3];
+    load_link_line<true>(u + 9 * (xm * slice + s3), a, ul);
+    load_site(psi + 12 * (xm * slice + s3), site);
+    project<0, true>(site, half);
+    lane_mul<true>(ul, half, carry);
+  }
+
+  for (int i = 0; i < steps; ++i) {
+    const int x = xs + i, o = x * slice + s3;
+    if (i > 0) __syncthreads();  // every thread is done with step i - 1's slots
+    if (tid == 0 && i + 1 < steps) issue(i + 1);
+    V uf[3], ub[3];  // the x links' loads overlap the wait for the copies
+    load_link_line<false>(u + 9 * o, a, uf);
+    load_link_line<true>(u + 9 * o, a, ub);
+    V acc[4];
+#pragma unroll
+    for (int sp = 0; sp < 4; ++sp) acc[sp] = V{R(0), R(0)};
+    lane_rebuild<0, true>(acc, carry);
+    mbar_wait(&bar[i & 1], (i >> 1) & 1);
+
+    const int cur = S::own(i % 3, iy, iz);
+    // x: psi(x + 1) from the next slice's own row; the carry for step i + 1 from psi(x)
+    lane_hop<0, false>(acc, nb(S::own((i + 1) % 3, iy, iz), it), uf);
+    {
+      V site[12], half[2][3];
+      load_site(nb(cur, it), site);
+      project<0, true>(site, half);
+      lane_mul<true>(ub, half, carry);
+    }
+    // y: a row of the tile or a halo row
+    load_link_line<false>(u + 9 * (vol + o), a, uf);
+    load_link_line<true>(u + 9 * (vol + x * slice + by), a, ub);
+    lane_hop<1, false>(acc, nb(iy + 1 < BY ? S::own(i % 3, iy + 1, iz) : S::yhalo(i & 1, 1, iz), it),
+                       uf);
+    lane_hop<1, true>(acc, nb(iy > 0 ? S::own(i % 3, iy - 1, iz) : S::yhalo(i & 1, 0, iz), it), ub);
+    // z
+    load_link_line<false>(u + 9 * (2 * vol + o), a, uf);
+    load_link_line<true>(u + 9 * (2 * vol + x * slice + bz), a, ub);
+    lane_hop<2, false>(acc, nb(iz + 1 < BZ ? S::own(i % 3, iy, iz + 1) : S::zhalo(i & 1, 1, iy), it),
+                       uf);
+    lane_hop<2, true>(acc, nb(iz > 0 ? S::own(i % 3, iy, iz - 1) : S::zhalo(i & 1, 0, iy), it), ub);
+    // t: in the own row's segment (which wraps when it is the whole row), else device memory
+    load_link_line<false>(u + 9 * (3 * vol + o), a, uf);
+    load_link_line<true>(u + 9 * (3 * vol + o - t + tb), a, ub);
+    lane_hop<3, false>(acc, fin ? nb(cur, tf - t0) : psi + 12 * (o - t + tf), uf);
+    lane_hop<3, true>(acc, bin ? nb(cur, tb - t0) : psi + 12 * (o - t + tb), ub);
 
     if (valid) {
-      V* o = out + 12 * (x * slice + s3);
+      const V* p = nb(cur, it) + a;
+      V* q = out + 12 * o + a;
 #pragma unroll
-      for (int sp = 0; sp < 4; ++sp)
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const V v = own[3 * sp + c];
-          o[3 * sp + c] = V{v.x - kappa * acc[sp][c].x, v.y - kappa * acc[sp][c].y};
-        }
+      for (int sp = 0; sp < 4; ++sp) {
+        const V v = p[3 * sp];
+        q[3 * sp] = V{v.x - kappa * acc[sp].x, v.y - kappa * acc[sp].y};
+      }
     }
   }
 }
 
-// Launch on a grid of (y, z, t) tiles times x chunks: the x extent is cut into chunks until
-// there are about two blocks per SM, where the slices allow it.
-template <typename R, int BY, int BZ, int BT>
+// Launch one wave: t is cut into the fewest segments of at most TSMAX sites, and x into the
+// fewest chunks that give every block the card holds at once a chunk.
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH>
 int launch(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
            double kappa, void* stream) {
   using V = typename Vec<R>::type;
-  constexpr int smem =
-      sizeof(V) * (12 * (BY + 2) * (BZ + 2) * (BT + 2) + 9 * (BY + 1) * (BZ + 1) * (BT + 1));
-  static int sms = 0;
-  if (sms == 0) {
-    cudaError_t err = cudaFuncSetAttribute(wilson_window_kernel<R, BY, BZ, BT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem_max = Ring<BY, BZ>::ROWS * 12 * TSMAX * sizeof(V);
+  auto* kernel = wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH>;
+  // once per device: opt in to the shared memory and read how many blocks the card holds at
+  // once (threads that race here set and read the same values twice, which is harmless)
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<int> resident[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int held = dev < MAX_DEVICES ? resident[dev].load(std::memory_order_acquire) : 0;
+  if (held == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    int sms = 0, per_sm = 0;
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 3 * BY * BZ * TSMAX,
+                                                          smem_max);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int dev = 0;
-    cudaGetDevice(&dev);
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm == 0) return -1;
+    held = sms * per_sm;
+    if (dev < MAX_DEVICES) resident[dev].store(held, std::memory_order_release);
   }
-  const int tiles = ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * ((lt + BT - 1) / BT);
-  int nchunk = (2 * sms + tiles - 1) / tiles;
+  const int nts = (lt + TSMAX - 1) / TSMAX, ts = (lt + nts - 1) / nts;
+  const int tiles = ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * nts;
+  int nchunk = held / tiles;
   nchunk = nchunk < 1 ? 1 : nchunk > lx ? lx : nchunk;
   const int chunk = (lx + nchunk - 1) / nchunk;
   nchunk = (lx + chunk - 1) / chunk;
-  const dim3 grid(tiles, nchunk), block(BT, BZ, BY);
-  wilson_window_kernel<R, BY, BZ, BT><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int smem = Ring<BY, BZ>::ROWS * 12 * ts * static_cast<int>(sizeof(V));
+  kernel<<<tiles * nchunk, 3 * BY * BZ * ts, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const V*>(u), static_cast<const V*>(psi), static_cast<V*>(out), lx, ly, lz, lt,
-      chunk, static_cast<R>(kappa));
+      ts, chunk, static_cast<R>(kappa));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes). Each returns cudaGetLastError() after the launch.
-// Tiles: 2 x 4 x 16 sites (128 threads, 60 KB of shared memory) at complex64; 2 x 4 x 8
-// (64 threads, 65 KB) at complex128, whose spinor box with its halo is twice as large.
+// Plain C entry points (loaded with ctypes). Each returns cudaGetLastError() after the launch,
+// a CUDA error if the set-up failed, or -1 if no block of the tile fits on the device. psi
+// must be 16-byte aligned.
 extern "C" {
 
 int wilson_window_c64(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
                       double kappa, void* stream) {
-  return launch<float, 2, 4, 16>(u, psi, out, lx, ly, lz, lt, kappa, stream);
+  return launch<float, WILSON_WINDOW_TILE_C64>(u, psi, out, lx, ly, lz, lt, kappa, stream);
 }
 
 int wilson_window_c128(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
                        double kappa, void* stream) {
-  return launch<double, 2, 4, 8>(u, psi, out, lx, ly, lz, lt, kappa, stream);
+  return launch<double, WILSON_WINDOW_TILE_C128>(u, psi, out, lx, ly, lz, lt, kappa, stream);
 }
 
 }  // extern "C"

@@ -173,6 +173,8 @@ def _check(psi, *links, kernel="wilson_hop"):
             raise TypeError(f"{kernel} fields must share device and dtype")
         if not t.is_contiguous():
             raise ValueError(f"{kernel} fields must be contiguous")
+    if psi.data_ptr() % 16:  # the bulk copies of wilson_hop_packed and wilson_window
+        raise ValueError(f"{kernel} needs a 16-byte aligned spinor")
     for u in links:
         if tuple(u.shape) != want:
             raise ValueError(f"links must be {want}, got {tuple(u.shape)}")

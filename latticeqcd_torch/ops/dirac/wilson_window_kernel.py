@@ -2,11 +2,13 @@
 
 Replaces the Pallas kernel dslash_planes_window of
 latticeqcd_tpu/ops/dirac/wilson_pallas.py (see csrc/wilson_window.cu for
-the design and what bounds it): D psi = psi - kappa H psi on the full
-lattice [X,Y,Z,T,4,NC], r = 1, csw = 0, boundary phases already in the
-links. It is what ``WilsonDirac.apply`` runs at r = 1: the Wilson Dirac
-spectrum (Lanczos on D^dag D) and the full-volume CGNE of the fermionic
-measurements on lattices with an odd extent.
+the design and what bounds it: three lanes per site, blocks of whole
+(y, z) rows marching along x with their spinor rows staged by bulk
+copies): D psi = psi - kappa H psi on the full lattice [X,Y,Z,T,4,NC],
+r = 1, csw = 0, boundary phases already in the links. It is what
+``WilsonDirac.apply`` runs at r = 1: the Wilson Dirac spectrum (Lanczos
+on D^dag D) and the full-volume CGNE of the fermionic measurements on
+lattices with an odd extent.
 
 ``wilson_window`` goes through ``wilson_kernel.WilsonDslash``, the
 autograd Function of the full D, with this module's launch: the spinor

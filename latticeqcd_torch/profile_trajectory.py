@@ -17,7 +17,7 @@ median of 5 such batches). With --measurements it does the same for
 each fermionic measurement method of chip_smoke.py's measurement path
 (Wilson pion correlator, Wilson and staggered chiral condensate with
 Nr = 10, Wilson Dirac spectrum, 8 values from 48 Lanczos steps) on the
-hot start, complex64. Kernel
+hot start, complex64, with the traced call's result (``value``). Kernel
 events are read from the exported chrome trace (kept in DIR if asked,
 else deleted after reading: a trajectory's trace is tens of MB), summed
 by kernel name and by class, and set against the traced wall time to
@@ -181,6 +181,13 @@ MEASUREMENT_METHODS = [
 ]
 
 
+def _values(value) -> list:
+    """A method's result as a flat list of floats (for the condensate, pbp first)."""
+    if isinstance(value, tuple):
+        return [float(value[0])] + [float(v) for v in value[1]]
+    return [float(v) for v in value]
+
+
 def profile_measurements(lattice, keep_dir=None, repeat: int = 1) -> list:
     """One record per method: a warm-up call (itrj 0), `repeat` untraced calls
     (itrj 1) for their host-clock times, a traced call (itrj 2)."""
@@ -197,6 +204,7 @@ def profile_measurements(lattice, keep_dir=None, repeat: int = 1) -> list:
             "method": meas.name, "dirac": op, "lattice": list(lattice), "dtype": "complex64",
             "device": torch.cuda.get_device_name(0), **untraced, **breakdown,
             "iterations": sum(c["iterations"] for c in meas.solves or []),
+            "value": _values(meas.value),
         })
     return out
 

@@ -61,6 +61,7 @@ inline void mbar_init(uint64_t*) {}
 inline void mbar_arrive_expect_tx(uint64_t*, unsigned) {}
 inline void bulk_copy_g2s(void* d, const void* s, unsigned n, uint64_t*) { std::memcpy(d, s, n); }
 inline void mbar_wait(uint64_t*, unsigned) { block_barrier->arrive_and_wait(); }
+inline void prefetch_l2(const void*, unsigned) {}
 """
 # run<R, BY, BZ, TSMAX, MINB>: the launch function's grid and block, one block at a time
 _HARNESS = """

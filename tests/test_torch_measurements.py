@@ -429,34 +429,11 @@ def test_window_never_falls_back_off_cpu():
         ww.wilson_window(u, psi, 0.12)
 
 
-# Mock CUDA headers under which the kernel body of csrc/wilson_window.cu compiles with g++:
-# one std::thread per CUDA thread, __syncthreads a barrier, cp.async a memcpy.
-_MOCK_RUNTIME = """#pragma once
-#include <algorithm>
-#include <barrier>
-#include <cstddef>
-#include <cstring>
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __shared__
-#define __align__(n) __attribute__((aligned(n)))
-#define __launch_bounds__(n)
-struct float2 { float x, y; };
-struct double2 { double x, y; };
-struct dim3 { unsigned x = 1, y = 1, z = 1; };
-inline thread_local dim3 threadIdx, blockIdx;
-inline std::barrier<>* block_barrier = nullptr;
-inline void __syncthreads() { block_barrier->arrive_and_wait(); }
-using std::min;
-"""
-_MOCK_PIPELINE = """#pragma once
-#include <cstring>
-inline void __pipeline_memcpy_async(void* d, const void* s, size_t n) { std::memcpy(d, s, n); }
-inline void __pipeline_commit() {}
-inline void __pipeline_wait_prior(size_t) {}
-"""
+# The kernel body of csrc/wilson_window.cu compiles with g++ against test_torch_hop_packed.py's
+# mock headers: one std::thread per CUDA thread, the bulk copies a memcpy, the mbarrier wait
+# and __syncthreads a std::barrier over the block's threads. Blocks run one after another.
+# run<R, BY, BZ, TSMAX, MINB, PREFETCH>: the launch function's t segments and block, x cut
+# into chunks of the given length.
 _HARNESS = """
 #include <cstdio>
 #include <cstdlib>
@@ -464,31 +441,31 @@ _HARNESS = """
 #include <vector>
 #include "body.inc"
 namespace { alignas(16) unsigned char smem[1 << 20]; }
-template <typename R, int BY, int BZ, int BT>
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH>
 int run(int lx, int ly, int lz, int lt, int chunk, double kappa) {
   using V = typename Vec<R>::type;
   const long vol = (long)lx * ly * lz * lt;
   std::vector<V> u(36 * vol), psi(12 * vol), out(12 * vol);
   if (fread(u.data(), sizeof(V), u.size(), stdin) != u.size()) return 1;
   if (fread(psi.data(), sizeof(V), psi.size(), stdin) != psi.size()) return 1;
-  const int tiles = ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * ((lt + BT - 1) / BT);
-  for (int bc = 0; bc < (lx + chunk - 1) / chunk; ++bc)
-    for (int bt = 0; bt < tiles; ++bt) {
-      std::barrier<> bar(BY * BZ * BT);
-      block_barrier = &bar;
-      std::memset(smem, 0xff, sizeof smem);  // a slot read before it is written shows as NaN
-      std::vector<std::thread> th;
-      for (int z = 0; z < BY; ++z)
-        for (int y = 0; y < BZ; ++y)
-          for (int x = 0; x < BT; ++x)
-            th.emplace_back([&, x, y, z] {
-              threadIdx = dim3{(unsigned)x, (unsigned)y, (unsigned)z};
-              blockIdx = dim3{(unsigned)bt, (unsigned)bc, 1};
-              wilson_window_kernel<R, BY, BZ, BT>(u.data(), psi.data(), out.data(), lx, ly, lz,
-                                                 lt, chunk, (R)kappa);
-            });
-      for (auto& t : th) t.join();
-    }
+  std::memset(out.data(), 0xff, out.size() * sizeof(V));  // a site never written shows as NaN
+  const int nts = (lt + TSMAX - 1) / TSMAX, ts = (lt + nts - 1) / nts;
+  const int blocks = ((lx + chunk - 1) / chunk) * ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * nts;
+  const int threads = 3 * BY * BZ * ts;
+  for (int b = 0; b < blocks; ++b) {
+    std::barrier<> bar(threads);
+    block_barrier = &bar;
+    std::memset(smem, 0xff, sizeof smem);  // a slot read before it is copied shows as NaN
+    std::vector<std::thread> th;
+    for (int tid = 0; tid < threads; ++tid)
+      th.emplace_back([&, tid] {
+        threadIdx = dim3{(unsigned)tid, 1, 1};
+        blockIdx = dim3{(unsigned)b, 1, 1};
+        wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH>(u.data(), psi.data(), out.data(),
+                                                               lx, ly, lz, lt, ts, chunk, (R)kappa);
+      });
+    for (auto& t : th) t.join();
+  }
   fwrite(out.data(), sizeof(V), out.size(), stdout);
   return 0;
 }
@@ -496,8 +473,13 @@ int main(int argc, char** argv) {
   int l[5];
   for (int i = 0; i < 5; ++i) l[i] = atoi(argv[i + 1]);
   const double kappa = atof(argv[6]);
-  return atoi(argv[7]) ? run<double, 2, 4, 8>(l[0], l[1], l[2], l[3], l[4], kappa)
-                       : run<float, 2, 4, 16>(l[0], l[1], l[2], l[3], l[4], kappa);
+  const int c128 = atoi(argv[7]), tile = atoi(argv[8]);
+  if (tile == 0)  // the tiles of the C entry points
+    return c128 ? run<double, WILSON_WINDOW_TILE_C128>(l[0], l[1], l[2], l[3], l[4], kappa)
+                : run<float, WILSON_WINDOW_TILE_C64>(l[0], l[1], l[2], l[3], l[4], kappa);
+  // 2 x 2 rows over t segments of at most 4 sites
+  return c128 ? run<double, 2, 2, 4, 1, true>(l[0], l[1], l[2], l[3], l[4], kappa)
+              : run<float, 2, 2, 4, 1, true>(l[0], l[1], l[2], l[3], l[4], kappa);
 }
 """
 
@@ -506,37 +488,59 @@ int main(int argc, char** argv) {
 def window_body_exe(tmp_path_factory):
     """The kernel body of csrc/wilson_window.cu (the file up to its launch
     function), compiled for the CPU with g++ against the mock headers."""
+    from test_torch_hop_packed import _MOCK_RUNTIME, _MOCK_TMA
+
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
     d = tmp_path_factory.mktemp("window")
     (d / "cuda_runtime.h").write_text(_MOCK_RUNTIME)
-    (d / "cuda_pipeline.h").write_text(_MOCK_PIPELINE)
+    (d / "tma.h").write_text(_MOCK_TMA)
     src = open(os.path.join(CSRC, "wilson_window.cu")).read()
-    (d / "body.inc").write_text(src[:src.index("// Launch on a grid")] + "}  // namespace\n")
+    (d / "body.inc").write_text(src[:src.index("// Launch one wave")] + "}  // namespace\n")
     (d / "harness.cpp").write_text(_HARNESS)
     exe = d / "harness"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", "-I", str(d), "-I", CSRC,
-                    str(d / "harness.cpp"), "-o", str(exe)], check=True)
+    subprocess.run([cxx, "-std=c++20", "-O1", "-fno-strict-aliasing", "-pthread", "-I", str(d),
+                    "-I", CSRC, str(d / "harness.cpp"), "-o", str(exe)], check=True)
     return str(exe)
 
 
-@pytest.mark.parametrize("lat,chunk", [((4, 8, 2, 2), 1), ((3, 5, 2, 6), 2), ((2, 1, 9, 3), 2)],
-                         ids=["T2", "odd", "extent1"])
-@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
-def test_window_kernel_body_on_the_cpu(window_body_exe, lat, chunk, dtype):
-    """The CUDA kernel's own body, run on the CPU thread by thread, against
-    the plain D: tiles that exceed, do not divide or wrap onto an extent,
-    T = 2, extent 1, and x cut into chunks."""
+def _window_body(exe, lat, chunk, dtype, tile):
+    """The kernel body's D on a seeded field against the plain D."""
     tdt = getattr(torch, dtype)
     u = tw.apply_boundary_phases(_links(lat, seed=sum(lat))[1]).to(tdt)
     psi = torch.randn(lat + (4, 3), dtype=tdt, generator=torch.Generator().manual_seed(3))
     out = subprocess.run(
-        [window_body_exe, *map(str, lat), str(chunk), "0.13", str(int(dtype == "complex128"))],
+        [exe, *map(str, lat), str(chunk), "0.13", str(int(dtype == "complex128")), str(tile)],
         input=to_numpy(u).tobytes() + to_numpy(psi).tobytes(), capture_output=True, check=True)
     got = np.frombuffer(out.stdout, dtype=np.dtype(dtype)).reshape(psi.shape)
     ref = to_numpy(wk.dslash_reference(u, psi, 0.13))
     assert float(np.abs(got - ref).max()) < (1e-12 if dtype == "complex128" else 1e-5)
+
+
+# T = 2; odd extents; extent 1; and an odd T = 19 that the complex128 entry tile (t segments of
+# at most 16) and the ragged tile (at most 4) cut into uneven segments, with one x chunk
+WINDOW_BODY_SHAPES = pytest.mark.parametrize(
+    "lat,chunk", [((4, 8, 2, 2), 1), ((3, 5, 2, 6), 2), ((2, 1, 9, 3), 2), ((3, 2, 3, 19), 3)],
+    ids=["T2", "odd", "extent1", "tcut"])
+
+
+@WINDOW_BODY_SHAPES
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_window_kernel_body_on_the_cpu(window_body_exe, lat, chunk, dtype):
+    """The CUDA kernel's own body, run on the CPU thread by thread, against
+    the plain D at the tiles of the C entry points: tiles that exceed, do
+    not divide or wrap onto an extent, T = 2, extent 1, t cut into segments
+    at complex128, and x cut into chunks."""
+    _window_body(window_body_exe, lat, chunk, dtype, tile=0)
+
+
+@WINDOW_BODY_SHAPES
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_window_kernel_body_at_a_ragged_tile(window_body_exe, lat, chunk, dtype):
+    """The same at 2 x 2 rows over t segments of at most 4 sites, which cut
+    every T above 4 into segments, the odd T = 19 unevenly."""
+    _window_body(window_body_exe, lat, chunk, dtype, tile=1)
 
 
 @pytest.mark.gpu
@@ -562,6 +566,11 @@ def test_window_kernel_matches_plain_on_gpu():
             gb_ = torch.autograd.grad(wk.dslash_reference(*leaves, 0.13), leaves, cot)
             for a, b in zip(ga_, gb_):
                 assert float((a - b).abs().max()) < bar
+    # the bulk copies need a 16-byte aligned spinor: a contiguous view 8 bytes in is refused
+    flat = torch.zeros(12 * 2 ** 4 + 1, dtype=torch.complex64, device=dev)
+    u = torch.zeros((4, 2, 2, 2, 2, 3, 3), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        ww.wilson_window(u, flat[1:].view(2, 2, 2, 2, 4, 3), 0.13)
 
 
 @pytest.mark.gpu
