@@ -21,9 +21,11 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      2 trajectories, with the Wilson kernels' launch counts set to 0 just before and read just
      after: wilson_hop_packed must have run, wilson_hop's packed mode never;
   7. staggered_w against its plain version at 4^4, 4x8x2x2, 2x4x2x6, 4x2x6x2 (extent-2 y and
-     T), 8x6x10x4 (extents the fused W's tile does not divide) and 16^3x32 in both types: the
-     packed hop for both target parities, the two-launch W of the paths, the backward of
-     StaggeredHopPacked, and the one-launch W (staggered_w_fused, thread-block clusters);
+     T), 8x6x10x4 (extents the fused W's tile does not divide), 12^3x8 and 16^3x32 in both
+     types at mass 0.5 on hot links, and on phase 16's inputs (the links of pbp56_ckpt.npz
+     with the boundary phases, m = 0.025): the packed hop for both target parities, the
+     two-launch W of the paths, the backward of StaggeredHopPacked, and the one-launch W
+     (staggered_w_fused, thread-block clusters);
   8. timing of staggered_w (W and one hop) and of staggered_w_fused at 16^3x32, as phase 4,
      beside the W's bound; the one-launch and the two-launch W also in turns (fused,
      two-launch, two-launch, fused);
@@ -46,7 +48,22 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      the Wilson Dirac spectrum at itrj 0 and 1; every kernel's launch count set to 0 just
      before and read just after (wilson_hop's packed mode and staggered_w_fused must stay at
      0), each method's
-     seconds, iterations and launches printed.
+     seconds, iterations and launches printed;
+ 15. configurations on disk at 16^3x32 complex64, the phase-6 Wilson action from a cold start:
+     run_lqcd_params for 2 trajectories saving ILDG, and again saving NPZ; every saved file
+     (and checkpoint.npz) loads back bit for bit equal to the links the run held; BridgeText
+     round-trips through io on the same links, and JLD too if h5py imports (else its clear
+     error is checked); a Fileloading run over the ILDG files measures Plaquette (bit for bit
+     the HMC run's lines) and a Wilson Chiral_condensate; 4 trajectories straight against the
+     NPZ run resumed from its checkpoint for 2 more, bit for bit (links, dH, the saved file
+     and the Plaquette series the resumed run appends to); save and load seconds per
+     format and the file sizes printed; wilson_hop_packed's launches counted per run;
+ 16. the pbp anchor, short: an NPZ file start from PERF_CAPTURE/pbp56_ckpt.npz (the JAX chain's
+     thermalised beta = 5.6 state, 12^3x8), Nf=4 staggered at m = 0.025 with 35 MD steps of
+     1/35, complex64, 2 trajectories and Chiral_condensate (Nr=2) at itrj 0 and 2; it fails if
+     a solve hits its limit, dH is not finite, a plaquette lies outside 0.575-0.589 or a pbp
+     outside 0.1239-0.1467; seconds per trajectory, CG iterations per solve and staggered_w
+     launches printed.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -78,9 +95,10 @@ LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (2, 4, 2, 6), (4, 2, 6, 2), (8, 6, 10, 4
 WINDOW_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 4), (4, 8, 2, 2), (3, 5, 2, 6), (2, 1, 9, 3),
                    (5, 6, 9, 30), (16, 16, 16, 32)]
 # staggered_w_fused: its 8 x 4 x 4-row cluster tile (2 x 2 x 2 rows a block) wraps onto itself
-# or does not divide x', y or z in all but the last, and cuts T = 32 at complex128
+# or does not divide x', y or z in all but the last, and cuts T = 32 at complex128; 12^3x8 is
+# the pbp anchor's lattice (phase 16)
 STAGGERED_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 2), (2, 4, 2, 6), (4, 2, 6, 2), (8, 6, 10, 4),
-                      (16, 16, 16, 32)]
+                      (12, 12, 12, 8), (16, 16, 16, 32)]
 MAIN = (16, 16, 16, 32)
 KAPPA = 0.141139
 MASS = 0.5
@@ -448,42 +466,63 @@ def _packed_links(torch, lat, dtype, seed):
     return eo_pack.pack_links(u, lat), g
 
 
+def _staggered_checks(torch, sk, u_e, u_o, x, cot, mass, tag, bar):
+    """The two-launch W, the one-launch W and the packed hop of both target parities with
+    its backward, each against its plain version on the same inputs."""
+    ref = sk.staggered_w_reference(u_e, u_o, x, mass)
+    got = sk.staggered_w(u_e, u_o, x, mass)
+    torch.cuda.synchronize()
+    check(f"W {tag}", maxdiff(got, ref), bar, "staggered_w")
+    before = sk.fused_launches
+    got = sk.staggered_w_fused(u_e, u_o, x, mass)
+    torch.cuda.synchronize()
+    if sk.fused_launches != before + 1:
+        fail("staggered_w_fused did not launch")
+    check(f"one-launch W {tag}", maxdiff(got, ref), bar, "staggered_w_fused")
+    for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
+        got = sk.staggered_hop_packed(u_t, u_s, x, parity)
+        torch.cuda.synchronize()
+        ref = sk.staggered_hop_packed_reference(u_t, u_s, x, parity)
+        check(f"hop p={parity} {tag}", maxdiff(got, ref), bar, "staggered_w")
+        leaves = [t.detach().clone().requires_grad_(True) for t in (u_t, u_s, x)]
+        grads_k = torch.autograd.grad(sk.staggered_hop_packed(*leaves, parity), leaves, cot)
+        grads_p = torch.autograd.grad(sk.staggered_hop_packed_reference(*leaves, parity),
+                                      leaves, cot)
+        torch.cuda.synchronize()
+        for gname, a, b in zip(("u_t", "u_s", "psi"), grads_k, grads_p):
+            check(f"hop backward d{gname} p={parity} {tag}", maxdiff(a, b), bar, "staggered_w")
+
+
 def phase_staggered_kernels(torch):
     print("== 7. staggered_w against its plain version", flush=True)
+    from latticeqcd_torch import validation_pbp
+    from latticeqcd_torch.io import load_u
+    from latticeqcd_torch.ops.dirac import eo_pack
     from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac.wilson import apply_boundary_phases
 
     for lat in STAGGERED_LATTICES:
         half = (lat[0] // 2,) + lat[1:] + (3,)
         for dtype in (torch.complex64, torch.complex128):
             name = str(dtype).split(".")[1]
-            bar = BARS[name]
-            tag = f"{'x'.join(map(str, lat))} {name}"
             (u_e, u_o), g = _packed_links(torch, lat, dtype, seed=sum(lat) + 1)
             x = torch.randn(half, dtype=dtype, device=u_e.device, generator=g)
             cot = torch.randn(half, dtype=dtype, device=u_e.device, generator=g)
-            ref = sk.staggered_w_reference(u_e, u_o, x, MASS)
-            got = sk.staggered_w(u_e, u_o, x, MASS)
-            torch.cuda.synchronize()
-            check(f"W {tag}", maxdiff(got, ref), bar, "staggered_w")
-            before = sk.fused_launches
-            got = sk.staggered_w_fused(u_e, u_o, x, MASS)
-            torch.cuda.synchronize()
-            if sk.fused_launches != before + 1:
-                fail("staggered_w_fused did not launch")
-            check(f"one-launch W {tag}", maxdiff(got, ref), bar, "staggered_w_fused")
-            for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
-                got = sk.staggered_hop_packed(u_t, u_s, x, parity)
-                torch.cuda.synchronize()
-                ref = sk.staggered_hop_packed_reference(u_t, u_s, x, parity)
-                check(f"hop p={parity} {tag}", maxdiff(got, ref), bar, "staggered_w")
-                leaves = [t.detach().clone().requires_grad_(True) for t in (u_t, u_s, x)]
-                grads_k = torch.autograd.grad(sk.staggered_hop_packed(*leaves, parity), leaves, cot)
-                grads_p = torch.autograd.grad(sk.staggered_hop_packed_reference(*leaves, parity),
-                                              leaves, cot)
-                torch.cuda.synchronize()
-                for gname, a, b in zip(("u_t", "u_s", "psi"), grads_k, grads_p):
-                    check(f"hop backward d{gname} p={parity} {tag}", maxdiff(a, b), bar,
-                          "staggered_w")
+            tag = f"{'x'.join(map(str, lat))} {name}"
+            _staggered_checks(torch, sk, u_e, u_o, x, cot, MASS, tag, BARS[name])
+    # the pbp anchor's inputs (phase 16): the JAX chain's thermalised beta = 5.6 links with the
+    # staggered boundary phases, m = 0.025
+    lat = validation_pbp.LAT
+    half = (lat[0] // 2,) + lat[1:] + (3,)
+    for dtype in (torch.complex64, torch.complex128):
+        name = str(dtype).split(".")[1]
+        u = apply_boundary_phases(load_u(validation_pbp.checkpoint_path(5.6), dtype, "cuda"))
+        u_e, u_o = eo_pack.pack_links(u, lat)
+        g = torch.Generator(device=u.device).manual_seed(56)
+        x = torch.randn(half, dtype=dtype, device=u.device, generator=g)
+        cot = torch.randn(half, dtype=dtype, device=u.device, generator=g)
+        _staggered_checks(torch, sk, u_e, u_o, x, cot, validation_pbp.MASS,
+                          f"pbp56_ckpt.npz m={validation_pbp.MASS} {name}", BARS[name])
 
 
 def phase_staggered_timing(torch):
@@ -888,10 +927,299 @@ def phase_measurement_path(torch):
         fail("the measurement path launched staggered_w_fused, which no path calls")
 
 
+def _bits(t):
+    """A complex tensor's bits as integers of its real type's width."""
+    import torch
+
+    return torch.view_as_real(t).view(torch.int32 if t.dtype == torch.complex64 else torch.int64)
+
+
+def check_same(label: str, a, b):
+    """Fail unless two link tensors are equal bit for bit."""
+    import torch
+
+    STATE["checks"] += 1
+    ok = a.shape == b.shape and a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+    print(f"  {'ok  ' if ok else 'FAIL'} {label}: {'bit for bit equal' if ok else 'NOT equal'}",
+          flush=True)
+    if not ok:
+        fail(f"{label}: not bit for bit equal")
+
+
+def _disk_params(**kw):
+    from latticeqcd_torch.system.params import Params
+
+    base = dict(
+        L=MAIN, NC=3, beta=6.0, initial="cold", update_method="HMC", quench=False,
+        Dirac_operator="Wilson", hop=KAPPA, r=1.0, BoundaryCondition=(1, 1, 1, -1),
+        QPQ=True, dtau=0.02, MDsteps=10, Nsteps=2, eps=1e-12, MaxCGstep=3000,
+        randomseed=3, verboselevel=1,
+        measurement_methods=[{"methodname": "Plaquette", "measure_every": 1}],
+    )
+    base.update(kw)
+    return Params(**base)
+
+
+def _mb(path) -> str:
+    return f"{os.path.getsize(path) / 1e6:.1f} MB"
+
+
+def phase_disk(torch):
+    print("== 15. configurations on disk: run_lqcd_params at 16^3x32 Wilson HMC, complex64, cold "
+          "start, saving ILDG and NPZ; Fileloading; resume", flush=True)
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from latticeqcd_torch import io
+    from latticeqcd_torch.io import jld2
+    from latticeqcd_torch.measurements import scheduler
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.system import lqcd
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_disk_")
+    save = lqcd.Savedata.save
+    held, label = {}, [None]
+
+    def holding(self, u, itrj, generator=None):
+        seconds = save(self, u, itrj, generator)
+        if seconds is not None:
+            held[(label[0], itrj)] = u.clone()
+        return seconds
+
+    launches = {}
+
+    def run(name, p, **kw):
+        """run_lqcd_params with wilson_hop_packed's count set to 0 just before and read just
+        after; the links of every save are kept under name."""
+        label[0] = name
+        history = []
+        torch.cuda.synchronize()
+        wk.launches = 0
+        wk.site_launches.update(full=0, packed=0)
+        with mock.patch.object(lqcd.Savedata, "save", holding):
+            plaq = lqcd.run_lqcd_params(p, make_dirs=True, dtype=torch.complex64, device="cuda",
+                                        history=history, **kw)
+        torch.cuda.synchronize()
+        launches[name] = wk.launches
+        for rec in history:
+            dh = "" if rec["dH"] is None else f"dH {rec['dH']:.6f}  accepted {rec['accepted']}  "
+            saved = "" if rec["save_seconds"] is None else f"  saved in {rec['save_seconds']:.3f} s"
+            print(f"  {name} itrj {rec['itrj']}: {rec['seconds']:.3f} s  {dh}CG iterations "
+                  f"{sum(c['iterations'] for c in rec['cg'])}{saved}  [{STATE['smi']}]",
+                  flush=True)
+            if rec["dH"] is not None and not math.isfinite(rec["dH"]):
+                fail(f"{name}: non-finite dH {rec['dH']}")
+            if any(c["iterations"] >= p.MaxCGstep for c in rec["cg"]):
+                fail(f"{name}: a CG stopped at MaxCGstep")
+        if wk.launches == 0 or wk.site_launches["packed"]:
+            fail(f"{name}: wilson_hop_packed launched {wk.launches} times, wilson_hop's packed "
+                 f"mode {wk.site_launches['packed']}")
+        return plaq, history
+
+    def timed_load(fn, loader):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        u = loader(fn)
+        torch.cuda.synchronize()
+        return u, time.time() - t0
+
+    try:
+        lat, c64 = MAIN, dict(dtype=torch.complex64, device="cuda")
+        loaders = {"ILDG": lambda fn: io.load_ildg(fn, lat, 3, **c64),
+                   "NPZ": lambda fn: io.load_u(fn, **c64)}
+        runs = {}
+        for fmt, ext in (("ILDG", "ildg"), ("NPZ", "npz")):
+            d = os.path.join(tmp, fmt)
+            os.makedirs(d)
+            p = _disk_params(saveU_format=fmt, saveU_dir=d, saveU_every=1,
+                             measuredir=os.path.join(d, "measure"))
+            runs[fmt] = run(fmt, p)
+            if sum(r["accepted"] for r in runs[fmt][1]) == 0:
+                fail(f"{fmt}: no trajectory accepted from the cold start, the links never moved")
+            for itrj in (1, 2):
+                fn = os.path.join(d, f"conf_{itrj:08d}.{ext}")
+                u, seconds = timed_load(fn, loaders[fmt])
+                print(f"  {fmt} conf_{itrj:08d}.{ext}: {_mb(fn)}, saved in "
+                      f"{runs[fmt][1][itrj - 1]['save_seconds']:.3f} s (with checkpoint.npz), "
+                      f"loaded in {seconds:.3f} s", flush=True)
+                check_same(f"{fmt} conf_{itrj:08d} loaded against the links the run held", u,
+                           held[(fmt, itrj)])
+            ck = io.load_checkpoint(os.path.join(d, "checkpoint.npz"), **c64)
+            print(f"  {fmt} checkpoint.npz: {_mb(os.path.join(d, 'checkpoint.npz'))}, itrj "
+                  f"{ck['itrj']}, generator state {tuple(ck['torch_rng_state'].shape)}")
+            if ck["itrj"] != 2 or "torch_rng_state" not in ck:
+                fail(f"{fmt}: checkpoint.npz lacks itrj 2 or the generator state")
+            check_same(f"{fmt} checkpoint.npz links", ck["u"], held[(fmt, 2)])
+        check_same("the ILDG and the NPZ runs' links at itrj 2 (the same run twice)",
+                   held[("ILDG", 2)], held[("NPZ", 2)])
+
+        u = held[("ILDG", 2)]
+        round_trips = [("BridgeText", "txt", io.save_bridge_text,
+                        lambda fn: io.load_bridge_text(fn, lat, 3, **c64))]
+        if jld2.h5py is not None:
+            round_trips.append(("JLD", "jld2", io.save_jld2,
+                                lambda fn: io.load_jld2(fn, lat, 3, **c64)))
+        else:
+            STATE["checks"] += 1
+            try:
+                io.load_jld2(os.path.join(tmp, "conf.jld2"), lat, 3, **c64)
+                fail("load_jld2 without h5py did not raise ImportError")
+            except ImportError as exc:
+                print(f"  JLD: h5py does not import here; the clear error is raised: {exc}")
+                if "JLD2 I/O needs h5py" not in str(exc):
+                    fail("the JLD error without h5py does not say what it needs")
+        for fmt, ext, saver, loader in round_trips:
+            fn = os.path.join(tmp, f"conf.{ext}")
+            t0 = time.time()
+            saver(fn, u)
+            seconds = time.time() - t0
+            back, load_s = timed_load(fn, loader)
+            print(f"  {fmt} round trip through io{' (h5py imports)' if fmt == 'JLD' else ''}: "
+                  f"{_mb(fn)}, saved in {seconds:.3f} s, loaded in {load_s:.3f} s", flush=True)
+            check_same(f"{fmt} loaded against the links saved", back, u)
+
+        # Fileloading over the ILDG files: Plaquette and a Wilson Chiral_condensate
+        wilson = {"Dirac_operator": "Wilson", "hop": KAPPA}
+        maxcg = 3000
+        records = []
+        measure = scheduler.ChiralCondensateMeasurement.measure
+
+        def recorded(self, uu, itrj):
+            line = measure(self, uu, itrj)
+            records.append((itrj, self.value[0], list(self.solves)))
+            return line
+
+        fl = os.path.join(tmp, "fileloading")
+        p = _disk_params(update_method="Fileloading", loadU_format="ILDG",
+                         loadU_dir=os.path.join(tmp, "ILDG"), measuredir=fl,
+                         measurement_methods=[
+                             {"methodname": "Plaquette", "measure_every": 1},
+                             {"methodname": "Chiral_condensate", "measure_every": 1, "Nr": 2,
+                              "MaxCGstep": maxcg, "fermion_parameters": wilson}])
+        with mock.patch.object(scheduler.ChiralCondensateMeasurement, "measure", recorded):
+            _, fl_history = run("Fileloading", p)
+        if [r["itrj"] for r in fl_history] != [1, 2]:
+            fail(f"Fileloading ran {len(fl_history)} steps over 2 ILDG files")
+        for itrj, pbp, solves in records:
+            iters = [c["iterations"] for c in solves]
+            print(f"  Fileloading itrj {itrj}: Wilson pbp {pbp:.8g}, CG iterations {iters}")
+            if not math.isfinite(pbp) or any(i >= maxcg for i in iters):
+                fail("the Fileloading Chiral_condensate is not finite or hit MaxCGstep")
+        hmc_lines = open(os.path.join(tmp, "ILDG", "measure", "Plaquette.txt")).read()
+        fl_lines = open(os.path.join(fl, "Plaquette.txt")).read()
+        STATE["checks"] += 1
+        print(f"  Fileloading Plaquette.txt against the HMC run's: {fl_lines.splitlines()}")
+        if fl_lines != hmc_lines:
+            fail(f"the Fileloading plaquettes differ from the HMC run's:\n{hmc_lines}")
+
+        # resume: 4 trajectories straight against the NPZ run resumed for 2 more
+        for name, kw, d in (("straight", {}, os.path.join(tmp, "straight")),
+                            ("resumed", {"resume_checkpoint": os.path.join(tmp, "NPZ",
+                                                                           "checkpoint.npz")},
+                             os.path.join(tmp, "NPZ"))):
+            os.makedirs(d, exist_ok=True)
+            # the resumed run appends to the series of the NPZ run it continues
+            p = _disk_params(Nsteps=4, saveU_format="NPZ", saveU_dir=d, saveU_every=2,
+                             measuredir=os.path.join(d, "measure"))
+            runs[name] = run(name, p, **kw)
+        if [r["itrj"] for r in runs["resumed"][1]] != [3, 4]:
+            fail("the resumed run did not continue at itrj 3")
+        dh_straight = [r["dH"] for r in runs["straight"][1]]
+        dh_resumed = [r["dH"] for r in runs["NPZ"][1] + runs["resumed"][1]]
+        print(f"  dH straight {dh_straight}; 2 + resumed 2 {dh_resumed}")
+        STATE["checks"] += 1
+        if dh_straight != dh_resumed:
+            fail("the resumed trajectories' dH differ from the straight run's")
+        check_same("links at itrj 4: 4 straight against 2 + resume 2", held[("resumed", 4)],
+                   held[("straight", 4)])
+        check_same("conf_00000004.npz: straight against resumed",
+                   io.load_u(os.path.join(tmp, "straight", "conf_00000004.npz"), **c64),
+                   io.load_u(os.path.join(tmp, "NPZ", "conf_00000004.npz"), **c64))
+        series = {n: open(os.path.join(tmp, n, "measure", "Plaquette.txt")).read()
+                  for n in ("straight", "NPZ")}
+        print(f"  Plaquette.txt of 2 + resumed 2: {series['NPZ'].splitlines()}")
+        STATE["checks"] += 1
+        if series["NPZ"] != series["straight"]:
+            fail(f"the resumed Plaquette series differs from the straight run's:\n"
+                 f"{series['straight']}")
+        STATE["launches"].setdefault("wilson_hop_packed", {})["configurations on disk"] = \
+            sum(launches.values())
+        print(f"  wilson_hop_packed launches per run: {launches}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_anchor(torch):
+    print("== 16. the Nf=4 staggered pbp anchor, short: 12^3x8 from pbp56_ckpt.npz, m = 0.025, "
+          "2 trajectories", flush=True)
+    import shutil
+    import tempfile
+
+    from latticeqcd_torch import validation_pbp
+    from latticeqcd_torch.measurements import scheduler
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_anchor_")
+    records = []
+    measure = scheduler.ChiralCondensateMeasurement.measure
+
+    def recorded(self, u, itrj):
+        line = measure(self, u, itrj)
+        records.append((itrj, self.value[0], list(self.solves)))
+        return line
+
+    try:
+        p = validation_pbp.anchor_params(5.6, 2, tmp)
+        history = []
+        torch.cuda.synchronize()
+        sk.launches = sk.w_launches = sk.fused_launches = 0
+        with mock.patch.object(scheduler.ChiralCondensateMeasurement, "measure", recorded):
+            run_lqcd_params(p, make_dirs=True, dtype=torch.complex64, device="cuda",
+                            history=history)
+        torch.cuda.synchronize()
+        counts = (sk.launches, sk.w_launches, sk.fused_launches)
+        plaq_lines = open(os.path.join(tmp, "Plaquette.txt")).read().split("\n")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    STATE["launches"].setdefault("staggered_w", {})["pbp anchor"] = counts[0]
+    for rec in history:
+        iters = [c["iterations"] for c in rec["cg"]]
+        print(f"  trajectory {rec['itrj']}: {rec['seconds']:.3f} s  dH {rec['dH']:.6f}  accepted "
+              f"{rec['accepted']}  plaquette {rec['plaq']:.8f}  CG {sum(iters)} iterations in "
+              f"{len(iters)} solves ({sum(iters) / max(len(iters), 1):.1f} per solve, most "
+              f"{max(iters, default=0)})  [{STATE['smi']}]", flush=True)
+        if not math.isfinite(rec["dH"]):
+            fail(f"non-finite dH {rec['dH']}")
+        if any(i >= p.MaxCGstep for i in iters):
+            fail(f"an HMC solve stopped at MaxCGstep {p.MaxCGstep}")
+    plaqs = [float(line.split()[1]) for line in plaq_lines if line.strip()]
+    for itrj, pbp, solves in records:
+        iters = [c["iterations"] for c in solves]
+        print(f"  itrj {itrj}: pbp {pbp:.8f} (Nr=2; CG iterations {iters})", flush=True)
+        if any(i >= 4000 for i in iters):
+            fail("a Chiral_condensate solve stopped at MaxCGstep 4000")
+        STATE["checks"] += 1
+        if not 0.1239 <= pbp <= 0.1467:
+            fail(f"pbp {pbp} outside 0.1239-0.1467 (the JAX series' mean +- 5 std)")
+    print(f"  plaquettes {plaqs}; staggered_w launches {counts[0]} ({counts[1]} of the two-launch "
+          f"W), staggered_w_fused {counts[2]}")
+    STATE["checks"] += 1
+    if len(history) != 2 or len(records) != 2 or len(plaqs) != 3:
+        fail("the anchor did not run 2 trajectories with measurements at itrj 0 and 2")
+    if not all(0.575 <= x <= 0.589 for x in plaqs + [r["plaq"] for r in history]):
+        fail(f"a plaquette lies outside 0.575-0.589: {plaqs}")
+    if counts[1] == 0 or counts[2]:
+        fail("the anchor did not run the two-launch staggered W, or ran the one-launch W")
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
           phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
-          phase_window, phase_window_timing, phase_measurement_agreement, phase_measurement_path]
+          phase_window, phase_window_timing, phase_measurement_agreement, phase_measurement_path,
+          phase_disk, phase_anchor]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line

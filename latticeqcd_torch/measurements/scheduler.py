@@ -162,7 +162,9 @@ class MeasurementSet:
     measurements: List[Measurement] = field(default_factory=list)
 
     @classmethod
-    def from_methods(cls, method_dicts, measuredir: Optional[str] = None):
+    def from_methods(cls, method_dicts, measuredir: Optional[str] = None, append: bool = False):
+        """One measurement per method dict, each writing <measuredir>/<methodname>.txt
+        (appending to it if ``append``, as a resumed run does)."""
         ms = []
         for method in method_dicts or []:
             name = method.get("methodname")
@@ -172,7 +174,7 @@ class MeasurementSet:
             fp = None
             if measuredir is not None:
                 os.makedirs(measuredir, exist_ok=True)
-                fp = open(os.path.join(measuredir, f"{name}.txt"), "w")
+                fp = open(os.path.join(measuredir, f"{name}.txt"), "a" if append else "w")
             interval = int(method.get("measure_every", 1))
             ms.append(_REGISTRY[name](name=name, interval=interval, params=dict(method), fp=fp))
         return cls(measurements=ms)

@@ -1,12 +1,15 @@
-"""The simulation run: trajectory loop and measurements.
+"""The simulation run: trajectory loop, saving and measurements.
 
 Counterpart of latticeqcd_tpu/system/lqcd.py for the ported slices: build
-the universe and the HMC updater from Params, check a staggered action's
-rational window against the spectrum of W (the RHMC guard), run trajectories
-initialtrj..Nsteps, print the same verbose lines (dH and accept per
-trajectory, acceptance so far) plus the plaquette, measure, and return
-the final mean plaquette. The device is explicit (``cuda`` by default);
-a run never moves to another one.
+the universe and the updater (HMC, or Fileloading over stored
+configurations) from Params, optionally resume from a checkpoint, check a
+staggered action's rational window against the spectrum of W (the RHMC
+guard), run steps initialtrj..Nsteps (under Fileloading one per stored
+configuration), print the same verbose lines (dH and accept per
+trajectory, acceptance so far) plus the plaquette, save the links every
+saveU_every steps, measure, and return the final mean plaquette. The
+device is explicit (``cuda`` by default); a run never moves to another
+one.
 """
 
 from __future__ import annotations
@@ -14,30 +17,67 @@ from __future__ import annotations
 import datetime
 import os
 import time
-from dataclasses import fields as dc_fields
+from dataclasses import fields as dc_fields, replace
 from typing import Optional
 
 import torch
 
 from latticeqcd_torch._version import __version__
+from latticeqcd_torch.convert import to_numpy
+from latticeqcd_torch.io import (load_checkpoint, save_bridge_text, save_checkpoint, save_ildg,
+                                 save_jld2, save_u)
 from latticeqcd_torch.measurements.scheduler import MeasurementSet
 from latticeqcd_torch.ops import gauge_action as ga
 from latticeqcd_torch.ops import sun
 from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction
 from latticeqcd_torch.system.params import Params, construct_params_from_toml
 from latticeqcd_torch.system.universe import build_universe
-from latticeqcd_torch.updates.hmc import HMC
+from latticeqcd_torch.updates.factory import updatemethod
 
 
-def _md_scheme(p) -> str:
-    if p.MDscheme:
-        if p.MDscheme not in ("QPQ", "PQP", "Omelyan"):
-            raise ValueError(f"MDscheme must be 'QPQ', 'PQP' or 'Omelyan', got {p.MDscheme!r}")
-        return p.MDscheme
-    return "QPQ" if p.QPQ else "PQP"
+# saveU_format -> (file extension, writer)
+_SAVERS = {"JLD": ("jld2", save_jld2), "NPZ": ("npz", save_u), "ILDG": ("ildg", save_ildg),
+           "BridgeText": ("txt", save_bridge_text)}
 
 
-def run_lqcd_file(filename, make_dirs: bool = True, dtype=torch.complex128, device="cuda"):
+class Savedata:
+    """saveU_every-gated configuration saving (latticeqcd_tpu/system/lqcd.py:51-99).
+
+    Writes conf_{itrj:08d}.{jld2,npz,ildg,txt} into saveU_dir, and beside it
+    checkpoint.npz with the links, the trajectory counter and the run's
+    torch.Generator state, from which a run resumes bit for bit. Nothing is
+    saved under Fileloading. An unknown format is refused here, before any
+    trajectory. Saving from several processes waits for ROADMAP A14."""
+
+    def __init__(self, saveU_format, saveU_dir, saveU_every, update_method, vp):
+        self.issaved = saveU_format is not None and update_method != "Fileloading"
+        if self.issaved and saveU_format not in _SAVERS:
+            raise ValueError(f"saveU_format {saveU_format!r} is not supported")
+        self.fmt = saveU_format
+        self.dir = saveU_dir
+        self.every = saveU_every
+        self.vp = vp
+        if self.issaved:
+            vp.println_verbose_level1(f"save gaugefields U every {saveU_every} trajectory")
+
+    def save(self, u, itrj, generator=None) -> Optional[float]:
+        """Save at itrj if due; returns the seconds it took, else None."""
+        if not self.issaved or itrj % self.every != 0:
+            return None
+        t0 = time.time()
+        host = to_numpy(u)  # one copy to the host for the file and the checkpoint
+        ext, write = _SAVERS[self.fmt]
+        write(os.path.join(self.dir, f"conf_{itrj:08d}.{ext}"), host)
+        if generator is not None:
+            save_checkpoint(os.path.join(self.dir, "checkpoint.npz"), host,
+                            rng_state=generator.get_state(), itrj=itrj)
+        seconds = time.time() - t0
+        self.vp.println_verbose_level1(f"Save ({self.fmt}): Elapsed time {seconds} [s]")
+        return seconds
+
+
+def run_lqcd_file(filename, make_dirs: bool = True, dtype=torch.complex128, device="cuda",
+                  resume_checkpoint=None):
     """Run from a TOML parameter file (or a Params)."""
     if isinstance(filename, Params):
         parameters = filename
@@ -46,22 +86,43 @@ def run_lqcd_file(filename, make_dirs: bool = True, dtype=torch.complex128, devi
         if ext not in (".toml", ""):
             raise ValueError(f"{filename} is not supported. use a TOML format.")
         parameters = construct_params_from_toml(filename, make_dirs=make_dirs)
-    return run_lqcd_params(parameters, make_dirs=make_dirs, dtype=dtype, device=device)
+    return run_lqcd_params(parameters, make_dirs=make_dirs, dtype=dtype, device=device,
+                           resume_checkpoint=resume_checkpoint)
 
 
 def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, device="cuda",
-                    history: Optional[list] = None):
-    """Run the trajectories of p on ``device``; returns the final mean plaquette.
+                    history: Optional[list] = None, resume_checkpoint=None):
+    """Run the steps of p on ``device``; returns the final mean plaquette.
 
+    resume_checkpoint: a checkpoint.npz. The run continues from its links and
+    trajectory counter (initialtrj = itrj + 1) and, if the port wrote it,
+    from its generator state, so that it is bit for bit the run that was
+    never stopped. A JAX package's checkpoint has no such state: the draws
+    restart from randomseed. The measurement files are appended to, and the
+    checkpoint's links, measured by the stopped run, are not measured again.
     A staggered action first has its rational window checked against the
     Lanczos spectrum of W on the starting links (widened if needed).
-    history, if given, receives one dict per trajectory: itrj, seconds
-    (host clock, ending in a device sync), dH, accepted, plaq and the
-    solver records of that trajectory (CG and multi-shift CG alike)."""
+    history, if given, receives one dict per step: itrj, seconds (host
+    clock, ending in a device sync), dH and plaq (None under Fileloading),
+    accepted, the solver records of that trajectory (CG and multi-shift CG
+    alike) and save_seconds (None if nothing was saved)."""
     device = torch.device(device)
     univ = build_universe(p, dtype=dtype, device=device)
     generator = torch.Generator(device=device).manual_seed(p.randomseed)
     vp = univ.verbose_print
+    if resume_checkpoint is not None:
+        ck = load_checkpoint(resume_checkpoint, dtype=dtype, device=device)
+        univ.u = ck["u"]
+        if "torch_rng_state" in ck:
+            generator.set_state(ck["torch_rng_state"])
+        else:
+            vp.println_verbose_level1(
+                f"# {resume_checkpoint} holds no torch generator state (a JAX checkpoint's "
+                f"jax.random key cannot be continued in torch): the draws restart from "
+                f"randomseed = {p.randomseed}")
+        if "itrj" in ck:
+            p = replace(p, initialtrj=ck["itrj"] + 1)
+        vp.println_verbose_level1(f"# resumed from {resume_checkpoint} at itrj {p.initialtrj}")
 
     vp.println_verbose_level1("# ", os.getcwd())
     vp.println_verbose_level1("# ", datetime.datetime.now())
@@ -83,19 +144,15 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
             f"(kappa ~ {lmax / max(lmin, 1e-300):.3g}), rational window "
             f"[{lo_b:.4g}, {hi_b:.4g}]")
 
-    updater = HMC(
-        action=univ.gauge_action,
-        dtau=p.dtau,
-        md_steps=p.MDsteps,
-        scheme=_md_scheme(p),
-        sexton_weingarten=p.SextonWeingargten,
-        nsw=p.N_SextonWeingargten,
-        omelyan_lambda=p.omelyan_lambda,
-        fermi_action=univ.fermi_action,
-        md_precision=p.MDprecision,
-    )
+    updater = updatemethod(p, univ)
+    nsteps = getattr(updater, "Nsteps", p.Nsteps)  # Fileloading: one step per stored file
+    savedata = Savedata(p.saveU_format, p.saveU_dir, p.saveU_every, p.update_method, vp)
     measuredir = p.measuredir if (p.measuredir and make_dirs) else None
-    measurements = MeasurementSet.from_methods(p.measurement_methods, measuredir=measuredir)
+    # a resumed run appends to the series the stopped run wrote, which holds the
+    # measurements of the checkpoint's links already
+    resumed = resume_checkpoint is not None
+    measurements = MeasurementSet.from_methods(p.measurement_methods, measuredir=measuredir,
+                                               append=resumed)
 
     u = univ.u
     reunit_every = p.reunitarize_every
@@ -105,11 +162,12 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
         vp.println_verbose_level1(
             f"# reunitarize links every {reunit_every} trajectories (dtype {dtype}); "
             "pre-projection defect logged")
-    measurements.calc_measurement_values(0, u)
+    if not resumed:
+        measurements.calc_measurement_values(0, u)
 
     numaccepts = 0
     t_all = time.time()
-    for itrj in range(p.initialtrj, p.Nsteps + 1):
+    for itrj in range(p.initialtrj, nsteps + 1):
         vp.println_verbose_level1(f"# itrj = {itrj}")
         t0 = time.time()
         u, stats = updater.step(u, generator)
@@ -118,22 +176,26 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
         seconds = time.time() - t0
         accepted = stats["accepted"]
         vp.println_verbose_level1(f"Update: Elapsed time {seconds} [s]")
-        vp.println_verbose_level2(
-            f"Snew - Sold = {stats['dH']}; " + ("Accepted" if accepted else "Rejected"))
-        vp.println_verbose_level1(f"# plaquette = {stats['plaq']}")
-        if stats["cg"]:
-            iters = sum(c["iterations"] for c in stats["cg"])
-            vp.println_verbose_level2(f"# CG: {len(stats['cg'])} solves, {iters} iterations")
+        if "dH" in stats:
+            vp.println_verbose_level2(
+                f"Snew - Sold = {stats['dH']}; " + ("Accepted" if accepted else "Rejected"))
+            vp.println_verbose_level1(f"# plaquette = {stats['plaq']}")
+        cg = stats.get("cg", [])
+        if cg:
+            iters = sum(c["iterations"] for c in cg)
+            vp.println_verbose_level2(f"# CG: {len(cg)} solves, {iters} iterations")
         if accepted:
             numaccepts += 1
         if reunit_every and itrj % reunit_every == 0:
             defect = float(sun.unitarity_defect(u))
             u = sun.reunitarize(u)
             vp.println_verbose_level1(f"# unitarity defect {defect:.3e} (reprojected)")
+        save_seconds = savedata.save(u, itrj, generator)
         measurements.calc_measurement_values(itrj, u)
         if history is not None:
-            history.append({"itrj": itrj, "seconds": seconds, "dH": stats["dH"],
-                            "accepted": accepted, "plaq": stats["plaq"], "cg": stats["cg"]})
+            history.append({"itrj": itrj, "seconds": seconds, "dH": stats.get("dH"),
+                            "accepted": accepted, "plaq": stats.get("plaq"), "cg": cg,
+                            "save_seconds": save_seconds})
         vp.println_verbose_level1(
             f"Acceptance {numaccepts}/{itrj} : {round(numaccepts * 100 / itrj)} %")
         vp.flush()

@@ -1,10 +1,11 @@
 """Simulation state assembly: links, gauge action, fermion action, logger.
 
 Counterpart of latticeqcd_tpu/system/universe.py for the ported slices:
-cold or hot starts, the Wilson plaquette action, and no fermions,
-two-flavour Wilson fermions with csw = 0, or staggered fermions with
-Nf = 1..8. Everything else raises NotImplementedError naming the ROADMAP
-item that will port it.
+cold, hot or file starts (ILDG, Bridge++ text, JLD or NPZ), the Wilson
+plaquette action, and no fermions, two-flavour Wilson fermions with
+csw = 0, or staggered fermions with Nf = 1..8, updated by HMC or loaded
+by Fileloading. Everything else raises NotImplementedError naming the
+ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any, Optional
 
 import torch
 
+from latticeqcd_torch.io import load_config
 from latticeqcd_torch.measurements.scheduler import build_dirac_from_params
 from latticeqcd_torch.ops import fields, gauge_action as ga
 from latticeqcd_torch.ops.dirac import eo_pack
@@ -39,9 +41,9 @@ def _not_ported(what: str, item: str):
 
 def check_supported(p: Params, device="cuda") -> None:
     """Refuse, by name, what the port does not run (on ``device``)."""
-    if p.initial not in ("cold", "hot"):
-        _not_ported(f"initial = {p.initial!r} (file or instanton starts)", "A8/A13")
-    if p.update_method != "HMC":
+    if p.initial == "one instanton":
+        _not_ported("the one-instanton start", "A2")
+    if p.update_method not in ("HMC", "Fileloading"):
         _not_ported(f"update_method = {p.update_method!r}", "A12")
     if p.couplinglist or p.coupling_loops is not None:
         _not_ported("general gauge actions", "A3")
@@ -66,8 +68,6 @@ def check_supported(p: Params, device="cuda") -> None:
         _not_ported("mixed-precision MD", "A12")
     if p.hasgradientflow or p.measurements_for_flow:
         _not_ported("gradient flow measurements", "A12")
-    if p.saveU_format is not None:
-        _not_ported("saving configurations", "A13")
 
 
 def build_fermi_action(p: Params):
@@ -81,16 +81,25 @@ def build_fermi_action(p: Params):
     return WilsonFermiAction(dirac, eps_cg=p.eps, max_cg=p.MaxCGstep)
 
 
+def _load_initial(p: Params, dtype=torch.complex128, device="cuda") -> torch.Tensor:
+    if p.initial in ("cold", "hot", "one instanton"):
+        return fields.initialize_gaugefields(p.NC, p.L, condition=p.initial, seed=p.randomseed,
+                                             dtype=dtype, device=device)
+    return load_config(p.loadU_format, p.initial, p.L, p.NC, dtype, device)  # file start
+
+
 def build_universe(p: Params, dtype=torch.complex128, device="cuda") -> Univ:
     check_supported(p, device)
-    u = fields.initialize_gaugefields(p.NC, p.L, condition=p.initial, seed=p.randomseed,
-                                      dtype=dtype, device=device)
+    u = _load_initial(p, dtype, device)
     logfilename = None
     if p.logfile:
         logdir = p.log_dir or "."
         os.makedirs(logdir, exist_ok=True)
         logfilename = os.path.join(os.getcwd(), logdir, p.logfile)
     vp = VerbosePrint(level=p.verboselevel, filename=logfilename)
+    if p.initial not in ("cold", "hot", "one instanton"):
+        vp.println_verbose_level2(".....  File start")
+        vp.println_verbose_level1(f"File name is {p.initial}")
     return Univ(
         gauge_action=ga.wilson_gauge_action(p.NC, p.beta),
         u=u,

@@ -1,0 +1,39 @@
+"""Updater factory: update_method -> HMC | Fileloading.
+
+Counterpart of latticeqcd_tpu/updates/factory.py for the ported
+updaters. Heatbath, SLHMC, SLMC and the integrated updaters raise
+NotImplementedError naming ROADMAP A12.
+"""
+
+from __future__ import annotations
+
+from latticeqcd_torch.updates.fileloading import GivenConfigurations
+from latticeqcd_torch.updates.hmc import HMC
+
+
+def _md_scheme(p) -> str:
+    """The QPQ bool, or the explicit MDscheme ("QPQ" | "PQP" | "Omelyan")."""
+    if p.MDscheme:
+        if p.MDscheme not in ("QPQ", "PQP", "Omelyan"):
+            raise ValueError(f"MDscheme must be 'QPQ', 'PQP' or 'Omelyan', got {p.MDscheme!r}")
+        return p.MDscheme
+    return "QPQ" if p.QPQ else "PQP"
+
+
+def updatemethod(p, univ):
+    method = p.update_method
+    if method == "HMC":
+        return HMC(
+            action=univ.gauge_action,
+            dtau=p.dtau,
+            md_steps=p.MDsteps,
+            scheme=_md_scheme(p),
+            sexton_weingarten=p.SextonWeingargten,
+            nsw=p.N_SextonWeingargten,
+            omelyan_lambda=p.omelyan_lambda,
+            fermi_action=univ.fermi_action,
+            md_precision=p.MDprecision,
+        )
+    if method == "Fileloading":
+        return GivenConfigurations.from_params(p, p.L, p.NC)
+    raise NotImplementedError(f"update_method = {method!r} is not ported yet (ROADMAP A12)")

@@ -129,7 +129,7 @@ def test_run_lqcd_params_cpu_smoke(tmp_path, capsys):
 
 @pytest.mark.parametrize("field,value", [
     ("update_method", "Heatbath"), ("Dirac_operator", "Domainwall"),
-    ("Dirac_operator", "WilsonClover"), ("initial", "conf.ildg"),
+    ("Dirac_operator", "WilsonClover"), ("initial", "one instanton"),
     ("SextonWeingargten", True), ("MDprecision", "mixed"), ("hasenbusch", True),
     ("smearing_for_fermion", "stout"), ("couplinglist", ["rectangular"]),
 ])

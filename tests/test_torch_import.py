@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no jax, no JAX package, and its chip
 script refuses to run without a CUDA device or without the port beside it.
-Also pins the port's numpy-only copies (params, gammas, rational) to the
-JAX package's originals."""
+Also pins the port's numpy-only copies (params, gammas, rational, analysis)
+to the JAX package's originals."""
 
 import dataclasses
 import os
@@ -37,6 +37,16 @@ PORT_MODULES = [
     "latticeqcd_torch.measurements.scheduler",
     "latticeqcd_torch.measurements.fermionic",
     "latticeqcd_torch.profile_trajectory",
+    "latticeqcd_torch.io",
+    "latticeqcd_torch.io.native",
+    "latticeqcd_torch.io.native_ext",
+    "latticeqcd_torch.io.bridge_text",
+    "latticeqcd_torch.io.ildg",
+    "latticeqcd_torch.io.jld2",
+    "latticeqcd_torch.updates.fileloading",
+    "latticeqcd_torch.updates.factory",
+    "latticeqcd_torch.analysis",
+    "latticeqcd_torch.validation_pbp",
     "chip_smoke",
 ]
 
@@ -124,3 +134,27 @@ def test_rational_copy_matches_jax_package():
     for beta in (0.25, 0.5, 0.75, 1.25):
         a, b = jr.rational_inverse_power(beta, 0.1, 20.0), tr.rational_inverse_power(beta, 0.1, 20.0)
         assert (a.const, a.residues, a.shifts) == (b.const, b.residues, b.shifts)
+
+
+def test_analysis_copy_matches_jax_package():
+    """The copy's code is the original's below the module docstring (with the
+    package's own name in its CLI text), and it gives the same numbers on
+    seeded series."""
+    from latticeqcd_tpu import analysis as ja
+    from latticeqcd_torch import analysis as ta
+
+    def body(mod):
+        src = open(mod.__file__).read()
+        return src[src.index("from __future__ import annotations"):]
+
+    assert body(ja).replace("latticeqcd_tpu", "latticeqcd_torch") == body(ta)
+    rng = np.random.default_rng(12)
+    ar1 = np.zeros(4000)
+    for i in range(1, len(ar1)):
+        ar1[i] = 0.8 * ar1[i - 1] + rng.normal()
+    for series in (rng.normal(size=300), ar1, rng.normal(size=5)):
+        assert ja.autocorrelation(series) == ta.autocorrelation(series)
+        assert ja.jackknife(series[: len(series) // 10 * 10 or None], nblocks=5) == \
+            ta.jackknife(series[: len(series) // 10 * 10 or None], nblocks=5)
+    corr = np.cosh(0.4 * (np.arange(16) - 8.0)) + 1e-3 * rng.random(16)
+    np.testing.assert_array_equal(ja.effective_mass(corr), ta.effective_mass(corr))
