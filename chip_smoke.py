@@ -63,7 +63,25 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      1/35, complex64, 2 trajectories and Chiral_condensate (Nr=2) at itrj 0 and 2; it fails if
      a solve hits its limit, dH is not finite, a plaquette lies outside 0.575-0.589 or a pbp
      outside 0.1239-0.1467; seconds per trajectory, CG iterations per solve and staggered_w
-     launches printed.
+     launches printed;
+ 17. the quenched pieces at 4^4 complex128, the card against the CPU (bar 1e-12): one
+     overrelaxation sweep for NC = 2, 3, 4 (the total action also conserved to 1e-8 relative),
+     one heatbath sweep from the same uniforms drawn on the host with numpy for NC = 2, 3,
+     5 gradient-flow steps of 0.02, the topological charge (plaquette, clover, improved), the
+     energy density and the Wilson loops W(R, T), R, T <= 4;
+ 18. the quenched path: run_lqcd_params at 16^3x32, SU(3), beta = 6.0, Heatbath with 3
+     overrelaxations, complex64, cold start, 4 steps; Plaquette, Polyakov_loop,
+     Topological_charge, Energy_density, Wilson_loop (Rmax = Tmax = 4) and a Wilson
+     Pion_correlator at kappa = 0.12 at itrj 0, 2 and 4; 20 flow steps of 0.02 after each step
+     with Energy_density and Topological_charge every 5; wilson_hop_packed's launch count set to
+     0 just before and read just after; it fails if a plaquette after a step leaves 0.55-1.0,
+     the unitarity defect after the run exceeds 1e-4, a Q or E is not finite, the flowed E does
+     not move toward its unit-link value 1 from one measured flow step to the next, a pion CG
+     reaches its limit or wilson_hop_packed did not run; seconds per heatbath and per
+     overrelaxation sweep, per measurement method and per flow step printed;
+ 19. the 12^4 plaquette anchor, short: validation_plaq's chain at beta = 6.0 (complex64, cold
+     start, heatbath without overrelaxation) for 60 sweeps; the mean plaquette of sweeps 31-60
+     must lie within 0.593745 +- 0.0025 (the JAX chain's 12^4 value); seconds per sweep printed.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -857,11 +875,11 @@ def phase_measurement_path(torch):
     def timed(cls):
         measure = cls.measure
 
-        def wrapper(self, u, itrj):
+        def wrapper(self, u, itrj, additional_string=""):
             torch.cuda.synchronize()
             before = _launch_counts()
             t0 = time.time()
-            line = measure(self, u, itrj)
+            line = measure(self, u, itrj, additional_string)
             torch.cuda.synchronize()
             records.append({
                 "method": self.name,
@@ -1086,8 +1104,8 @@ def phase_disk(torch):
         records = []
         measure = scheduler.ChiralCondensateMeasurement.measure
 
-        def recorded(self, uu, itrj):
-            line = measure(self, uu, itrj)
+        def recorded(self, uu, itrj, additional_string=""):
+            line = measure(self, uu, itrj, additional_string)
             records.append((itrj, self.value[0], list(self.solves)))
             return line
 
@@ -1166,8 +1184,8 @@ def phase_anchor(torch):
     records = []
     measure = scheduler.ChiralCondensateMeasurement.measure
 
-    def recorded(self, u, itrj):
-        line = measure(self, u, itrj)
+    def recorded(self, u, itrj, additional_string=""):
+        line = measure(self, u, itrj, additional_string)
         records.append((itrj, self.value[0], list(self.solves)))
         return line
 
@@ -1215,11 +1233,284 @@ def phase_anchor(torch):
         fail("the anchor did not run the two-launch staggered W, or ran the one-launch W")
 
 
+def _warm_links(torch, lat, nc, seed, device, eps=0.3):
+    """exp(i eps H), H traceless hermitian from numpy's default_rng(seed): a plaquette of
+    0.7-0.8. An overrelaxation sweep on Haar-random links amplifies rounding by up to 1e6
+    (NC = 4), so the 1e-12 comparison of two devices runs on ordered links."""
+    import numpy as np
+
+    from latticeqcd_torch.ops import sun
+
+    rng = np.random.default_rng(seed)
+    shape = (4, *lat, nc, nc)
+    a = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) / np.sqrt(2)
+    h = 0.5 * (a + np.conj(np.swapaxes(a, -1, -2)))
+    h -= np.trace(h, axis1=-2, axis2=-1)[..., None, None] * np.eye(nc) / nc
+    return sun.expi_hermitian(torch.from_numpy(h), eps).to(device)
+
+
+class _HostUniforms:
+    """A heatbath sweep's uniforms drawn on the host with numpy, each try's and each
+    direction's from its own seed (seed, update, try), so that two devices get the same
+    numbers whatever number of tries each makes."""
+
+    def __init__(self, torch, seed):
+        self.torch, self.seed, self.update = torch, seed, 0
+
+    def _draw(self, key, n, shape, dtype, device):
+        import numpy as np
+
+        r = np.random.default_rng([self.seed, self.update, key]).random((n, *shape))
+        return [self.torch.from_numpy(x).to(dtype=dtype, device=device) for x in r]
+
+    def tries(self, shape, dtype, device):
+        self.update += 1
+        k = 0
+        while True:
+            k += 1
+            r1, r2, r3, r4 = self._draw(k, 4, shape, dtype, device)
+            yield r1.clamp_min(1e-30), r2, r3.clamp_min(1e-30), r4
+
+    def direction(self, shape, dtype, device):
+        ct, phi = self._draw(0, 2, shape, dtype, device)
+        return 2.0 * ct - 1.0, (2 * math.pi) * phi
+
+
+def phase_quenched_agreement(torch):
+    print("== 17. 4^4 complex128 quenched pieces: the card against the CPU", flush=True)
+    from latticeqcd_torch.measurements import observables
+    from latticeqcd_torch.ops import fields
+    from latticeqcd_torch.ops import gauge_action as ga
+    from latticeqcd_torch.smearing.gradientflow import gradientflow
+    from latticeqcd_torch.updates.heatbath import Heatbath
+
+    lat = (4, 4, 4, 4)
+    bar = BARS["complex128"]
+    for nc in (2, 3, 4):
+        act = ga.wilson_gauge_action(nc, 5.7)
+        hb = Heatbath(action=act)
+        u = _warm_links(torch, lat, nc, 30 + nc, "cpu")
+        cpu, gpu = hb.overrelax(u), hb.overrelax(u.cuda())
+        check(f"overrelaxation sweep SU({nc}), card vs CPU", maxdiff(gpu.cpu(), cpu), bar)
+        s0, s1 = float(ga.action_value(act, u.cuda())), float(ga.action_value(act, gpu))
+        check(f"overrelaxation SU({nc}) total action, relative change",
+              abs(s1 - s0) / max(1.0, abs(s0)), 1e-8)
+    for nc, beta in ((2, 2.2), (3, 5.7)):
+        hb = Heatbath(action=ga.wilson_gauge_action(nc, beta))
+        u = _warm_links(torch, lat, nc, 40 + nc, "cpu")
+        cpu = hb.sweep(u, uniforms=_HostUniforms(torch, 7))
+        gpu = hb.sweep(u.cuda(), uniforms=_HostUniforms(torch, 7))
+        check(f"heatbath sweep SU({nc}) from host uniforms, card vs CPU", maxdiff(gpu.cpu(), cpu),
+              bar)
+    u = fields.hot_start(lat, 3, seed=44, dtype=torch.complex128, device="cpu")
+    gf = gradientflow(3, nflow=5, eps=0.02)
+    cpu, gpu = gf.flow(u), gf.flow(u.cuda())
+    check("5 flow steps of 0.02, card vs CPU", maxdiff(gpu.cpu(), cpu), bar)
+    ug = u.cuda()
+    for kind in ("plaquette", "clover", "improved"):
+        check(f"topological charge ({kind}), card vs CPU",
+              abs(float(observables.topological_charge(ug, kind))
+                  - float(observables.topological_charge(u, kind))), bar)
+    check("energy density, card vs CPU",
+          abs(float(observables.energy_density(ug)) - float(observables.energy_density(u))), bar)
+    err = max(abs(float(observables.wilson_loop_rt(ug, r, t))
+                  - float(observables.wilson_loop_rt(u, r, t)))
+              for r in range(1, 5) for t in range(1, 5))
+    check("Wilson loops W(R, T), R, T <= 4, card vs CPU", err, bar)
+
+
+def phase_quenched_path(torch):
+    print("== 18. quenched path: run_lqcd_params, 16^3x32 SU(3) heatbath with overrelaxation, "
+          "complex64, 4 steps, gauge observables, a Wilson pion correlator and the flow",
+          flush=True)
+    import numpy as np
+
+    from latticeqcd_torch.measurements import scheduler
+    from latticeqcd_torch.ops import gauge_action as ga
+    from latticeqcd_torch.ops import sun
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.smearing.gradientflow import GradientFlow
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+    from latticeqcd_torch.system.params import Params
+    from latticeqcd_torch.updates.heatbath import Heatbath
+
+    maxcg = 3000
+    methods = [
+        {"methodname": "Plaquette"},
+        {"methodname": "Polyakov_loop"},
+        {"methodname": "Topological_charge",
+         "kinds_of_topological_charge": ["plaquette", "clover"]},
+        {"methodname": "Energy_density"},
+        {"methodname": "Wilson_loop", "Rmax": 4, "Tmax": 4},
+        {"methodname": "Pion_correlator", "MaxCGstep": maxcg,
+         "fermion_parameters": {"Dirac_operator": "Wilson", "hop": 0.12}},
+    ]
+    flowed = [{"methodname": "Energy_density", "measure_every": 5},
+              {"methodname": "Topological_charge", "measure_every": 5}]
+    p = Params(
+        L=MAIN, NC=3, beta=6.0, initial="cold", update_method="Heatbath", quench=True,
+        useOR=True, numOR=3, Nsteps=4, randomseed=5, verboselevel=1,
+        measurement_methods=[{**m, "measure_every": 2} for m in methods],
+        hasgradientflow=True, numflow=20, Nflow=1, eps_flow=0.02, measurements_for_flow=flowed,
+    )
+    times = {"heatbath sweep": [], "overrelaxation sweep": [], "flow step": []}
+    records, plaqs, last = [], [], {}
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[key].append(time.time() - t0)
+            return out
+        return wrapper
+
+    def stepped(self, u, generator=None):
+        out = step(self, u, generator)
+        plaqs.append(float(ga.mean_plaquette(out[0])))
+        last["u"] = out[0]
+        return out
+
+    def measured(cls):
+        measure = cls.measure
+
+        def wrapper(self, u, itrj, additional_string=""):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            line = measure(self, u, itrj, additional_string)
+            torch.cuda.synchronize()
+            records.append({"method": self.name, "itrj": itrj, "flow": additional_string,
+                            "seconds": time.time() - t0, "line": line,
+                            "solves": getattr(self, "solves", None)})
+            return line
+
+        return mock.patch.object(cls, "measure", wrapper)
+
+    step = Heatbath.step
+    patches = [mock.patch.object(Heatbath, "sweep", timed(Heatbath.sweep, "heatbath sweep")),
+               mock.patch.object(Heatbath, "overrelax",
+                                 timed(Heatbath.overrelax, "overrelaxation sweep")),
+               mock.patch.object(Heatbath, "step", stepped),
+               mock.patch.object(GradientFlow, "flow", timed(GradientFlow.flow, "flow step"))]
+    patches += [measured(c) for c in (scheduler.PlaquetteMeasurement,
+                                      scheduler.PolyakovMeasurement,
+                                      scheduler.TopologicalChargeMeasurement,
+                                      scheduler.EnergyDensityMeasurement,
+                                      scheduler.WilsonLoopMeasurement,
+                                      scheduler.PionCorrelatorMeasurement)]
+    from contextlib import ExitStack
+
+    history = []
+    with ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        torch.cuda.synchronize()
+        wk.launches = 0
+        t0 = time.time()
+        plaq = run_lqcd_params(p, make_dirs=False, dtype=torch.complex64, device="cuda",
+                               history=history)
+        torch.cuda.synchronize()
+        total = time.time() - t0
+        launched = wk.launches
+    STATE["launches"].setdefault("wilson_hop_packed", {})["quenched"] = launched
+    defect = float(sun.unitarity_defect(last["u"]))
+    for key, ts in times.items():
+        print(f"  {key}: {len(ts)} calls, median {statistics.median(ts):.4f} s, mean "
+              f"{statistics.mean(ts):.4f} s  [{STATE['smi']}]", flush=True)
+    for rec in history:
+        print(f"  step {rec['itrj']}: {rec['seconds']:.3f} s (sweep + 3 overrelaxations), flow and "
+              f"its measurements {rec['flow_seconds']:.3f} s, plaquette {plaqs[rec['itrj'] - 1]:.8f}",
+              flush=True)
+    per_method = {}
+    for rec in records:
+        kind = rec["method"] + (" (flowed)" if rec["flow"] else "")
+        per_method.setdefault(kind, []).append(rec["seconds"])
+        values = [float(x) for line in rec["line"].splitlines() for x in line.split("#")[0].split()]
+        if not rec["flow"] or int(rec["flow"].split()[1]) % 10 == 0:
+            print(f"  itrj {rec['itrj']} {rec['flow']}{rec['method']}: {rec['seconds']:.4f} s  "
+                  f"{rec['line'].splitlines()[-1][:110]}", flush=True)
+        if not all(math.isfinite(v) for v in values):
+            fail(f"{kind} gave a value that is not finite: {rec['line']}")
+        if rec["method"] == "Pion_correlator":
+            iters = [c["iterations"] for c in rec["solves"]]
+            print(f"    pion CG iterations {sum(iters)} in {len(iters)} solves (most "
+                  f"{max(iters)})", flush=True)
+            if max(iters) >= maxcg:
+                fail(f"a pion correlator solve stopped at MaxCGstep {maxcg}")
+    for kind, ts in sorted(per_method.items()):
+        print(f"  {kind}: {len(ts)} calls, median {statistics.median(ts):.4f} s  "
+              f"[{STATE['smi']}]", flush=True)
+    print(f"  run_lqcd_params {total:.3f} s, final plaquette {plaq:.8f}, unitarity defect "
+          f"{defect:.3e}; wilson_hop_packed launches {launched}", flush=True)
+    STATE["checks"] += 1
+    if len(plaqs) != 4 or not all(0.55 <= x <= 1.0 for x in plaqs):
+        fail(f"a plaquette after a step lies outside 0.55-1.0: {plaqs}")
+    STATE["checks"] += 1
+    if defect > 1e-4:
+        fail(f"unitarity defect {defect} after the run exceeds 1e-4")
+    want = {(m["methodname"], i) for m in methods for i in (0, 2, 4)}
+    if {(r["method"], r["itrj"]) for r in records if not r["flow"]} != want:
+        fail("the quenched path did not measure every method at itrj 0, 2 and 4")
+    flows = {}
+    for rec in records:
+        if rec["flow"] and rec["method"] == "Energy_density":
+            flows.setdefault(rec["itrj"], []).append(
+                float(rec["line"].split("#")[0].split()[-1]))
+    STATE["checks"] += 1
+    if sorted(flows) != [1, 2, 3, 4] or any(len(e) != 4 for e in flows.values()):
+        fail(f"the flow did not measure E at flow steps 5, 10, 15 and 20 of every step: {flows}")
+    # E is Re tr(W W) of the untraced clover sums over NV 6 NC 8, 1 on unit links: as the
+    # flow smooths the links the field-strength part 1 - E falls
+    for itrj, es in flows.items():
+        print(f"  step {itrj}: flowed E at flow steps 5, 10, 15, 20: {es}", flush=True)
+        if not all(1.0 - b < 1.0 - a for a, b in zip(es, es[1:])):
+            fail(f"the flowed E of step {itrj} does not move toward 1: {es}")
+    STATE["checks"] += 1
+    if launched == 0:
+        fail("the quenched path launched wilson_hop_packed no time")
+
+
+def phase_plaquette_anchor(torch):
+    print("== 19. the 12^4 plaquette anchor, short: beta = 6.0, complex64, cold start, 60 heatbath "
+          "sweeps", flush=True)
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from latticeqcd_torch import validation_plaq
+    from latticeqcd_torch.analysis import read_measurement_series
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plaq_")
+    history = []
+    try:
+        run_lqcd_params(validation_plaq.anchor_params(6.0, 60, tmp), make_dirs=True,
+                        dtype=torch.complex64, device="cuda", history=history)
+        itrj, plaq = read_measurement_series(os.path.join(tmp, "Plaquette.txt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = [r["seconds"] for r in history]
+    window = plaq[itrj > 30, 0]
+    mean = float(np.mean(window))
+    ref = validation_plaq.JAX_CHAIN[6.0]["plaq"]
+    print(f"  {len(history)} sweeps, {statistics.median(seconds):.4f} s per sweep (median; mean "
+          f"{statistics.mean(seconds):.4f})  [{STATE['smi']}]", flush=True)
+    print(f"  plaquette after sweeps 10, 20, 30: {plaq[itrj == 10, 0]}, {plaq[itrj == 20, 0]}, "
+          f"{plaq[itrj == 30, 0]}; mean of sweeps 31-60 {mean:.6f} (JAX 12^4 chain {ref})",
+          flush=True)
+    STATE["checks"] += 1
+    if len(window) != 30 or abs(mean - ref) > 0.0025:
+        fail(f"the mean plaquette of sweeps 31-60, {mean}, is not within {ref} +- 0.0025")
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
           phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
           phase_window, phase_window_timing, phase_measurement_agreement, phase_measurement_path,
-          phase_disk, phase_anchor]
+          phase_disk, phase_anchor, phase_quenched_agreement, phase_quenched_path,
+          phase_plaquette_anchor]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line

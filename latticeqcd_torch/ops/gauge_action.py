@@ -31,6 +31,11 @@ class GaugeAction:
     def push(self, coeff: float, loops) -> "GaugeAction":
         return GaugeAction(self.nc, self.terms + ((float(coeff), tuple(loops)),), 0.0)
 
+    def max_extent(self) -> int:
+        """Largest |offset| any loop reaches: sets the heatbath's colouring."""
+        return max([1] + [max(abs(x) for x in o) for _, loops in self.terms for line in loops
+                          for o in wilsonline.path_offsets(line.expand())])
+
 
 def wilson_gauge_action(nc: int, beta: float, dim: int = 4) -> GaugeAction:
     """Plaquette loops + adjoints at coupling beta/2."""

@@ -45,6 +45,14 @@ def traceless_hermitian(m: torch.Tensor) -> torch.Tensor:
     return h - tr[..., None, None] * _eye(nc, m)
 
 
+def traceless_antihermitian(m: torch.Tensor) -> torch.Tensor:
+    """(M - M^dag)/2 minus its trace/N: the field-strength projection."""
+    nc = m.shape[-1]
+    a = 0.5 * (m - dagger(m))
+    tr = trace(a) / nc
+    return a - tr[..., None, None] * _eye(nc, m)
+
+
 def random_hermitian_momentum(shape_prefix, nc: int, dtype=torch.complex128, device="cuda",
                               generator: Optional[torch.Generator] = None,
                               normals=None) -> torch.Tensor:

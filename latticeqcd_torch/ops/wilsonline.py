@@ -1,9 +1,10 @@
-"""Symbolic Wilson lines: the part the Wilson plaquette action needs.
+"""Symbolic Wilson lines: the plaquette action's loops and the observables' loops.
 
 Counterpart of latticeqcd_tpu/ops/wilsonline.py: a path is a tuple of
 (direction, signed length) segments, evaluated by multiplying rolled
-link fields. Named loop sets other than the plaquette, and the generic
-staple derivative, wait for the general-action slice (ROADMAP A3).
+link fields. The plaquette, rectangle and clover loops are here; named
+loop sets other than the plaquette, and the generic staple derivative,
+wait for the general-action slice (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -45,6 +46,20 @@ def make_plaq(mu: int, nu: int) -> Wilsonline:
     return Wilsonline([(mu, 1), (nu, 1), (mu, -1), (nu, -1)])
 
 
+def make_rect(mu: int, nu: int, lmu: int = 2, lnu: int = 1) -> Wilsonline:
+    return Wilsonline([(mu, lmu), (nu, lnu), (mu, -lmu), (nu, -lnu)])
+
+
+def make_cloverloops(mu: int, nu: int):
+    """The four plaquettes around a site in the (mu, nu) plane."""
+    return [
+        Wilsonline([(mu, 1), (nu, 1), (mu, -1), (nu, -1)]),
+        Wilsonline([(nu, 1), (mu, -1), (nu, -1), (mu, 1)]),
+        Wilsonline([(nu, -1), (mu, 1), (nu, 1), (mu, -1)]),
+        Wilsonline([(mu, -1), (nu, -1), (mu, 1), (nu, 1)]),
+    ]
+
+
 def make_loops_fromname(name: str, dim: int = 4):
     if name == "plaquette":
         return [make_plaq(mu, nu) for mu in range(dim) for nu in range(mu + 1, dim)]
@@ -57,6 +72,17 @@ def _roll_to(field: torch.Tensor, offset) -> torch.Tensor:
     if not axes:
         return field
     return rolls.roll(field, tuple(-offset[d] for d in axes), tuple(axes))
+
+
+def path_offsets(steps):
+    """Offsets before each unit step of a path, and the final one."""
+    offsets = [[0] * DIRS]
+    cur = [0] * DIRS
+    for mu, sgn in steps:
+        cur = list(cur)
+        cur[mu] += sgn
+        offsets.append(cur)
+    return offsets
 
 
 def evaluate_line(u: torch.Tensor, line: Wilsonline) -> torch.Tensor:

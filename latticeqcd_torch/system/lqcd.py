@@ -1,15 +1,16 @@
 """The simulation run: trajectory loop, saving and measurements.
 
 Counterpart of latticeqcd_tpu/system/lqcd.py for the ported slices: build
-the universe and the updater (HMC, or Fileloading over stored
+the universe and the updater (HMC, Heatbath, or Fileloading over stored
 configurations) from Params, optionally resume from a checkpoint, check a
 staggered action's rational window against the spectrum of W (the RHMC
 guard), run steps initialtrj..Nsteps (under Fileloading one per stored
 configuration), print the same verbose lines (dH and accept per
 trajectory, acceptance so far) plus the plaquette, save the links every
-saveU_every steps, measure, and return the final mean plaquette. The
-device is explicit (``cuda`` by default); a run never moves to another
-one.
+saveU_every steps, measure, flow a copy of the links numflow times and
+measure after each flow step (the gradientflow_measurements), and return
+the final mean plaquette. The device is explicit (``cuda`` by default); a
+run never moves to another one.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from latticeqcd_torch.measurements.scheduler import MeasurementSet
 from latticeqcd_torch.ops import gauge_action as ga
 from latticeqcd_torch.ops import sun
 from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction
+from latticeqcd_torch.smearing.gradientflow import gradientflow
 from latticeqcd_torch.system.params import Params, construct_params_from_toml
 from latticeqcd_torch.system.universe import build_universe
 from latticeqcd_torch.updates.factory import updatemethod
@@ -103,9 +105,10 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
     A staggered action first has its rational window checked against the
     Lanczos spectrum of W on the starting links (widened if needed).
     history, if given, receives one dict per step: itrj, seconds (host
-    clock, ending in a device sync), dH and plaq (None under Fileloading),
-    accepted, the solver records of that trajectory (CG and multi-shift CG
-    alike) and save_seconds (None if nothing was saved)."""
+    clock, ending in a device sync), dH and plaq (None under Heatbath and
+    Fileloading), accepted, the solver records of that trajectory (CG and
+    multi-shift CG alike), save_seconds (None if nothing was saved) and
+    flow_seconds (the flow and its measurements; None without them)."""
     device = torch.device(device)
     univ = build_universe(p, dtype=dtype, device=device)
     generator = torch.Generator(device=device).manual_seed(p.randomseed)
@@ -153,6 +156,10 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
     resumed = resume_checkpoint is not None
     measurements = MeasurementSet.from_methods(p.measurement_methods, measuredir=measuredir,
                                                append=resumed)
+    measurements_for_flow = MeasurementSet.from_methods(
+        p.measurements_for_flow, measuredir=measuredir, suffix="_flow", append=resumed)
+    gf = gradientflow(p.NC, nflow=1, eps=p.eps_flow)
+    dtau_flow = p.Nflow * p.eps_flow
 
     u = univ.u
     reunit_every = p.reunitarize_every
@@ -192,16 +199,31 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
             vp.println_verbose_level1(f"# unitarity defect {defect:.3e} (reprojected)")
         save_seconds = savedata.save(u, itrj, generator)
         measurements.calc_measurement_values(itrj, u)
+        flow_seconds = None
+        if measurements_for_flow.measurements and p.numflow > 0:
+            t0 = time.time()
+            usmr = u
+            for istep in range(1, p.numflow + 1):
+                for _ in range(p.Nflow):
+                    usmr = gf.flow(usmr)
+                # itrj appears twice in a flowed line, as in the JAX package
+                measurements_for_flow.calc_measurement_values(
+                    itrj, usmr, additional_string=f"{itrj} {istep} {istep * dtau_flow} ",
+                    step=istep)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            flow_seconds = time.time() - t0
         if history is not None:
             history.append({"itrj": itrj, "seconds": seconds, "dH": stats.get("dH"),
                             "accepted": accepted, "plaq": stats.get("plaq"), "cg": cg,
-                            "save_seconds": save_seconds})
+                            "save_seconds": save_seconds, "flow_seconds": flow_seconds})
         vp.println_verbose_level1(
             f"Acceptance {numaccepts}/{itrj} : {round(numaccepts * 100 / itrj)} %")
         vp.flush()
 
     vp.println_verbose_level1(f"Total Elapsed time {time.time() - t_all} [s]")
     measurements.close()
+    measurements_for_flow.close()
     plaq = float(ga.mean_plaquette(u))
     vp.close()
     return plaq

@@ -1,10 +1,11 @@
 """Simulation state assembly: links, gauge action, fermion action, logger.
 
 Counterpart of latticeqcd_tpu/system/universe.py for the ported slices:
-cold, hot or file starts (ILDG, Bridge++ text, JLD or NPZ), the Wilson
-plaquette action, and no fermions, two-flavour Wilson fermions with
-csw = 0, or staggered fermions with Nf = 1..8, updated by HMC or loaded
-by Fileloading. Everything else raises NotImplementedError naming the
+cold, hot, one-instanton or file starts (ILDG, Bridge++ text, JLD or
+NPZ), the Wilson plaquette action, and no fermions, two-flavour Wilson
+fermions with csw = 0, or staggered fermions with Nf = 1..8, updated by
+HMC or (quenched) Heatbath, or loaded by Fileloading, with gradient-flow
+measurements. Everything else raises NotImplementedError naming the
 ROADMAP item that will port it.
 """
 
@@ -41,9 +42,7 @@ def _not_ported(what: str, item: str):
 
 def check_supported(p: Params, device="cuda") -> None:
     """Refuse, by name, what the port does not run (on ``device``)."""
-    if p.initial == "one instanton":
-        _not_ported("the one-instanton start", "A2")
-    if p.update_method not in ("HMC", "Fileloading"):
+    if p.update_method not in ("HMC", "Heatbath", "Fileloading"):
         _not_ported(f"update_method = {p.update_method!r}", "A12")
     if p.couplinglist or p.coupling_loops is not None:
         _not_ported("general gauge actions", "A3")
@@ -66,8 +65,6 @@ def check_supported(p: Params, device="cuda") -> None:
         _not_ported("the Sexton-Weingarten integrator", "A7")
     if p.MDprecision == "mixed":
         _not_ported("mixed-precision MD", "A12")
-    if p.hasgradientflow or p.measurements_for_flow:
-        _not_ported("gradient flow measurements", "A12")
 
 
 def build_fermi_action(p: Params):

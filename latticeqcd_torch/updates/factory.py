@@ -1,13 +1,14 @@
-"""Updater factory: update_method -> HMC | Fileloading.
+"""Updater factory: update_method -> HMC | Heatbath | Fileloading.
 
 Counterpart of latticeqcd_tpu/updates/factory.py for the ported
-updaters. Heatbath, SLHMC, SLMC and the integrated updaters raise
+updaters. SLHMC, SLMC and the integrated updaters raise
 NotImplementedError naming ROADMAP A12.
 """
 
 from __future__ import annotations
 
 from latticeqcd_torch.updates.fileloading import GivenConfigurations
+from latticeqcd_torch.updates.heatbath import Heatbath
 from latticeqcd_torch.updates.hmc import HMC
 
 
@@ -34,6 +35,11 @@ def updatemethod(p, univ):
             fermi_action=univ.fermi_action,
             md_precision=p.MDprecision,
         )
+    if method == "Heatbath":
+        if not p.quench:
+            raise ValueError("Heatbath update is only for quench case!")
+        return Heatbath(action=univ.gauge_action, iteration_max=p.ITERATION_MAX,
+                        use_or=p.useOR, num_or=p.numOR)
     if method == "Fileloading":
         return GivenConfigurations.from_params(p, p.L, p.NC)
     raise NotImplementedError(f"update_method = {method!r} is not ported yet (ROADMAP A12)")

@@ -129,11 +129,16 @@ def test_run_lqcd_params_cpu_smoke(tmp_path, capsys):
 
 @pytest.mark.parametrize("field,value", [
     ("update_method", "Heatbath"), ("Dirac_operator", "Domainwall"),
-    ("Dirac_operator", "WilsonClover"), ("initial", "one instanton"),
+    ("Dirac_operator", "WilsonClover"),
     ("SextonWeingargten", True), ("MDprecision", "mixed"), ("hasenbusch", True),
     ("smearing_for_fermion", "stout"), ("couplinglist", ["rectangular"]),
 ])
 def test_run_refuses_what_is_not_ported(field, value):
+    if (field, value) == ("update_method", "Heatbath"):
+        # ported, and quenched only: with these Wilson fermions it raises as the JAX package does
+        with pytest.raises(ValueError, match="only for quench"):
+            run_lqcd_params(_params(**{field: value}), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_lqcd_params(_params(**{field: value}), device="cpu")
 

@@ -47,6 +47,9 @@ PORT_MODULES = [
     "latticeqcd_torch.updates.factory",
     "latticeqcd_torch.analysis",
     "latticeqcd_torch.validation_pbp",
+    "latticeqcd_torch.validation_plaq",
+    "latticeqcd_torch.updates.heatbath",
+    "latticeqcd_torch.smearing.gradientflow",
     "chip_smoke",
 ]
 

@@ -388,7 +388,6 @@ def test_anchor_pbp_on_the_committed_chain_matches_jax():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("initial", "one instanton", "A2"), ("update_method", "Heatbath", "A12"),
     ("update_method", "SLHMC", "A12"), ("update_method", "SLMC", "A12"),
     ("update_method", "IntegratedHMC", "A12"), ("update_method", "IntegratedHB", "A12"),
 ])

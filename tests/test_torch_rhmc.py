@@ -281,3 +281,170 @@ def test_run_lqcd_params_staggered_cpu(capsys):
 def test_run_refuses_odd_staggered_lattice_on_the_card():
     with pytest.raises(NotImplementedError, match="A11"):
         run_lqcd_params(_params(L=(3, 4, 4, 4)), make_dirs=False, device="cuda")
+
+
+# ------------------------------------------------- the pbp anchor's dH (C5)
+
+ANCHOR_LAT = (12, 12, 12, 8)
+ANCHOR_KEYS = (101, 202)  # two sets of draws
+
+
+def _anchor_start(dtype):
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "PERF_CAPTURE", "pbp56_ckpt.npz")) as z:
+        return np.asarray(z["u"]).astype(dtype)
+
+
+def _anchor_draws(key, u, fa_t, rdt) -> Draws:
+    """jax_draws in the real type rdt of the run (the JAX package draws its
+    momenta, noise and uniform in the links' real type)."""
+    _, k_mom, k_ferm, k_acc = jax.random.split(key, 4)
+    k1, k2 = jax.random.split(k_mom)
+    mom = (to_torch(jax.random.normal(k1, u.shape, dtype=rdt)),
+           to_torch(jax.random.normal(k2, u.shape, dtype=rdt)))
+    return Draws(mom, jax_pf_normals(k_ferm, fa_t, lat=ANCHOR_LAT, rdt=rdt),
+                 float(jax.random.uniform(k_acc, dtype=rdt)))
+
+
+def _anchor_trajectory(u_np, key, device="cpu", jax_too=True):
+    """One trajectory of the pbp anchor (beta 5.6, Nf=4 staggered, m = 0.025,
+    35 QPQ steps of 1/35, eps_cg 1e-10): (JAX dH or None, the port's dH)."""
+    rdt = jnp.float64 if u_np.dtype == np.complex128 else jnp.float32
+    kw = dict(nf=4, eps_cg=1e-10, max_cg=4000)
+    fa_t = TSFA(ts.StaggeredDirac(0.025, ANCHOR_LAT), **kw)
+    hmc_kw = dict(dtau=1.0 / 35, md_steps=35)
+    draws = _anchor_draws(key, u_np, fa_t, rdt)
+    if device != "cpu":
+        draws = Draws(tuple(x.to(device) for x in draws.mom),
+                      tuple(x.to(device) for x in draws.xi), draws.uniform)
+    _, st_t = THMC(action=tga.wilson_gauge_action(3, 5.6), fermi_action=fa_t, **hmc_kw).step(
+        convert.to_torch(u_np, device=device), draws=draws)
+    assert all(c["iterations"] < 4000 for c in st_t["cg"])
+    if not jax_too:
+        return None, st_t["dH"]
+    fa_j = JSFA(js.StaggeredDirac(0.025, ANCHOR_LAT), **kw)
+    _, _, st_j = JHMC(action=jga.wilson_gauge_action(3, 5.6), fermi_action=fa_j, staged=False,
+                      **hmc_kw).step(jnp.asarray(u_np), key)
+    return float(st_j["dH"]), st_t["dH"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("dtype,bar", [(np.complex128, 1e-6), (np.complex64, 0.5)])
+def test_anchor_trajectory_dh_matches_jax(dtype, bar):
+    """ROADMAP C5: one anchor trajectory from PERF_CAPTURE/pbp56_ckpt.npz per
+    set of draws, the same injected momenta, noise and uniform in both
+    packages. complex128 holds the port to the JAX package's dH (the same
+    arithmetic); complex64 only to 0.5, as the packages sum float32 in
+    different orders."""
+    u = _anchor_start(dtype)
+    for seed in ANCHOR_KEYS:
+        dh_j, dh_t = _anchor_trajectory(u, jax.random.PRNGKey(seed))
+        print(f"anchor dH {np.dtype(dtype).name} key {seed}: JAX {dh_j!r} port {dh_t!r}")
+        assert abs(dh_j - dh_t) < bar, (seed, dh_j, dh_t)
+
+
+def _anchor_energy_change(u_np, seed, device="cpu"):
+    """The port's complex64 anchor trajectory for key ``seed`` on ``device``: (its
+    dH, the energy change of that same trajectory recomputed in complex128 with
+    float64 sums and the final action solved to 1e-24, and S_f(U_old, phi) -
+    |xi|^2, the part of dH the pseudofermion heatbath's solve at eps_cg 1e-10
+    leaves, as HMC takes S_f(U_old, phi) to be |xi|^2)."""
+    from unittest import mock
+
+    from latticeqcd_torch.md import integrators
+    from latticeqcd_torch.ops import sun as tsun
+    from latticeqcd_torch.updates import hmc as thmc
+
+    cap = {}
+    run_md, sample = integrators.run_md, TSFA.sample_pseudofermion
+
+    def recorded_md(u0, h0, *a, **k):
+        un, hn = run_md(u0, h0, *a, **k)
+        cap.update(u0=u0, h0=h0, un=un, hn=hn)
+        return un, hn
+
+    def recorded_sample(self, uu, *a, **k):
+        s_old, phi = sample(self, uu, *a, **k)
+        cap.update(s_old=float(s_old), phi=phi)
+        return s_old, phi
+
+    with mock.patch.object(thmc.integrators, "run_md", recorded_md), \
+            mock.patch.object(TSFA, "sample_pseudofermion", recorded_sample):
+        _, dh = _anchor_trajectory(u_np, jax.random.PRNGKey(seed), device=device, jax_too=False)
+    c128 = lambda x: x.to(torch.complex128)  # noqa: E731
+    act = tga.wilson_gauge_action(3, 5.6)
+    exact = TSFA(ts.StaggeredDirac(0.025, ANCHOR_LAT), nf=4, eps_cg=1e-24, max_cg=20000)
+
+    def gauge_and_momenta(h, uu):
+        return float(tsun.kinetic_energy(c128(h))) + float(tga.action_value(act, c128(uu)))
+
+    sf_new = float(exact.action(c128(cap["un"]), c128(cap["phi"])))
+    sf_old = float(exact.action(c128(cap["u0"]), c128(cap["phi"])))
+    dh_exact = (gauge_and_momenta(cap["hn"], cap["un"]) + sf_new
+                - gauge_and_momenta(cap["h0"], cap["u0"]) - cap["s_old"])
+    return dh, dh_exact, sf_old - cap["s_old"]
+
+
+@pytest.mark.slow
+def test_anchor_complex64_dh_is_its_trajectorys_energy_change(monkeypatch):
+    """ROADMAP C5, what the complex64 dH holds: the port's complex64 dH of an
+    anchor trajectory equals the energy change of that same trajectory (with
+    S_f(U_old) = |xi|^2, as HMC takes it) recomputed in complex128, within
+    0.05. Also prints S_f(U_old, phi) - |xi|^2 and the JAX package's complex64
+    dH for the same draws with its energies summed in float32 (as it runs) and
+    with the momentum and gauge energies summed in float64."""
+    from latticeqcd_tpu.ops import gauge_action as jga_mod
+    from latticeqcd_tpu.ops import sun as jsun
+
+    u = _anchor_start(np.complex64)
+    port = []
+    for seed in ANCHOR_KEYS:
+        dh, dh_exact, heatbath_part = _anchor_energy_change(u, seed)
+        print(f"anchor complex64 key {seed}: port dH {dh!r}, energy change of its trajectory "
+              f"{dh_exact!r}, S_f(U_old, phi) - |xi|^2 {heatbath_part!r}")
+        port.append((dh, dh_exact))
+    fa_j = JSFA(js.StaggeredDirac(0.025, ANCHOR_LAT), nf=4, eps_cg=1e-10, max_cg=4000)
+
+    def jax_dh(seed):
+        hmc = JHMC(action=jga.wilson_gauge_action(3, 5.6), fermi_action=fa_j, staged=False,
+                   dtau=1.0 / 35, md_steps=35)
+        return float(hmc.step(jnp.asarray(u), jax.random.PRNGKey(seed))[2]["dH"])
+
+    f32 = [jax_dh(seed) for seed in ANCHOR_KEYS]
+    # the momentum and gauge energies (about 2e5 each) summed in float64; neither
+    # function is on the MD's force path, so the trajectory stays the same
+    ke, av = jsun.kinetic_energy, jga_mod.action_value
+    monkeypatch.setattr(jsun, "kinetic_energy", lambda h: ke(h.astype(jnp.complex128)))
+    monkeypatch.setattr(jga_mod, "action_value", lambda a, uu: av(a, uu.astype(jnp.complex128)))
+    jax.clear_caches()  # retrace with the float64 sums
+    f64 = [jax_dh(seed) for seed in ANCHOR_KEYS]
+    jax.clear_caches()
+    for seed, a, b in zip(ANCHOR_KEYS, f32, f64):
+        print(f"anchor complex64 key {seed}: JAX dH {a!r} (float32 sums), {b!r} (momentum "
+              f"and gauge energies summed in float64)")
+    for dh, dh_exact in port:
+        assert abs(dh - dh_exact) < 0.05, (dh, dh_exact)
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+def test_anchor_trajectory_dh_card_against_cpu():
+    """ROADMAP C5 on the card: the same complex64 anchor trajectories as
+    test_anchor_trajectory_dh_matches_jax through the port on the card and on
+    the CPU; prints both dH per set of draws and the energy change of the
+    card's trajectory recomputed in complex128 on the card (run with -s), which
+    the card's dH must equal within 0.05."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run: python -m pytest -m gpu -s "
+                    "tests/test_torch_rhmc.py::test_anchor_trajectory_dh_card_against_cpu)")
+    u = _anchor_start(np.complex64)
+    for seed in ANCHOR_KEYS:
+        _, dh_cpu = _anchor_trajectory(u, jax.random.PRNGKey(seed), jax_too=False)
+        dh_gpu, dh_exact, heatbath_part = _anchor_energy_change(u, seed, device="cuda")
+        print(f"anchor dH complex64 key {seed}: card {dh_gpu!r} CPU {dh_cpu!r} "
+              f"difference {dh_gpu - dh_cpu!r}; energy change of the card's trajectory "
+              f"{dh_exact!r}, S_f(U_old, phi) - |xi|^2 {heatbath_part!r}")
+        assert np.isfinite(dh_gpu) and abs(dh_gpu - dh_cpu) < 1.0
+        assert abs(dh_gpu - dh_exact) < 0.05, (dh_gpu, dh_exact)
