@@ -82,6 +82,25 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
  19. the 12^4 plaquette anchor, short: validation_plaq's chain at beta = 6.0 (complex64, cold
      start, heatbath without overrelaxation) for 60 sweeps; the mean plaquette of sweeps 31-60
      must lie within 0.593745 +- 0.0025 (the JAX chain's 12^4 value); seconds per sweep printed.
+ 20. the improved-action pieces at 4^4 complex128: the generic staples and force of the Iwasaki,
+     chair, polyakov_t and a coupling_loops action, a 2-layer stout smear, card against CPU (bar
+     1e-12); the generic plaquette staple against the fused one; the stout-smeared Wilson and
+     staggered (Nf = 4, 2) forces kernel path against plain path (1e-10 relative); one
+     trajectory each of scenario 7's action (Wilson, beta 5.7, kappa 0.141139, QPQ with
+     Sexton-Weingarten nsw 10, 20 steps of 0.05), phase 21's action and staggered Nf = 2 RHMC on
+     one stout layer with QPQ-SW, kernel path against plain path (dH 1e-9, links 1e-10); MD
+     reversibility of phase 21's action (1e-8); a plaquette + rectangle action's overrelaxation
+     (the action conserved to 1e-8 relative) and heatbath sweep from host uniforms for NC = 2,
+     3, card against CPU;
+ 21. the improved-action path: run_lqcd_params at 16^3x32, SU(3), complex64, hot start, 2
+     trajectories of the Iwasaki action at beta_I = 2.6 with 2-flavour Wilson fermions at kappa
+     0.12 on 2 plaquette stout layers of rho 0.1, Omelyan with Sexton-Weingarten nsw 4, 5
+     steps of 0.04; the Wilson kernels' launch counts set to 0 just before and read just after
+     (wilson_hop_packed must have run, wilson_hop's packed mode never); it fails if dH is not
+     finite, a solve reaches MaxCGstep or fails its verification, the unitarity defect after the
+     run exceeds 1e-4 or a plaquette leaves (0, 1); seconds per trajectory, CG iterations per
+     solve, launches per trajectory and torch.cuda.max_memory_allocated printed, and, on the
+     run's links, one Iwasaki force, one Wilson force and one stout forward + backward timed.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -593,7 +612,6 @@ def phase_staggered_trajectory_agreement(torch):
     print("== 9. 4^4 complex128 staggered trajectories: kernel path against plain path", flush=True)
     from latticeqcd_torch.md import integrators
     from latticeqcd_torch.ops import fields, gauge_action as ga
-    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
     from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
     from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction
     from latticeqcd_torch.updates.hmc import HMC, Draws
@@ -604,25 +622,7 @@ def phase_staggered_trajectory_agreement(torch):
     for nf in (2, 4):
         fa = StaggeredFermiAction(StaggeredDirac(mass=MASS, lattice=lat), nf=nf, eps_cg=1e-19)
         hmc = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=10, fermi_action=fa)
-        # uniform 0: both trajectories are accepted, so U' compares the evolved links
-        drawn = Draws.sample(hmc, u, torch.Generator(device=dev).manual_seed(14 + nf))
-        draws = Draws(drawn.mom, drawn.xi, 0.0)
-        before = sk.launches
-        u_k, st_k = hmc.step(u, draws=draws)
-        launched = sk.launches - before
-        with mock.patch.object(sk, "_w", sk.staggered_w_reference), \
-                mock.patch.object(sk, "_hop_packed", sk.staggered_hop_packed_reference):
-            u_p, st_p = hmc.step(u, draws=draws)
-        if sk.launches != before + launched:
-            fail("the plain-path staggered trajectory launched the kernel")
-        print(f"  Nf={nf}: kernel dH {st_k['dH']:.12f} accepted {st_k['accepted']} ({launched} "
-              f"launches); plain dH {st_p['dH']:.12f} accepted {st_p['accepted']}")
-        if launched == 0:
-            fail("the kernel path of the staggered trajectory launched no kernel")
-        check(f"Nf={nf} trajectory |ddH|", abs(st_k["dH"] - st_p["dH"]), 1e-9)
-        check(f"Nf={nf} trajectory max|dU|", maxdiff(u_k, u_p), 1e-10)
-        if st_k["accepted"] != st_p["accepted"]:
-            fail(f"Nf={nf}: kernel and plain trajectories disagree on accept")
+        _trajectory_pair(torch, f"Nf={nf}", hmc, u, 14 + nf)
 
     # Nf=2 reversibility: integrate forward, flip the momenta, integrate back
     fa = StaggeredFermiAction(StaggeredDirac(mass=MASS, lattice=lat), nf=2, eps_cg=1e-19)
@@ -787,6 +787,32 @@ def _launch_counts():
 
     return {"wilson_window": ww.launches, "wilson_hop_packed": wk.launches,
             "staggered_w": sk.launches}
+
+
+def _trajectory_pair(torch, label, hmc, u, seed):
+    """One trajectory through the kernels and one through their plain versions from the same
+    draws (uniform 0: both accepted, so U' compares the evolved links)."""
+    from latticeqcd_torch.updates.hmc import Draws
+
+    drawn = Draws.sample(hmc, u, torch.Generator(device=u.device).manual_seed(seed))
+    draws = Draws(drawn.mom, drawn.xi, 0.0)
+    before = _launch_counts()
+    u_k, st_k = hmc.step(u, draws=draws)
+    after = _launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    with _plain_kernels():
+        u_p, st_p = hmc.step(u, draws=draws)
+    if _launch_counts() != after:
+        fail(f"{label}: the plain-path trajectory launched a kernel")
+    print(f"  {label}: kernel dH {st_k['dH']:.12f} ({launched} launches, "
+          f"{sum(c['iterations'] for c in st_k['cg'])} CG iterations); plain dH "
+          f"{st_p['dH']:.12f}", flush=True)
+    if not launched:
+        fail(f"{label}: the kernel path of the trajectory launched no kernel")
+    check(f"{label} trajectory |ddH|", abs(st_k["dH"] - st_p["dH"]), 1e-9)
+    check(f"{label} trajectory max|dU|", maxdiff(u_k, u_p), 1e-10)
+    if st_k["accepted"] != st_p["accepted"]:
+        fail(f"{label}: kernel and plain trajectories disagree on accept")
 
 
 def phase_measurement_agreement(torch):
@@ -1505,12 +1531,211 @@ def phase_plaquette_anchor(torch):
         fail(f"the mean plaquette of sweeps 31-60, {mean}, is not within {ref} +- 0.0025")
 
 
+# The improved action of phases 20 and 21: Iwasaki at beta_I = 2.6 in the reference's
+# convention (the plaquette at c0 beta_I, the 1x2 rectangles through couplinglist at
+# c1 beta_I, c0 = 3.648, c1 = -0.331), Wilson fermions at kappa 0.12 (< 1/8: D stays
+# diagonally dominant on any unitary links) on 2 plaquette stout layers of rho 0.1,
+# Omelyan with Sexton-Weingarten nsw 4, 5 steps of 0.04
+IWASAKI = dict(beta=3.648 * 2.6, couplinglist=["rectangular"], couplingcoeff=[-0.331 * 2.6])
+IMPROVED = dict(**IWASAKI, Dirac_operator="Wilson", hop=0.12, smearing_for_fermion="stout",
+                stout_numlayers=2, stout_rho=[0.1], stout_loops=["plaquette"], MDscheme="Omelyan",
+                SextonWeingargten=True, N_SextonWeingargten=4, MDsteps=5, dtau=0.04)
+
+
+def phase_improved_agreement(torch):
+    print("== 20. 4^4 complex128 improved actions: general gauge actions, stout smearing and the "
+          "Sexton-Weingarten integrators, card against CPU and kernel path against plain path",
+          flush=True)
+    from latticeqcd_torch.md import integrators
+    from latticeqcd_torch.ops import fields, gauge_action as ga, wilsonline
+    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
+    from latticeqcd_torch.smearing.stout import stout_stack
+    from latticeqcd_torch.system.params import Params
+    from latticeqcd_torch.system.universe import build_gauge_action
+    from latticeqcd_torch.updates.heatbath import Heatbath
+    from latticeqcd_torch.updates.hmc import HMC, Draws
+
+    dev = torch.device("cuda")
+    lat = (4, 4, 4, 4)
+    bar = BARS["complex128"]
+    u = fields.hot_start(lat, 3, seed=60, dtype=torch.complex128, device="cpu")
+    ug = u.to(dev)
+    actions = {
+        "Iwasaki": IWASAKI,
+        "chair": dict(beta=5.5, couplinglist=["chair"], couplingcoeff=[-0.1]),
+        "polyakov_t": dict(beta=5.5, couplinglist=["polyakov_t"], couplingcoeff=[0.2]),
+        "coupling_loops": dict(beta=5.5, couplingcoeff=[0.3],
+                               coupling_loops=[[[(0, 1), (1, 2), (0, -1), (1, -2)]]]),
+    }
+    for name, kw in actions.items():
+        act = build_gauge_action(Params(L=lat, **kw))
+        check(f"{name} staples, card vs CPU",
+              max(maxdiff(ga.staples(act, ug, mu).cpu(), ga.staples(act, u, mu)) for mu in range(4)),
+              bar)
+        check(f"{name} force, card vs CPU", maxdiff(ga.force(act, ug).cpu(), ga.force(act, u)), bar)
+    wilson = ga.wilson_gauge_action(3, 5.7)
+    generic = ga.GaugeAction(3, wilson.terms)  # plaq_coeff 0: the generic path derivative
+    check("generic plaquette staple vs the fused _plaquette_staple, card",
+          max(maxdiff(ga.staples(generic, ug, mu), ga.staples(wilson, ug, mu)) for mu in range(4)),
+          bar)
+    net = stout_stack([0.1, 0.1], loop_names=("plaquette",))
+    check("2-layer stout smear, card vs CPU", maxdiff(net.smear(ug).cpu(), net.smear(u)), bar)
+
+    gen = torch.Generator(device=dev).manual_seed(61)
+    forces = [("Wilson", WilsonFermiAction(WilsonDirac(kappa=0.12), eps_cg=1e-22))]
+    forces += [(f"staggered Nf={nf}", StaggeredFermiAction(
+        StaggeredDirac(mass=MASS, lattice=lat), nf=nf, eps_cg=1e-22)) for nf in (4, 2)]
+    for name, fa in forces:
+        _, phi = fa.sample_pseudofermion(net.smear(ug), generator=gen)
+        before = _launch_counts()
+        f_k = fa.force(ug, phi, smear_fn=net.smear)
+        launched = _launch_counts() != before
+        with _plain_kernels():
+            f_p = fa.force(ug, phi, smear_fn=net.smear)
+        if not launched:
+            fail(f"the smeared {name} force launched no kernel")
+        check(f"smeared {name} force, kernel vs plain (relative)",
+              maxdiff(f_k, f_p) / float(f_p.abs().max()), 1e-10)
+
+    # trajectories: scenario 7's action, the phase-21 action, staggered Nf=2 with stout + QPQ-SW
+    scenario7 = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.05, md_steps=20,
+                    sexton_weingarten=True, nsw=10,
+                    fermi_action=WilsonFermiAction(WilsonDirac(kappa=KAPPA), eps_cg=1e-19))
+    _trajectory_pair(torch, "scenario 7 (Wilson, QPQ-SW nsw 10)", scenario7, ug, 62)
+    iwasaki = build_gauge_action(Params(L=lat, **IWASAKI))
+    fa = WilsonFermiAction(WilsonDirac(kappa=0.12), eps_cg=1e-19)
+    improved = HMC(action=iwasaki, dtau=0.04, md_steps=5, scheme="Omelyan",
+                   sexton_weingarten=True, nsw=4, fermi_action=fa, smearing=net)
+    _trajectory_pair(torch, "Iwasaki + 2 stout + Omelyan-SW", improved, ug, 63)
+    stag = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=10,
+               sexton_weingarten=True, nsw=2, smearing=stout_stack([0.1]),
+               fermi_action=StaggeredFermiAction(StaggeredDirac(mass=MASS, lattice=lat), nf=2,
+                                                 eps_cg=1e-19))
+    _trajectory_pair(torch, "staggered Nf=2 + 1 stout + QPQ-SW", stag, ug, 64)
+
+    # reversibility of the phase-21 action: integrate, flip the momenta, integrate back
+    draws = Draws.sample(improved, ug, torch.Generator(device=dev).manual_seed(65))
+    _, phi = fa.sample_pseudofermion(net.smear(ug), normals=draws.xi)
+    kw = dict(force_fermion=lambda uu: fa.force(uu, phi, smear_fn=net.smear), scheme="Omelyan",
+              sexton_weingarten=True, nsw=4)
+    force_g = lambda uu: ga.force(iwasaki, uu)
+    u1, h1 = integrators.run_md(ug, draws.momentum(ug), force_g, 0.04, 5, **kw)
+    u2, _ = integrators.run_md(u1, -h1, force_g, 0.04, 5, **kw)
+    check("Iwasaki + 2 stout + Omelyan-SW MD reversibility max|dU|", maxdiff(u2, ug), 1e-8)
+
+    # a plaquette + rectangle action's overrelaxation and heatbath: 4^4 colours of one site
+    for nc, beta in ((2, 1.9), (3, 5.7)):
+        act = ga.general_gauge_action(nc, [beta, -beta / 20.0],
+                                      [wilsonline.make_loops_fromname("plaquette"),
+                                       wilsonline.make_loops_fromname("rectangular")])
+        hb = Heatbath(action=act)
+        w = _warm_links(torch, lat, nc, 66 + nc, "cpu")
+        cpu, gpu = hb.overrelax(w), hb.overrelax(w.to(dev))
+        check(f"rectangle-action overrelaxation SU({nc}), card vs CPU", maxdiff(gpu.cpu(), cpu), bar)
+        s0, s1 = float(ga.action_value(act, w.to(dev))), float(ga.action_value(act, gpu))
+        check(f"rectangle-action overrelaxation SU({nc}) total action, relative change",
+              abs(s1 - s0) / max(1.0, abs(s0)), 1e-8)
+        cpu = hb.sweep(w, uniforms=_HostUniforms(torch, 8))
+        gpu = hb.sweep(w.to(dev), uniforms=_HostUniforms(torch, 8))
+        check(f"rectangle-action heatbath sweep SU({nc}) from host uniforms, card vs CPU",
+              maxdiff(gpu.cpu(), cpu), bar)
+
+
+def phase_improved_path(torch):
+    print("== 21. improved-action path: run_lqcd_params, 16^3x32 Iwasaki + 2-flavour Wilson on 2 "
+          "stout layers, Omelyan with Sexton-Weingarten, complex64, 2 trajectories", flush=True)
+    from latticeqcd_torch.ops import gauge_action as ga
+    from latticeqcd_torch.ops import sun
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+    from latticeqcd_torch.system.params import Params
+    from latticeqcd_torch.system.universe import build_gauge_action, build_smearing
+    from latticeqcd_torch.updates.hmc import HMC
+
+    maxcg = 3000
+    p = Params(L=MAIN, NC=3, initial="hot", update_method="HMC", quench=False, r=1.0,
+               BoundaryCondition=(1, 1, 1, -1), Nsteps=2, eps=1e-12, MaxCGstep=maxcg,
+               randomseed=3, verboselevel=2,
+               measurement_methods=[{"methodname": "Plaquette", "measure_every": 1}], **IMPROVED)
+    last = {}
+    step = HMC.step
+
+    def stepped(self, u, generator=None, draws=None):
+        out = step(self, u, generator, draws)
+        last["u"] = out[0]
+        return out
+
+    history = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wk.launches = 0
+    wk.site_launches.update(full=0, packed=0)
+    with mock.patch.object(HMC, "step", stepped):
+        plaq = run_lqcd_params(p, make_dirs=False, dtype=torch.complex64, device="cuda",
+                               history=history)
+    torch.cuda.synchronize()
+    launched, site = wk.launches, dict(wk.site_launches)
+    peak = torch.cuda.max_memory_allocated()
+    STATE["launches"].setdefault("wilson_hop_packed", {})["improved-action path"] = launched
+    for rec in history:
+        iters = [c["iterations"] for c in rec["cg"]]
+        worst = max((c["rsq"] / c["target"] for c in rec["cg"]), default=0.0)
+        print(f"  trajectory {rec['itrj']}: {rec['seconds']:.3f} s  {len(iters)} solves, CG "
+              f"iterations per solve {statistics.mean(iters):.1f} (most {max(iters)})  dH "
+              f"{rec['dH']:.6f}  accepted {rec['accepted']}  plaquette {rec['plaq']:.8f}  worst "
+              f"verified residual/target {worst:.3g}  [{STATE['smi']}]", flush=True)
+        STATE["checks"] += 1
+        if not math.isfinite(rec["dH"]):
+            fail(f"non-finite dH {rec['dH']}")
+        if worst > 1.0 or max(iters) >= maxcg:
+            fail("a CG reached MaxCGstep or returned a verified residual above its target")
+        if not 0.0 < rec["plaq"] < 1.0:
+            fail(f"plaquette {rec['plaq']} outside (0, 1)")
+    defect = float(sun.unitarity_defect(last["u"]))
+    print(f"  final plaquette {plaq:.8f}, unitarity defect {defect:.3e}; launches on the path: "
+          f"wilson_hop_packed {launched} ({launched / len(history):.0f} per trajectory), "
+          f"wilson_hop {site}; torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+    STATE["checks"] += 1
+    if defect > 1e-4:
+        fail(f"unitarity defect {defect} after the run exceeds 1e-4")
+    if not (math.isfinite(plaq) and 0.0 < plaq < 1.0):
+        fail(f"plaquette {plaq} outside (0, 1)")
+    if launched == 0:
+        fail("the improved-action path launched wilson_hop_packed no time")
+    if site["packed"]:
+        fail("the improved-action path launched wilson_hop's packed mode")
+
+    # B4's inputs on the run's links: the generic (Iwasaki) force against the fused (Wilson)
+    # one, and one smearing forward + backward (a vector-Jacobian product, as in the force)
+    u = last["u"]
+    iwasaki, wilson = build_gauge_action(p), ga.wilson_gauge_action(3, p.beta)
+    net = build_smearing(p)
+    cot = sun.random_hermitian_momentum(u.shape[:-2], 3, dtype=u.dtype, device=u.device,
+                                        generator=torch.Generator(device=u.device).manual_seed(4))
+
+    def smear_vjp():
+        uu = u.detach().requires_grad_(True)
+        with torch.enable_grad():
+            torch.autograd.grad(net.smear(uu), uu, grad_outputs=cot)
+
+    ms = {name: _time_eager(torch, fn, n=10, warm=2) for name, fn in (
+        ("Iwasaki force", lambda: ga.force(iwasaki, u)),
+        ("Wilson force", lambda: ga.force(wilson, u)),
+        ("stout smear forward + backward", smear_vjp))}
+    print(f"  16^3x32 complex64, median of 10 eager calls between CUDA events: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f" (Iwasaki/Wilson {ms['Iwasaki force'] / ms['Wilson force']:.2f}x)  [{STATE['smi']}]",
+          flush=True)
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
           phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
           phase_window, phase_window_timing, phase_measurement_agreement, phase_measurement_path,
           phase_disk, phase_anchor, phase_quenched_agreement, phase_quenched_path,
-          phase_plaquette_anchor]
+          phase_plaquette_anchor, phase_improved_agreement, phase_improved_path]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line

@@ -15,9 +15,10 @@ Counterpart of latticeqcd_tpu/ops/fermion_action.py (``_project_force``,
 Each force solves once (detached, as jax.lax.stop_gradient does) and
 differentiates the operator's quadratic form in the solutions with
 respect to the bare links through the boundary phases, the link packing
-and the hop's autograd Function. Every action names the shape of its
-Gaussian noise (``noise_shape``), so the HMC can draw it or replay
-injected draws. Hasenbusch and domain-wall actions wait for a later slice
+and the hop's autograd Function, and with ``smear_fn`` through the stout
+layers, whose graph is built once per force. Every action names the
+shape of its Gaussian noise (``noise_shape``), so the HMC can draw it or
+replay injected draws. Hasenbusch and domain-wall actions wait for a later slice
 (ROADMAP A12).
 """
 
@@ -40,6 +41,18 @@ from latticeqcd_torch.ops.dirac.wilson import (
 )
 
 DIRS = 4
+
+
+def _smeared_leaf(u, smear_fn):
+    """(leaf, links the operator sees): a detached leaf of the bare links
+    that requires grad, and smear_fn of it (built under enable_grad, so
+    also inside a no_grad caller), or the leaf itself. The smearing runs
+    once per force: the solve takes its detached value."""
+    uu = u.detach().requires_grad_(True)
+    if smear_fn is None:
+        return uu, uu
+    with torch.enable_grad():
+        return uu, smear_fn(uu)
 
 
 def _project_force(u, grad_c):
@@ -106,19 +119,21 @@ class WilsonFermiAction:
         x = self._solve_normal(self._phased(u), phi, log=log)
         return torch.real(inner(phi, x))
 
-    def force(self, u, phi, log=None):
-        return self.force_with_guess(u, phi, None, log=log)[0]
+    def force(self, u, phi, log=None, smear_fn=None):
+        return self.force_with_guess(u, phi, None, log=log, smear_fn=smear_fn)[0]
 
-    def force_with_guess(self, u, phi, x0, log=None):
+    def force_with_guess(self, u, phi, x0, log=None, smear_fn=None):
         """Force with the CG warm-started from x0 (chronological
-        inverter); returns (force, x) so the caller can thread x on."""
+        inverter); returns (force, x) so the caller can thread x on.
+        With smear_fn the solve runs on the smeared links and the
+        gradient is taken into the bare links through the smearing."""
+        uu, us = _smeared_leaf(u, smear_fn)
         with torch.no_grad():
-            up = self._phased(u)
+            up = self._phased(us.detach())
             packed = self._packed(up, phi)
             x = self._solve_normal(up, phi, x0=x0, log=log)
-        uu = u.detach().requires_grad_(True)
         with torch.enable_grad():
-            uup = apply_boundary_phases(uu, self.dirac.bc)
+            uup = apply_boundary_phases(us, self.dirac.bc)
             if packed:
                 ueo = self.dirac.packed_links(uup)
                 c = torch.real(inner(x, self.dirac.apply_dhat_ddag(ueo, x)))
@@ -302,23 +317,26 @@ class StaggeredFermiAction:
         return total
 
     # ------------------------------------------------------------- force
-    def force(self, u, phi, log=None):
+    def force(self, u, phi, log=None, smear_fn=None):
         """Exact RHMC force via partial fractions."""
-        return self.force_with_guess(u, phi, None, log=log)[0]
+        return self.force_with_guess(u, phi, None, log=log, smear_fn=smear_fn)[0]
 
-    def force_with_guess(self, u, phi, x0, log=None):
+    def force_with_guess(self, u, phi, x0, log=None, smear_fn=None):
         """Chronological inverter for the single-pole rational (Nf = 4, 8:
         W^-1 exactly): a plain CG warm-started from the previous MD step's
         solutions. Multi-pole RHMC keeps the multi-shift CG, which starts
         from zero (the shifted systems share one Krylov space); there the
         returned solutions are None and the guess thread stays empty.
+        With smear_fn the solves run on the smeared links and the gradient
+        is taken into the bare links through the smearing.
         Returns (force, solutions or None)."""
         pf = self._pf_action()
         single = self._is_single_pole(pf)
         xs_all = []
         xs_out = [] if single else None
+        uu, us = _smeared_leaf(u, smear_fn)
         with torch.no_grad():
-            w = self._w(self._phased(u))
+            w = self._w(self._phased(us.detach()))
             for i, phi_i in enumerate(phi):
                 b = self._field(phi_i)
                 if single:
@@ -330,9 +348,8 @@ class StaggeredFermiAction:
                     xs, _, _ = solvers.multishift_cg(w, b, pf.shifts, eps=self.eps_cg,
                                                      maxiter=self.max_cg, log=log)
                 xs_all.append(xs)
-        uu = u.detach().requires_grad_(True)
         with torch.enable_grad():
-            w_d = self._w(apply_boundary_phases(uu, self.dirac.bc))
+            w_d = self._w(apply_boundary_phases(us, self.dirac.bc))
             c = 0.0
             for xs in xs_all:
                 for j, a in enumerate(pf.residues):

@@ -1,10 +1,12 @@
-"""Wilson plaquette gauge action: value, staples, HMC force, plaquette.
+"""Loop-based gauge actions: value, staples, HMC force, plaquette.
 
 Counterpart of latticeqcd_tpu/ops/gauge_action.py with the reference's
-conventions: the Wilson action is the plaquette loops plus their
-adjoints at coupling beta/2, S_g = -Re evaluate(U) / NC. Staples and
-forces use the fused 6-staple form; actions with other loops (rect,
-chair, user loops) wait for a later slice and raise.
+conventions: an action is a list of (coupling, loop set) terms, the
+Wilson action is the plaquette loops plus their adjoints at coupling
+beta/2, and S_g = -Re evaluate(U) / NC. The Wilson action's staples and
+forces use the fused 6-staple form; any other action (rectangles,
+chairs, Polyakov lines, user loops) takes the generic path derivative
+``wilsonline.staple_sum``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ class GaugeAction:
     def push(self, coeff: float, loops) -> "GaugeAction":
         return GaugeAction(self.nc, self.terms + ((float(coeff), tuple(loops)),), 0.0)
 
+    def weighted_lines(self):
+        return [(c, line) for c, loops in self.terms for line in loops]
+
     def max_extent(self) -> int:
         """Largest |offset| any loop reaches: sets the heatbath's colouring."""
         return max([1] + [max(abs(x) for x in o) for _, loops in self.terms for line in loops
@@ -43,6 +48,14 @@ def wilson_gauge_action(nc: int, beta: float, dim: int = 4) -> GaugeAction:
     loops = list(plaq) + [l.adjoint() for l in plaq]
     act = GaugeAction(nc).push(beta / 2, loops)
     return GaugeAction(act.nc, act.terms, plaq_coeff=beta / 2)
+
+
+def general_gauge_action(nc: int, couplings, loopsets) -> GaugeAction:
+    """Each loop set with its adjoints at coupling c/2."""
+    act = GaugeAction(nc)
+    for c, loops in zip(couplings, loopsets):
+        act = act.push(c / 2, list(loops) + [l.adjoint() for l in loops])
+    return act
 
 
 def evaluate(action: GaugeAction, u: torch.Tensor) -> torch.Tensor:
@@ -86,10 +99,16 @@ def _plaquette_staple(u: torch.Tensor, mu: int) -> torch.Tensor:
 
 
 def staples(action: GaugeAction, u: torch.Tensor, mu: int) -> torch.Tensor:
-    """Weighted staple sum V_mu(y), d(sum c tr W)/d(U_mu) = V^T."""
-    if action.plaq_coeff == 0.0:
-        raise NotImplementedError("general gauge actions are not ported yet (ROADMAP A3)")
-    return action.plaq_coeff * _plaquette_staple(u, mu)
+    """Weighted staple sum V_mu(y), d(sum c tr W)/d(U_mu) = V^T: the fused
+    6-staple form for the Wilson action, the generic path derivative else."""
+    if action.plaq_coeff != 0.0:
+        return action.plaq_coeff * _plaquette_staple(u, mu)
+    return wilsonline.staple_sum(u, action.weighted_lines(), mu)
+
+
+def local_heatbath_exponent_matrix(action: GaugeAction, u: torch.Tensor, mu: int) -> torch.Tensor:
+    """V with the single-link weight exp(+(2/NC) Re tr(U_mu(y) V(y)))."""
+    return staples(action, u, mu)
 
 
 def force(action: GaugeAction, u: torch.Tensor) -> torch.Tensor:
@@ -98,6 +117,22 @@ def force(action: GaugeAction, u: torch.Tensor) -> torch.Tensor:
     for mu in range(DIRS):
         v = staples(action, u, mu)
         out.append(sun.traceless_hermitian(1j * sun.mul(u[mu], v)) / action.nc)
+    return torch.stack(out, dim=0)
+
+
+def force_autodiff(action: GaugeAction, u: torch.Tensor) -> torch.Tensor:
+    """The force from torch.autograd of S_g, for any action (a test oracle).
+
+    The JAX package's rule is Hdot = -(1/2) proj_TH(i U g^T) for JAX's
+    gradient g; PyTorch's gradient is its complex conjugate, so
+    g^T = grad^dag here."""
+    uu = u.detach().requires_grad_(True)
+    with torch.enable_grad():
+        (g,) = torch.autograd.grad(action_value(action, uu), uu)
+    out = []
+    for mu in range(DIRS):
+        m = 1j * sun.mul(u[mu], sun.dagger(g[mu]))
+        out.append(-0.5 * sun.traceless_hermitian(m))
     return torch.stack(out, dim=0)
 
 

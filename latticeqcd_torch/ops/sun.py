@@ -96,16 +96,19 @@ def det(m: torch.Tensor) -> torch.Tensor:
 
 
 def _expm_su2(x: torch.Tensor) -> torch.Tensor:
-    """exp of a traceless antihermitian 2x2 matrix, analytically."""
+    """exp of a traceless antihermitian 2x2 matrix, analytically. Near
+    theta = 0 both sin(theta)/theta and cos(theta) take their series, and
+    the square root sees 1 there, so that the gradient stays finite on
+    cold links (the square root's derivative at 0 is infinite, and the
+    backward of an unselected branch would multiply it by 0)."""
     a = x[..., 0, 0].imag
     b = x[..., 0, 1].real
     c = x[..., 0, 1].imag
     theta2 = a * a + b * b + c * c
-    theta = torch.sqrt(theta2)
-    small = theta < 1e-6
-    sinc = torch.where(small, 1.0 - theta2 / 6.0,
-                       torch.sin(theta) / torch.where(small, torch.ones_like(theta), theta))
-    cost = torch.cos(theta)
+    small = theta2 < 1e-12
+    theta = torch.sqrt(torch.where(small, torch.ones_like(theta2), theta2))
+    sinc = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    cost = torch.where(small, 1.0 - theta2 / 2.0 + theta2 * theta2 / 24.0, torch.cos(theta))
     e00 = torch.complex(cost, a * sinc)
     e01 = torch.complex(b * sinc, c * sinc)
     row0 = torch.stack([e00, e01], dim=-1)

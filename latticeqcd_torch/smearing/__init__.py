@@ -1,1 +1,1 @@
-"""Port of latticeqcd_tpu/smearing: the gradient flow (stout smearing waits for ROADMAP A12)."""
+"""Port of latticeqcd_tpu/smearing: the gradient flow and stout smearing."""

@@ -2,16 +2,19 @@
 
 Counterpart of latticeqcd_tpu/system/universe.py for the ported slices:
 cold, hot, one-instanton or file starts (ILDG, Bridge++ text, JLD or
-NPZ), the Wilson plaquette action, and no fermions, two-flavour Wilson
-fermions with csw = 0, or staggered fermions with Nf = 1..8, updated by
-HMC or (quenched) Heatbath, or loaded by Fileloading, with gradient-flow
-measurements. Everything else raises NotImplementedError naming the
-ROADMAP item that will port it.
+NPZ), the Wilson plaquette action with any couplinglist/coupling_loops
+terms, and no fermions, two-flavour Wilson fermions with csw = 0, or
+staggered fermions with Nf = 1..8, on stout-smeared links if asked,
+updated by HMC (with or without Sexton-Weingarten) or (quenched)
+Heatbath, or loaded by Fileloading, with gradient-flow measurements.
+Everything else raises NotImplementedError naming the ROADMAP item that
+will port it.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -24,6 +27,8 @@ from latticeqcd_torch.ops.dirac import eo_pack
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
 from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, refuse_r_off_cpu
 from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
+from latticeqcd_torch.ops.wilsonline import Wilsonline, make_loops_fromname
+from latticeqcd_torch.smearing.stout import CovNet, stout_stack
 from latticeqcd_torch.system.params import Params
 from latticeqcd_torch.utils.logger import VerbosePrint
 
@@ -34,6 +39,7 @@ class Univ:
     u: torch.Tensor
     fermi_action: Optional[Any]  # None: quenched
     verbose_print: VerbosePrint
+    cov_neural_net: Optional[CovNet]  # the fermions' stout stack, or None
 
 
 def _not_ported(what: str, item: str):
@@ -44,8 +50,6 @@ def check_supported(p: Params, device="cuda") -> None:
     """Refuse, by name, what the port does not run (on ``device``)."""
     if p.update_method not in ("HMC", "Heatbath", "Fileloading"):
         _not_ported(f"update_method = {p.update_method!r}", "A12")
-    if p.couplinglist or p.coupling_loops is not None:
-        _not_ported("general gauge actions", "A3")
     if not p.quench and p.Dirac_operator not in (None, "Wilson", "Staggered"):
         _not_ported(f"Dirac_operator = {p.Dirac_operator!r}", "A12")
     if (not p.quench and p.Dirac_operator == "Staggered"
@@ -59,12 +63,45 @@ def check_supported(p: Params, device="cuda") -> None:
             build_dirac_from_params(method["fermion_parameters"], p.L, device=device)
     if getattr(p, "hasenbusch", False):
         _not_ported("Hasenbusch mass preconditioning", "A12")
-    if p.smearing_for_fermion != "nothing":
-        _not_ported("smearing for fermions", "A12")
-    if p.SextonWeingargten:
-        _not_ported("the Sexton-Weingarten integrator", "A7")
     if p.MDprecision == "mixed":
         _not_ported("mixed-precision MD", "A12")
+
+
+def build_gauge_action(p: Params) -> ga.GaugeAction:
+    """The plaquette at beta/2 with adjoints, plus each couplinglist loop
+    set at couplingcoeff/2 with adjoints, plus each coupling_loops loop
+    (0-based (mu, length) segments) at couplingcoeff/2 with adjoints."""
+    if p.use_autogeneratedstaples:
+        # the reference's TOML path resets this key to false, so such a TOML runs there
+        warnings.warn(
+            "use_autogeneratedstaples = true is ignored (as in the reference's "
+            "TOML path); use couplinglist/coupling_loops for general actions",
+            stacklevel=2,
+        )
+    act = ga.wilson_gauge_action(p.NC, p.beta)
+    if p.couplinglist:
+        loopsets = [make_loops_fromname(name, 4, lattice=p.L) for name in p.couplinglist]
+        for c, loops in ga.general_gauge_action(p.NC, p.couplingcoeff, loopsets).terms:
+            act = act.push(c, loops)
+    if p.coupling_loops is not None:
+        for coeff, loopspec in zip(p.couplingcoeff, p.coupling_loops):
+            loops = [Wilsonline(seg) for seg in loopspec]
+            act = act.push(coeff / 2, loops + [l.adjoint() for l in loops])
+    return act
+
+
+def build_smearing(p: Params) -> Optional[CovNet]:
+    """The fermions' stout stack: stout_numlayers layers of stout_rho (one
+    value for all, or one per layer) over the stout_loops sets."""
+    if p.smearing_for_fermion == "nothing":
+        return None
+    if p.smearing_for_fermion != "stout":
+        raise ValueError(f"smearing_for_fermion {p.smearing_for_fermion!r} not supported")
+    rhos = list(p.stout_rho or [0.1])
+    nlayers = p.stout_numlayers or 1
+    if nlayers > 1 and len(rhos) == 1:
+        rhos = rhos * nlayers
+    return stout_stack(rhos, loop_names=tuple(p.stout_loops or ("plaquette",)))
 
 
 def build_fermi_action(p: Params):
@@ -98,8 +135,9 @@ def build_universe(p: Params, dtype=torch.complex128, device="cuda") -> Univ:
         vp.println_verbose_level2(".....  File start")
         vp.println_verbose_level1(f"File name is {p.initial}")
     return Univ(
-        gauge_action=ga.wilson_gauge_action(p.NC, p.beta),
+        gauge_action=build_gauge_action(p),
         u=u,
         fermi_action=build_fermi_action(p),
         verbose_print=vp,
+        cov_neural_net=build_smearing(p),
     )

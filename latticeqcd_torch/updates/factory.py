@@ -33,6 +33,7 @@ def updatemethod(p, univ):
             nsw=p.N_SextonWeingargten,
             omelyan_lambda=p.omelyan_lambda,
             fermi_action=univ.fermi_action,
+            smearing=univ.cov_neural_net,
             md_precision=p.MDprecision,
         )
     if method == "Heatbath":

@@ -1,4 +1,5 @@
-"""Hybrid Monte Carlo updater (quenched, two-flavour Wilson, staggered Nf 1..8).
+"""Hybrid Monte Carlo updater (quenched, two-flavour Wilson, staggered Nf 1..8),
+with stout-smeared fermion links and the Sexton-Weingarten integrators.
 
 Counterpart of latticeqcd_tpu/updates/hmc.py with the semantics of its
 fused trajectory (``HMC._step_fused``): refresh the momenta and the
@@ -7,7 +8,10 @@ fermion action solved on the evolved links, Metropolis
 exp(-dH) >= uniform, keep the old links on reject. The fermion force
 CG is warm-started from the previous MD step's solution (chronological
 inverter) where the action returns one; a multi-pole staggered action
-returns None and its next force starts from zero.
+returns None and its next force starts from zero. With a smearing the
+fermion action sees smear(U) wherever it is evaluated (the
+pseudofermion, the force through torch.autograd, the final action),
+and the gauge action the bare links.
 
 The random numbers of one trajectory are a ``Draws``: the momentum
 normals, the pseudofermion normals and the Metropolis uniform, in the
@@ -92,10 +96,9 @@ class HMC:
             raise ValueError(f"unknown MD scheme {self.scheme!r}")
         if self.md_precision == "mixed":
             raise NotImplementedError("mixed-precision MD is not ported yet (ROADMAP A12)")
-        if self.smearing is not None:
-            raise NotImplementedError("stout smearing is not ported yet (ROADMAP A12)")
-        if self.sexton_weingarten:
-            raise NotImplementedError("Sexton-Weingarten integrators are not ported yet (ROADMAP A7)")
+
+    def _smear(self, u):
+        return u if self.smearing is None else self.smearing.smear(u)
 
     @torch.no_grad()
     def step(self, u: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -115,11 +118,14 @@ class HMC:
         s_f_old = 0.0
         if not self.quench:
             fa = self.fermi_action
-            s_f_old, eta = fa.sample_pseudofermion(u, normals=draws.xi)
+            s_f_old, eta = fa.sample_pseudofermion(self._smear(u), normals=draws.xi)
+            smear_fn = None if self.smearing is None else self.smearing.smear
             guess = {"x": None}
 
             def force_fermion(uu):
-                f, guess["x"] = fa.force_with_guess(uu, eta, guess["x"], log=cg_log)
+                # the smearing's graph is built under the force's own enable_grad
+                f, guess["x"] = fa.force_with_guess(uu, eta, guess["x"], log=cg_log,
+                                                    smear_fn=smear_fn)
                 return f
 
         force_gauge = lambda uu: ga.force(self.action, uu)
@@ -129,14 +135,15 @@ class HMC:
 
         u_new, h_new = integrators.run_md(
             u, h, force_gauge, self.dtau, self.md_steps, force_fermion=force_fermion,
-            scheme=self.scheme, omelyan_lambda=self.omelyan_lambda,
+            scheme=self.scheme, sexton_weingarten=self.sexton_weingarten, nsw=self.nsw,
+            omelyan_lambda=self.omelyan_lambda,
         )
 
         sp_new = sun.kinetic_energy(h_new)
         sg_new = ga.action_value(self.action, u_new)
         s_f_new = 0.0
         if not self.quench:
-            s_f_new = torch.real(self.fermi_action.action(u_new, eta, log=cg_log))
+            s_f_new = torch.real(self.fermi_action.action(self._smear(u_new), eta, log=cg_log))
         d_h = sp_new + sg_new + s_f_new - s_old
         accept = bool(torch.exp(-d_h) >= draws.uniform)
         u_out = u_new if accept else u

@@ -54,10 +54,18 @@ def test_staples_match(links):
 
 
 def test_general_actions_raise():
+    """Once refused, now ported: a general action gives the JAX package's
+    staple, the rectangular set its loops; only an unknown set raises."""
+    from latticeqcd_tpu.ops import wilsonline as jwl
     from latticeqcd_torch.ops import wilsonline
 
-    act = tga.GaugeAction(3).push(1.0, wilsonline.make_loops_fromname("plaquette"))
-    with pytest.raises(NotImplementedError):
-        tga.staples(act, to_torch(np.asarray(jfields.cold_start((2, 2, 2, 2), 3))), 0)
-    with pytest.raises(NotImplementedError):
-        wilsonline.make_loops_fromname("rectangular")
+    u = jfields.hot_start((2, 2, 2, 2), 3, seed=34)
+    act_j = jga.GaugeAction(3).push(1.0, jwl.make_loops_fromname("plaquette"))
+    act_t = tga.GaugeAction(3).push(1.0, wilsonline.make_loops_fromname("plaquette"))
+    for mu in range(4):
+        ref = np.asarray(jga.staples(act_j, u, mu))
+        assert np.abs(ref - to_numpy(tga.staples(act_t, to_torch(np.asarray(u)), mu))).max() < TOL
+    assert ([l.segments for l in wilsonline.make_loops_fromname("rectangular")]
+            == [l.segments for l in jwl.make_loops_fromname("rectangular")])
+    with pytest.raises(ValueError, match="unknown loop set"):
+        wilsonline.make_loops_fromname("hexagon")

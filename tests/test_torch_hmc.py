@@ -139,6 +139,17 @@ def test_run_refuses_what_is_not_ported(field, value):
         with pytest.raises(ValueError, match="only for quench"):
             run_lqcd_params(_params(**{field: value}), device="cpu")
         return
+    ported = {"SextonWeingargten": dict(N_SextonWeingargten=2),
+              "smearing_for_fermion": dict(stout_numlayers=1, stout_rho=[0.1]),
+              "couplinglist": dict(couplingcoeff=[-6.0 / 20])}
+    if field in ported:
+        # ported: one CPU trajectory with a finite dH
+        history = []
+        p = _params(**{field: value}, **ported[field], Nsteps=1, MDsteps=2,
+                    measurement_methods=[])
+        plaq = run_lqcd_params(p, device="cpu", history=history)
+        assert 0.0 < plaq < 1.0 and len(history) == 1 and np.isfinite(history[0]["dH"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_lqcd_params(_params(**{field: value}), device="cpu")
 

@@ -50,6 +50,7 @@ PORT_MODULES = [
     "latticeqcd_torch.validation_plaq",
     "latticeqcd_torch.updates.heatbath",
     "latticeqcd_torch.smearing.gradientflow",
+    "latticeqcd_torch.smearing.stout",
     "chip_smoke",
 ]
 

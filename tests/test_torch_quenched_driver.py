@@ -237,6 +237,23 @@ def test_heatbath_with_fermions_raises(tmp_path):
 ])
 def test_quenched_path_still_refuses_what_is_not_ported(tmp_path, field, value, item):
     p = _heatbath_params(tmp_path, saveU_format=None, measuredir="", **{field: value})
+    if field == "smearing_for_fermion":
+        # ported: built and unused by a quenched heatbath, as in the JAX package
+        from latticeqcd_torch.system.universe import build_universe
+
+        assert build_universe(p, device="cpu").cov_neural_net is not None
+        p, q = (_heatbath_params(tmp_path, saveU_format=None, measuredir="", Nsteps=1, **kw)
+                for kw in ({field: value}, {}))
+        assert run_lqcd_params(p, device="cpu") == run_lqcd_params(q, device="cpu")
+        return
+    if field == "couplinglist":
+        # ported: a quenched heatbath of the Symanzik-type plaquette + rectangle action runs
+        history = []
+        p = _heatbath_params(tmp_path, saveU_format=None, measuredir="", Nsteps=1,
+                             couplingcoeff=[-5.7 / 20], numflow=0, **{field: value})
+        plaq = run_lqcd_params(p, device="cpu", history=history)
+        assert 0.0 < plaq < 1.0 and len(history) == 1
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         run_lqcd_params(p, device="cpu")
 
