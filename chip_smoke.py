@@ -100,7 +100,27 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      finite, a solve reaches MaxCGstep or fails its verification, the unitarity defect after the
      run exceeds 1e-4 or a plaquette leaves (0, 1); seconds per trajectory, CG iterations per
      solve, launches per trajectory and torch.cuda.max_memory_allocated printed, and, on the
-     run's links, one Iwasaki force, one Wilson force and one stout forward + backward timed.
+     run's links, one Iwasaki force, one Wilson force and one stout forward + backward timed;
+ 22. the domain-wall pieces at 4x4x2x2, L5 = 4, m = 0.3, M = -1.8: D, D^dag, D^dag D (through
+     wilson_window, 2 L5 launches each D^dag D) also on 3x4x2x2 (odd extent), Shat with and
+     without dag and Shat^dag Shat (wilson_hop_packed, 2 L5 launches per Shat), card against
+     CPU in complex128 (bar 1e-12) and complex64 (1e-5 relative); the action, the force
+     with and without one stout layer, the effective propagator, the condensate from injected
+     Z4 draws and the spectrum from an injected start, card against CPU (1e-10 relative,
+     solves to 1e-24); r = 0.7 and NC = 2 raise on the card; one trajectory kernel path
+     against plain path (dH 1e-9, links 1e-10) and MD reversibility (1e-8);
+ 23. the domain-wall path: run_lqcd_params at 16^3x32, SU(3), beta = 6.0, two-flavour Shamir
+     domain wall at M = -1.8, L5 = 16, m = 0.04 (Pauli-Villars partner at m = 1), QPQ 10 steps
+     of 0.02, complex64, hot start, 2 trajectories, with the pion correlator, the condensate
+     (Nr = 10) and the spectrum at itrj 0 and 2; every kernel's launch count set to 0 just
+     before and read just after; it fails if dH is not finite, a solve (the
+     pseudofermion's too) reaches MaxCGstep or misses its target, the unitarity defect exceeds
+     1e-4, a plaquette leaves (0, 1), a pion correlator value is not positive, the Ritz values
+     are not ascending and positive, wilson_hop_packed or wilson_window did not run, or
+     wilson_hop's packed mode did; seconds per trajectory and per method, CG iterations,
+     launches per trajectory and torch.cuda.max_memory_allocated printed, and, on the run's
+     links, one Shat^dag Shat (which must launch wilson_hop_packed 4 L5 times) beside its two
+     bounds and one domain-wall force timed.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -1730,12 +1750,343 @@ def phase_improved_path(torch):
           flush=True)
 
 
+# phase 22/23's domain-wall action: the reference's sign convention (diagonal 4r + M), so
+# M = -1.8 is M5 = 1.8 in the usual one
+DW_M5, DW_L5, DW_MASS = -1.8, 16, 0.04
+
+
+def _rel(a, b) -> float:
+    """max|a - b| / max|b| of two tensors or arrays (numbers on the host)."""
+    import numpy as np
+
+    a = a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+    b = b.detach().cpu().numpy() if hasattr(b, "detach") else np.asarray(b)
+    return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), 1e-300))
+
+
+def phase_domainwall_agreement(torch):
+    print("== 22. 4x4x2x2 L5=4 domain wall: the card against the CPU and the kernel path "
+          "against the plain path", flush=True)
+    import numpy as np
+
+    from latticeqcd_torch.md import integrators
+    from latticeqcd_torch.measurements import fermionic
+    from latticeqcd_torch.ops import fields, gauge_action as ga
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
+    from latticeqcd_torch.ops.dirac.wilson import apply_boundary_phases
+    from latticeqcd_torch.ops.fermion_action import DomainwallFermiAction
+    from latticeqcd_torch.smearing.stout import stout_stack
+    from latticeqcd_torch.updates.hmc import HMC, Draws
+
+    dev = torch.device("cuda")
+    lat, odd, l5 = (4, 4, 2, 2), (3, 4, 2, 2), 4
+    d = DomainwallDirac(mass=0.3, m5=DW_M5, l5=l5)
+    rng = np.random.default_rng(70)
+
+    def spinor(shape, dtype):
+        re, im = rng.standard_normal(shape), rng.standard_normal(shape)
+        return torch.from_numpy(re + 1j * im).to(dtype)
+
+    def counted(fn, counter, want):
+        """fn() on the card, checking that it launched `want` kernels of its module."""
+        mod = wk if counter == "wilson_hop_packed" else ww
+        before = mod.launches
+        out = fn()
+        torch.cuda.synchronize()
+        if mod.launches - before != want:
+            fail(f"{counter} launched {mod.launches - before} times, not {want}")
+        return out
+
+    def same(label, got, ref, kernel):
+        """complex128: max|diff| at 1e-12, counted toward the kernel's error; complex64:
+        relative to the largest entry at 1e-5 (D^dag D reaches |100|, where float32 rounding
+        alone is 1e-5)."""
+        if got.dtype == torch.complex128:
+            check(label, maxdiff(got.cpu(), ref), BARS["complex128"], kernel)
+        else:
+            check(f"{label} (relative)", _rel(got, ref), BARS["complex64"])
+
+    for dtype in (torch.complex128, torch.complex64):
+        name = str(dtype).split(".")[1]
+        for lt in (lat, odd):
+            tag = f"{'x'.join(map(str, lt))} L5={l5} {name}"
+            u = apply_boundary_phases(fields.hot_start(lt, 3, seed=71, dtype=dtype, device="cpu"))
+            ug = u.to(dev)
+            psi = spinor((l5,) + lt + (4, 3), dtype)
+            for label, fn, n in (("D", d.apply, l5), ("D^dag", d.apply_dagger, l5),
+                                 ("D^dag D", d.apply_ddag_d, 2 * l5)):
+                got = counted(lambda: fn(ug, psi.to(dev)), "wilson_window", n)
+                same(f"domain-wall {label} {tag}, card vs CPU", got, fn(u, psi), "wilson_window")
+            if lt != lat:
+                continue
+            ueo = d.packed_links(u)
+            geo = tuple(t.to(dev) for t in ueo)
+            phi = spinor((l5, lt[0] // 2) + lt[1:] + (4, 3), dtype)
+            for dag in (False, True):
+                got = counted(lambda: d.apply_schur(geo, phi.to(dev), dag=dag), "wilson_hop_packed",
+                              2 * l5)
+                same(f"domain-wall Shat{'^dag' if dag else ''} {tag}, card vs CPU", got,
+                     d.apply_schur(ueo, phi, dag=dag), "wilson_hop_packed")
+            got = counted(lambda: d.apply_schur_ddag_d(geo, phi.to(dev)), "wilson_hop_packed",
+                          4 * l5)
+            same(f"domain-wall Shat^dag Shat {tag}, card vs CPU", got,
+                 d.apply_schur_ddag_d(ueo, phi), "wilson_hop_packed")
+
+    # no fall-back to the plain version on the card: r != 1 and NC != 3 raise
+    su2 = fields.hot_start(lat, 2, seed=71, dtype=torch.complex128, device=dev)
+    x = torch.zeros((l5,) + lat + (4, 2), dtype=su2.dtype, device=dev)
+    for label, op, err in (("r = 0.7", DomainwallDirac(0.3, DW_M5, l5, r=0.7), NotImplementedError),
+                           ("NC = 2", d, ValueError)):
+        try:
+            op.apply_ddag_d(su2, x)
+        except err as exc:
+            print(f"  ok   domain wall with {label} on the card raises: {exc}", flush=True)
+        else:
+            fail(f"domain wall with {label} ran on the card")
+        STATE["checks"] += 1
+
+    # the action, the force with and without a stout layer, and the measurements, card
+    # against CPU in complex128 (solves to relative |r|^2 1e-24: the bar compares the kernels,
+    # not the solvers' stopping points)
+    fa = DomainwallFermiAction(d, eps_cg=1e-24)
+    net = stout_stack([0.1])
+    for lt in (lat, odd):
+        tag = f"{'x'.join(map(str, lt))} L5={l5} complex128"
+        u = fields.hot_start(lt, 3, seed=72, dtype=torch.complex128, device="cpu")
+        ug = u.to(dev)
+        _, phi = fa.sample_pseudofermion(u, generator=torch.Generator().manual_seed(73))
+        check(f"domain-wall action {tag}, card vs CPU (relative)",
+              _rel(fa.action(ug, phi.to(dev)), fa.action(u, phi)), 1e-10)
+        for layers, smear in ((0, None), (1, net.smear)):
+            f_c = fa.force(u, phi, smear_fn=smear)
+            f_g = fa.force(ug, phi.to(dev), smear_fn=smear)
+            check(f"domain-wall force, {layers} stout layer(s), {tag}, card vs CPU (relative)",
+                  _rel(f_g, f_c), 1e-10)
+        up, upg = apply_boundary_phases(u), apply_boundary_phases(ug)
+        b4 = spinor((2,) + lt + (4, 3), torch.complex128)
+        q_c = fermionic._dw_effective_propagator_multi(d, up, b4, 1e-24, 3000)
+        q_g = fermionic._dw_effective_propagator_multi(d, upg, b4.to(dev), 1e-24, 3000)
+        check(f"domain-wall effective propagator {tag}, card vs CPU (relative)", _rel(q_g, q_c),
+              1e-10)
+        draws = rng.integers(0, 4, (2,) + lt + (4, 3))
+        check(f"domain-wall pbp per noise {tag}, card vs CPU (relative)",
+              _rel(fermionic.chiral_condensate(ug, d, nr=2, draws=draws, eps=1e-24)[1],
+                   fermionic.chiral_condensate(u, d, nr=2, draws=draws, eps=1e-24)[1]), 1e-10)
+        v0 = spinor((l5,) + lt + (4, 3), torch.complex128)
+        before = ww.launches
+        s_g = fermionic.dirac_low_spectrum(ug, d, k=3, m=24, v0=v0.to(dev))
+        if ww.launches - before != 24 * 2 * l5:
+            fail(f"the domain-wall spectrum launched wilson_window {ww.launches - before} times")
+        check(f"domain-wall low spectrum {tag}, card vs CPU (relative)",
+              _rel(s_g, fermionic.dirac_low_spectrum(u, d, k=3, m=24, v0=v0)), 1e-10)
+
+    # one trajectory through the kernels and one through their plain versions, and MD
+    # reversibility
+    ug = fields.hot_start(lat, 3, seed=74, dtype=torch.complex128, device=dev)
+    fa = DomainwallFermiAction(d, eps_cg=1e-22)
+    hmc = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=5, fermi_action=fa)
+    _trajectory_pair(torch, "domain wall m=0.3 M=-1.8 L5=4", hmc, ug, 75)
+    draws = Draws.sample(hmc, ug, torch.Generator(device=dev).manual_seed(76))
+    _, phi = fa.sample_pseudofermion(ug, normals=draws.xi)
+    force_f = lambda uu: fa.force(uu, phi)
+    force_g = lambda uu: ga.force(hmc.action, uu)
+    u1, h1 = integrators.run_md(ug, draws.momentum(ug), force_g, 0.1, 5, force_fermion=force_f)
+    u2, _ = integrators.run_md(u1, -h1, force_g, 0.1, 5, force_fermion=force_f)
+    check("domain-wall MD reversibility max|dU|", maxdiff(u2, ug), 1e-8)
+
+
+def phase_domainwall_path(torch):
+    print("== 23. domain-wall path: run_lqcd_params, 16^3x32 two-flavour Shamir domain wall "
+          f"(M = {DW_M5}, L5 = {DW_L5}, m = {DW_MASS}), complex64, 2 trajectories with the "
+          "domain-wall measurements at itrj 0 and 2", flush=True)
+    import numpy as np
+
+    from latticeqcd_torch.measurements import scheduler
+    from latticeqcd_torch.ops import sun
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.ops.dirac.wilson import apply_boundary_phases
+    from latticeqcd_torch.ops.fermion_action import DomainwallFermiAction
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+    from latticeqcd_torch.system.params import Params
+    from latticeqcd_torch.updates.hmc import HMC
+
+    maxcg = 3000
+    dw = {"Dirac_operator": "Domainwall", "Domainwall_m": DW_MASS, "Domainwall_M": DW_M5,
+          "Domainwall_L5": DW_L5}
+    methods = [
+        {"methodname": "Pion_correlator", "fermion_parameters": dw, "MaxCGstep": maxcg},
+        {"methodname": "Chiral_condensate", "fermion_parameters": dw, "Nr": 10,
+         "MaxCGstep": maxcg},
+        {"methodname": "Dirac_spectrum", "fermion_parameters": dw, "Neig": 8, "Nlanczos": 48},
+    ]
+    p = Params(
+        L=MAIN, NC=3, beta=6.0, initial="hot", update_method="HMC", quench=False,
+        Dirac_operator="Domainwall", Domainwall_m=DW_MASS, Domainwall_M=DW_M5,
+        Domainwall_L5=DW_L5, BoundaryCondition=(1, 1, 1, -1), QPQ=True, dtau=0.02, MDsteps=10,
+        Nsteps=2, eps=1e-12, MaxCGstep=maxcg, randomseed=3, verboselevel=1,
+        measurement_methods=[{**m, "measure_every": 2} for m in methods],
+    )
+    records, samples, last = [], [], {}
+    step, sample = HMC.step, DomainwallFermiAction.sample_pseudofermion
+
+    def stepped(self, u, generator=None, draws=None):
+        out = step(self, u, generator, draws)
+        last["u"] = out[0]
+        return out
+
+    def sampled(self, u, generator=None, normals=None, log=None):
+        log = [] if log is None else log
+        out = sample(self, u, generator, normals, log=log)
+        samples.extend(log)  # the pseudofermion's PV solve, which HMC.step does not log
+        return out
+
+    def timed(cls):
+        measure = cls.measure
+
+        def wrapper(self, u, itrj, additional_string=""):
+            torch.cuda.synchronize()
+            before = _launch_counts()
+            t0 = time.time()
+            line = measure(self, u, itrj, additional_string)
+            torch.cuda.synchronize()
+            records.append({"method": self.name, "itrj": itrj, "seconds": time.time() - t0,
+                            "value": self.value, "solves": self.solves,
+                            "launches": {k: v - before[k] for k, v in _launch_counts().items()}})
+            return line
+
+        return mock.patch.object(cls, "measure", wrapper)
+
+    history = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ww.launches = wk.launches = sk.launches = sk.w_launches = sk.fused_launches = 0
+    wk.site_launches.update(full=0, packed=0)
+    with mock.patch.object(HMC, "step", stepped), \
+            mock.patch.object(DomainwallFermiAction, "sample_pseudofermion", sampled), \
+            timed(scheduler.PionCorrelatorMeasurement), \
+            timed(scheduler.ChiralCondensateMeasurement), \
+            timed(scheduler.DiracSpectrumMeasurement):
+        t0 = time.time()
+        plaq = run_lqcd_params(p, make_dirs=False, dtype=torch.complex64, device="cuda",
+                               history=history)
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    counts, site = _launch_counts(), dict(wk.site_launches)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("wilson_hop_packed", "wilson_window"):
+        STATE["launches"].setdefault(name, {})["domain-wall path"] = counts[name]
+    measured = {k: sum(r["launches"][k] for r in records) for k in counts}
+
+    for rec in history:
+        iters = [c["iterations"] for c in rec["cg"]]
+        worst = max((c["rsq"] / c["target"] for c in rec["cg"]), default=0.0)
+        print(f"  trajectory {rec['itrj']}: {rec['seconds']:.3f} s  {len(iters)} solves, CG "
+              f"iterations per solve {statistics.mean(iters):.1f} (most {max(iters)})  dH "
+              f"{rec['dH']:.6f}  accepted {rec['accepted']}  plaquette {rec['plaq']:.8f}  worst "
+              f"verified residual/target {worst:.3g}  [{STATE['smi']}]", flush=True)
+        STATE["checks"] += 1
+        if not math.isfinite(rec["dH"]):
+            fail(f"non-finite dH {rec['dH']}")
+        if worst > 1.0 or max(iters) >= maxcg:
+            fail("a CG reached MaxCGstep or returned a verified residual above its target")
+        if not 0.0 < rec["plaq"] < 1.0:
+            fail(f"plaquette {rec['plaq']} outside (0, 1)")
+    print(f"  pseudofermion (Pauli-Villars) solves: iterations "
+          f"{[c['iterations'] for c in samples]}", flush=True)
+    if any(c["iterations"] >= maxcg or c["rsq"] > c["target"] for c in samples):
+        fail("a pseudofermion solve reached MaxCGstep or missed its target")
+    for rec in records:
+        value, solves = rec["value"], rec["solves"] or []
+        iters = sum(c["iterations"] for c in solves)
+        if rec["method"] == "Dirac_spectrum":
+            shown = " ".join(f"{v:.6g}" for v in value)
+            work = f"{len(value)} Ritz values from 48 Lanczos steps"
+        else:
+            work = (f"CG iterations {iters} in {len(solves)} solve(s) of "
+                    f"{sum(c.get('rhs', 1) for c in solves)} RHS")
+            if rec["method"] == "Chiral_condensate":
+                shown = f"pbp {value[0]:.8g}"
+                value = [value[0]] + list(value[1])
+            else:
+                shown = "C(t) " + " ".join(f"{v:.4g}" for v in value[:4]) + " ..."
+        print(f"  itrj {rec['itrj']} {rec['method']}: {rec['seconds']:.3f} s  {work}  launches "
+              f"{rec['launches']}  {shown}  [{STATE['smi']}]", flush=True)
+        STATE["checks"] += 1
+        if not np.all(np.isfinite(np.asarray(value, dtype=np.float64))):
+            fail(f"{rec['method']} gave a value that is not finite")
+        if any(c["iterations"] >= maxcg or c["rsq"] > c["target"] for c in solves):
+            fail(f"a {rec['method']} solve reached MaxCGstep or missed its target")
+        if rec["method"] == "Pion_correlator" and not np.all(np.asarray(value) > 0):
+            fail("the domain-wall pion correlator is not positive")
+        if rec["method"] == "Dirac_spectrum" and not (
+                np.all(np.diff(value) >= 0) and np.all(np.asarray(value) > 0)):
+            fail("the domain-wall low eigenvalues are not ascending and positive")
+    if sorted((r["method"], r["itrj"]) for r in records) != sorted(
+            (m["methodname"], i) for m in methods for i in (0, 2)):
+        fail("the domain-wall path did not run every method at itrj 0 and 2")
+    defect = float(sun.unitarity_defect(last["u"]))
+    traj = counts["wilson_hop_packed"] - measured["wilson_hop_packed"]
+    print(f"  run_lqcd_params {total:.3f} s, final plaquette {plaq:.8f}, unitarity defect "
+          f"{defect:.3e}; launches on the path {counts} (trajectories: wilson_hop_packed "
+          f"{traj / len(history):.0f} per trajectory; measurements {measured}), wilson_hop "
+          f"{site}; torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB (a 5D c64 field "
+          f"{DW_L5 * math.prod(MAIN) * 96 / 1e6:.0f} MB, the 48-vector Lanczos basis "
+          f"{48 * DW_L5 * math.prod(MAIN) * 96 / 1e9:.2f} GB)  [{STATE['smi']}]", flush=True)
+    STATE["checks"] += 1
+    if defect > 1e-4:
+        fail(f"unitarity defect {defect} after the run exceeds 1e-4")
+    if not (math.isfinite(plaq) and 0.0 < plaq < 1.0):
+        fail(f"plaquette {plaq} outside (0, 1)")
+    for name in ("wilson_hop_packed", "wilson_window"):
+        if counts[name] == 0:
+            fail(f"the domain-wall path launched {name} no time")
+    if site["packed"]:
+        fail("the domain-wall path launched wilson_hop's packed mode")
+
+    # on the run's links: one Shat^dag Shat against the bounds of the slice loop and of a hop
+    # with a fifth-dimension axis, and one domain-wall force with its solve
+    u = last["u"]
+    fa = DomainwallFermiAction(scheduler.build_dirac_from_params(dw, MAIN), eps_cg=p.eps,
+                               max_cg=maxcg)
+    d = fa.dirac
+    ueo = d.packed_links(apply_boundary_phases(u, d.bc))
+    gen = torch.Generator(device=u.device).manual_seed(5)
+    x = torch.randn(fa.noise_shape(u), dtype=u.dtype, device=u.device, generator=gen)
+    before = wk.launches
+    d.apply_schur_ddag_d(ueo, x)
+    torch.cuda.synchronize()
+    per_op = wk.launches - before
+    if per_op != 4 * DW_L5:
+        fail(f"one Shat^dag Shat launched wilson_hop_packed {per_op} times, not 4 L5 = {4 * DW_L5}")
+    vol_half = math.prod(MAIN) // 2
+    loop_bytes = 4 * vol_half * DW_L5 * 768
+    axis_bytes = 4 * vol_half * (576 + DW_L5 * 192)
+    eager = _time_eager(torch, lambda: d.apply_schur_ddag_d(ueo, x), n=10, warm=2)
+    graph = _time_device(torch, lambda: d.apply_schur_ddag_d(ueo, x), reps=4, n=10)
+    print(f"  one Shat^dag Shat (16^3x32, L5 = {DW_L5}, complex64, {per_op} wilson_hop_packed "
+          f"launches): {eager:.3f} ms eager, {graph:.3f} ms device (CUDA graph); bound "
+          f"{loop_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms for the slice loop's "
+          f"{loop_bytes / 1e9:.2f} GB, {axis_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms for a hop "
+          f"with a fifth-dimension axis ({axis_bytes / 1e9:.2f} GB)  [{STATE['smi']}]", flush=True)
+    _, phi = fa.sample_pseudofermion(u, generator=gen)
+    log = []
+    force_ms = _time_eager(torch, lambda: fa.force_with_guess(u, phi, None, log=log), n=3, warm=1)
+    print(f"  one domain-wall force (its solve from zero, {log[-1]['iterations']} CG iterations, "
+          f"and the backward through the hops): {force_ms:.1f} ms eager  [{STATE['smi']}]",
+          flush=True)
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
           phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
           phase_window, phase_window_timing, phase_measurement_agreement, phase_measurement_path,
           phase_disk, phase_anchor, phase_quenched_agreement, phase_quenched_path,
-          phase_plaquette_anchor, phase_improved_agreement, phase_improved_path]
+          phase_plaquette_anchor, phase_improved_agreement, phase_improved_path,
+          phase_domainwall_agreement, phase_domainwall_path]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line

@@ -1,25 +1,29 @@
 """Fermionic measurements: chiral condensate, pion correlator, low Dirac spectrum.
 
 Counterpart of latticeqcd_tpu/measurements/fermionic.py for the Wilson
-(csw = 0) and staggered operators:
+(csw = 0), staggered and domain-wall operators:
 
 * chiral condensate: Nr Z4 noise vectors r, pbp = <Re <r, D^-1 r>> / V
-  times Nf/4 for staggered, 1 for Wilson;
+  times Nf/4 for staggered, 1 for Wilson and domain wall;
 * pion correlator: NC * Nspinor point sources at the origin, solved as
   one batch, C_pi(t) = sum over x, source and sink indices of |S|^2;
 * low Dirac spectrum: Ritz estimates of the k lowest eigenvalues of the
-  packed staggered W (even extents, m != 0) or of D^dag D (Wilson,
-  through the wilson_window kernel on the card).
+  packed staggered W (even extents, m != 0) or of D^dag D (Wilson and the
+  full-volume 5D domain-wall D^dag D, through the wilson_window kernel on
+  the card).
 
 The solves D x = b run in one of three ways (``_solve_dinv_multi``):
 the packed even-odd Schur system of Wilson (the wilson_hop kernel) or of
 staggered (the fused W of the staggered_w kernel) when every extent is
 even, else full-volume CGNE on D^dag D (Wilson through wilson_window;
-staggered on the CPU only, as its full-volume operator is). The noise and
-the Lanczos start vector come from a ``torch.Generator`` or are injected:
-jax.random streams cannot be reproduced in torch, so the tests hand both
-packages the same numbers. Clover and domain-wall operators are ROADMAP
-A12.
+staggered on the CPU only, as its full-volume operator is). Domain wall
+measures the 4D effective propagator of wall sources
+(``_dw_effective_propagator_multi``): the packed 5D Schur system on
+even lattices (wilson_hop_packed), full-volume 5D CGNE otherwise
+(wilson_window). The noise and the Lanczos start vector come from a
+``torch.Generator`` or are injected: jax.random streams cannot be
+reproduced in torch, so the tests hand both packages the same numbers.
+The clover operator is ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from latticeqcd_torch.ops import eigen, solvers
 from latticeqcd_torch.ops.dirac import eo_pack
+from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac, chiral_join
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
 from latticeqcd_torch.ops.dirac.wilson import (
     WilsonDirac,
@@ -98,6 +103,39 @@ def _solve_dinv_multi(dirac, up, b, eps, maxiter, deflate_k: int = 0, log: Optio
     return solve(lambda v: dirac.apply_ddag_d(up, v), rhs)
 
 
+@torch.no_grad()
+def _dw_effective_propagator_multi(dirac: DomainwallDirac, up, b4, eps, maxiter,
+                                   log: Optional[list] = None, force_mode: Optional[str] = None):
+    """The 4D effective quark propagator of the domain-wall operator on a stack
+    of 4D sources b4 (n, X, Y, Z, T, 4, NC): q_i = P- X_0 + P+ X_{L5-1} with
+    D_dw(m) X = B, B_0 = P+ b, B_{L5-1} = P- b (the quarks live on the walls).
+    Every extent even: the packed 5D Schur system, Shat x_e = b_e - B_eo A^-1 b_o
+    by CG on Shat^dag Shat and x_o = A^-1 (b_o - B_oe x_e); otherwise
+    full-volume CGNE on D^dag D."""
+    lattice = tuple(up.shape[1:5])
+    d = dirac
+    zero = torch.zeros_like(b4)
+    b5 = torch.zeros((b4.shape[0], d.l5) + tuple(b4.shape[1:]), dtype=b4.dtype, device=b4.device)
+    b5[:, 0] = chiral_join(b4, zero)
+    b5[:, d.l5 - 1] = chiral_join(zero, b4)
+    solve = lambda op, rhs: solvers.cg_multi_auto(  # noqa: E731
+        op, rhs, eps=eps, maxiter=maxiter, force_mode=force_mode, log=log)[0]
+    if eo_pack.packable(lattice):
+        ueo = d.packed_links(up)
+        u_e, u_o = ueo
+        b_e = _each(lambda f: d.pack5(f, lattice, 0), b5)
+        b_o = _each(lambda f: d.pack5(f, lattice, 1), b5)
+        rhs_e = b_e - _each(lambda v: d._packed_hop(u_e, u_o, d.apply_a_inv(v), 0), b_o)
+        x_e = solve(lambda v: d.apply_schur_ddag_d(ueo, v),
+                    _each(lambda v: d.apply_schur_dagger(ueo, v), rhs_e))
+        x_o = _each(d.apply_a_inv, b_o - _each(lambda v: d._packed_hop(u_o, u_e, v, 1), x_e))
+        x5 = (_each(lambda v: d.unpack5(v, lattice, 0), x_e)
+              + _each(lambda v: d.unpack5(v, lattice, 1), x_o))
+    else:
+        x5 = solve(lambda v: d.apply_ddag_d(up, v), _each(lambda f: d.apply_dagger(up, f), b5))
+    return chiral_join(x5[:, d.l5 - 1], x5[:, 0])
+
+
 def _solve_dinv(dirac, up, b, eps, maxiter):
     """Single-RHS D x = b (the batched path with n = 1)."""
     return _solve_dinv_multi(dirac, up, b[None], eps, maxiter)[0]
@@ -105,6 +143,15 @@ def _solve_dinv(dirac, up, b, eps, maxiter):
 
 def _nspin(dirac) -> int:
     return 1 if isinstance(dirac, StaggeredDirac) else 4
+
+
+def _propagate(dirac, up, b, eps, maxiter, deflate_k, log, force_mode):
+    """D^-1 b for a stack of 4D sources: the domain-wall effective propagator,
+    or the solve of the 4D operator itself."""
+    if isinstance(dirac, DomainwallDirac):
+        return _dw_effective_propagator_multi(dirac, up, b, eps, maxiter, log=log,
+                                              force_mode=force_mode)
+    return _solve_dinv_multi(dirac, up, b, eps, maxiter, deflate_k, log=log, force_mode=force_mode)
 
 
 def chiral_condensate(u, dirac, generator: Optional[torch.Generator] = None, nr: int = 10,
@@ -123,7 +170,7 @@ def chiral_condensate(u, dirac, generator: Optional[torch.Generator] = None, nr:
         z4_spinor(lattice, u.shape[-1], nspin=_nspin(dirac), dtype=u.dtype, device=u.device,
                   generator=generator, draws=None if draws is None else draws[i])
         for i in range(nr)])
-    p = _solve_dinv_multi(dirac, up, r, eps, maxiter, deflate_k, log=log, force_mode=force_mode)
+    p = _propagate(dirac, up, r, eps, maxiter, deflate_k, log, force_mode)
     per_noise = torch.real(torch.sum(r.conj() * p, dim=tuple(range(1, r.ndim))))
     per_noise = per_noise.double().cpu().numpy()
     vals = [float(v) / nv for v in per_noise]
@@ -136,20 +183,28 @@ def dirac_low_spectrum(u, dirac, k: int = 8, m: Optional[int] = None, v0=None):
     """Ritz estimates of the k lowest eigenvalues (ascending float64 numpy)
     of the Hermitian positive semi-definite operator behind the measurement
     solves: the packed even-odd W = m^2 - Dslash^2 for staggered with every
-    extent even and m != 0, else D^dag D. After m Lanczos steps (default
-    max(6k, 48)) the Ritz values approach the spectrum from inside.
+    extent even and m != 0, else D^dag D (for domain wall the full-volume 5D
+    D^dag D). After m Lanczos steps (default max(6k, 48)) the Ritz values
+    approach the spectrum from inside.
 
     The start vector is a unit Gaussian field on the full lattice (masked
-    to even sites and packed for W): ``v0`` if given, else drawn from a
+    to even sites and packed for W; for domain wall one 4D field per slice
+    s, seeded with SPECTRUM_SEED + s): ``v0`` if given, else drawn from a
     Generator seeded with SPECTRUM_SEED."""
     if m is None:
         m = max(6 * k, 48)
     up = apply_boundary_phases(u, dirac.bc)
     lattice = tuple(u.shape[1:5])
     if v0 is None:
-        v0 = gaussian_spinor(lattice, u.shape[-1], nspin=_nspin(dirac), dtype=u.dtype,
-                             device=u.device,
-                             generator=torch.Generator(device=u.device).manual_seed(SPECTRUM_SEED))
+        def start(seed):
+            return gaussian_spinor(lattice, u.shape[-1], nspin=_nspin(dirac), dtype=u.dtype,
+                                   device=u.device,
+                                   generator=torch.Generator(device=u.device).manual_seed(seed))
+
+        if isinstance(dirac, DomainwallDirac):  # one 4D start vector per slice s
+            v0 = torch.stack([start(SPECTRUM_SEED + s) for s in range(dirac.l5)])
+        else:
+            v0 = start(SPECTRUM_SEED)
     if isinstance(dirac, StaggeredDirac) and dirac.mass != 0.0 and eo_pack.packable(lattice):
         ueo = dirac.packed_links(up)
         vals, _ = eigen.ritz_pairs_low(lambda v: dirac.apply_w_packed(ueo, v),
@@ -176,8 +231,7 @@ def pion_correlator(u, dirac, eps: float = 1e-19, maxiter: int = 3000, deflate_k
         for ic in range(nc):
             for isp in range(nspin):
                 b[ic * nspin + isp, 0, 0, 0, 0, isp, ic] = 1.0
-    prop = _solve_dinv_multi(dirac, up, b, eps, maxiter, deflate_k, log=log,
-                             force_mode=force_mode)
+    prop = _propagate(dirac, up, b, eps, maxiter, deflate_k, log, force_mode)
     mag2 = torch.abs(prop) ** 2
     axes = (0, 1, 2, 3) + tuple(range(5, mag2.ndim))
     return torch.sum(mag2, dim=axes).double().cpu().numpy()

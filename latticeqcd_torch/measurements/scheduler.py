@@ -5,8 +5,8 @@ file names (<measuredir>/<methodname><suffix>.txt, the suffix "_flow" for
 the flowed series) and line formats, for the gauge observables
 Plaquette, Polyakov_loop, Topological_charge, Energy_density and
 Wilson_loop and the fermionic methods Chiral_condensate, Pion_correlator
-and Dirac_spectrum (Wilson csw = 0 and staggered operators, built from the
-method's ``fermion_parameters``). Every ``measure`` takes the JAX
+and Dirac_spectrum (Wilson csw = 0, staggered and domain-wall operators,
+built from the method's ``fermion_parameters``). Every ``measure`` takes the JAX
 package's ``additional_string``, which the flow writes after itrj.
 """
 
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from latticeqcd_torch.measurements import fermionic, observables
+from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
 from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, refuse_r_off_cpu
 
@@ -28,8 +29,9 @@ def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1
                             device="cuda"):
     """fermion_parameters dict -> Dirac operator for fields on ``device``, with
     the JAX package's keys and defaults (Wilson: hop or kappa 0.141139, r 1;
-    staggered: mass 0.5; boundarycondition (1, 1, 1, -1)). Clover and
-    domain-wall operators raise, and so does Wilson r != 1 off the CPU."""
+    staggered: mass 0.5; domain wall: Domainwall_m or mass 1.0, Domainwall_M
+    or M -1.0, Domainwall_L5 or L5 4; boundarycondition (1, 1, 1, -1)). The
+    clover operator raises, and so does Wilson r != 1 off the CPU."""
     kind = params.get("Dirac_operator", "Wilson")
     bc = tuple(params.get("boundarycondition", default_bc))
     if kind == "Wilson":
@@ -39,7 +41,14 @@ def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1
                            r=r, bc=bc)
     if kind in ("Staggered", "staggered"):
         return StaggeredDirac(mass=float(params.get("mass", 0.5)), lattice=tuple(lattice), bc=bc)
-    if kind in ("WilsonClover", "Domainwall", "domainwall"):
+    if kind in ("Domainwall", "domainwall"):
+        return DomainwallDirac(
+            mass=float(params.get("Domainwall_m", params.get("mass", 1.0))),
+            m5=float(params.get("Domainwall_M", params.get("M", -1.0))),
+            l5=int(params.get("Domainwall_L5", params.get("L5", 4))),
+            bc=bc,
+        )
+    if kind == "WilsonClover":
         raise NotImplementedError(
             f"measurements with Dirac_operator = {kind!r} are not ported yet (ROADMAP A12)")
     raise ValueError(f"unknown Dirac_operator {kind!r}")

@@ -1,12 +1,16 @@
-"""Pseudofermion actions with their exact forces: two-flavour Wilson and
-staggered Nf = 1..8 (RHMC where needed).
+"""Pseudofermion actions with their exact forces: two-flavour Wilson,
+two-flavour domain-wall with its Pauli-Villars partner, and staggered
+Nf = 1..8 (RHMC where needed).
 
 Counterpart of latticeqcd_tpu/ops/fermion_action.py (``_project_force``,
-``WilsonFermiAction``, ``StaggeredFermiAction``):
+``WilsonFermiAction``, ``DomainwallFermiAction``, ``StaggeredFermiAction``):
 
 * Wilson Nf=2: S = phi^dag (A A^dag)^-1 phi with A the even-odd Schur
   operator Dhat on packed even sites (all-even lattices, csw = 0) or the
   full D otherwise;
+* domain wall Nf=2: S = phi^dag A_PV (A^dag A)^-1 A_PV^dag phi with A the
+  5D even-odd Schur operator Shat (all-even lattices) or the full 5D D at
+  mass m, and A_PV the same operator at m = 1;
 * staggered: S = sum_i phi_i^dag W^-(Nf/4npf) phi_i on even sites with
   W = m^2 - Dslash^2|_ee, one pseudofermion for Nf <= 4 and two for
   Nf in 5..8, rational powers by Gauss-Jacobi partial fractions and the
@@ -18,7 +22,7 @@ respect to the bare links through the boundary phases, the link packing
 and the hop's autograd Function, and with ``smear_fn`` through the stout
 layers, whose graph is built once per force. Every action names the
 shape of its Gaussian noise (``noise_shape``), so the HMC can draw it or
-replay injected draws. Hasenbusch and domain-wall actions wait for a later slice
+replay injected draws. Hasenbusch actions wait for a later slice
 (ROADMAP A12).
 """
 
@@ -32,6 +36,7 @@ import torch
 
 from latticeqcd_torch.ops import eigen, rational, solvers, sun
 from latticeqcd_torch.ops.dirac import eo_pack
+from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
 from latticeqcd_torch.ops.dirac.wilson import (
     WilsonDirac,
@@ -141,6 +146,107 @@ class WilsonFermiAction:
                 c = torch.real(inner(x, self.dirac.apply_d_ddag(uup, x)))
             (g,) = torch.autograd.grad(c, uu)
         return _project_force(u, g), x
+
+
+# ---------------------------------------------------------------------------
+# Domain wall (2 flavours, Pauli-Villars regulated)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DomainwallFermiAction:
+    """S = phi^dag A_PV (A^dag A)^-1 A_PV^dag phi, weight
+    det(A^dag A) / det(A_PV^dag A_PV): A = Shat (the 5D even-odd Schur
+    operator on packed even sites, every extent even) or the full 5D D at
+    mass m, A_PV the same operator at m = 1. det D = det(A_site) det(Shat)
+    with a link-independent site block, so both give the same measure."""
+
+    dirac: DomainwallDirac  # at the physical mass m
+    eps_cg: float = 1e-19
+    max_cg: int = 3000
+
+    def _pv(self) -> DomainwallDirac:
+        return replace(self.dirac, mass=1.0)
+
+    def _phased(self, u):
+        return apply_boundary_phases(u, self.dirac.bc)
+
+    def noise_shape(self, u):
+        """(L5,) + the packed even sites (every extent even) or the full
+        lattice + (4, NC)."""
+        lattice = tuple(u.shape[1:5])
+        if eo_pack.packable(lattice):
+            lattice = (lattice[0] // 2,) + lattice[1:]
+        return (self.dirac.l5,) + lattice + (4, u.shape[-1])
+
+    @staticmethod
+    def _packed(up, phi) -> bool:
+        return 2 * phi.shape[1] == up.shape[1]
+
+    def _ops(self, up, packed: bool, dirac: DomainwallDirac):
+        """(A, A^dag) of ``dirac`` on the links ``up``."""
+        if packed:
+            ueo = dirac.packed_links(up)
+            return (lambda v: dirac.apply_schur(ueo, v),
+                    lambda v: dirac.apply_schur_dagger(ueo, v))
+        return (lambda v: dirac.apply(up, v)), (lambda v: dirac.apply_dagger(up, v))
+
+    def _solve_normal(self, up, b, x0=None, log=None):
+        """x = (A^dag A)^-1 b with A = Shat (packed b) or D."""
+        a, a_dag = self._ops(up, self._packed(up, b), self.dirac)
+        x, _, _ = solvers.cg(lambda v: a_dag(a(v)), b, x0=x0, eps=self.eps_cg,
+                             maxiter=self.max_cg, log=log)
+        return x
+
+    @torch.no_grad()
+    def sample_pseudofermion(self, u, generator: Optional[torch.Generator] = None, normals=None,
+                             log=None):
+        """(S_old, phi): phi = A_PV (A_PV^dag A_PV)^-1 A^dag xi with unit Gaussian
+        xi (from the Generator, or the injected normals (re, im) of
+        noise_shape(u)), so that S(phi) = |xi|^2 = S_old."""
+        shape = self.noise_shape(u)
+        if normals is None:
+            kw = dict(generator=generator, dtype=u.real.dtype, device=u.device)
+            normals = (torch.randn(shape, **kw), torch.randn(shape, **kw))
+        xi = (torch.complex(*normals) / math.sqrt(2.0)).to(u.dtype)
+        up = self._phased(u)
+        packed = eo_pack.packable(tuple(u.shape[1:5]))
+        _, a_dag = self._ops(up, packed, self.dirac)
+        pv, pv_dag = self._ops(up, packed, self._pv())
+        w, _, _ = solvers.cg(lambda v: pv_dag(pv(v)), a_dag(xi), eps=self.eps_cg,
+                             maxiter=self.max_cg, log=log)
+        return torch.real(inner(xi, xi)), pv(w)
+
+    @torch.no_grad()
+    def action(self, u, phi, log=None):
+        up = self._phased(u)
+        _, pv_dag = self._ops(up, self._packed(up, phi), self._pv())
+        b = pv_dag(phi)
+        return torch.real(inner(b, self._solve_normal(up, b, log=log)))
+
+    def force(self, u, phi, log=None, smear_fn=None):
+        return self.force_with_guess(u, phi, None, log=log, smear_fn=smear_fn)[0]
+
+    def force_with_guess(self, u, phi, x0, log=None, smear_fn=None):
+        """Force with the CG warm-started from x0 (chronological inverter);
+        returns (force, x). dS = 2 Re<phi, dA_PV x> - <x, d(A^dag A) x> with
+        x = (A^dag A)^-1 A_PV^dag phi held fixed: c = 2 Re<phi, A_PV x> - |A x|^2
+        is differentiated into the bare links (through smear_fn if given), and
+        since dc = dS the force is -_project_force."""
+        uu, us = _smeared_leaf(u, smear_fn)
+        with torch.no_grad():
+            up = self._phased(us.detach())
+            packed = self._packed(up, phi)
+            _, pv_dag = self._ops(up, packed, self._pv())
+            x = self._solve_normal(up, pv_dag(phi), x0=x0, log=log)
+        with torch.enable_grad():
+            uup = apply_boundary_phases(us, self.dirac.bc)
+            a, _ = self._ops(uup, packed, self.dirac)
+            pv, _ = self._ops(uup, packed, self._pv())
+            dx = a(x)
+            c = 2.0 * torch.real(inner(phi, pv(x))) - torch.real(inner(dx, dx))
+            (g,) = torch.autograd.grad(c, uu)
+        return -_project_force(u, g), x
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Counterpart of latticeqcd_tpu/system/universe.py for the ported slices:
 cold, hot, one-instanton or file starts (ILDG, Bridge++ text, JLD or
 NPZ), the Wilson plaquette action with any couplinglist/coupling_loops
-terms, and no fermions, two-flavour Wilson fermions with csw = 0, or
+terms, and no fermions, two-flavour Wilson fermions with csw = 0,
+two-flavour domain-wall fermions with their Pauli-Villars partner, or
 staggered fermions with Nf = 1..8, on stout-smeared links if asked,
 updated by HMC (with or without Sexton-Weingarten) or (quenched)
 Heatbath, or loaded by Fileloading, with gradient-flow measurements.
@@ -24,9 +25,11 @@ from latticeqcd_torch.io import load_config
 from latticeqcd_torch.measurements.scheduler import build_dirac_from_params
 from latticeqcd_torch.ops import fields, gauge_action as ga
 from latticeqcd_torch.ops.dirac import eo_pack
+from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
 from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, refuse_r_off_cpu
-from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
+from latticeqcd_torch.ops.fermion_action import (DomainwallFermiAction, StaggeredFermiAction,
+                                                 WilsonFermiAction)
 from latticeqcd_torch.ops.wilsonline import Wilsonline, make_loops_fromname
 from latticeqcd_torch.smearing.stout import CovNet, stout_stack
 from latticeqcd_torch.system.params import Params
@@ -50,7 +53,7 @@ def check_supported(p: Params, device="cuda") -> None:
     """Refuse, by name, what the port does not run (on ``device``)."""
     if p.update_method not in ("HMC", "Heatbath", "Fileloading"):
         _not_ported(f"update_method = {p.update_method!r}", "A12")
-    if not p.quench and p.Dirac_operator not in (None, "Wilson", "Staggered"):
+    if not p.quench and p.Dirac_operator not in (None, "Wilson", "Staggered", "Domainwall"):
         _not_ported(f"Dirac_operator = {p.Dirac_operator!r}", "A12")
     if (not p.quench and p.Dirac_operator == "Staggered"
             and torch.device(device).type != "cpu" and not eo_pack.packable(p.L)):
@@ -111,6 +114,14 @@ def build_fermi_action(p: Params):
     if p.Dirac_operator == "Staggered":
         dirac = StaggeredDirac(mass=p.mass, lattice=tuple(p.L), bc=bc)
         return StaggeredFermiAction(dirac, nf=p.Nf, eps_cg=p.eps, max_cg=p.MaxCGstep)
+    if p.Dirac_operator == "Domainwall":
+        dirac = DomainwallDirac(
+            mass=p.Domainwall_m if p.Domainwall_m is not None else 1.0,
+            m5=p.Domainwall_M if p.Domainwall_M is not None else -1.0,
+            l5=p.Domainwall_L5 if p.Domainwall_L5 is not None else 4,
+            bc=bc,
+        )
+        return DomainwallFermiAction(dirac, eps_cg=p.eps, max_cg=p.MaxCGstep)
     dirac = WilsonDirac(kappa=p.hop, r=p.r, bc=bc)
     return WilsonFermiAction(dirac, eps_cg=p.eps, max_cg=p.MaxCGstep)
 

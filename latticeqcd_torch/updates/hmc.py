@@ -1,4 +1,4 @@
-"""Hybrid Monte Carlo updater (quenched, two-flavour Wilson, staggered Nf 1..8),
+"""Hybrid Monte Carlo updater (quenched, two-flavour Wilson and domain wall, staggered Nf 1..8),
 with stout-smeared fermion links and the Sexton-Weingarten integrators.
 
 Counterpart of latticeqcd_tpu/updates/hmc.py with the semantics of its

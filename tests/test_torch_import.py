@@ -31,6 +31,7 @@ PORT_MODULES = [
     "latticeqcd_torch.ops.dirac.wilson",
     "latticeqcd_torch.ops.dirac.wilson_kernel",
     "latticeqcd_torch.ops.dirac.wilson_window_kernel",
+    "latticeqcd_torch.ops.dirac.domainwall",
     "latticeqcd_torch.ops.dirac.staggered",
     "latticeqcd_torch.ops.dirac.staggered_kernel",
     "latticeqcd_torch.measurements.observables",
