@@ -120,7 +120,27 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      wilson_hop's packed mode did; seconds per trajectory and per method, CG iterations,
      launches per trajectory and torch.cuda.max_memory_allocated printed, and, on the run's
      links, one Shat^dag Shat (which must launch wilson_hop_packed 4 L5 times) beside its two
-     bounds and one domain-wall force timed.
+     bounds and one domain-wall force timed;
+ 24. the self-learning updaters at 4^4 complex128, each step on the card through the kernels,
+     on the card through their plain versions and on the CPU from the same host draws (dH 1e-9,
+     links 1e-10, beta_eff 1e-7 relative, its difference printed): quenched SLHMC learning
+     beta = 5.7 from beta_eff = 3.0 (5 trajectories), one SLHMC trajectory with Wilson fermions
+     at kappa 0.141139 and one with staggered Nf = 4 at m = 1.0, 3 SLMC steps of the Iwasaki
+     action on a plaquette + rectangle basis, the dense fermion determinant of Wilson (dim 3072,
+     3072 wilson_window launches) and staggered fermions (W_e of dim 384, 384 staggered_w
+     launches; relative 1e-12), 2 IntegratedHMC trajectories and 2 IntegratedHB steps with the
+     Wilson determinant;
+ 25. the self-learning path: run_lqcd_params at 16^3x32, complex64, hot start, QPQ 10 steps of
+     0.02, 4 steps each of SLHMC with two-flavour Wilson fermions (beta 6.0, kappa 0.141139) on a
+     plaquette + rectangle basis from beta_eff [6, 0] and of quenched SLMC (beta 6.0 from
+     beta_eff 5.5), then IntegratedHMC with Wilson and IntegratedHB with staggered Nf = 4
+     fermions at 4^4 (the dense determinant's cap), 2 steps each; every kernel's launch count set
+     to 0 just before each run and read just after; it fails if a dH is not finite, a solve
+     reaches MaxCGstep, wilson_hop_packed did not run under SLHMC or ran in its gluonic MD,
+     SLMC did not learn beta or a log det did not launch its kernel once per column; seconds
+     and beta_eff per step, acceptance, CG iterations, launches, one effective force, one
+     coefficient sweep beside a plain heatbath sweep and torch.cuda.max_memory_allocated
+     printed.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -2080,13 +2100,320 @@ def phase_domainwall_path(torch):
           flush=True)
 
 
+# ------------------------------------------------------------------ self-learning updaters
+
+
+def _card_draws(draws):
+    """hmc.Draws drawn on the host, moved to the card (the same numbers on both devices)."""
+    from latticeqcd_torch.updates.hmc import Draws
+
+    move = lambda pair: None if pair is None else tuple(x.cuda() for x in pair)  # noqa: E731
+    return Draws(move(draws.mom), move(draws.xi), draws.uniform)
+
+
+def _beta_rel(a, b) -> float:
+    """max|a - b| / max|b| of two beta_eff tuples."""
+    return max(abs(x - y) for x, y in zip(a, b)) / max(abs(y) for y in b)
+
+
+def _check_steps(label, st_a, u_a, st_b, u_b, what):
+    check(f"{label} {what} |ddH|", abs(st_a["dH"] - st_b["dH"]), 1e-9)
+    check(f"{label} {what} max|dU|", maxdiff(u_a.cpu(), u_b.cpu()), 1e-10)
+    rel = _beta_rel(st_a["beta_eff"], st_b["beta_eff"])
+    print(f"    beta_eff {st_a['beta_eff']} / {st_b['beta_eff']}: relative difference {rel:.3e}",
+          flush=True)
+    check(f"{label} {what} beta_eff (relative)", rel, 1e-7)
+    if st_a["accepted"] != st_b["accepted"]:
+        fail(f"{label}: {what} disagree on accept")
+
+
+def _sl_chain(torch, label, make, u, nsteps, seed, kernels=True):
+    """nsteps of three updaters made alike (the card through the kernels, the card through
+    their plain versions, the CPU) from the same host draws, each step checked; SLHMC takes
+    hmc.Draws, SLMC host uniforms (_HostUniforms) and a Metropolis uniform. Without
+    ``kernels`` (a quenched updater, which launches none) the plain path is left out.
+    Returns the kernel launches of the card's kernel path."""
+    import numpy as np
+
+    from latticeqcd_torch.updates.hmc import Draws
+    from latticeqcd_torch.updates.slhmc import SLHMC
+
+    ups = {"card": make(), "plain": make(), "cpu": make()}
+    us = {"card": u.cuda(), "plain": u.cuda(), "cpu": u.cpu()}
+    launched = {}
+    for k in range(nsteps):
+        sts = {}
+        for path in ("card", "plain", "cpu") if kernels else ("card", "cpu"):
+            up = ups[path]
+            if isinstance(up, SLHMC):
+                d = Draws.sample(up, us["cpu"], torch.Generator().manual_seed(seed + k))
+                kw = dict(draws=d if path == "cpu" else _card_draws(d))
+            else:
+                kw = dict(uniforms=_HostUniforms(torch, seed + k),
+                          uniform=float(np.random.default_rng([seed, k]).random()))
+            before = _launch_counts()
+            t0 = time.time()
+            if path == "plain":
+                with _plain_kernels():
+                    us[path], sts[path] = up.step(us[path], **kw)
+            else:
+                us[path], sts[path] = up.step(us[path], **kw)
+            seconds = time.time() - t0
+            after = _launch_counts()
+            diff = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+            if path == "card":
+                for n, v in diff.items():
+                    launched[n] = launched.get(n, 0) + v
+            elif diff:
+                fail(f"{label}: the {path} path launched a kernel: {diff}")
+            st = sts[path]
+            print(f"  {label} step {k + 1} {path}: {seconds:.2f} s  dH {st['dH']:.10f}  accepted "
+                  f"{st['accepted']}  beta_eff {st['beta_eff']}"
+                  + (f"  launches {diff}" if path == "card" else ""), flush=True)
+        _check_steps(label, sts["card"], us["card"], sts["cpu"], us["cpu"], "card vs CPU")
+        if kernels:
+            _check_steps(label, sts["card"], us["card"], sts["plain"], us["plain"],
+                         "kernel vs plain")
+    if kernels and not launched:
+        fail(f"{label}: the card's kernel path launched no kernel")
+    return launched
+
+
+def phase_selflearning_agreement(torch):
+    print("== 24. 4^4 complex128 self-learning updaters: the card against the CPU and the kernel "
+          "path against the plain path", flush=True)
+    from latticeqcd_torch.ops import fields, gauge_action as ga
+    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, apply_boundary_phases
+    from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
+    from latticeqcd_torch.system.params import Params
+    from latticeqcd_torch.system.universe import build_gauge_action
+    from latticeqcd_torch.updates.slhmc import (SLHMC, SLMC, dense_logdet_fermi_action,
+                                                integrated_hb, integrated_hmc)
+
+    lat = (4, 4, 4, 4)
+    hot = fields.hot_start(lat, 3, seed=70, dtype=torch.complex128, device="cpu")
+    wilson57 = ga.wilson_gauge_action(3, 5.7)
+
+    _sl_chain(torch, "quenched SLHMC (beta 5.7 from beta_eff 3.0)",
+              lambda: SLHMC(wilson57, dtau=0.01, md_steps=10, beta_eff=3.0, firstlearn=1),
+              hot, 5, 71, kernels=False)
+    fw = WilsonFermiAction(WilsonDirac(kappa=KAPPA), eps_cg=1e-22)
+    _sl_chain(torch, "Wilson SLHMC",
+              lambda: SLHMC(wilson57, dtau=0.02, md_steps=10, fermi_action=fw, beta_eff=5.5),
+              hot, 1, 72)
+    fs = StaggeredFermiAction(StaggeredDirac(mass=1.0, lattice=lat), nf=4, eps_cg=1e-22)
+    _sl_chain(torch, "staggered Nf=4 SLHMC",
+              lambda: SLHMC(wilson57, dtau=0.02, md_steps=10, fermi_action=fs, beta_eff=5.5),
+              hot, 1, 73)
+    # SLMC on warm links: a heatbath sweep on Haar-random links amplifies rounding
+    iwasaki = build_gauge_action(Params(L=lat, **IWASAKI))
+    _sl_chain(torch, "SLMC, plaquette + rectangle basis (Iwasaki from beta_eff [9, 0])",
+              lambda: SLMC(iwasaki, beta_eff=[9.0, 0.0], firstlearn=2,
+                           couplinglist=("plaquette", "rectangular")),
+              _warm_links(torch, lat, 3, 74, "cpu"), 3, 75, kernels=False)
+
+    # the dense log det, Wilson (3072 wilson_window launches) and staggered (384 staggered_w)
+    cases = [("Wilson", WilsonDirac(kappa=KAPPA), lat + (4, 3), 1.0, 3072),
+             ("staggered", StaggeredDirac(mass=1.0, lattice=lat), lat + (3,), 0.5, 384)]
+    for name, dirac, shape, weight, ncols in cases:
+        sf = dense_logdet_fermi_action(dirac, shape, weight)
+        up = apply_boundary_phases(hot)
+        t0 = time.time()
+        cpu = float(sf(up))
+        t_cpu = time.time() - t0
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        card = float(sf(up.cuda()))
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        launched = {n: v - before[n] for n, v in _launch_counts().items() if v != before[n]}
+        with _plain_kernels():
+            plain = float(sf(up.cuda()))
+        print(f"  {name} log det (dim {math.prod(shape)}): S_f card {card:.15g}, plain {plain:.15g}, "
+              f"CPU {cpu:.15g}; {t_card:.3f} s on the card ({launched} launches), {t_cpu:.3f} s "
+              f"on the CPU  [{STATE['smi']}]", flush=True)
+        check(f"{name} log det, card vs CPU (relative)", abs(card - cpu) / abs(cpu), 1e-12)
+        check(f"{name} log det, kernel vs plain (relative)", abs(card - plain) / abs(plain), 1e-12,
+              kernel="wilson_window" if name == "Wilson" else "staggered_w")
+        kernel = "wilson_window" if name == "Wilson" else "staggered_w"
+        if launched != {kernel: ncols}:
+            fail(f"the {name} log det launched {launched}, not {ncols} {kernel}")
+
+    # the integrated updaters with the exact two-flavour Wilson determinant
+    sfw = dense_logdet_fermi_action(WilsonDirac(kappa=KAPPA), lat + (4, 3), 1.0)
+    logdet = lambda uu: sfw(apply_boundary_phases(uu))  # noqa: E731
+    _sl_chain(torch, "IntegratedHMC (Wilson)",
+              lambda: integrated_hmc(wilson57, dtau=0.02, md_steps=10, fermi_logdet=logdet),
+              hot, 2, 76)
+    _sl_chain(torch, "IntegratedHB (Wilson)",
+              lambda: integrated_hb(wilson57, fermi_logdet=logdet),
+              _warm_links(torch, lat, 3, 77, "cpu"), 2, 78)
+
+
+def phase_selflearning_path(torch):
+    print("== 25. self-learning path: run_lqcd_params, 16^3x32 complex64 SLHMC with 2-flavour "
+          "Wilson on a plaquette + rectangle basis and quenched SLMC, 4 steps each; the dense "
+          "updaters at 4^4", flush=True)
+    from latticeqcd_torch.ops import gauge_action as ga
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+    from latticeqcd_torch.system.params import Params
+    from latticeqcd_torch.updates import slhmc
+    from latticeqcd_torch.updates.heatbath import Heatbath
+    from latticeqcd_torch.updates.slhmc import SLHMC, SLMC
+
+    maxcg = 3000
+    base = dict(NC=3, initial="hot", BoundaryCondition=(1, 1, 1, -1), QPQ=True, dtau=0.02,
+                MDsteps=10, Nsteps=4, eps=1e-12, MaxCGstep=maxcg, randomseed=3, verboselevel=2,
+                measurement_methods=[{"methodname": "Plaquette", "measure_every": 1}])
+    last = {}
+
+    def capture(cls):
+        step = cls.step
+
+        def stepped(self, u, generator=None, **kw):
+            out = step(self, u, generator, **kw)
+            last.update(up=self, u=out[0])
+            return out
+
+        return mock.patch.object(cls, "step", stepped)
+
+    md_launches = []
+    run_md = slhmc.integrators.run_md
+
+    def counted_md(*args, **kw):
+        before = wk.launches
+        out = run_md(*args, **kw)
+        md_launches.append(wk.launches - before)
+        return out
+
+    def run(p, dtype, patches):
+        history = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ww.launches = wk.launches = sk.launches = sk.w_launches = sk.fused_launches = 0
+        wk.site_launches.update(full=0, packed=0)
+        from contextlib import ExitStack
+
+        with ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            t0 = time.time()
+            plaq = run_lqcd_params(p, make_dirs=False, dtype=dtype, device="cuda",
+                                   history=history)
+            torch.cuda.synchronize()
+        counts = _launch_counts()
+        print(f"  {p.update_method}: run_lqcd_params {time.time() - t0:.3f} s, final plaquette "
+              f"{plaq:.8f}, launches {counts}, wilson_hop {dict(wk.site_launches)}, "
+              f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+              f"  [{STATE['smi']}]", flush=True)
+        STATE["checks"] += 1
+        if not (math.isfinite(plaq) and 0.0 < plaq < 1.0):
+            fail(f"{p.update_method}: plaquette {plaq} outside (0, 1)")
+        if wk.site_launches["packed"] or sk.fused_launches:
+            fail(f"{p.update_method}: a kernel off the paths was launched")
+        return history, counts
+
+    def show(history, unit):
+        accepted = 0
+        for rec in history:
+            accepted += rec["accepted"]
+            iters = sum(c["iterations"] for c in rec["cg"])
+            print(f"  {unit} {rec['itrj']}: {rec['seconds']:.3f} s  dH {rec['dH']:.6f}  accepted "
+                  f"{rec['accepted']}  beta_eff {rec['beta_eff']}  plaquette {rec['plaq']:.8f}"
+                  + (f"  CG iterations {iters} in {len(rec['cg'])} solves" if rec["cg"] else "")
+                  + f"  [{STATE['smi']}]", flush=True)
+            STATE["checks"] += 1
+            if not math.isfinite(rec["dH"]) or rec["beta_eff"] is None:
+                fail(f"{unit} {rec['itrj']}: dH {rec['dH']} or beta_eff {rec['beta_eff']}")
+            if any(c["iterations"] >= maxcg or c["rsq"] > c["target"] for c in rec["cg"]):
+                fail("a CG reached MaxCGstep or missed its target")
+        return accepted
+
+    # SLHMC, two-flavour Wilson: the true action is Wilson's (couplinglist names the basis,
+    # the empty couplingcoeff adds nothing to the action)
+    p = Params(L=MAIN, beta=6.0, update_method="SLHMC", quench=False, Dirac_operator="Wilson",
+               hop=KAPPA, r=1.0, couplinglist=["plaquette", "rectangular"], couplingcoeff=[],
+               beta_eff=[6.0, 0.0], firstlearn=3, **base)
+    history, counts = run(p, torch.complex64, [capture(SLHMC),
+                                               mock.patch.object(slhmc.integrators, "run_md",
+                                                                 counted_md)])
+    accepted = show(history, "trajectory")
+    hops = counts["wilson_hop_packed"]
+    STATE["launches"].setdefault("wilson_hop_packed", {})["self-learning"] = hops
+    print(f"  SLHMC acceptance {accepted}/{len(history)} (a gluonic basis leaves the fermion action "
+          f"out of the MD, so a 16^3x32 trajectory is expected to reject); wilson_hop_packed "
+          f"{hops / len(history):.0f} per trajectory, {sum(md_launches)} in the MD", flush=True)
+    STATE["checks"] += 1
+    if hops == 0 or sum(md_launches) != 0 or len(md_launches) != len(history):
+        fail("SLHMC launched wilson_hop_packed no time, or launched it in the gluonic MD")
+    up, u = last["up"], last["u"]
+    coeffs = torch.as_tensor(up.beta_eff, dtype=torch.float32, device=u.device)
+    force_ms = _time_eager(torch, lambda: up.basis.force(u, coeffs), n=5, warm=1)
+    print(f"  one effective force (plaquette + rectangle basis, generic staples) {force_ms:.1f} ms: "
+          f"{force_ms * p.MDsteps / 1e3:.2f} s of a trajectory's {p.MDsteps} QPQ forces  "
+          f"[{STATE['smi']}]", flush=True)
+
+    # quenched SLMC on the plaquette basis
+    p = Params(L=MAIN, beta=6.0, update_method="SLMC", quench=True, beta_eff=5.5, firstlearn=1,
+               **base)
+    history, counts = run(p, torch.complex64, [capture(SLMC)])
+    accepted = show(history, "step")
+    print(f"  SLMC acceptance {accepted}/{len(history)}", flush=True)
+    STATE["checks"] += 1
+    if abs(history[-1]["beta_eff"][0] - 6.0) > 1e-3:
+        fail(f"quenched SLMC did not learn beta = 6.0: {history[-1]['beta_eff']}")
+    up, u = last["up"], last["u"]
+    coeffs = torch.as_tensor(up.beta_eff, dtype=torch.float32, device=u.device)
+    gen = torch.Generator(device=u.device).manual_seed(8)
+    sweep_ms = _time_eager(torch, lambda: up.hb.sweep_with_coeffs(u, coeffs, generator=gen),
+                           n=5, warm=1)
+    plain = Heatbath(action=ga.wilson_gauge_action(3, 6.0))
+    plain_ms = _time_eager(torch, lambda: plain.sweep(u, generator=gen), n=5, warm=1)
+    print(f"  one coefficient sweep {sweep_ms:.1f} ms (generic plaquette staple), one plain "
+          f"heatbath sweep {plain_ms:.1f} ms (fused staple)  [{STATE['smi']}]", flush=True)
+
+    # the dense updaters, capped at dim 4608: 4^4 through run_lqcd_params; every log det must
+    # launch its kernel once per column
+    dense = []
+    dense_fn = slhmc._dense
+
+    def counted_dense(apply, shape, device):
+        before = _launch_counts()
+        out = dense_fn(apply, shape, device)
+        dense.append((math.prod(shape), {n: v - before[n] for n, v in _launch_counts().items()
+                                         if v != before[n]}))
+        return out
+
+    small = dict(base, L=(4, 4, 4, 4), Nsteps=2, beta=5.7)
+    for p, kernel, key in (
+            (Params(update_method="IntegratedHMC", quench=False, Dirac_operator="Wilson",
+                    hop=KAPPA, r=1.0, **small), "wilson_window", "Wilson"),
+            (Params(update_method="IntegratedHB", quench=False, Dirac_operator="Staggered",
+                    mass=1.0, Nf=4, **small), "staggered_w", "staggered")):
+        dense.clear()
+        history, counts = run(p, torch.complex64,
+                              [mock.patch.object(slhmc, "_dense", counted_dense)])
+        show(history, "step")
+        STATE["launches"].setdefault(kernel, {})["self-learning"] = counts[kernel]
+        print(f"  {key} log dets: {len(dense)}, launches each {[d[1] for d in dense]}", flush=True)
+        STATE["checks"] += 1
+        if len(dense) != 2 * len(history) or any(d[1] != {kernel: d[0]} for d in dense):
+            fail(f"a {key} log det did not launch {kernel} once per column: {dense}")
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
           phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
           phase_window, phase_window_timing, phase_measurement_agreement, phase_measurement_path,
           phase_disk, phase_anchor, phase_quenched_agreement, phase_quenched_path,
           phase_plaquette_anchor, phase_improved_agreement, phase_improved_path,
-          phase_domainwall_agreement, phase_domainwall_path]
+          phase_domainwall_agreement, phase_domainwall_path, phase_selflearning_agreement,
+          phase_selflearning_path]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line

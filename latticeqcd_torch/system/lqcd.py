@@ -1,16 +1,17 @@
 """The simulation run: trajectory loop, saving and measurements.
 
 Counterpart of latticeqcd_tpu/system/lqcd.py for the ported slices: build
-the universe and the updater (HMC, Heatbath, or Fileloading over stored
-configurations) from Params, optionally resume from a checkpoint, check a
+the universe and the updater (HMC, Heatbath, SLHMC, SLMC, IntegratedHMC,
+IntegratedHB, or Fileloading over stored configurations) from Params, optionally resume from a checkpoint, check a
 staggered action's rational window against the spectrum of W (the RHMC
 guard), run steps initialtrj..Nsteps (under Fileloading one per stored
 configuration), print the same verbose lines (dH and accept per
 trajectory, acceptance so far) plus the plaquette, save the links every
 saveU_every steps, measure, flow a copy of the links numflow times and
 measure after each flow step (the gradientflow_measurements), and return
-the final mean plaquette. The device is explicit (``cuda`` by default); a
-run never moves to another one.
+the final mean plaquette. The self-learning updaters also print their
+effective couplings (beta_eff) per step. The device is explicit (``cuda``
+by default); a run never moves to another one.
 """
 
 from __future__ import annotations
@@ -107,8 +108,9 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
     history, if given, receives one dict per step: itrj, seconds (host
     clock, ending in a device sync), dH and plaq (None under Heatbath and
     Fileloading), accepted, the solver records of that trajectory (CG and
-    multi-shift CG alike), save_seconds (None if nothing was saved) and
-    flow_seconds (the flow and its measurements; None without them)."""
+    multi-shift CG alike), save_seconds (None if nothing was saved),
+    flow_seconds (the flow and its measurements; None without them) and
+    beta_eff (the self-learning updaters' couplings after the step, else None)."""
     device = torch.device(device)
     univ = build_universe(p, dtype=dtype, device=device)
     generator = torch.Generator(device=device).manual_seed(p.randomseed)
@@ -187,6 +189,8 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
             vp.println_verbose_level2(
                 f"Snew - Sold = {stats['dH']}; " + ("Accepted" if accepted else "Rejected"))
             vp.println_verbose_level1(f"# plaquette = {stats['plaq']}")
+        if "beta_eff" in stats:  # the self-learning updaters' effective couplings
+            vp.println_verbose_level2(f"beta_eff = {stats['beta_eff']}")
         cg = stats.get("cg", [])
         if cg:
             iters = sum(c["iterations"] for c in cg)
@@ -216,7 +220,8 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
         if history is not None:
             history.append({"itrj": itrj, "seconds": seconds, "dH": stats.get("dH"),
                             "accepted": accepted, "plaq": stats.get("plaq"), "cg": cg,
-                            "save_seconds": save_seconds, "flow_seconds": flow_seconds})
+                            "save_seconds": save_seconds, "flow_seconds": flow_seconds,
+                            "beta_eff": stats.get("beta_eff")})
         vp.println_verbose_level1(
             f"Acceptance {numaccepts}/{itrj} : {round(numaccepts * 100 / itrj)} %")
         vp.flush()

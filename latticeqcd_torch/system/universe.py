@@ -6,10 +6,11 @@ NPZ), the Wilson plaquette action with any couplinglist/coupling_loops
 terms, and no fermions, two-flavour Wilson fermions with csw = 0,
 two-flavour domain-wall fermions with their Pauli-Villars partner, or
 staggered fermions with Nf = 1..8, on stout-smeared links if asked,
-updated by HMC (with or without Sexton-Weingarten) or (quenched)
-Heatbath, or loaded by Fileloading, with gradient-flow measurements.
-Everything else raises NotImplementedError naming the ROADMAP item that
-will port it.
+updated by HMC (with or without Sexton-Weingarten), (quenched) Heatbath,
+the self-learning SLHMC and SLMC or the integrated-fermion IntegratedHMC
+and IntegratedHB, or loaded by Fileloading, with gradient-flow
+measurements. Everything else raises NotImplementedError naming the
+ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -51,8 +52,6 @@ def _not_ported(what: str, item: str):
 
 def check_supported(p: Params, device="cuda") -> None:
     """Refuse, by name, what the port does not run (on ``device``)."""
-    if p.update_method not in ("HMC", "Heatbath", "Fileloading"):
-        _not_ported(f"update_method = {p.update_method!r}", "A12")
     if not p.quench and p.Dirac_operator not in (None, "Wilson", "Staggered", "Domainwall"):
         _not_ported(f"Dirac_operator = {p.Dirac_operator!r}", "A12")
     if (not p.quench and p.Dirac_operator == "Staggered"

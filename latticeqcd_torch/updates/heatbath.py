@@ -21,8 +21,13 @@ The uniforms come from a ``Uniforms`` source, consumed per mu, per
 colour, per subgroup: the tries' (r1, r2, r3, r4), then (ct, phi) of the
 direction. ``GeneratorUniforms`` draws them from a torch.Generator; a test
 can inject its own (the JAX package's key schedule replayed, or numpy
-draws). The coupling-basis sweeps of the JAX package serve SLMC only and
-are not ported (ROADMAP A12 item 8).
+draws).
+
+With a coupling ``basis`` (a tuple of unit-coupling GaugeActions, as SLMC
+gives it), ``sweep_with_coeffs`` and ``overrelax_with_coeffs`` update
+under the action sum_i coeffs[i] basis[i]: the staple is
+sum_i coeffs[i] staples(basis[i]) and the colouring follows the largest
+extent over the basis. Everything else is the plain sweep's.
 """
 
 from __future__ import annotations
@@ -76,12 +81,18 @@ def _parity_masks(lattice, moduli, plaquette_eo: bool) -> np.ndarray:
     return np.stack(masks)
 
 
-def color_masks(action: ga.GaugeAction, lattice) -> np.ndarray:
-    """The colour masks a sweep of ``action`` uses on ``lattice``."""
+def color_masks_ext(max_ext: int, lattice) -> np.ndarray:
+    """The colour masks of a sweep whose loops reach ``max_ext`` sites away:
+    the even-odd checkerboard at extent 1 on an even lattice, else the
+    per-axis colouring."""
     lattice = tuple(lattice)
-    max_ext = action.max_extent()
     plaq_eo = max_ext == 1 and all(l % 2 == 0 for l in lattice)
     return _parity_masks(lattice, _color_moduli_ext(max_ext, lattice), plaq_eo)
+
+
+def color_masks(action: ga.GaugeAction, lattice) -> np.ndarray:
+    """The colour masks a sweep of ``action`` uses on ``lattice``."""
+    return color_masks_ext(action.max_extent(), lattice)
 
 
 # --------------------------------------------------------------------------
@@ -195,12 +206,14 @@ class Heatbath:
     """Heatbath updater for a quenched gauge action: ``sweep`` is one heatbath
     sweep, ``overrelax`` one overrelaxation sweep, ``update`` a sweep followed
     by num_or overrelaxations when use_or, and ``step`` the port's updater
-    protocol around ``update`` (always accepted)."""
+    protocol around ``update`` (always accepted). ``basis`` (unit-coupling
+    actions) serves the ``*_with_coeffs`` sweeps of SLMC."""
 
     action: ga.GaugeAction
     iteration_max: int = 10 ** 5
     use_or: bool = False
     num_or: int = 3
+    basis: Optional[tuple] = None
 
     @torch.no_grad()
     def sweep(self, u, generator: Optional[torch.Generator] = None,
@@ -210,6 +223,17 @@ class Heatbath:
     @torch.no_grad()
     def overrelax(self, u):
         return self._sweep_impl(u, None, or_mode=True)[0]
+
+    @torch.no_grad()
+    def sweep_with_coeffs(self, u, coeffs, generator: Optional[torch.Generator] = None,
+                          uniforms: Optional[Uniforms] = None):
+        """One heatbath sweep under sum_i coeffs[i] basis[i]."""
+        return self._sweep_impl(u, uniforms or GeneratorUniforms(generator), coeffs=coeffs)[0]
+
+    @torch.no_grad()
+    def overrelax_with_coeffs(self, u, coeffs):
+        """One overrelaxation sweep under sum_i coeffs[i] basis[i]."""
+        return self._sweep_impl(u, None, or_mode=True, coeffs=coeffs)[0]
 
     @torch.no_grad()
     def sweep_diag(self, u, generator: Optional[torch.Generator] = None,
@@ -231,18 +255,35 @@ class Heatbath:
         """(U, generator) -> (U', stats), as HMC.step; stats holds accepted only."""
         return self.update(u, generator), {"accepted": True}
 
-    def _sweep_impl(self, u, uniforms, or_mode: bool = False, with_diag: bool = False):
+    def _staple_and_extent(self, coeffs):
+        """(mu, U) -> the staple of the sweep's action, and its loops' largest extent."""
+        if coeffs is None:
+            return (lambda uu, mu: ga.staples(self.action, uu, mu)), self.action.max_extent()
+        if self.basis is None:
+            raise ValueError("a sweep with coefficients needs the Heatbath's basis")
+
+        def staple_of(uu, mu):
+            v = 0.0
+            for i, a in enumerate(self.basis):
+                v = v + coeffs[i] * ga.staples(a, uu, mu)
+            return v
+
+        return staple_of, max(a.max_extent() for a in self.basis)
+
+    def _sweep_impl(self, u, uniforms, or_mode: bool = False, with_diag: bool = False,
+                    coeffs=None):
         nc = self.action.nc
         shape = tuple(u.shape[1:5])
         rdt = sun.real_dtype(u.dtype)
-        masks = torch.from_numpy(color_masks(self.action, shape)).to(u.device)
+        staple_of, max_ext = self._staple_and_extent(coeffs)
+        masks = torch.from_numpy(color_masks_ext(max_ext, shape)).to(u.device)
         subgroups = [(i, j) for i in range(nc) for j in range(i + 1, nc)]
         n_exh = n_att = torch.zeros((), dtype=torch.int64, device=u.device)
         u = u.clone()
         for mu in range(DIRS):
             for mask in masks:
                 # the staple of the current links; weight exp((2/NC) Re tr(U V))
-                k_mat = (2.0 / nc) * ga.staples(self.action, u, mu)
+                k_mat = (2.0 / nc) * staple_of(u, mu)
                 u_mu = u[mu]
                 for i, j in subgroups:
                     x0, x1, x2, x3 = _quat_of_block(*_block(sun.mul(u_mu, k_mat), i, j))

@@ -39,7 +39,8 @@ class Draws:
 
     mom: (re, im) normals of shape [4, X, Y, Z, T, NC, NC];
     xi: (re, im) normals of the pseudofermion noise, of the fermion
-        action's noise_shape(u), or None (quenched);
+        action's noise_shape(u), or None (quenched, or an action that
+        draws none);
     uniform: the Metropolis uniform in [0, 1)."""
 
     mom: tuple
@@ -53,8 +54,8 @@ class Draws:
         shape = tuple(u.shape)
         mom = (torch.randn(shape, **kw), torch.randn(shape, **kw))
         xi = None
-        if not hmc.quench:
-            xshape = hmc.fermi_action.noise_shape(u)
+        xshape = None if hmc.quench else hmc.fermi_action.noise_shape(u)
+        if xshape is not None:  # None: an action without noise (the integrated log det)
             xi = (torch.randn(xshape, **kw), torch.randn(xshape, **kw))
         uniform = float(torch.rand((), generator=generator, dtype=rdtype, device=u.device))
         return cls(mom, xi, uniform)

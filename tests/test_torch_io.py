@@ -9,6 +9,7 @@ draws), and a run starts from a file in every format. All at 4^4.
 """
 
 import functools
+import math
 import os
 
 import jax
@@ -392,10 +393,14 @@ def test_anchor_pbp_on_the_committed_chain_matches_jax():
     ("update_method", "IntegratedHMC", "A12"), ("update_method", "IntegratedHB", "A12"),
 ])
 def test_instanton_start_and_other_updaters_are_still_refused(field, value, item):
+    # ported: the self-learning and integrated updaters run (quenched here; the
+    # parity against the JAX package is in test_torch_slhmc.py and test_torch_slmc.py)
+    history = []
     p = TParams(**{"L": LAT, "NC": 3, "quench": True, "Nsteps": 1, "verboselevel": 1,
-                   field: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        run_lqcd_params(p, device="cpu")
+                   "MDsteps": 5, "dtau": 0.02, field: value})
+    plaq = run_lqcd_params(p, device="cpu", history=history)
+    assert 0.0 < plaq <= 1.0 and len(history) == 1
+    assert history[0]["beta_eff"] is not None and math.isfinite(history[0]["dH"])
 
 
 def test_validation_pbp_reads_its_measurements_back(tmp_path, capsys):

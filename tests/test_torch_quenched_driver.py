@@ -254,8 +254,13 @@ def test_quenched_path_still_refuses_what_is_not_ported(tmp_path, field, value, 
         plaq = run_lqcd_params(p, device="cpu", history=history)
         assert 0.0 < plaq < 1.0 and len(history) == 1
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        run_lqcd_params(p, device="cpu")
+    # ported: SLMC proposes coupling-basis heatbath sweeps and learns beta_eff
+    history = []
+    p = _heatbath_params(tmp_path, saveU_format=None, measuredir="", Nsteps=2, numflow=0,
+                         beta_eff=5.0, firstlearn=1, **{field: value})
+    plaq = run_lqcd_params(p, device="cpu", history=history)
+    assert 0.0 < plaq < 1.0 and len(history) == 2
+    assert abs(history[-1]["beta_eff"][0] - p.beta) < 1e-6  # the first fit is exact
 
 
 def test_one_instanton_start_runs_the_heatbath(tmp_path):
