@@ -140,7 +140,31 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      SLMC did not learn beta or a log det did not launch its kernel once per column; seconds
      and beta_eff per step, acceptance, CG iterations, launches, one effective force, one
      coefficient sweep beside a plain heatbath sweep and torch.cuda.max_memory_allocated
-     printed.
+     printed;
+ 26. clover and Hasenbusch at 4^4, 4x2x4x2 (extent-2 y and T) and 4^3x8 in complex128, kappa
+     0.13625, csw 1.90952: the clover term card against CPU; D and D^dag with the clover term
+     (wilson_window alone) and the clover Schur Dhat with and without dag (wilson_hop_packed
+     alone) kernel against plain and card against CPU (bar 1e-12), with the packed blocks A_ee
+     and A_oo^-1; the clover force (1e-10 relative); one trajectory each of clover HMC (QPQ,
+     wilson_window alone), Hasenbusch + Sexton-Weingarten nsw 2 at csw 0 (wilson_hop_packed
+     alone) and at csw 1.90952 (wilson_window alone), kernel path against plain path (dH 1e-9,
+     links 1e-10); the clover pion correlator (the Schur solve: wilson_hop_packed alone), pbp
+     per noise from the same Z4 draws and low spectrum from the same start vector (wilson_window
+     alone), kernel path against plain path (1e-9 relative);
+ 27. the clover path: run_lqcd_params at 16^3x32, SU(3), complex64, hot start, the Wilson
+     plaquette action at beta 5.3 with two-flavour clover Wilson fermions at kappa 0.13625, csw
+     1.90952 (the CLS Nf = 2 point), QPQ 10 steps of 0.02: 2 trajectories with the clover pion
+     correlator, condensate (Nr = 10) and spectrum at itrj 0 and 2, then 2 trajectories with
+     Hasenbusch mass preconditioning (mu 0.5) and Sexton-Weingarten nsw 2; every kernel's
+     launch count set to 0 just before each run and read just after; it fails if dH is not
+     finite, a solve (the Hasenbusch pseudofermion's too) reaches MaxCGstep or misses its
+     target, a trajectory launches wilson_hop_packed or no wilson_window, a measurement does not
+     launch its kernel, the unitarity defect exceeds 1e-4, a plaquette leaves (0, 1), a pion
+     correlator value is not positive or the Ritz values are not ascending and positive;
+     seconds and launches per trajectory and per method, CG iterations per solve and
+     torch.cuda.max_memory_allocated printed, and, on the run's links, the clover term's build
+     (forward, and forward + backward) and the 12x12 site product (full volume and packed)
+     beside their bounds, the range of A_oo's eigenvalues, one heavy and one light force.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -853,6 +877,28 @@ def _trajectory_pair(torch, label, hmc, u, seed):
     check(f"{label} trajectory max|dU|", maxdiff(u_k, u_p), 1e-10)
     if st_k["accepted"] != st_p["accepted"]:
         fail(f"{label}: kernel and plain trajectories disagree on accept")
+    return launched
+
+
+def _kernel_vs_plain(label, fn, rtol=1e-9):
+    """fn() (numbers on the host) through the kernels and through their plain versions, held
+    to rtol relative; fails if the kernel path launched nothing or the plain path anything.
+    Returns the kernel path's launches."""
+    import numpy as np
+
+    before = _launch_counts()
+    got = np.asarray(fn(), dtype=np.float64)
+    launched = {k: v - before[k] for k, v in _launch_counts().items() if v > before[k]}
+    with _plain_kernels():
+        ref = np.asarray(fn(), dtype=np.float64)
+    if _launch_counts() != {k: before[k] + launched.get(k, 0) for k in before}:
+        fail(f"{label}: the plain path launched a kernel")
+    if not launched:
+        fail(f"{label}: the kernel path launched no kernel")
+    err = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-300)))
+    print(f"  {label}: {launched} launches", flush=True)
+    check(f"{label} max relative diff", err, rtol)
+    return launched
 
 
 def phase_measurement_agreement(torch):
@@ -871,21 +917,7 @@ def phase_measurement_agreement(torch):
     # 1e-9 bar compares the kernels and not the solver's stopping point
     tight = 1e-24
     wilson = WilsonDirac(kappa=KAPPA)
-
-    def both(label, fn, rtol=1e-9):
-        before = _launch_counts()
-        got = np.asarray(fn(), dtype=np.float64)
-        launched = {k: v - before[k] for k, v in _launch_counts().items() if v > before[k]}
-        with _plain_kernels():
-            ref = np.asarray(fn(), dtype=np.float64)
-        if _launch_counts() != {k: before[k] + launched.get(k, 0) for k in before}:
-            fail(f"{label}: the plain path launched a kernel")
-        if not launched:
-            fail(f"{label}: the kernel path launched no kernel")
-        err = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-300)))
-        print(f"  {label}: {launched} launches", flush=True)
-        check(f"{label} max relative diff", err, rtol)
-
+    both = _kernel_vs_plain
     lat = (4, 4, 4, 4)
     u = fields.hot_start(lat, 3, seed=17, dtype=dtype, device=dev)
     both("Wilson pion correlator", lambda: fermionic.pion_correlator(u, wilson, eps=tight))
@@ -2406,6 +2438,330 @@ def phase_selflearning_path(torch):
             fail(f"a {key} log det did not launch {kernel} once per column: {dense}")
 
 
+# ------------------------------------------------------------------ clover and Hasenbusch
+
+# the two-flavour O(a)-improved point of the CLS Nf = 2 ensembles: beta 5.3 with ALPHA's
+# non-perturbative csw (Fritzsch et al., Nucl. Phys. B865 (2012) 397; E5 runs it on 64x32^3)
+CLOVER_BETA, CLOVER_KAPPA, CLOVER_CSW = 5.3, 0.13625, 1.90952
+
+
+def phase_clover_agreement(torch):
+    print("== 26. clover and Hasenbusch at 4^4, 4x2x4x2 and 4^3x8 complex128: the card against "
+          "the CPU and the kernel path against the plain path", flush=True)
+    import numpy as np
+
+    from latticeqcd_torch.measurements import fermionic
+    from latticeqcd_torch.ops import fields, gauge_action as ga
+    from latticeqcd_torch.ops.dirac import eo_pack
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, apply_boundary_phases, gaussian_spinor
+    from latticeqcd_torch.ops.fermion_action import HasenbuschWilsonFermiAction, WilsonFermiAction
+    from latticeqcd_torch.updates.hmc import HMC
+
+    dev = torch.device("cuda")
+    c128 = torch.complex128
+    bar = BARS["complex128"]
+    d = WilsonDirac(kappa=CLOVER_KAPPA, csw=CLOVER_CSW)
+
+    def card_and_plain(label, fn, args_cpu, kernel):
+        """fn on the card through the kernel and through its plain version, and on the CPU:
+        kernel vs plain and card vs CPU at the operators' bar."""
+        args = [a.to(dev) if hasattr(a, "to") else tuple(t.to(dev) for t in a) for a in args_cpu]
+        before = _launch_counts()
+        got = fn(*args)
+        launched = {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+        with _plain_kernels():
+            plain = fn(*args)
+        if set(launched) != {kernel}:
+            fail(f"{label}: launched {launched}, not {kernel} alone")
+        check(f"{label}, kernel vs plain", maxdiff(got, plain), bar, kernel)
+        check(f"{label}, card vs CPU", maxdiff(got.cpu(), fn(*args_cpu)), bar)
+
+    for lat in ((4, 4, 4, 4), (4, 2, 4, 2), (4, 4, 4, 8)):
+        name = "x".join(map(str, lat))
+        u = apply_boundary_phases(fields.hot_start(lat, 3, seed=90, dtype=c128, device="cpu"))
+        gen = torch.Generator().manual_seed(91)
+        psi = gaussian_spinor(lat, 3, dtype=c128, device="cpu", generator=gen)
+        check(f"clover term {name}, card vs CPU",
+              maxdiff(d.clover_term(u.to(dev)).cpu(), d.clover_term(u)), bar)
+        card_and_plain(f"clover D {name}", d.apply, (u, psi), "wilson_window")
+        card_and_plain(f"clover D^dag {name}", d.apply_dagger, (u, psi), "wilson_window")
+        (a_e, ainv_o), (g_e, ginv_o) = d.clover_packed_blocks(u), d.clover_packed_blocks(u.to(dev))
+        check(f"clover blocks A_ee, A_oo^-1 {name}, card vs CPU",
+              max(maxdiff(g_e.cpu(), a_e), maxdiff(ginv_o.cpu(), ainv_o)), bar)
+        x_e = eo_pack.pack(psi, lat, 0)
+        ueo = d.packed_links(u)
+        card_and_plain(f"clover Dhat {name}",
+                       lambda ue, ae, ai, x: d.apply_dhat_clover(ue, ae, ai, x),
+                       (ueo, a_e, ainv_o, x_e), "wilson_hop_packed")
+        card_and_plain(f"clover Dhat^dag {name}",
+                       lambda ue, ae, ai, x: d.apply_dhat_clover_dagger(ue, ae, ai, x),
+                       (ueo, a_e, ainv_o, x_e), "wilson_hop_packed")
+
+    lat = (4, 4, 4, 4)
+    u = fields.hot_start(lat, 3, seed=92, dtype=c128, device="cpu")
+    ug = u.to(dev)
+    fa = WilsonFermiAction(d, eps_cg=1e-24)
+    _, phi = fa.sample_pseudofermion(u, generator=torch.Generator().manual_seed(93))
+    before = _launch_counts()
+    f_k = fa.force(ug, phi.to(dev))
+    launched = {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+    with _plain_kernels():
+        f_p = fa.force(ug, phi.to(dev))
+    f_c = fa.force(u, phi)
+    if set(launched) != {"wilson_window"}:
+        fail(f"the clover force launched {launched}, not wilson_window alone")
+    scale = float(f_c.abs().max())
+    check("clover force, kernel vs plain (relative)", maxdiff(f_k, f_p) / scale, 1e-10)
+    check("clover force, card vs CPU (relative)", maxdiff(f_k.cpu(), f_c) / scale, 1e-10)
+
+    # trajectories, kernel path against plain path: clover HMC runs on the full volume
+    # (wilson_window alone); Hasenbusch + SW on the packed Dhat at csw = 0 (wilson_hop_packed
+    # alone) and on the full clover D at csw != 0 (wilson_window alone)
+    gauge = ga.wilson_gauge_action(3, CLOVER_BETA)
+    cases = [
+        ("clover HMC (QPQ)", HMC(action=gauge, dtau=0.05, md_steps=5, fermi_action=fa),
+         "wilson_window"),
+        ("Hasenbusch + SW nsw 2, csw 0", HMC(
+            action=gauge, dtau=0.1, md_steps=3, sexton_weingarten=True, nsw=2,
+            fermi_action=HasenbuschWilsonFermiAction(WilsonDirac(kappa=CLOVER_KAPPA), mu=0.5,
+                                                     eps_cg=1e-24)), "wilson_hop_packed"),
+        (f"Hasenbusch + SW nsw 2, csw {CLOVER_CSW}", HMC(
+            action=gauge, dtau=0.1, md_steps=3, sexton_weingarten=True, nsw=2,
+            fermi_action=HasenbuschWilsonFermiAction(d, mu=0.5, eps_cg=1e-24)), "wilson_window"),
+    ]
+    for i, (label, hmc, kernel) in enumerate(cases):
+        launched = _trajectory_pair(torch, label, hmc, ug, 94 + i)
+        if set(launched) != {kernel}:
+            fail(f"{label}: the trajectory launched {launched}, not {kernel} alone")
+
+    # the clover measurements, kernel path against plain path (solves to 1e-24 relative)
+    tight = 1e-24
+    lat = (4, 4, 4, 8)
+    u = fields.hot_start(lat, 3, seed=97, dtype=c128, device=dev)
+    launched = _kernel_vs_plain("clover pion correlator 4x4x4x8 (Schur)",
+                                lambda: fermionic.pion_correlator(u, d, eps=tight))
+    if set(launched) != {"wilson_hop_packed"}:
+        fail(f"the clover Schur solve launched {launched}, not wilson_hop_packed alone")
+    draws = np.random.default_rng(98).integers(0, 4, (3,) + lat + (4, 3))
+    _kernel_vs_plain("clover pbp per noise 4x4x4x8",
+                     lambda: fermionic.chiral_condensate(u, d, nr=3, draws=draws, eps=tight)[1])
+    v0 = gaussian_spinor(lat, 3, dtype=c128, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(99))
+    launched = _kernel_vs_plain("clover low spectrum 4x4x4x8",
+                                lambda: fermionic.dirac_low_spectrum(u, d, k=4, m=32, v0=v0))
+    if set(launched) != {"wilson_window"}:
+        fail(f"the clover spectrum launched {launched}, not wilson_window alone")
+
+
+def phase_clover_path(torch):
+    print(f"== 27. clover path: run_lqcd_params, 16^3x32 beta {CLOVER_BETA} two-flavour clover "
+          f"Wilson (kappa {CLOVER_KAPPA}, csw {CLOVER_CSW}), complex64, 2 trajectories with the "
+          "clover measurements at itrj 0 and 2, then 2 Hasenbusch (mu 0.5) trajectories with "
+          "Sexton-Weingarten nsw 2", flush=True)
+    import numpy as np
+
+    from latticeqcd_torch.measurements import scheduler
+    from latticeqcd_torch.ops import sun
+    from latticeqcd_torch.ops.dirac import eo_pack
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.ops.dirac.wilson import apply_boundary_phases
+    from latticeqcd_torch.ops.fermion_action import HasenbuschWilsonFermiAction
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+    from latticeqcd_torch.system.params import Params
+    from latticeqcd_torch.updates.hmc import HMC
+
+    maxcg = 3000
+    clover = {"Dirac_operator": "WilsonClover", "hop": CLOVER_KAPPA,
+              "Clover_coefficient": CLOVER_CSW}
+    methods = [
+        {"methodname": "Pion_correlator", "fermion_parameters": clover, "MaxCGstep": maxcg},
+        {"methodname": "Chiral_condensate", "fermion_parameters": clover, "Nr": 10,
+         "MaxCGstep": maxcg},
+        {"methodname": "Dirac_spectrum", "fermion_parameters": clover, "Neig": 8, "Nlanczos": 48},
+    ]
+    base = dict(L=MAIN, NC=3, beta=CLOVER_BETA, initial="hot", update_method="HMC", quench=False,
+                Dirac_operator="WilsonClover", hop=CLOVER_KAPPA, Clover_coefficient=CLOVER_CSW,
+                r=1.0, BoundaryCondition=(1, 1, 1, -1), QPQ=True, dtau=0.02, MDsteps=10,
+                Nsteps=2, eps=1e-12, MaxCGstep=maxcg, randomseed=3, verboselevel=1)
+    runs = [("clover HMC", Params(**base, measurement_methods=[
+                {**m, "measure_every": 2} for m in methods])),
+            ("clover Hasenbusch + SW", Params(**base, hasenbusch=True, hasenbusch_mu=0.5,
+                                              SextonWeingargten=True, N_SextonWeingargten=2,
+                                              measurement_methods=[]))]
+    step, sample = HMC.step, HasenbuschWilsonFermiAction.sample_pseudofermion
+    traj, samples, records, last = [], [], [], {}
+
+    def stepped(self, u, generator=None, draws=None):
+        torch.cuda.synchronize()
+        before = _launch_counts()
+        out = step(self, u, generator, draws)
+        torch.cuda.synchronize()
+        traj.append({k: v - before[k] for k, v in _launch_counts().items()})
+        last.update(u=out[0], fa=self.fermi_action)
+        return out
+
+    def sampled(self, u, generator=None, normals=None, log=None):
+        log = [] if log is None else log
+        out = sample(self, u, generator, normals, log=log)
+        samples.extend(log)  # the heavy solve of phi2, which HMC.step does not log
+        return out
+
+    def timed(cls):
+        measure = cls.measure
+
+        def wrapper(self, u, itrj, additional_string=""):
+            torch.cuda.synchronize()
+            before = _launch_counts()
+            t0 = time.time()
+            line = measure(self, u, itrj, additional_string)
+            torch.cuda.synchronize()
+            records.append({"method": self.name, "itrj": itrj, "seconds": time.time() - t0,
+                            "value": self.value, "solves": self.solves,
+                            "launches": {k: v - before[k] for k, v in _launch_counts().items()}})
+            return line
+
+        return mock.patch.object(cls, "measure", wrapper)
+
+    for label, p in runs:
+        history = []
+        traj.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ww.launches = wk.launches = sk.launches = sk.w_launches = sk.fused_launches = 0
+        wk.site_launches.update(full=0, packed=0)
+        with mock.patch.object(HMC, "step", stepped), \
+                mock.patch.object(HasenbuschWilsonFermiAction, "sample_pseudofermion", sampled), \
+                timed(scheduler.PionCorrelatorMeasurement), \
+                timed(scheduler.ChiralCondensateMeasurement), \
+                timed(scheduler.DiracSpectrumMeasurement):
+            t0 = time.time()
+            plaq = run_lqcd_params(p, make_dirs=False, dtype=torch.complex64, device="cuda",
+                                   history=history)
+        torch.cuda.synchronize()
+        total = time.time() - t0
+        counts, site = _launch_counts(), dict(wk.site_launches)
+        peak = torch.cuda.max_memory_allocated()
+        for name in ("wilson_window", "wilson_hop_packed"):
+            if counts[name]:
+                STATE["launches"].setdefault(name, {})[label] = counts[name]
+        for rec, launched in zip(history, traj):
+            iters = [c["iterations"] for c in rec["cg"]]
+            worst = max((c["rsq"] / c["target"] for c in rec["cg"]), default=0.0)
+            print(f"  {label} trajectory {rec['itrj']}: {rec['seconds']:.3f} s  {len(iters)} "
+                  f"solves, CG iterations per solve {statistics.mean(iters):.1f} (most "
+                  f"{max(iters)})  dH {rec['dH']:.6f}  accepted {rec['accepted']}  plaquette "
+                  f"{rec['plaq']:.8f}  worst verified residual/target {worst:.3g}  launches "
+                  f"{launched}  [{STATE['smi']}]", flush=True)
+            STATE["checks"] += 1
+            if not math.isfinite(rec["dH"]):
+                fail(f"non-finite dH {rec['dH']}")
+            if worst > 1.0 or max(iters) >= maxcg:
+                fail("a CG reached MaxCGstep or returned a verified residual above its target")
+            if not 0.0 < rec["plaq"] < 1.0:
+                fail(f"plaquette {rec['plaq']} outside (0, 1)")
+            if launched["wilson_window"] == 0 or launched["wilson_hop_packed"]:
+                fail(f"a {label} trajectory launched {launched}: the clover MD runs on "
+                     "wilson_window alone")
+        defect = float(sun.unitarity_defect(last["u"]))
+        print(f"  {label}: run_lqcd_params {total:.3f} s, final plaquette {plaq:.8f}, unitarity "
+              f"defect {defect:.3e}; launches on the path {counts}, wilson_hop {site}; "
+              f"torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB  [{STATE['smi']}]",
+              flush=True)
+        STATE["checks"] += 1
+        if defect > 1e-4:
+            fail(f"unitarity defect {defect} after the run exceeds 1e-4")
+        if not (math.isfinite(plaq) and 0.0 < plaq < 1.0):
+            fail(f"plaquette {plaq} outside (0, 1)")
+        if site["packed"] or sk.fused_launches:
+            fail(f"{label}: a kernel off the paths was launched")
+    print(f"  Hasenbusch pseudofermion (heavy) solves: iterations "
+          f"{[c['iterations'] for c in samples]}", flush=True)
+    if len(samples) != 2 or any(c["iterations"] >= maxcg or c["rsq"] > c["target"]
+                                for c in samples):
+        fail("a Hasenbusch pseudofermion solve is missing, reached MaxCGstep or missed its target")
+    for rec in records:
+        value, solves = rec["value"], rec["solves"] or []
+        if rec["method"] == "Dirac_spectrum":
+            shown = " ".join(f"{v:.6g}" for v in value)
+            work = f"{len(value)} Ritz values from 48 Lanczos steps"
+        else:
+            work = (f"CG iterations {sum(c['iterations'] for c in solves)} in {len(solves)} "
+                    f"solve(s) of {sum(c.get('rhs', 1) for c in solves)} RHS")
+            if rec["method"] == "Chiral_condensate":
+                shown = f"pbp {value[0]:.8g}"
+                value = [value[0]] + list(value[1])
+            else:
+                shown = "C(t) " + " ".join(f"{v:.4g}" for v in value[:4]) + " ..."
+        print(f"  itrj {rec['itrj']} {rec['method']} (clover): {rec['seconds']:.3f} s  {work}  "
+              f"launches {rec['launches']}  {shown}  [{STATE['smi']}]", flush=True)
+        STATE["checks"] += 1
+        if not np.all(np.isfinite(np.asarray(value, dtype=np.float64))):
+            fail(f"{rec['method']} gave a value that is not finite")
+        if any(c["iterations"] >= maxcg or c["rsq"] > c["target"] for c in solves):
+            fail(f"a {rec['method']} solve reached MaxCGstep or missed its target")
+        if rec["method"] == "Pion_correlator" and not np.all(np.asarray(value) > 0):
+            fail("the clover pion correlator is not positive")
+        if rec["method"] == "Dirac_spectrum" and not (
+                np.all(np.diff(value) >= 0) and np.all(np.asarray(value) > 0)):
+            fail("the clover low eigenvalues are not ascending and positive")
+        kernel = "wilson_window" if rec["method"] == "Dirac_spectrum" else "wilson_hop_packed"
+        if rec["launches"][kernel] == 0:
+            fail(f"the clover {rec['method']} launched {kernel} no time")
+    if sorted((r["method"], r["itrj"]) for r in records) != sorted(
+            (m["methodname"], i) for m in methods for i in (0, 2)):
+        fail("the clover path did not run every method at itrj 0 and 2")
+
+    # on the Hasenbusch run's last links: the clover term and its site product against their
+    # bounds, the smallest eigenvalue of A_oo, one heavy and one light force
+    u, fa = last["u"], last["fa"]
+    d = fa.dirac
+    up = apply_boundary_phases(u, d.bc)
+    vol = math.prod(MAIN)
+    gen = torch.Generator(device=u.device).manual_seed(6)
+    cot = torch.randn(vol * 144, dtype=u.dtype, device=u.device, generator=gen).view(
+        MAIN + (4, 3, 4, 3))
+
+    def build_vjp():
+        uu = up.detach().requires_grad_(True)
+        with torch.enable_grad():
+            torch.autograd.grad(d.clover_term(uu), uu, grad_outputs=cot)
+
+    t = d.clover_term(up)
+    a_e, ainv_o = d.clover_packed_blocks(up)
+    psi = torch.randn(MAIN + (4, 3), dtype=u.dtype, device=u.device, generator=gen)
+    x_o = eo_pack.pack(psi, MAIN, 1)
+    build = _time_eager(torch, lambda: d.clover_term(up), n=10, warm=2)
+    build_bwd = _time_eager(torch, build_vjp, n=5, warm=1)
+    site = _time_device(torch, lambda: d.site_apply(t, psi), reps=8, n=10)
+    site_packed = _time_device(torch, lambda: d.site_apply(ainv_o, x_o), reps=8, n=10)
+    link_bytes, block_bytes = vol * 4 * 9 * 8, vol * 144 * 8
+    bound = lambda nbytes: nbytes / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    a_o = eo_pack.pack(d.clover_site_matrix(up), MAIN, 1)
+    # on the host: cuSOLVER's batched eigvalsh refuses a batch of 65536 matrices
+    # (CUSOLVER_STATUS_INVALID_VALUE with torch 2.11, CUDA 12.8, on an H100)
+    lam = torch.linalg.eigvalsh(a_o.reshape(-1, 12, 12).cpu().to(torch.complex128))
+    print(f"  16^3x32 complex64 on the run's links: clover term build {build:.3f} ms eager "
+          f"(bound {bound(link_bytes + block_bytes):.4f} ms: links in, "
+          f"{block_bytes / 1e6:.1f} MB of site matrices out), build forward + backward "
+          f"{build_bwd:.3f} ms (bound {bound(2 * link_bytes + 2 * block_bytes):.4f} ms); "
+          f"12x12 site product {site:.4f} ms device, full volume (bound "
+          f"{bound(vol * (1152 + 192)):.4f} ms), packed A_oo^-1 {site_packed:.4f} ms (bound "
+          f"{bound(vol // 2 * (1152 + 192)):.4f} ms); A_oo eigenvalues in "
+          f"[{float(lam.min()):.4f}, {float(lam.max()):.4f}]  [{STATE['smi']}]", flush=True)
+    STATE["checks"] += 1
+    if not float(lam.min()) > 0.0:
+        fail(f"A_oo is not positive definite: smallest eigenvalue {float(lam.min())}")
+    _, phi = fa.sample_pseudofermion(u, generator=gen)
+    for name in ("force_heavy_with_guess", "force_light_with_guess"):
+        log = []
+        ms = _time_eager(torch, lambda: getattr(fa, name)(u, phi, None, log=log), n=3, warm=1)
+        print(f"  one {name[:-len('_with_guess')].replace('_', ' ')} (its solve from zero, "
+              f"{log[-1]['iterations']} CG iterations, and the backward through wilson_window "
+              f"and the clover term): {ms:.1f} ms eager  [{STATE['smi']}]", flush=True)
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
           phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
@@ -2413,7 +2769,7 @@ PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_disk, phase_anchor, phase_quenched_agreement, phase_quenched_path,
           phase_plaquette_anchor, phase_improved_agreement, phase_improved_path,
           phase_domainwall_agreement, phase_domainwall_path, phase_selflearning_agreement,
-          phase_selflearning_path]
+          phase_selflearning_path, phase_clover_agreement, phase_clover_path]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line

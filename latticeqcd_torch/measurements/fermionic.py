@@ -1,7 +1,7 @@
 """Fermionic measurements: chiral condensate, pion correlator, low Dirac spectrum.
 
 Counterpart of latticeqcd_tpu/measurements/fermionic.py for the Wilson
-(csw = 0), staggered and domain-wall operators:
+(clover-improved or not), staggered and domain-wall operators:
 
 * chiral condensate: Nr Z4 noise vectors r, pbp = <Re <r, D^-1 r>> / V
   times Nf/4 for staggered, 1 for Wilson and domain wall;
@@ -12,18 +12,19 @@ Counterpart of latticeqcd_tpu/measurements/fermionic.py for the Wilson
   full-volume 5D domain-wall D^dag D, through the wilson_window kernel on
   the card).
 
-The solves D x = b run in one of three ways (``_solve_dinv_multi``):
-the packed even-odd Schur system of Wilson (the wilson_hop kernel) or of
-staggered (the fused W of the staggered_w kernel) when every extent is
-even, else full-volume CGNE on D^dag D (Wilson through wilson_window;
-staggered on the CPU only, as its full-volume operator is). Domain wall
+The solves D x = b run in one of four ways (``_solve_dinv_multi``):
+the packed even-odd Schur system of clover Wilson (the wilson_hop_packed
+kernel between the 12x12 site blocks A_ee and A_oo^-1), of Wilson (the
+wilson_hop_packed kernel) or of staggered (the fused W of the
+staggered_w kernel) when every extent is even, else full-volume CGNE on
+D^dag D (Wilson through wilson_window, with the clover term built once
+per call; staggered on the CPU only, as its full-volume operator is). Domain wall
 measures the 4D effective propagator of wall sources
 (``_dw_effective_propagator_multi``): the packed 5D Schur system on
 even lattices (wilson_hop_packed), full-volume 5D CGNE otherwise
 (wilson_window). The noise and the Lanczos start vector come from a
 ``torch.Generator`` or are injected: jax.random streams cannot be
 reproduced in torch, so the tests hand both packages the same numbers.
-The clover operator is ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -63,6 +64,9 @@ def _solve_dinv_multi(dirac, up, b, eps, maxiter, deflate_k: int = 0, log: Optio
       packed layout, (m^2 - D_eo D_oe) x_e = m b_e - D_eo b_o and
       x_o = (b_o - D_oe x_e) / m, the CG on W (with an optional low-mode
       deflated guess, deflate_k > 0: one Lanczos sweep of W for the batch);
+    * Wilson csw != 0, every extent even: with the clover blocks A,
+      Dhat x_e = b_e + kappa H_eo A_oo^-1 b_o, Dhat = A_ee - kappa^2 H_eo A_oo^-1 H_oe,
+      and x_o = A_oo^-1 (b_o + kappa H_oe x_e), the CG on Dhat^dag Dhat;
     * Wilson csw = 0, every extent even: Dhat x_e = b_e + kappa H_eo b_o and
       x_o = b_o + kappa H_oe x_e, the CG on Dhat^dag Dhat;
     * otherwise full-volume CGNE on D^dag D.
@@ -87,7 +91,22 @@ def _solve_dinv_multi(dirac, up, b, eps, maxiter, deflate_k: int = 0, log: Optio
         x_e = solve(w_one, rhs_e, x0)
         x_o = (b_o - _each(lambda v: d._packed_dslash(u_o, u_e, v, 1), x_e)) / d.mass
         return _each(lambda v: d.unpack(v, 0), x_e) + _each(lambda v: d.unpack(v, 1), x_o)
-    if isinstance(dirac, WilsonDirac) and packable:
+    if isinstance(dirac, WilsonDirac) and dirac.csw != 0.0 and packable:
+        d = dirac
+        u_eo = d.packed_links(up)
+        u_e, u_o = u_eo
+        a_e, ainv_o = d.clover_packed_blocks(up)
+        b_e = _each(lambda f: eo_pack.pack(f, lattice, 0), b)
+        b_o = _each(lambda f: eo_pack.pack(f, lattice, 1), b)
+        dhat_dag = lambda v: d.apply_dhat_clover_dagger(u_eo, a_e, ainv_o, v)  # noqa: E731
+        hop_eo = _each(lambda v: d.hop_packed(u_e, u_o, d.site_apply(ainv_o, v), 0), b_o)
+        rhs_e = _each(dhat_dag, b_e + d.kappa * hop_eo)
+        x_e = solve(lambda v: dhat_dag(d.apply_dhat_clover(u_eo, a_e, ainv_o, v)), rhs_e)
+        hop_oe = _each(lambda v: d.hop_packed(u_o, u_e, v, 1), x_e)
+        x_o = d.site_apply(ainv_o, b_o + d.kappa * hop_oe)
+        return (_each(lambda v: eo_pack.unpack(v, lattice, 0), x_e)
+                + _each(lambda v: eo_pack.unpack(v, lattice, 1), x_o))
+    if isinstance(dirac, WilsonDirac) and dirac.csw == 0.0 and packable:
         d = dirac
         u_eo = d.packed_links(up)
         u_e, u_o = u_eo
@@ -99,8 +118,18 @@ def _solve_dinv_multi(dirac, up, b, eps, maxiter, deflate_k: int = 0, log: Optio
         x_o = b_o + d.kappa * _each(lambda v: d.hop_packed(u_o, u_e, v, 1), x_e)
         return (_each(lambda v: eo_pack.unpack(v, lattice, 0), x_e)
                 + _each(lambda v: eo_pack.unpack(v, lattice, 1), x_o))
-    rhs = _each(lambda f: dirac.apply_dagger(up, f), b)
-    return solve(lambda v: dirac.apply_ddag_d(up, v), rhs)
+    d_dag, ddag_d = _full_ops(dirac, up)
+    return solve(ddag_d, _each(d_dag, b))
+
+
+def _full_ops(dirac, up):
+    """(D^dag, D^dag D) of a 4D operator on the links ``up``; a clover term is
+    built here once for every application."""
+    if isinstance(dirac, WilsonDirac):
+        clover = dirac.clover(up)
+        return ((lambda v: dirac.apply_dagger(up, v, clover)),
+                (lambda v: dirac.apply_ddag_d(up, v, clover)))
+    return (lambda v: dirac.apply_dagger(up, v)), (lambda v: dirac.apply_ddag_d(up, v))
 
 
 @torch.no_grad()
@@ -210,7 +239,7 @@ def dirac_low_spectrum(u, dirac, k: int = 8, m: Optional[int] = None, v0=None):
         vals, _ = eigen.ritz_pairs_low(lambda v: dirac.apply_w_packed(ueo, v),
                                        dirac.pack(dirac.even_part(v0), 0), int(m), int(k))
     else:
-        vals, _ = eigen.ritz_pairs_low(lambda v: dirac.apply_ddag_d(up, v), v0, int(m), int(k))
+        vals, _ = eigen.ritz_pairs_low(_full_ops(dirac, up)[1], v0, int(m), int(k))
     return np.sort(vals.cpu().numpy().astype(np.float64))
 
 

@@ -5,9 +5,10 @@ file names (<measuredir>/<methodname><suffix>.txt, the suffix "_flow" for
 the flowed series) and line formats, for the gauge observables
 Plaquette, Polyakov_loop, Topological_charge, Energy_density and
 Wilson_loop and the fermionic methods Chiral_condensate, Pion_correlator
-and Dirac_spectrum (Wilson csw = 0, staggered and domain-wall operators,
-built from the method's ``fermion_parameters``). Every ``measure`` takes the JAX
-package's ``additional_string``, which the flow writes after itrj.
+and Dirac_spectrum (Wilson with or without the clover term, staggered and
+domain-wall operators, built from the method's ``fermion_parameters``).
+Every ``measure`` takes the JAX package's ``additional_string``, which the
+flow writes after itrj.
 """
 
 from __future__ import annotations
@@ -28,17 +29,19 @@ from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, refuse_r_off_cpu
 def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1, -1),
                             device="cuda"):
     """fermion_parameters dict -> Dirac operator for fields on ``device``, with
-    the JAX package's keys and defaults (Wilson: hop or kappa 0.141139, r 1;
-    staggered: mass 0.5; domain wall: Domainwall_m or mass 1.0, Domainwall_M
-    or M -1.0, Domainwall_L5 or L5 4; boundarycondition (1, 1, 1, -1)). The
-    clover operator raises, and so does Wilson r != 1 off the CPU."""
+    the JAX package's keys and defaults (Wilson and WilsonClover: hop or kappa
+    0.141139, r 1, and for WilsonClover Clover_coefficient 0.0; staggered:
+    mass 0.5; domain wall: Domainwall_m or mass 1.0, Domainwall_M or M -1.0,
+    Domainwall_L5 or L5 4; boundarycondition (1, 1, 1, -1)). Wilson r != 1
+    raises off the CPU."""
     kind = params.get("Dirac_operator", "Wilson")
     bc = tuple(params.get("boundarycondition", default_bc))
-    if kind == "Wilson":
+    if kind in ("Wilson", "WilsonClover"):
         r = float(params.get("r", 1.0))
         refuse_r_off_cpu(r, device)
+        csw = float(params.get("Clover_coefficient", 0.0)) if kind == "WilsonClover" else 0.0
         return WilsonDirac(kappa=float(params.get("hop", params.get("kappa", 0.141139))),
-                           r=r, bc=bc)
+                           r=r, bc=bc, csw=csw)
     if kind in ("Staggered", "staggered"):
         return StaggeredDirac(mass=float(params.get("mass", 0.5)), lattice=tuple(lattice), bc=bc)
     if kind in ("Domainwall", "domainwall"):
@@ -48,9 +51,6 @@ def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1
             l5=int(params.get("Domainwall_L5", params.get("L5", 4))),
             bc=bc,
         )
-    if kind == "WilsonClover":
-        raise NotImplementedError(
-            f"measurements with Dirac_operator = {kind!r} are not ported yet (ROADMAP A12)")
     raise ValueError(f"unknown Dirac_operator {kind!r}")
 
 

@@ -1,4 +1,4 @@
-"""Wilson Dirac operator (csw = 0).
+"""Wilson Dirac operator, optionally clover-improved.
 
 Counterpart of latticeqcd_tpu/ops/dirac/wilson.py, same layouts:
 links [4, X, Y, Z, T, NC, NC], spinors [X, Y, Z, T, 4, NC], packed
@@ -13,7 +13,19 @@ through the wilson_window kernel (wilson_window_kernel.py) and the
 packed hop through the wilson_hop_packed kernel (wilson_kernel.py), each
 with its plain version on the CPU. Other r take the generic projector
 form on the CPU and raise on any other device, since the kernels hold
-r = 1 (ROADMAP A4b). The clover term is later work (ROADMAP A12).
+r = 1 (ROADMAP A4b).
+
+With csw != 0 the clover term T psi = -(csw kappa / 2) sum_{mu != nu}
+sigma_munu F_munu psi joins D, with F_munu the traceless anti-hermitian
+part of the four clover leaves over 4. T is site-local, so it is built
+once per link configuration as explicit 12x12 site matrices
+(``clover_term``) and applied as a batched site product: every D of a
+solve or a force takes the same T (``apply``'s ``clover`` argument),
+and the autograd of a force goes through T's construction. The even-odd
+Schur complement becomes Dhat = A_ee - kappa^2 H_eo A_oo^-1 H_oe with
+A = 1 + T (``clover_packed_blocks``, ``apply_dhat_clover``). The
+blocks, their inverse and the site product are plain tensor operations,
+as they are in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,12 +34,20 @@ import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
+from latticeqcd_torch.ops import sun
 from latticeqcd_torch.ops.dirac import eo_pack, gammas, wilson_kernel, wilson_window_kernel
 from latticeqcd_torch.ops.dirac.wilson_kernel import gamma5
+from latticeqcd_torch.ops.wilsonline import evaluate_line, make_cloverloops
 
 DIRS = 4
+# sigma_munu = [g_mu, g_nu] / 2 on the six planes mu < nu; sigma_numu = -sigma_munu
+# and F_numu = -F_munu, so the sum over the 12 ordered pairs is twice the planes' sum
+PLANES = [(mu, nu) for mu in range(DIRS) for nu in range(mu + 1, DIRS)]
+SIGMA = np.stack([(gammas.GAMMA[mu] @ gammas.GAMMA[nu] - gammas.GAMMA[nu] @ gammas.GAMMA[mu]) / 2.0
+                  for mu, nu in PLANES])
 
 
 def refuse_r_off_cpu(r: float, device) -> None:
@@ -58,16 +78,17 @@ class WilsonDirac:
     bc: tuple = (1, 1, 1, -1)
     csw: float = 0.0
 
-    def __post_init__(self):
-        if self.csw != 0.0:
-            raise NotImplementedError("the clover term is not ported yet (ROADMAP A12)")
-
-    def apply(self, u: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
-        """D psi; u must already carry the boundary phases."""
+    def apply(self, u: torch.Tensor, psi: torch.Tensor, clover=None) -> torch.Tensor:
+        """D psi; u must already carry the boundary phases. With csw != 0,
+        ``clover`` is clover_term(u), built here when not given."""
         if self.r == 1.0:
-            return wilson_window_kernel.wilson_window(u, psi, self.kappa)
-        refuse_r_off_cpu(self.r, psi.device)
-        return psi - self.kappa * self._hop_generic(u, psi)
+            out = wilson_window_kernel.wilson_window(u, psi, self.kappa)
+        else:
+            refuse_r_off_cpu(self.r, psi.device)
+            out = psi - self.kappa * self._hop_generic(u, psi)
+        if self.csw != 0.0:
+            out = out + self.site_apply(self.clover(u) if clover is None else clover, psi)
+        return out
 
     def _hop_generic(self, u, psi):
         return self._hop_projectors(u, u, psi, wilson_kernel.full_plus, wilson_kernel.full_minus)
@@ -85,9 +106,10 @@ class WilsonDirac:
             hop = hop + torch.einsum("st,...tc->...sc", pp[mu], bwd)
         return hop
 
-    def apply_dagger(self, u: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
-        """D^dag psi = g5 D g5 psi (gamma5-hermiticity)."""
-        return gamma5(self.apply(u, gamma5(psi)))
+    def apply_dagger(self, u: torch.Tensor, psi: torch.Tensor, clover=None) -> torch.Tensor:
+        """D^dag psi = g5 D g5 psi (gamma5-hermiticity; sigma_munu commutes
+        with gamma5)."""
+        return gamma5(self.apply(u, gamma5(psi), clover))
 
     # ------------------------------------------- even-odd preconditioning
     # D = [[1, -kappa H_eo], [-kappa H_oe, 1]], det D = det Dhat with the
@@ -119,11 +141,65 @@ class WilsonDirac:
     def apply_dhat_ddag(self, u_eo, x_e: torch.Tensor) -> torch.Tensor:
         return self.apply_dhat(u_eo, self.apply_dhat_dagger(u_eo, x_e))
 
-    def apply_ddag_d(self, u, psi):
-        return self.apply_dagger(u, self.apply(u, psi))
+    def apply_ddag_d(self, u, psi, clover=None):
+        return self.apply_dagger(u, self.apply(u, psi, clover), clover)
 
-    def apply_d_ddag(self, u, psi):
-        return self.apply(u, self.apply_dagger(u, psi))
+    def apply_d_ddag(self, u, psi, clover=None):
+        return self.apply(u, self.apply_dagger(u, psi, clover), clover)
+
+    # ----------------------------------------------------------- clover term
+    def clover(self, u):
+        """clover_term(u) when csw != 0, else None: what ``apply`` takes."""
+        return self.clover_term(u) if self.csw != 0.0 else None
+
+    def clover_term(self, u: torch.Tensor) -> torch.Tensor:
+        """T[X,Y,Z,T, s,a, t,b] = -(csw kappa / 2) sum_{mu != nu} sigma_munu
+        F_munu with F_munu = traceless_antihermitian(sum of the four leaves) / 4,
+        in u's dtype; each plane built once and counted twice."""
+        sigma = torch.as_tensor(SIGMA, dtype=u.dtype, device=u.device)
+        t = 0.0
+        for i, (mu, nu) in enumerate(PLANES):
+            leaves = [evaluate_line(u, line) for line in make_cloverloops(mu, nu)]
+            f = sun.traceless_antihermitian(leaves[0] + leaves[1] + leaves[2] + leaves[3]) / 4.0
+            t = t + torch.einsum("st,...ab->...satb", sigma[i], f)
+        return -(self.csw * self.kappa) * t
+
+    def clover_site_matrix(self, u: torch.Tensor) -> torch.Tensor:
+        """A = 1 + T, the parity-diagonal block of the clover operator."""
+        nc = u.shape[-1]
+        eye = torch.eye(4 * nc, dtype=u.dtype, device=u.device).reshape(4, nc, 4, nc)
+        return eye + self.clover_term(u)
+
+    def clover_packed_blocks(self, up: torch.Tensor):
+        """(a_e, ainv_o): the even block A_ee and the inverse odd block
+        A_oo^-1, packed; the batched 12x12 inverse runs once per link
+        configuration."""
+        lattice = tuple(up.shape[1:5])
+        a = self.clover_site_matrix(up)
+        a_e = eo_pack.pack(a, lattice, 0)
+        a_o = eo_pack.pack(a, lattice, 1)
+        n = a_o.shape[-4] * a_o.shape[-3]
+        ainv_o = torch.linalg.inv(a_o.reshape(a_o.shape[:-4] + (n, n))).reshape(a_o.shape)
+        return a_e, ainv_o
+
+    @staticmethod
+    def site_apply(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """y[s,a] = A[s,a,t,b] x[t,b] per site, as a batched 12x12 product (x
+        may carry leading batch axes)."""
+        n = x.shape[-2] * x.shape[-1]
+        y = torch.matmul(a.reshape(a.shape[:-4] + (n, n)), x.reshape(x.shape[:-2] + (n, 1)))
+        return y.reshape(x.shape)
+
+    def apply_dhat_clover(self, u_eo, a_e, ainv_o, x_e: torch.Tensor) -> torch.Tensor:
+        """Dhat x_e = A_ee x_e - kappa^2 H_eo A_oo^-1 H_oe x_e."""
+        u_e, u_o = u_eo
+        t = self.hop_packed(u_o, u_e, x_e, target_parity=1)
+        t = self.hop_packed(u_e, u_o, self.site_apply(ainv_o, t), target_parity=0)
+        return self.site_apply(a_e, x_e) - self.kappa ** 2 * t
+
+    def apply_dhat_clover_dagger(self, u_eo, a_e, ainv_o, x_e: torch.Tensor) -> torch.Tensor:
+        """Dhat^dag = g5 Dhat g5: the blocks and the hops are gamma5-hermitian."""
+        return gamma5(self.apply_dhat_clover(u_eo, a_e, ainv_o, gamma5(x_e)))
 
 
 def gaussian_spinor(lattice, nc, nspin=4, dtype=torch.complex128, device="cuda",

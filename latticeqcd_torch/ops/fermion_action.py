@@ -1,13 +1,20 @@
-"""Pseudofermion actions with their exact forces: two-flavour Wilson,
-two-flavour domain-wall with its Pauli-Villars partner, and staggered
-Nf = 1..8 (RHMC where needed).
+"""Pseudofermion actions with their exact forces: two-flavour Wilson
+(clover-improved or not, with or without Hasenbusch mass
+preconditioning), two-flavour domain-wall with its Pauli-Villars partner,
+and staggered Nf = 1..8 (RHMC where needed).
 
 Counterpart of latticeqcd_tpu/ops/fermion_action.py (``_project_force``,
-``WilsonFermiAction``, ``DomainwallFermiAction``, ``StaggeredFermiAction``):
+``WilsonFermiAction``, ``HasenbuschWilsonFermiAction``,
+``DomainwallFermiAction``, ``StaggeredFermiAction``):
 
 * Wilson Nf=2: S = phi^dag (A A^dag)^-1 phi with A the even-odd Schur
   operator Dhat on packed even sites (all-even lattices, csw = 0) or the
-  full D otherwise;
+  full D otherwise (with csw != 0 the clover term, its site matrices
+  built once per solve and once per force, the force's under autograd);
+* Hasenbusch Nf=2: the same determinant split by the twisted heavy
+  operator A_mu = A + i mu g5 into S1 = phi1^dag (A A^dag + mu^2)^-1 phi1
+  and S2 = phi2^dag A_mu (A A^dag)^-1 A_mu^dag phi2, two noises, with
+  the heavy and the light force apart for the Sexton-Weingarten split;
 * domain wall Nf=2: S = phi^dag A_PV (A^dag A)^-1 A_PV^dag phi with A the
   5D even-odd Schur operator Shat (all-even lattices) or the full 5D D at
   mass m, and A_PV the same operator at m = 1;
@@ -22,8 +29,7 @@ respect to the bare links through the boundary phases, the link packing
 and the hop's autograd Function, and with ``smear_fn`` through the stout
 layers, whose graph is built once per force. Every action names the
 shape of its Gaussian noise (``noise_shape``), so the HMC can draw it or
-replay injected draws. Hasenbusch actions wait for a later slice
-(ROADMAP A12).
+replay injected draws.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from latticeqcd_torch.ops.dirac.wilson import (
     gaussian_spinor,
     inner,
 )
+from latticeqcd_torch.ops.dirac.wilson_kernel import gamma5
 
 DIRS = 4
 
@@ -58,6 +65,19 @@ def _smeared_leaf(u, smear_fn):
         return uu, uu
     with torch.enable_grad():
         return uu, smear_fn(uu)
+
+
+def _phased_with_clover(dirac: WilsonDirac, us):
+    """(links with the boundary phases, the clover term or None) under autograd:
+    a force builds the clover term once, the solve takes its detached value and
+    the gradient its graph."""
+    with torch.enable_grad():
+        uup = apply_boundary_phases(us, dirac.bc)
+        return uup, dirac.clover(uup)
+
+
+def _detached(t):
+    return None if t is None else t.detach()
 
 
 def _project_force(u, grad_c):
@@ -109,14 +129,20 @@ class WilsonFermiAction:
     def _packed(self, up, phi) -> bool:
         return phi.ndim == 6 and 2 * phi.shape[0] == up.shape[1]
 
-    def _solve_normal(self, up, phi, x0=None, log=None):
-        """x = (A A^dag)^-1 phi with A = Dhat (packed phi) or D."""
-        if self._packed(up, phi):
+    def _d_ddag(self, up, packed: bool, clover=None):
+        """A A^dag on the links ``up``: Dhat Dhat^dag, or D D^dag with the
+        clover term ``clover`` (built here once when not given)."""
+        if packed:
             ueo = self.dirac.packed_links(up)
-            op = lambda v: self.dirac.apply_dhat_ddag(ueo, v)
-        else:
-            op = lambda v: self.dirac.apply_d_ddag(up, v)
-        x, _, _ = solvers.cg(op, phi, x0=x0, eps=self.eps_cg, maxiter=self.max_cg, log=log)
+            return lambda v: self.dirac.apply_dhat_ddag(ueo, v)
+        if clover is None:
+            clover = self.dirac.clover(up)
+        return lambda v: self.dirac.apply_d_ddag(up, v, clover)
+
+    def _solve_normal(self, up, phi, x0=None, log=None, clover=None):
+        """x = (A A^dag)^-1 phi with A = Dhat (packed phi) or D."""
+        x, _, _ = solvers.cg(self._d_ddag(up, self._packed(up, phi), clover), phi, x0=x0,
+                             eps=self.eps_cg, maxiter=self.max_cg, log=log)
         return x
 
     @torch.no_grad()
@@ -133,19 +159,156 @@ class WilsonFermiAction:
         With smear_fn the solve runs on the smeared links and the
         gradient is taken into the bare links through the smearing."""
         uu, us = _smeared_leaf(u, smear_fn)
+        uup, clover = _phased_with_clover(self.dirac, us)
+        packed = self._packed(uup, phi)
         with torch.no_grad():
-            up = self._phased(us.detach())
-            packed = self._packed(up, phi)
-            x = self._solve_normal(up, phi, x0=x0, log=log)
+            x = self._solve_normal(uup.detach(), phi, x0=x0, log=log, clover=_detached(clover))
         with torch.enable_grad():
-            uup = apply_boundary_phases(us, self.dirac.bc)
-            if packed:
-                ueo = self.dirac.packed_links(uup)
-                c = torch.real(inner(x, self.dirac.apply_dhat_ddag(ueo, x)))
-            else:
-                c = torch.real(inner(x, self.dirac.apply_d_ddag(uup, x)))
+            c = torch.real(inner(x, self._d_ddag(uup, packed, clover)(x)))
             (g,) = torch.autograd.grad(c, uu)
         return _project_force(u, g), x
+
+
+# ---------------------------------------------------------------------------
+# Wilson two-flavour with Hasenbusch mass preconditioning
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class HasenbuschWilsonFermiAction:
+    """det(A A^dag) = det(A A^dag + mu^2) det[A A^dag (A A^dag + mu^2)^-1] with
+    A = Dhat (all-even lattices, csw = 0) or D, one pseudofermion per factor:
+
+        S1 = phi1^dag (A A^dag + mu^2)^-1 phi1         (heavy)
+        S2 = phi2^dag A_mu (A A^dag)^-1 A_mu^dag phi2   (light ratio)
+
+    with A_mu = A + i mu g5 (A_mu A_mu^dag = A A^dag + mu^2 by
+    gamma5-hermiticity). phi1 = A_mu xi1 and phi2 = A_mu^-dag A xi2 (one heavy
+    solve), so S_old = |xi1|^2 + |xi2|^2."""
+
+    dirac: WilsonDirac
+    mu: float = 0.5
+    eps_cg: float = 1e-19
+    max_cg: int = 3000
+
+    def _phased(self, u):
+        return apply_boundary_phases(u, self.dirac.bc)
+
+    def _eo(self, lattice) -> bool:
+        return self.dirac.csw == 0.0 and eo_pack.packable(lattice)
+
+    def noise_shape(self, u):
+        """(2,) for the two noises xi1, xi2, then the packed even sites when
+        even-odd applies, else the full lattice, then (4, NC)."""
+        lattice = tuple(u.shape[1:5])
+        if self._eo(lattice):
+            lattice = (lattice[0] // 2,) + lattice[1:]
+        return (2,) + lattice + (4, u.shape[-1])
+
+    def _ops(self, up, packed: bool, clover=None):
+        """(A, A^dag) on the links ``up``: Dhat, or D with the clover term
+        ``clover`` (built here once when not given)."""
+        d = self.dirac
+        if packed:
+            ueo = d.packed_links(up)
+            return (lambda v: d.apply_dhat(ueo, v)), (lambda v: d.apply_dhat_dagger(ueo, v))
+        if clover is None:
+            clover = d.clover(up)
+        return (lambda v: d.apply(up, v, clover)), (lambda v: d.apply_dagger(up, v, clover))
+
+    def _amu(self, a, x):
+        return a(x) + (1j * self.mu) * gamma5(x)
+
+    def _amu_dag(self, a_dag, x):
+        return a_dag(x) - (1j * self.mu) * gamma5(x)
+
+    @staticmethod
+    def _packed(up, phi) -> bool:
+        return 2 * phi[0].shape[0] == up.shape[1]
+
+    @torch.no_grad()
+    def sample_pseudofermion(self, u, generator: Optional[torch.Generator] = None, normals=None,
+                             log=None):
+        """(S_old, (phi1, phi2)) from unit Gaussian xi1, xi2 (from the Generator, or
+        the injected normals (re, im) of noise_shape(u), xi_i = normals[.][i])."""
+        shape = self.noise_shape(u)
+        if normals is None:
+            kw = dict(generator=generator, dtype=u.real.dtype, device=u.device)
+            normals = (torch.randn(shape, **kw), torch.randn(shape, **kw))
+        xi1, xi2 = (torch.complex(*normals) / math.sqrt(2.0)).to(u.dtype)
+        a, a_dag = self._ops(self._phased(u), self._eo(tuple(u.shape[1:5])))
+        phi1 = self._amu(a, xi1)
+        # phi2 = A_mu (A^dag A + mu^2)^-1 A xi2: one well-conditioned heavy solve
+        z, _, _ = solvers.cg(lambda v: a_dag(a(v)) + self.mu ** 2 * v, a(xi2), eps=self.eps_cg,
+                             maxiter=self.max_cg, log=log)
+        s_old = torch.real(inner(xi1, xi1)) + torch.real(inner(xi2, xi2))
+        return s_old, (phi1, self._amu(a, z))
+
+    def _heavy_solve(self, a, a_dag, phi1, x0=None, log=None):
+        """x1 = (A A^dag + mu^2)^-1 phi1."""
+        x1, _, _ = solvers.cg(lambda v: a(a_dag(v)) + self.mu ** 2 * v, phi1, x0=x0,
+                              eps=self.eps_cg, maxiter=self.max_cg, log=log)
+        return x1
+
+    def _light_solve(self, a, a_dag, phi2, x0=None, log=None):
+        """(w, x2): w = A_mu^dag phi2, x2 = (A A^dag)^-1 w."""
+        w = self._amu_dag(a_dag, phi2)
+        x2, _, _ = solvers.cg(lambda v: a(a_dag(v)), w, x0=x0, eps=self.eps_cg,
+                              maxiter=self.max_cg, log=log)
+        return w, x2
+
+    @torch.no_grad()
+    def action(self, u, phi, log=None):
+        up = self._phased(u)
+        a, a_dag = self._ops(up, self._packed(up, phi))
+        x1 = self._heavy_solve(a, a_dag, phi[0], log=log)
+        w, x2 = self._light_solve(a, a_dag, phi[1], log=log)
+        return torch.real(inner(phi[0], x1)) + torch.real(inner(w, x2))
+
+    def _force(self, u, phi, heavy: bool, light: bool, x0, log, smear_fn):
+        """The force of S1 (heavy), S2 (light) or both, with the solves held fixed:
+        c = Re<x1, A A^dag x1> + Re<x2, A A^dag x2> - 2 Re<x2, A_mu^dag phi2>
+        (the terms of the parts asked for) and dS = -dc. Returns (force, the
+        one solution, or None for both)."""
+        uu, us = _smeared_leaf(u, smear_fn)
+        uup, clover = _phased_with_clover(self.dirac, us)
+        packed = self._packed(uup, phi)
+        with torch.no_grad():
+            a, a_dag = self._ops(uup.detach(), packed, _detached(clover))
+            x1 = self._heavy_solve(a, a_dag, phi[0], x0, log) if heavy else None
+            x2 = self._light_solve(a, a_dag, phi[1], x0, log)[1] if light else None
+        with torch.enable_grad():
+            a, a_dag = self._ops(uup, packed, clover)
+            c = 0.0
+            if heavy:
+                c = c + torch.real(inner(x1, a(a_dag(x1))))
+            if light:
+                c = (c + torch.real(inner(x2, a(a_dag(x2))))
+                     - 2.0 * torch.real(inner(x2, self._amu_dag(a_dag, phi[1]))))
+            (g,) = torch.autograd.grad(c, uu)
+        solution = None if heavy and light else (x1 if heavy else x2)
+        return _project_force(u, g), solution
+
+    def force(self, u, phi, log=None, smear_fn=None):
+        """The total force (both solves from zero: the JAX package threads no
+        guess through the unsplit Hasenbusch force)."""
+        return self._force(u, phi, True, True, None, log, smear_fn)[0]
+
+    def force_heavy(self, u, phi, log=None, smear_fn=None):
+        """The force of S1 alone: the fine scale of a Sexton-Weingarten split."""
+        return self._force(u, phi, True, False, None, log, smear_fn)[0]
+
+    def force_heavy_with_guess(self, u, phi, x0, log=None, smear_fn=None):
+        """The heavy force with its CG warm-started from x0; returns (force, x1)."""
+        return self._force(u, phi, True, False, x0, log, smear_fn)
+
+    def force_light(self, u, phi, log=None, smear_fn=None):
+        """The force of S2 alone: the coarse scale of a Sexton-Weingarten split."""
+        return self._force(u, phi, False, True, None, log, smear_fn)[0]
+
+    def force_light_with_guess(self, u, phi, x0, log=None, smear_fn=None):
+        """The light force with its CG warm-started from x0; returns (force, x2)."""
+        return self._force(u, phi, False, True, x0, log, smear_fn)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
 Counterpart of latticeqcd_tpu/system/universe.py for the ported slices:
 cold, hot, one-instanton or file starts (ILDG, Bridge++ text, JLD or
 NPZ), the Wilson plaquette action with any couplinglist/coupling_loops
-terms, and no fermions, two-flavour Wilson fermions with csw = 0,
-two-flavour domain-wall fermions with their Pauli-Villars partner, or
+terms, and no fermions, two-flavour Wilson fermions (clover-improved with
+Dirac_operator = "WilsonClover", and with hasenbusch = true split by
+Hasenbusch mass preconditioning at hasenbusch_mu), two-flavour
+domain-wall fermions with their Pauli-Villars partner, or
 staggered fermions with Nf = 1..8, on stout-smeared links if asked,
 updated by HMC (with or without Sexton-Weingarten), (quenched) Heatbath,
 the self-learning SLHMC and SLMC or the integrated-fermion IntegratedHMC
@@ -29,8 +31,9 @@ from latticeqcd_torch.ops.dirac import eo_pack
 from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
 from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, refuse_r_off_cpu
-from latticeqcd_torch.ops.fermion_action import (DomainwallFermiAction, StaggeredFermiAction,
-                                                 WilsonFermiAction)
+from latticeqcd_torch.ops.fermion_action import (DomainwallFermiAction,
+                                                 HasenbuschWilsonFermiAction,
+                                                 StaggeredFermiAction, WilsonFermiAction)
 from latticeqcd_torch.ops.wilsonline import Wilsonline, make_loops_fromname
 from latticeqcd_torch.smearing.stout import CovNet, stout_stack
 from latticeqcd_torch.system.params import Params
@@ -52,19 +55,15 @@ def _not_ported(what: str, item: str):
 
 def check_supported(p: Params, device="cuda") -> None:
     """Refuse, by name, what the port does not run (on ``device``)."""
-    if not p.quench and p.Dirac_operator not in (None, "Wilson", "Staggered", "Domainwall"):
-        _not_ported(f"Dirac_operator = {p.Dirac_operator!r}", "A12")
     if (not p.quench and p.Dirac_operator == "Staggered"
             and torch.device(device).type != "cpu" and not eo_pack.packable(p.L)):
         _not_ported(f"staggered fermions on {device} with an odd lattice extent {tuple(p.L)} "
                     "(a full-volume mode of the staggered_w kernel)", "A11")
-    if not p.quench and p.Dirac_operator == "Wilson":
+    if not p.quench and p.Dirac_operator in ("Wilson", "WilsonClover"):
         refuse_r_off_cpu(p.r, device)
     for method in p.measurement_methods or ():  # refused here, before any trajectory
         if "fermion_parameters" in method:
             build_dirac_from_params(method["fermion_parameters"], p.L, device=device)
-    if getattr(p, "hasenbusch", False):
-        _not_ported("Hasenbusch mass preconditioning", "A12")
     if p.MDprecision == "mixed":
         _not_ported("mixed-precision MD", "A12")
 
@@ -121,8 +120,14 @@ def build_fermi_action(p: Params):
             bc=bc,
         )
         return DomainwallFermiAction(dirac, eps_cg=p.eps, max_cg=p.MaxCGstep)
-    dirac = WilsonDirac(kappa=p.hop, r=p.r, bc=bc)
-    return WilsonFermiAction(dirac, eps_cg=p.eps, max_cg=p.MaxCGstep)
+    if p.Dirac_operator in ("Wilson", "WilsonClover"):
+        csw = p.Clover_coefficient if p.Dirac_operator == "WilsonClover" else 0.0
+        dirac = WilsonDirac(kappa=p.hop, r=p.r, bc=bc, csw=csw)
+        if p.hasenbusch:
+            return HasenbuschWilsonFermiAction(dirac, mu=p.hasenbusch_mu, eps_cg=p.eps,
+                                               max_cg=p.MaxCGstep)
+        return WilsonFermiAction(dirac, eps_cg=p.eps, max_cg=p.MaxCGstep)
+    raise ValueError(f"Dirac_operator {p.Dirac_operator!r} is not supported")
 
 
 def _load_initial(p: Params, dtype=torch.complex128, device="cuda") -> torch.Tensor:

@@ -3,9 +3,11 @@ SLMC | IntegratedHMC | IntegratedHB.
 
 Counterpart of latticeqcd_tpu/updates/factory.py: every update_method the
 JAX package accepts. The integrated updaters and dynamical SLMC build the
-fermion determinant densely, so they refuse a Dirac matrix of dimension
-above _INTEGRATED_MAX_DIM (full volume x spin x colour, as the JAX package
-counts it) with the same ValueError.
+fermion determinant densely: they refuse a Dirac matrix of dimension above
+_INTEGRATED_MAX_DIM (full volume x spin x colour, as the JAX package counts
+it), and any fermion action but two-flavour Wilson (clover included) and
+staggered (so Hasenbusch and domain wall), each with the JAX package's
+ValueError.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Hybrid Monte Carlo updater (quenched, two-flavour Wilson and domain wall, staggered Nf 1..8),
+"""Hybrid Monte Carlo updater (quenched, two-flavour Wilson with or without the clover
+term and Hasenbusch mass preconditioning, two-flavour domain wall, staggered Nf 1..8),
 with stout-smeared fermion links and the Sexton-Weingarten integrators.
 
 Counterpart of latticeqcd_tpu/updates/hmc.py with the semantics of its
@@ -8,7 +9,11 @@ fermion action solved on the evolved links, Metropolis
 exp(-dH) >= uniform, keep the old links on reject. The fermion force
 CG is warm-started from the previous MD step's solution (chronological
 inverter) where the action returns one; a multi-pole staggered action
-returns None and its next force starts from zero. With a smearing the
+returns None and its next force starts from zero, and the unsplit
+Hasenbusch force, which has no warm start in the JAX package either,
+solves from zero. With Sexton-Weingarten, a Hasenbusch action's light
+force kicks on the fermion scale and its heavy force on the fine gauge
+scale, each with its own chain of warm starts. With a smearing the
 fermion action sees smear(U) wherever it is evaluated (the
 pseudofermion, the force through torch.autograd, the final action),
 and the gauge action the bare links.
@@ -39,7 +44,8 @@ class Draws:
 
     mom: (re, im) normals of shape [4, X, Y, Z, T, NC, NC];
     xi: (re, im) normals of the pseudofermion noise, of the fermion
-        action's noise_shape(u), or None (quenched, or an action that
+        action's noise_shape(u) (the Hasenbusch action's leading axis
+        holds its two noises), or None (quenched, or an action that
         draws none);
     uniform: the Metropolis uniform in [0, 1)."""
 
@@ -115,19 +121,36 @@ class HMC:
         h = draws.momentum(u)
         cg_log: list = []
 
-        force_fermion = None
+        force_fermion = force_fine = None
         s_f_old = 0.0
         if not self.quench:
             fa = self.fermi_action
             s_f_old, eta = fa.sample_pseudofermion(self._smear(u), normals=draws.xi)
             smear_fn = None if self.smearing is None else self.smearing.smear
-            guess = {"x": None}
 
-            def force_fermion(uu):
-                # the smearing's graph is built under the force's own enable_grad
-                f, guess["x"] = fa.force_with_guess(uu, eta, guess["x"], log=cg_log,
-                                                    smear_fn=smear_fn)
-                return f
+            def chained(force_with_guess):
+                """A force whose CG starts from its previous solution (each
+                timescale threads its own chain); the smearing's graph is built
+                under the force's own enable_grad."""
+                guess = {"x": None}
+
+                def force(uu):
+                    f, guess["x"] = force_with_guess(uu, eta, guess["x"], log=cg_log,
+                                                     smear_fn=smear_fn)
+                    return f
+
+                return force
+
+            if self.sexton_weingarten and hasattr(fa, "force_heavy"):
+                # Hasenbusch split: the light (ratio) force on the coarse scale, the
+                # heavy one on the fine gauge scale
+                force_fermion = chained(fa.force_light_with_guess)
+                force_fine = chained(fa.force_heavy_with_guess)
+            elif hasattr(fa, "force_with_guess"):
+                force_fermion = chained(fa.force_with_guess)
+            else:
+                def force_fermion(uu):
+                    return fa.force(uu, eta, log=cg_log, smear_fn=smear_fn)
 
         force_gauge = lambda uu: ga.force(self.action, uu)
         sp_old = sun.kinetic_energy(h)
@@ -137,7 +160,7 @@ class HMC:
         u_new, h_new = integrators.run_md(
             u, h, force_gauge, self.dtau, self.md_steps, force_fermion=force_fermion,
             scheme=self.scheme, sexton_weingarten=self.sexton_weingarten, nsw=self.nsw,
-            omelyan_lambda=self.omelyan_lambda,
+            omelyan_lambda=self.omelyan_lambda, force_fine=force_fine,
         )
 
         sp_new = sun.kinetic_energy(h_new)

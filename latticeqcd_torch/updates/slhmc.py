@@ -47,6 +47,7 @@ from latticeqcd_torch.ops import gauge_action as ga
 from latticeqcd_torch.ops import sun
 from latticeqcd_torch.ops.dirac import eo_pack
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
 from latticeqcd_torch.ops.wilsonline import Wilsonline, make_loops_fromname
 from latticeqcd_torch.updates.heatbath import GeneratorUniforms, Heatbath
 from latticeqcd_torch.updates.hmc import Draws
@@ -360,7 +361,7 @@ def dense_logdet_fermi_action(dirac, psi_shape, weight: float):
     weight: Nf/8 for staggered det(D)^(Nf/4) = det(D^dag D)^(Nf/8); 1 for
     two-flavour Wilson (det(D)^2 = det(D^dag D) by gamma5-hermiticity).
     Wilson: D^dag D from D's columns (``dirac.apply``, the wilson_window
-    kernel at r = 1). Staggered with every extent even: D^dag D = m^2 -
+    kernel at r = 1, with a clover term built once per log det). Staggered with every extent even: D^dag D = m^2 -
     Dslash^2 is block-diagonal over the parities and both blocks have the
     determinant of W_e = m^2 - D_eo D_oe (Sylvester), so S_f = -weight 2 log
     det W_e, W_e from the columns of ``apply_w_packed`` (the staggered_w
@@ -378,7 +379,8 @@ def dense_logdet_fermi_action(dirac, psi_shape, weight: float):
             half = (lattice[0] // 2,) + psi_shape[1:]
             w_e = _dense(lambda v: dirac.apply_w_packed(ueo, v), half, u.device)
             return -weight * 2.0 * torch.linalg.slogdet(w_e)[1]
-        d_mat = _dense(lambda v: dirac.apply(u, v), psi_shape, u.device)
+        kw = {"clover": dirac.clover(u)} if isinstance(dirac, WilsonDirac) else {}
+        d_mat = _dense(lambda v: dirac.apply(u, v, **kw), psi_shape, u.device)
         return -weight * torch.linalg.slogdet(d_mat.mH @ d_mat)[1]
 
     return s_f

@@ -36,9 +36,11 @@ KAPPA = 0.141139
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def jax_draws(key, u, pf_shape=None) -> Draws:
+def jax_draws(key, u, pf_shape=None, split_noises=False) -> Draws:
     """The draws of HMC._step_fused for this key: momentum normals from
-    k_mom, pseudofermion normals from k_ferm, the uniform from k_acc."""
+    k_mom, pseudofermion normals from k_ferm, the uniform from k_acc. With
+    split_noises (the Hasenbusch action's two noises along pf_shape's leading
+    axis) k_ferm is split once more, one key per noise."""
     _, k_mom, k_ferm, k_acc = jax.random.split(key, 4)
     rdt = jnp.float64 if u.dtype == jnp.complex128 else jnp.float32
 
@@ -47,7 +49,12 @@ def jax_draws(key, u, pf_shape=None) -> Draws:
         return (to_torch(jax.random.normal(k1, shape, dtype=rdt)),
                 to_torch(jax.random.normal(k2, shape, dtype=rdt)))
 
-    xi = normals(k_ferm, pf_shape) if pf_shape is not None else None
+    xi = None
+    if pf_shape is not None and split_noises:
+        per_noise = [normals(k, pf_shape[1:]) for k in jax.random.split(k_ferm, pf_shape[0])]
+        xi = tuple(torch.stack(part) for part in zip(*per_noise))
+    elif pf_shape is not None:
+        xi = normals(k_ferm, pf_shape)
     return Draws(normals(k_mom, u.shape), xi, float(jax.random.uniform(k_acc, dtype=rdt)))
 
 
@@ -142,7 +149,9 @@ def test_run_refuses_what_is_not_ported(field, value):
     ported = {"SextonWeingargten": dict(N_SextonWeingargten=2),
               "smearing_for_fermion": dict(stout_numlayers=1, stout_rho=[0.1]),
               "couplinglist": dict(couplingcoeff=[-6.0 / 20]),
-              "Domainwall": dict(Domainwall_m=0.3)}
+              "Domainwall": dict(Domainwall_m=0.3),
+              "WilsonClover": dict(Clover_coefficient=1.90952),
+              "hasenbusch": dict(hasenbusch_mu=0.5)}
     key = value if field == "Dirac_operator" else field
     if key in ported:
         # ported: one CPU trajectory with a finite dH

@@ -329,23 +329,22 @@ def test_measurement_set_writes_the_jax_line_formats(tmp_path, monkeypatch):
     {"Dirac_operator": "Domainwall", "Domainwall_L5": 4},
 ])
 def test_clover_and_domainwall_raise_naming_a12(fparams):
-    """Clover is not ported and raises naming A12; domain wall is ported: its
-    operator builds and a Pion_correlator measures."""
+    """Both are ported: the clover and the domain-wall operator build from their
+    fermion_parameters and a Pion_correlator measures (the parity against the
+    JAX package is in test_torch_clover_measurements.py and
+    test_torch_domainwall_measurements.py); an unknown operator raises."""
+    from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
+
     ms = tsched.MeasurementSet.from_methods(
         [{"methodname": "Pion_correlator", "fermion_parameters": fparams, "eps": 1e-14}])
+    dirac = tsched.build_dirac_from_params(fparams, LAT, device="cpu")
     if fparams["Dirac_operator"] == "Domainwall":
-        from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
-
-        assert isinstance(tsched.build_dirac_from_params(fparams, LAT, device="cpu"),
-                          DomainwallDirac)
-        ms.calc_measurement_values(0, _links(LAT)[1])
-        cpi = ms.measurements[0].value
-        assert cpi.shape == (LAT[3],) and np.all(cpi > 0)
+        assert isinstance(dirac, DomainwallDirac)
     else:
-        with pytest.raises(NotImplementedError, match="A12"):
-            tsched.build_dirac_from_params(fparams, LAT)
-        with pytest.raises(NotImplementedError, match="A12"):
-            ms.calc_measurement_values(0, _links(LAT)[1])
+        assert isinstance(dirac, tw.WilsonDirac) and dirac.csw == 1.0
+    ms.calc_measurement_values(0, _links(LAT)[1])
+    cpi = ms.measurements[0].value
+    assert cpi.shape == (LAT[3],) and np.all(cpi > 0)
     with pytest.raises(ValueError):
         tsched.build_dirac_from_params({"Dirac_operator": "Overlap"}, LAT)
 
