@@ -128,7 +128,7 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      at kappa 0.141139 and one with staggered Nf = 4 at m = 1.0, 3 SLMC steps of the Iwasaki
      action on a plaquette + rectangle basis, the dense fermion determinant of Wilson (dim 3072,
      3072 wilson_window launches) and staggered fermions (W_e of dim 384, 384 staggered_w
-     launches; relative 1e-12), 2 IntegratedHMC trajectories and 2 IntegratedHB steps with the
+     launches; relative 1e-12), one IntegratedHMC trajectory and one IntegratedHB step with the
      Wilson determinant;
  25. the self-learning path: run_lqcd_params at 16^3x32, complex64, hot start, QPQ 10 steps of
      0.02, 4 steps each of SLHMC with two-flavour Wilson fermions (beta 6.0, kappa 0.141139) on a
@@ -165,6 +165,26 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      torch.cuda.max_memory_allocated printed, and, on the run's links, the clover term's build
      (forward, and forward + backward) and the 12x12 site product (full volume and packed)
      beside their bounds, the range of A_oo's eigenvalues, one heavy and one light force.
+ 28. the chain axis: wilson_hop_packed and staggered_w (hop and W) with 1, 3 and 8 chains (no
+     two chains' links equal) on phase 3's and phase 7's lattices, in complex64 (bar 1e-5) and
+     complex128 (1e-12), both target parities, forward (one launch for all chains) and the
+     backward for the links and the field, against the plain per-chain versions; step_batched
+     of 4 chains against 4 single-chain steps from the same draws at 4^4 complex128, quenched,
+     Wilson and staggered Nf = 4 and Nf = 2 (dH 1e-10, links 1e-12, the same accept); mixed MD in
+     complex128 against plain complex128 (dH 1e-9, links 1e-12), and a mixed complex64 Wilson
+     trajectory through the kernels against the plain path (dH 5e-4, the same accept);
+ 29. the paths of mixed MD and batched chains: phase 6's run with MDprecision = "mixed" beside
+     the plain one (seconds per trajectory; wilson_hop_packed's launches counted from 0 over the
+     mixed run; it fails if the kernel did not run, or wilson_hop's packed mode or
+     staggered_w_fused did), one 16^3x32 trajectory plain and mixed in turns, the link update in
+     complex64 and complex128 timed; the tracking check at 16^3x32 (5 quenched MD steps:
+     mixed complex64 must land at least 5x closer to complex128 than plain complex64); and
+     step_batched of the reference's 4^4 workload (bench.py tier2's action, complex64) as 64
+     chains and of staggered Nf = 4 (beta 5.7, m 0.5) at 8^4 as 16 chains, 2 batched
+     trajectories each, every kernel's launch count set to 0 just before and read just after,
+     beside 4 single-chain steps: seconds per trajectory, configurations per second, launches
+     per trajectory, CG iterations and peak memory printed; it fails on a non-finite dH, a solve
+     at its limit or a kernel of the path not launched.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -519,15 +539,8 @@ def phase_main_path(torch):
     print("== 6. Wilson main path: run_lqcd_params, 16^3x32 Wilson HMC, complex64", flush=True)
     from latticeqcd_torch.ops.dirac import wilson_kernel as wk
     from latticeqcd_torch.system.lqcd import run_lqcd_params
-    from latticeqcd_torch.system.params import Params
 
-    p = Params(
-        L=MAIN, NC=3, beta=6.0, initial="hot", update_method="HMC", quench=False,
-        Dirac_operator="Wilson", hop=KAPPA, r=1.0, BoundaryCondition=(1, 1, 1, -1),
-        QPQ=True, dtau=0.02, MDsteps=10, Nsteps=2, eps=1e-12, MaxCGstep=3000,
-        randomseed=3, verboselevel=2,
-        measurement_methods=[{"methodname": "Plaquette", "measure_every": 1}],
-    )
+    p = _wilson_path_params()
     # randomseed 3: its hot start has plaquette +1.66e-4, so the (0, 1) check
     # holds even when both trajectories are rejected, as a dH of O(20) from a
     # hot start at this volume and dtau makes likely
@@ -2273,15 +2286,16 @@ def phase_selflearning_agreement(torch):
         if launched != {kernel: ncols}:
             fail(f"the {name} log det launched {launched}, not {ncols} {kernel}")
 
-    # the integrated updaters with the exact two-flavour Wilson determinant
+    # the integrated updaters with the exact two-flavour Wilson determinant, one step each (each
+    # step's plain and CPU paths rebuild the dense determinant, 25-35 s a step)
     sfw = dense_logdet_fermi_action(WilsonDirac(kappa=KAPPA), lat + (4, 3), 1.0)
     logdet = lambda uu: sfw(apply_boundary_phases(uu))  # noqa: E731
     _sl_chain(torch, "IntegratedHMC (Wilson)",
               lambda: integrated_hmc(wilson57, dtau=0.02, md_steps=10, fermi_logdet=logdet),
-              hot, 2, 76)
+              hot, 1, 76)
     _sl_chain(torch, "IntegratedHB (Wilson)",
               lambda: integrated_hb(wilson57, fermi_logdet=logdet),
-              _warm_links(torch, lat, 3, 77, "cpu"), 2, 78)
+              _warm_links(torch, lat, 3, 77, "cpu"), 1, 78)
 
 
 def phase_selflearning_path(torch):
@@ -2762,6 +2776,384 @@ def phase_clover_path(torch):
               f"and the clover term): {ms:.1f} ms eager  [{STATE['smi']}]", flush=True)
 
 
+# ------------------------------------------------------------------ mixed MD and batched chains
+
+CHAIN_COUNTS = (1, 3, 8)
+# the chain-axis launches of phase 29's batched paths, checked at their own shapes in phase 28
+PATH_CHAINS = [((4, 4, 4, 4), "wilson", 64), ((8, 8, 8, 8), "staggered", 16)]
+
+
+def _zero_counts():
+    """Set every kernel's launch count to 0."""
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
+    wk.launches = ww.launches = 0
+    wk.site_launches.update(full=0, packed=0)
+    sk.launches = sk.w_launches = sk.fused_launches = 0
+
+
+def _off_path_launches():
+    """The launches of the kernels no path may run: wilson_hop's packed mode and the
+    one-launch staggered W."""
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+
+    return wk.site_launches["packed"] + sk.fused_launches
+
+
+def _chain_links(torch, u, dtype, n):
+    """(u_e, u_o) of n chains with the boundary phases, chain axis in front: chain c holds the
+    links u shifted by c sites along t and times the phase exp(0.1 i c) (the hops are linear
+    in the links), so that no two chains' links are equal."""
+    from latticeqcd_torch.ops.dirac import eo_pack
+    from latticeqcd_torch.ops.dirac.wilson import apply_boundary_phases
+
+    pairs = [eo_pack.pack_links(apply_boundary_phases(
+        (torch.roll(u, c, 4) * complex(math.cos(0.1 * c), math.sin(0.1 * c))).to(dtype)),
+        tuple(u.shape[1:5])) for c in range(n)]
+    return torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+
+
+def _chain_hop_checks(torch, mod, name, hop, plain, site, u_e, u_o, tag, bar):
+    """The chain-axis hop of both target parities, forward (one launch for all chains)
+    and backward, against the plain per-chain hop and its autograd."""
+    n = u_e.shape[0]
+    g = torch.Generator(device=u_e.device).manual_seed(n)
+    shape = (n,) + tuple(u_e.shape[2:6]) + site
+    x = torch.randn(shape, dtype=u_e.dtype, device=u_e.device, generator=g)
+    cot = torch.randn(shape, dtype=u_e.dtype, device=u_e.device, generator=g)
+    for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
+        before = mod.launches
+        got = hop(u_t, u_s, x, parity)
+        torch.cuda.synchronize()
+        if mod.launches != before + 1:
+            fail(f"{name} with {n} chains launched {mod.launches - before} times, not once")
+        want = torch.stack([plain(u_t[c], u_s[c], x[c], parity) for c in range(n)])
+        check(f"{name} n={n} hop p={parity} {tag}", maxdiff(got, want), bar, name)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (u_t, u_s, x)]
+        grads = torch.autograd.grad(hop(*leaves, parity), leaves, cot)
+        err = 0.0
+        for c in range(n):
+            one = [t[c].detach().clone().requires_grad_(True) for t in (u_t, u_s, x)]
+            for a, b in zip(grads, torch.autograd.grad(plain(*one, parity), one, cot[c])):
+                err = max(err, maxdiff(a[c], b))
+        torch.cuda.synchronize()
+        check(f"{name} n={n} backward (u_t, u_s, psi) p={parity} {tag}", err, bar, name)
+
+
+def _batched_against_single(torch, label, hmc, us, seed):
+    """step_batched of the chains us against one step per chain from the same draws
+    (even chains accepted whatever dH, so their evolved links are compared)."""
+    from latticeqcd_torch.updates.hmc import Draws
+
+    n = us.shape[0]
+    draws = []
+    for i in range(n):
+        d = Draws.sample(hmc, us[i], torch.Generator(device=us.device).manual_seed(seed + i))
+        draws.append(Draws(d.mom, d.xi, 0.0 if i % 2 == 0 else d.uniform))
+    before = _launch_counts()
+    u_b, st_b = hmc.step_batched(us, draws=draws)
+    mid = _launch_counts()
+    worst_dh = worst_u = 0.0
+    for i in range(n):
+        u_i, st_i = hmc.step(us[i], draws=draws[i])
+        worst_dh = max(worst_dh, abs(float(st_b["dH"][i]) - st_i["dH"]))
+        worst_u = max(worst_u, maxdiff(u_b[i], u_i))
+        if bool(st_b["accepted"][i]) != st_i["accepted"]:
+            fail(f"{label}: chain {i} batched and alone disagree on accept")
+    after = _launch_counts()
+    batched = {k: mid[k] - before[k] for k in mid if mid[k] != before[k]}
+    single = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
+    print(f"  {label}: {n} chains, dH {[round(float(d), 6) for d in st_b['dH']]}; launches "
+          f"batched {batched}, {n} single steps {single}; CG iterations batched "
+          f"{sum(c['iterations'] for c in st_b['cg'])} in {len(st_b['cg'])} solves", flush=True)
+    if not hmc.quench and not batched:
+        fail(f"{label}: step_batched launched no kernel")
+    check(f"{label} batched against single |ddH|", worst_dh, 1e-10)
+    check(f"{label} batched against single max|dU|", worst_u, 1e-12)
+
+
+def phase_batched_agreement(torch):
+    print("== 28. chain-axis kernels and batched chains against their plain and single-chain "
+          "versions; mixed MD", flush=True)
+    from latticeqcd_torch.ops import fields, gauge_action as ga
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
+    from latticeqcd_torch.updates.hmc import HMC, Draws
+
+    t0 = time.time()
+    dev = torch.device("cuda")
+    dtypes = (torch.complex64, torch.complex128)
+    cases = ([(lat, "wilson", d, n) for lat in LATTICES for d in dtypes for n in CHAIN_COUNTS]
+             + [(lat, "staggered", d, n) for lat in STAGGERED_LATTICES for d in dtypes
+                for n in CHAIN_COUNTS]
+             + [(lat, kind, torch.complex64, n) for lat, kind, n in PATH_CHAINS])
+    links = {}
+    for lat, kind, dtype, n in cases:
+        if (lat, kind) not in links:
+            links[lat, kind] = fields.hot_start(lat, 3, seed=sum(lat) + (kind == "staggered"),
+                                                device=dev)
+        u = links[lat, kind]
+        name = str(dtype).split(".")[1]
+        tag = f"{'x'.join(map(str, lat))} {name}"
+        u_e, u_o = _chain_links(torch, u, dtype, n)
+        if kind == "wilson":
+            _chain_hop_checks(torch, wk, "wilson_hop_packed", wk.wilson_hop_packed,
+                              wk.hop_packed_reference, (4, 3), u_e, u_o, tag, BARS[name])
+        else:
+            _chain_hop_checks(torch, sk, "staggered_w", sk.staggered_hop_packed,
+                              sk.staggered_hop_packed_reference, (3,), u_e, u_o, tag,
+                              BARS[name])
+            x = torch.randn((n,) + tuple(u_e.shape[2:6]) + (3,), dtype=dtype,
+                            device=u_e.device, generator=torch.Generator(
+                                device=u_e.device).manual_seed(n + 1))
+            before = sk.w_launches
+            got = sk.staggered_w(u_e, u_o, x, MASS)
+            torch.cuda.synchronize()
+            if sk.w_launches != before + 1:
+                fail(f"staggered_w's W with {n} chains did not launch once")
+            want = torch.stack([sk.staggered_w_reference(u_e[c], u_o[c], x[c], MASS)
+                                for c in range(n)])
+            check(f"staggered_w n={n} W {tag}", maxdiff(got, want), BARS[name], "staggered_w")
+    print(f"  chain-axis kernels checked in {time.time() - t0:.1f} s", flush=True)
+
+    lat = (4, 4, 4, 4)
+    us = torch.stack([fields.hot_start(lat, 3, seed=280 + i, device=dev) for i in range(4)])
+    cases = {
+        "quenched": (6.0, None),
+        "Wilson": (6.0, WilsonFermiAction(WilsonDirac(kappa=KAPPA), eps_cg=1e-19)),
+        "staggered Nf=4": (5.7, StaggeredFermiAction(StaggeredDirac(mass=MASS, lattice=lat),
+                                                     nf=4, eps_cg=1e-19)),
+        "staggered Nf=2": (5.7, StaggeredFermiAction(StaggeredDirac(mass=MASS, lattice=lat),
+                                                     nf=2, eps_cg=1e-19)),
+    }
+    for i, (label, (beta, fa)) in enumerate(cases.items()):
+        hmc = HMC(action=ga.wilson_gauge_action(3, beta), dtau=0.1, md_steps=5, fermi_action=fa)
+        _batched_against_single(torch, f"4^4 c128 {label}", hmc, us, 290 + 10 * i)
+
+    # mixed MD: complex128 against plain complex128, and a complex64 Wilson trajectory through
+    # the kernels against the plain path
+    fa = WilsonFermiAction(WilsonDirac(kappa=KAPPA), eps_cg=1e-19)
+    kw = dict(action=ga.wilson_gauge_action(3, 6.0), dtau=0.1, md_steps=10, fermi_action=fa)
+    u = us[0]
+    d = Draws.sample(HMC(**kw), u, torch.Generator(device=dev).manual_seed(300))
+    draws = Draws(d.mom, d.xi, 0.0)
+    u_p, st_p = HMC(**kw).step(u, draws=draws)
+    u_m, st_m = HMC(**kw, md_precision="mixed").step(u, draws=draws)
+    print(f"  mixed c128 dH {st_m['dH']:.12f}, plain c128 dH {st_p['dH']:.12f}", flush=True)
+    check("mixed c128 against plain c128 |ddH|", abs(st_m["dH"] - st_p["dH"]), 1e-9)
+    check("mixed c128 against plain c128 max|dU|", maxdiff(u_m, u_p), 1e-12)
+    fa64 = WilsonFermiAction(WilsonDirac(kappa=KAPPA), eps_cg=1e-12)
+    hmc = HMC(action=ga.wilson_gauge_action(3, 6.0), dtau=0.02, md_steps=10, fermi_action=fa64,
+              md_precision="mixed")
+    u64 = u.to(torch.complex64)
+    draws = Draws.sample(hmc, u64, torch.Generator(device=dev).manual_seed(301))
+    before = _launch_counts()
+    u_k, st_k = hmc.step(u64, draws=draws)
+    launched = {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+    with _plain_kernels():
+        u_q, st_q = hmc.step(u64, draws=draws)
+    print(f"  mixed c64 Wilson: kernel dH {st_k['dH']:.8f} accepted {st_k['accepted']} "
+          f"({launched} launches); plain dH {st_q['dH']:.8f} accepted {st_q['accepted']}",
+          flush=True)
+    if not launched.get("wilson_hop_packed"):
+        fail("the mixed complex64 trajectory launched no wilson_hop_packed")
+    if u_k.dtype != torch.complex64:
+        fail(f"the mixed trajectory handed on {u_k.dtype} links")
+    check("mixed c64 Wilson kernel against plain |ddH|", abs(st_k["dH"] - st_q["dH"]), 5e-4)
+    if st_k["accepted"] != st_q["accepted"]:
+        fail("mixed c64 kernel and plain trajectories disagree on accept")
+
+
+def _wilson_path_params(**kw):
+    """Phase 6's Wilson action at 16^3x32 (hot start, seed 3)."""
+    from latticeqcd_torch.system.params import Params
+
+    base = dict(
+        L=MAIN, NC=3, beta=6.0, initial="hot", update_method="HMC", quench=False,
+        Dirac_operator="Wilson", hop=KAPPA, r=1.0, BoundaryCondition=(1, 1, 1, -1),
+        QPQ=True, dtau=0.02, MDsteps=10, Nsteps=2, eps=1e-12, MaxCGstep=3000,
+        randomseed=3, verboselevel=2,
+        measurement_methods=[{"methodname": "Plaquette", "measure_every": 1}],
+    )
+    base.update(kw)
+    return Params(**base)
+
+
+def _batched_run(torch, label, hmc, us, nsteps, seed):
+    """nsteps step_batched of the chains us, then 4 single-chain steps of chain 0 in the same
+    process; prints and returns the seconds and launches."""
+    n = us.shape[0]
+    gens = [torch.Generator(device=us.device).manual_seed(seed + i) for i in range(n)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    launches = {}
+    secs = []
+    for k in range(nsteps):
+        before = _launch_counts()
+        t0 = time.time()
+        us, st = hmc.step_batched(us, generators=gens)
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+        diff = {kk: v - before[kk] for kk, v in _launch_counts().items() if v != before[kk]}
+        for kk, v in diff.items():
+            launches[kk] = launches.get(kk, 0) + v
+        iters = [c["iterations"] for c in st["cg"]]
+        print(f"  {label} batched trajectory {k + 1}: {secs[-1]:.3f} s for {n} chains, "
+              f"{n / secs[-1]:.2f} configurations/s; launches {diff}; CG iterations {sum(iters)} "
+              f"in {len(iters)} batched solves (at most {max(iters, default=0)}); accepted "
+              f"{int(st['accepted'].sum())}/{n}; dH in [{float(st['dH'].min()):.4f}, "
+              f"{float(st['dH'].max()):.4f}]  [{STATE['smi']}]", flush=True)
+        if not torch.isfinite(st["dH"]).all():
+            fail(f"{label}: a non-finite dH")
+        if any(i >= 3000 for i in iters):
+            fail(f"{label}: a batched solve stopped at its iteration limit")
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    if _off_path_launches():
+        fail(f"{label}: the batched run launched a kernel no path may run")
+    u1, g1 = us[0].clone(), torch.Generator(device=us.device).manual_seed(seed + n)
+    single, single_launches = [], []
+    for k in range(4):
+        before = _launch_counts()
+        t0 = time.time()
+        u1, st1 = hmc.step(u1, g1)
+        torch.cuda.synchronize()
+        single.append(time.time() - t0)
+        single_launches.append(sum(_launch_counts().values()) - sum(before.values()))
+    s_b, s_1 = statistics.median(secs), statistics.median(single)
+    print(f"  {label}: batched {s_b:.3f} s per trajectory of {n} chains ({n / s_b:.2f} "
+          f"configurations/s), single chain {s_1:.3f} s ({1 / s_1:.2f} configurations/s, "
+          f"{' '.join(f'{s:.3f}' for s in single)} s): {n * s_1 / s_b:.1f}x the configurations "
+          f"per second; peak memory {peak:.3f} GiB above what was held before the batched "
+          f"trajectories; launches over {nsteps} batched trajectories "
+          f"{launches}, per single-chain trajectory {single_launches}  [{STATE['smi']}]",
+          flush=True)
+    return launches
+
+
+def phase_batched_path(torch):
+    print("== 29. mixed MD and batched chains on the paths", flush=True)
+    from latticeqcd_torch.md import integrators
+    from latticeqcd_torch.ops import fields, gauge_action as ga, mdpair, sun
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+    from latticeqcd_torch.updates.hmc import HMC, Draws
+
+    # mixed MD on the Wilson path, beside the plain run in this process
+    seconds = {}
+    for precision in ("auto", "mixed"):
+        history = []
+        torch.cuda.synchronize()
+        _zero_counts()
+        plaq = run_lqcd_params(_wilson_path_params(MDprecision=precision), make_dirs=False,
+                               dtype=torch.complex64, device="cuda", history=history)
+        torch.cuda.synchronize()
+        seconds[precision] = [rec["seconds"] for rec in history]
+        for rec in history:
+            print(f"  MDprecision {precision} trajectory {rec['itrj']}: {rec['seconds']:.3f} s  "
+                  f"CG iterations {sum(c['iterations'] for c in rec['cg'])} in {len(rec['cg'])} "
+                  f"solves  dH {rec['dH']:.6f}  accepted {rec['accepted']}  plaquette "
+                  f"{rec['plaq']:.8f}  [{STATE['smi']}]", flush=True)
+            if not math.isfinite(rec["dH"]):
+                fail(f"non-finite dH {rec['dH']} with MDprecision {precision}")
+        if not (history and math.isfinite(plaq) and 0.0 < plaq < 1.0):
+            fail(f"the {precision} Wilson run: plaquette {plaq}")
+        if precision == "mixed":
+            STATE["launches"].setdefault("wilson_hop_packed", {})["mixed Wilson path"] = wk.launches
+            print(f"  wilson_hop_packed launches on the mixed path: {wk.launches}", flush=True)
+            if wk.launches == 0:
+                fail("the mixed path launched wilson_hop_packed no time")
+            if _off_path_launches():
+                fail("the mixed path launched a kernel no path may run")
+    print(f"  s per trajectory, 16^3x32 c64 Wilson: plain {seconds['auto']}, mixed "
+          f"{seconds['mixed']}  [{STATE['smi']}]", flush=True)
+
+    # the same trajectory plain and mixed in turns (plain, mixed, mixed, plain), one set of draws
+    dev = torch.device("cuda")
+    act = ga.wilson_gauge_action(3, 6.0)
+    c64 = torch.complex64
+    u = fields.hot_start(MAIN, 3, seed=290, device=dev)
+    u64 = u.to(c64)
+    fa = WilsonFermiAction(WilsonDirac(kappa=KAPPA), eps_cg=1e-12, max_cg=3000)
+    hmcs = {p: HMC(action=act, dtau=0.02, md_steps=10, fermi_action=fa, md_precision=p)
+            for p in ("plain", "mixed")}
+    draws = Draws.sample(hmcs["plain"], u64, torch.Generator(device=dev).manual_seed(292))
+    turns = {"plain": [], "mixed": []}
+    for precision in ("plain", "mixed", "mixed", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, st = hmcs[precision].step(u64, draws=draws)
+        torch.cuda.synchronize()
+        turns[precision].append(time.time() - t0)
+        turns[precision + " dH"] = st["dH"]
+    print(f"  one 16^3x32 c64 Wilson trajectory in turns (plain, mixed, mixed, plain): plain "
+          f"{' '.join(f'{t:.3f}' for t in turns['plain'])} s (dH {turns['plain dH']:.6f}), mixed "
+          f"{' '.join(f'{t:.3f}' for t in turns['mixed'])} s (dH {turns['mixed dH']:.6f})  "
+          f"[{STATE['smi']}]", flush=True)
+    h = sun.random_hermitian_momentum(u.shape[:-2], 3, dtype=torch.complex128, device=dev,
+                                      generator=torch.Generator(device=dev).manual_seed(291))
+    h64 = h.to(c64)
+    u_md, h_md = mdpair.lift(u64), mdpair.lift(h64)
+    times = {"c64 link update": lambda: integrators.update_links(u64, h64, 0.01),
+             "c128 link update (mixed)": lambda: integrators.update_links(u_md, h_md, 0.01),
+             "c128 exponential": lambda: sun.expi_hermitian(h_md, 0.01),
+             "lowering to c64": lambda: u_md.to(c64),
+             "c64 gauge force": lambda: ga.force(act, u64)}
+    print("  16^3x32 eager ms: " + ", ".join(f"{k} {_time_eager(torch, f, n=10, warm=2):.3f}"
+                                             for k, f in times.items())
+          + f"  [{STATE['smi']}]", flush=True)
+
+    # the tracking property at 16^3x32: 5 quenched MD steps from one start
+    def md(u0, h0, view):
+        return integrators.run_md(u0, h0, lambda uu: ga.force(act, view(uu)), 0.02, 5)[0]
+
+    u_ref = md(u, h, lambda uu: uu)
+    u_pl = md(u.to(c64), h.to(c64), lambda uu: uu)
+    u_mx = md(mdpair.lift(u.to(c64)), mdpair.lift(h.to(c64)), lambda uu: uu.to(c64))
+    dev_plain = maxdiff(u_pl.to(torch.complex128), u_ref)
+    dev_mixed = maxdiff(u_mx.to(c64).to(torch.complex128), u_ref)
+    print(f"  tracking at 16^3x32, 5 steps of 0.02: plain c64 {dev_plain:.3e}, mixed c64 "
+          f"{dev_mixed:.3e} from the complex128 trajectory ({dev_plain / dev_mixed:.1f}x)",
+          flush=True)
+    if not dev_mixed < dev_plain / 5.0:
+        fail(f"mixed MD does not track the complex128 trajectory 5x closer: {dev_mixed} against "
+             f"{dev_plain}")
+
+    # batched chains: the reference's published workload (bench.py tier2) as 64 chains, and
+    # staggered Nf = 4 at 8^4 as 16 chains
+    lat = (4, 4, 4, 4)
+    fa = WilsonFermiAction(WilsonDirac(kappa=KAPPA), eps_cg=1e-12, max_cg=3000)
+    hmc = HMC(action=ga.wilson_gauge_action(3, 6.0), dtau=0.1, md_steps=10, fermi_action=fa)
+    us = torch.stack([fields.hot_start(lat, 3, seed=400 + i, dtype=c64, device=dev)
+                      for i in range(64)])
+    launched = _batched_run(torch, "tier2 4^4 Wilson c64", hmc, us, 2, seed=500)
+    STATE["launches"].setdefault("wilson_hop_packed", {})["batched tier2 path"] = launched.get(
+        "wilson_hop_packed", 0)
+    if not launched.get("wilson_hop_packed"):
+        fail("the batched Wilson chains launched wilson_hop_packed no time")
+
+    lat = (8, 8, 8, 8)
+    fa = StaggeredFermiAction(StaggeredDirac(mass=MASS, lattice=lat), nf=4, eps_cg=1e-12)
+    hmc = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.02, md_steps=10, fermi_action=fa)
+    us = torch.stack([fields.hot_start(lat, 3, seed=600 + i, dtype=c64, device=dev)
+                      for i in range(16)])
+    launched = _batched_run(torch, "8^4 staggered Nf=4 c64", hmc, us, 2, seed=700)
+    STATE["launches"].setdefault("staggered_w", {})["batched staggered path"] = launched.get(
+        "staggered_w", 0)
+    if not launched.get("staggered_w"):
+        fail("the batched staggered chains launched staggered_w no time")
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
           phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
@@ -2769,7 +3161,8 @@ PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_disk, phase_anchor, phase_quenched_agreement, phase_quenched_path,
           phase_plaquette_anchor, phase_improved_agreement, phase_improved_path,
           phase_domainwall_agreement, phase_domainwall_path, phase_selflearning_agreement,
-          phase_selflearning_path, phase_clover_agreement, phase_clover_path]
+          phase_selflearning_path, phase_clover_agreement, phase_clover_path,
+          phase_batched_agreement, phase_batched_path]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line
@@ -2796,7 +3189,9 @@ def main() -> int:
         fail(f"the latticeqcd_torch package is not beside this script: {exc}")
     t0 = time.time()
     for phase in PHASES:
+        t_phase = time.time()
         phase(torch)
+        print(f"  {phase.__name__}: {time.time() - t_phase:.1f} s", flush=True)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "latticeqcd_tpu"))
     if leaked:
         fail(f"the port imported the JAX side: {leaked}")

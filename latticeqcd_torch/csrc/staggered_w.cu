@@ -28,24 +28,40 @@
 // launch, though at complex64 the 37.7 MB of links at 16^3x32 may stay in the 50 MB L2
 // between the two). The Pallas kernel keeps d1 on chip in a sliding t-window; the one-launch
 // version with a halo of d1 in shared memory is later work.
+//
+// Chains: a leading chain axis of independent lattices (HMC.step_batched) is the grid's y axis,
+// as jax.vmap adds a leading grid axis to the Pallas call: block (b, c) offsets its links by
+// c * u_chain and its fields (d1 too) by c * psi_chain elements. Each launch serves every chain.
+// One chain launches the kernel compiled without the offsets (CHAINS false). With them a single
+// lattice's W took 31.3-31.7 us against the W's 30.3-30.6 before the chain axis; without them
+// 29.9-30.2 against 30.1-30.5 (chip_smoke.py phase 8, cold, 16^3 x 32 complex64, each pair of
+// versions in turns on one NVIDIA H100 80GB HBM3 at 700 W).
 #include "lattice_site.h"
 
 namespace {
 
-// One thread per target site of the packed layout (lx = X/2). AXPY: out = m2 phi - D psi,
-// else out = D psi.
-template <typename R, bool AXPY>
+// One thread per target site of the packed layout (lx = X/2) of chain blockIdx.y. AXPY:
+// out = m2 phi - D psi, else out = D psi.
+template <typename R, bool AXPY, bool CHAINS>
 __global__ void __launch_bounds__(128)
     staggered_hop_kernel(const typename Vec<R>::type* __restrict__ u_fwd,
                          const typename Vec<R>::type* __restrict__ u_bwd,
                          const typename Vec<R>::type* __restrict__ psi,
                          const typename Vec<R>::type* __restrict__ phi,
                          typename Vec<R>::type* __restrict__ out, int lx, int ly, int lz, int lt,
-                         int parity, R m2) {
+                         int parity, R m2, long long u_chain, long long psi_chain) {
   using V = typename Vec<R>::type;
   const int vol = lx * ly * lz * lt;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= vol) return;
+  if (CHAINS) {
+    const long long chain = blockIdx.y;
+    u_fwd += chain * u_chain;
+    u_bwd += chain * u_chain;
+    psi += chain * psi_chain;
+    out += chain * psi_chain;
+    if (AXPY) phi += chain * psi_chain;
+  }
   const SiteNeighbours n = site_neighbours<true>(s, lx, ly, lz, lt, parity);
   const bool neg[4] = {false, (n.off & 1) != 0, ((n.off + n.y) & 1) != 0,
                        ((n.off + n.y + n.z) & 1) != 0};
@@ -93,55 +109,72 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// The chain strides of a launch: nchain lattices, their links u_chain and their fields
+// psi_chain elements apart.
+struct Chains {
+  int n;
+  long long u, psi;
+};
+
 template <typename R, bool AXPY>
 int launch(const void* u_fwd, const void* u_bwd, const void* psi, const void* phi, void* out,
-           int x2, int ly, int lz, int lt, int parity, double m2, void* stream) {
+           int x2, int ly, int lz, int lt, int parity, double m2, Chains ch, void* stream) {
   using V = typename Vec<R>::type;
   const int vol = x2 * ly * lz * lt;
   const int threads = 128;
   const int blocks = (vol + threads - 1) / threads;
-  staggered_hop_kernel<R, AXPY><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const V*>(u_fwd), static_cast<const V*>(u_bwd), static_cast<const V*>(psi),
-      static_cast<const V*>(phi), static_cast<V*>(out), x2, ly, lz, lt, parity,
-      static_cast<R>(m2));
+  auto kernel =
+      ch.n == 1 ? staggered_hop_kernel<R, AXPY, false> : staggered_hop_kernel<R, AXPY, true>;
+  kernel<<<dim3(blocks, ch.n), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const V*>(u_fwd), static_cast<const V*>(u_bwd), static_cast<const V*>(psi),
+          static_cast<const V*>(phi), static_cast<V*>(out), x2, ly, lz, lt, parity,
+          static_cast<R>(m2), ch.u, ch.psi);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename R>
 int apply_w(const void* u_e, const void* u_o, const void* phi, void* d1, void* out, int x2, int ly,
-            int lz, int lt, double m2, void* stream) {
+            int lz, int lt, double m2, Chains ch, void* stream) {
   // d1 = D_oe phi on odd sites: odd links forward, even links backward
-  const int err = launch<R, false>(u_o, u_e, phi, nullptr, d1, x2, ly, lz, lt, 1, 0.0, stream);
+  const int err = launch<R, false>(u_o, u_e, phi, nullptr, d1, x2, ly, lz, lt, 1, 0.0, ch, stream);
   if (err != 0) return err;
   // out = m^2 phi - D_eo d1 on even sites
-  return launch<R, true>(u_e, u_o, d1, phi, out, x2, ly, lz, lt, 0, m2, stream);
+  return launch<R, true>(u_e, u_o, d1, phi, out, x2, ly, lz, lt, 0, m2, ch, stream);
 }
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes). Each returns cudaGetLastError() after its launches.
+// Plain C entry points (loaded with ctypes), each ending in the chain count and the chain
+// strides of the links and of the fields, in elements. Each returns cudaGetLastError() after its
+// launches.
 extern "C" {
 
 int staggered_hop_packed_c64(const void* u_t, const void* u_s, const void* psi_s, void* out,
-                             int x2, int ly, int lz, int lt, int target_parity, void* stream) {
+                             int x2, int ly, int lz, int lt, int target_parity, int nchain,
+                             long long u_chain, long long psi_chain, void* stream) {
   return launch<float, false>(u_t, u_s, psi_s, nullptr, out, x2, ly, lz, lt, target_parity, 0.0,
-                              stream);
+                              Chains{nchain, u_chain, psi_chain}, stream);
 }
 
 int staggered_hop_packed_c128(const void* u_t, const void* u_s, const void* psi_s, void* out,
-                              int x2, int ly, int lz, int lt, int target_parity, void* stream) {
+                              int x2, int ly, int lz, int lt, int target_parity, int nchain,
+                              long long u_chain, long long psi_chain, void* stream) {
   return launch<double, false>(u_t, u_s, psi_s, nullptr, out, x2, ly, lz, lt, target_parity, 0.0,
-                               stream);
+                               Chains{nchain, u_chain, psi_chain}, stream);
 }
 
 int staggered_w_c64(const void* u_e, const void* u_o, const void* phi, void* d1, void* out, int x2,
-                    int ly, int lz, int lt, double m2, void* stream) {
-  return apply_w<float>(u_e, u_o, phi, d1, out, x2, ly, lz, lt, m2, stream);
+                    int ly, int lz, int lt, double m2, int nchain, long long u_chain,
+                    long long psi_chain, void* stream) {
+  return apply_w<float>(u_e, u_o, phi, d1, out, x2, ly, lz, lt, m2,
+                        Chains{nchain, u_chain, psi_chain}, stream);
 }
 
 int staggered_w_c128(const void* u_e, const void* u_o, const void* phi, void* d1, void* out,
-                     int x2, int ly, int lz, int lt, double m2, void* stream) {
-  return apply_w<double>(u_e, u_o, phi, d1, out, x2, ly, lz, lt, m2, stream);
+                     int x2, int ly, int lz, int lt, double m2, int nchain, long long u_chain,
+                     long long psi_chain, void* stream) {
+  return apply_w<double>(u_e, u_o, phi, d1, out, x2, ly, lz, lt, m2,
+                         Chains{nchain, u_chain, psi_chain}, stream);
 }
 
 }  // extern "C"

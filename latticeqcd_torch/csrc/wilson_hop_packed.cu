@@ -5,8 +5,8 @@
 // needs: out = H psi_s on the target-parity sites of the packed layout [X/2, Y, Z, T, 4, 3]
 // (ops/dirac/eo_pack.py: full x = 2x' + off, off = (y + z + t + parity) mod 2), forward
 // links u_t from the target parity, backward links u_s from the source parity, both
-// [4, X/2, Y, Z, T, 3, 3]; the same function and C signature as wilson_hop.cu's packed
-// mode, which stays built beside it as the yardstick.
+// [4, X/2, Y, Z, T, 3, 3]; the same function as wilson_hop.cu's packed mode, which stays
+// built beside it as the yardstick, and its C signature with a chain axis added.
 //
 // What bounds it on this card: device memory, at the rate the card reaches on this traffic.
 // The least traffic is 768 B per target site at complex64 (576 B of links, 96 B in, 96 B out):
@@ -41,6 +41,14 @@
 // Bricks of the entry points: 1 x 2 rows, t whole up to 32 sites, at complex64 (192 threads,
 // 36 KB of shared memory, 80 registers, 4 blocks per SM); 2 x 1 rows over t segments of at
 // most 16 sites at complex128 (96 threads, 36 KB, 128 registers, 5 blocks per SM).
+// Chains: a leading chain axis of independent lattices (HMC.step_batched) is the grid's y axis,
+// as jax.vmap adds a leading grid axis to the Pallas call. Block (b, c) offsets its links by
+// c * u_chain and its spinors by c * psi_chain elements before the copies; a chain of packed
+// spinors is X/2 Y Z T 96 bytes at complex64, so every chain's rows keep the 16-byte alignment
+// of the bulk copies. One chain launches the kernel compiled without the offsets (CHAINS false).
+// With them a single lattice took 23.6-23.7 us against the kernel's 22.7-23.1 before the chain
+// axis; without them 22.8-23.2 against 22.9-23.1 (chip_smoke.py phase 4, cold, 16^3 x 32
+// complex64, each pair of versions in turns on one NVIDIA H100 80GB HBM3 at 700 W).
 // Shapes: every row slot holds the row at its wrapped coordinate, so X/2 = 1 (x' +- 1 onto
 // x'), an extent 2 in y or z (the halo onto the brick), T = 2 (t + 1 and t - 1 one site)
 // and extents that the brick does not divide need no special case; lanes whose site lies
@@ -89,18 +97,25 @@ struct Slots {
 // One block per brick: (x', BY y rows from y0, BZ z rows from z0, t segment [t0, t0 + ts)).
 // Thread tid is colour a = tid % 3 of brick site tid / 3, t fastest. Thread 0 first copies
 // the brick's source spinor rows into shared memory.
-template <typename R, int BY, int BZ, int TSMAX, int MINB>
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool CHAINS>
 __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
     wilson_hop_brick_kernel(const typename Vec<R>::type* __restrict__ u_t,
                             const typename Vec<R>::type* __restrict__ u_s,
                             const typename Vec<R>::type* __restrict__ psi,
                             typename Vec<R>::type* __restrict__ out, int x2, int ly, int lz, int lt,
-                            int ts, int parity) {
+                            int ts, int parity, long long u_chain, long long psi_chain) {
   using V = typename Vec<R>::type;
   using S = Slots<BY, BZ>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t bar;
   const V* rows = reinterpret_cast<const V*>(smem);
+  if (CHAINS) {
+    const long long chain = blockIdx.y;
+    u_t += chain * u_chain;
+    u_s += chain * u_chain;
+    psi += chain * psi_chain;
+    out += chain * psi_chain;
+  }
 
   const int nts = (lt + ts - 1) / ts, nzb = (lz + BZ - 1) / BZ, nyb = (ly + BY - 1) / BY;
   int b = blockIdx.x;
@@ -176,11 +191,11 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
   }
 }
 
-// Launch on a grid of bricks: t is cut into the fewest segments of at most TSMAX sites, of
-// even length (so that a segment of spinors is a whole number of 16-byte units).
+// Launch on a grid of bricks times chains: t is cut into the fewest segments of at most TSMAX
+// sites, of even length (so that a segment of spinors is a whole number of 16-byte units).
 template <typename R, int BY, int BZ, int TSMAX, int MINB>
 int launch(const void* u_t, const void* u_s, const void* psi, void* out, int x2, int ly, int lz,
-           int lt, int parity, void* stream) {
+           int lt, int parity, int nchain, long long u_chain, long long psi_chain, void* stream) {
   using V = typename Vec<R>::type;
   using S = Slots<BY, BZ>;
   static_assert(TSMAX % 2 == 0, "t segments are of even length");
@@ -190,29 +205,33 @@ int launch(const void* u_t, const void* u_s, const void* psi, void* out, int x2,
   const int ts = ((lt + nts - 1) / nts + 1) / 2 * 2;
   const int bytes = S::ROWS * 12 * ts * static_cast<int>(sizeof(V));
   const int blocks = x2 * ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * ((lt + ts - 1) / ts);
-  wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB>
-      <<<blocks, 3 * BY * BZ * ts, bytes, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false>
+                            : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true>;
+  kernel<<<dim3(blocks, nchain), 3 * BY * BZ * ts, bytes, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const V*>(u_t), static_cast<const V*>(u_s), static_cast<const V*>(psi),
-          static_cast<V*>(out), x2, ly, lz, lt, ts, parity);
+          static_cast<V*>(out), x2, ly, lz, lt, ts, parity, u_chain, psi_chain);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes), with the signature of wilson_hop.cu's packed
-// mode. Each returns cudaGetLastError() after the launch. psi_s must be 16-byte aligned.
+// Plain C entry points (loaded with ctypes): wilson_hop.cu's packed mode followed by the chain
+// count and the chain strides of the links and of the spinors, in elements. Each returns
+// cudaGetLastError() after the launch. psi_s must be 16-byte aligned.
 extern "C" {
 
 int wilson_hop_brick_c64(const void* u_t, const void* u_s, const void* psi_s, void* out, int x2,
-                         int ly, int lz, int lt, int target_parity, void* stream) {
+                         int ly, int lz, int lt, int target_parity, int nchain, long long u_chain,
+                         long long psi_chain, void* stream) {
   return launch<float, WILSON_BRICK_C64>(u_t, u_s, psi_s, out, x2, ly, lz, lt, target_parity,
-                                         stream);
+                                         nchain, u_chain, psi_chain, stream);
 }
 
 int wilson_hop_brick_c128(const void* u_t, const void* u_s, const void* psi_s, void* out, int x2,
-                          int ly, int lz, int lt, int target_parity, void* stream) {
+                          int ly, int lz, int lt, int target_parity, int nchain, long long u_chain,
+                          long long psi_chain, void* stream) {
   return launch<double, WILSON_BRICK_C128>(u_t, u_s, psi_s, out, x2, ly, lz, lt, target_parity,
-                                           stream);
+                                           nchain, u_chain, psi_chain, stream);
 }
 
 }  // extern "C"

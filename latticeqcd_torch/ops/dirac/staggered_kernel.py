@@ -23,7 +23,12 @@ calls it; it stays built and checked beside it.
 A tensor on the CPU takes the plain PyTorch version
 (``staggered_hop_packed_reference``, ``staggered_w_reference``: eo_pack
 gathers and einsums as in latticeqcd_tpu/ops/dirac/staggered.py); a
-tensor on a CUDA device launches the kernel, or the wrapper raises.
+tensor on a CUDA device launches the kernel, or the wrapper raises. The
+hop and the two-launch W also take a leading chain axis of independent
+lattices (fields [n, X/2, Y, Z, T, NC], links [n, 4, X/2, Y, Z, T, NC,
+NC], HMC.step_batched): each launch serves all n chains on the card, and
+on the CPU the plain version is mapped over the chains with
+torch.func.vmap.
 ``StaggeredHopPacked`` differentiates the hop: its backward for the
 field is the kernel again (D is antihermitian, so the adjoint of the
 target<-source hop is minus the source<-target hop), for the links it is
@@ -46,6 +51,7 @@ from torch.autograd.function import once_differentiable
 
 from latticeqcd_torch import _nvcc
 from latticeqcd_torch.ops.dirac import eo_pack
+from latticeqcd_torch.ops.dirac.wilson_kernel import MAX_CHAINS, chain_args
 
 DIRS = 4
 launches = 0
@@ -53,11 +59,14 @@ w_launches = 0
 fused_launches = 0
 
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the chain count and the links' and fields' chain strides of csrc/staggered_w.cu's entry points
+_CHAIN_ARGS = [_CI, _LL, _LL]
 # entry point -> (library, argument types)
 _ENTRY_POINTS = {
-    "staggered_hop_packed": ("staggered_w", [_VP] * 4 + [_CI] * 5 + [_VP]),
-    "staggered_w": ("staggered_w", [_VP] * 5 + [_CI] * 4 + [ctypes.c_double, _VP]),
+    "staggered_hop_packed": ("staggered_w", [_VP] * 4 + [_CI] * 5 + _CHAIN_ARGS + [_VP]),
+    "staggered_w": ("staggered_w", [_VP] * 5 + [_CI] * 4 + [ctypes.c_double] + _CHAIN_ARGS
+                    + [_VP]),
     "staggered_w_fused": ("staggered_w_fused", [_VP] * 4 + [_CI] * 4 + [ctypes.c_double, _VP]),
 }
 
@@ -91,7 +100,11 @@ def _geometry(psi_s, target_parity):
 
 
 def staggered_hop_packed_reference(u_t, u_s, psi_s, target_parity: int):
-    """Plain D psi_s on target-parity sites (packed layout)."""
+    """Plain D psi_s on target-parity sites (packed layout), per chain over a
+    leading chain axis."""
+    if psi_s.ndim == 6:
+        return torch.func.vmap(
+            lambda a, b, c: staggered_hop_packed_reference(a, b, c, target_parity))(u_t, u_s, psi_s)
     s_t, eta = _geometry(psi_s, target_parity)
     out = 0.0
     for mu in range(DIRS):
@@ -103,14 +116,18 @@ def staggered_hop_packed_reference(u_t, u_s, psi_s, target_parity: int):
 
 
 def staggered_w_reference(u_e, u_o, phi_e, mass: float):
-    """Plain W phi_e = m^2 phi_e - D_eo D_oe phi_e on packed even sites."""
+    """Plain W phi_e = m^2 phi_e - D_eo D_oe phi_e on packed even sites (per chain
+    over a leading chain axis)."""
     d1 = staggered_hop_packed_reference(u_o, u_e, phi_e, 1)
     return mass ** 2 * phi_e - staggered_hop_packed_reference(u_e, u_o, d1, 0)
 
 
 def _link_grads(g, psi_s, target_parity):
     """Gradients of Re<g, D psi_s> (PyTorch's convention for a real loss of
-    complex inputs) w.r.t. the forward links u_t and the backward links u_s."""
+    complex inputs) w.r.t. the forward links u_t and the backward links u_s,
+    per chain over a leading chain axis."""
+    if psi_s.ndim == 6:
+        return torch.func.vmap(lambda a, b: _link_grads(a, b, target_parity))(g, psi_s)
     s_t, eta = _geometry(psi_s, target_parity)
     d_ut, d_us = [], []
     for mu in range(DIRS):
@@ -134,21 +151,27 @@ def _entry(name: str, dtype):
     return fn
 
 
-def _check(psi, *links):
-    """Raise on anything the kernel does not take."""
+def _check(psi, *links, chains=False):
+    """Raise on anything the kernel does not take; with ``chains`` a leading
+    chain axis is allowed."""
     if psi.device.type != "cuda":
         raise ValueError(f"staggered_w runs on CUDA tensors, got {psi.device}")
     if psi.dtype not in _SUFFIX:
         raise TypeError(f"staggered_w takes complex64 or complex128, got {psi.dtype}")
-    if psi.ndim != 5 or psi.shape[4] != 3:
-        raise ValueError(f"packed field must be [X/2,Y,Z,T,3], got {tuple(psi.shape)}")
-    if any(l % 2 for l in psi.shape[1:4]):
+    lead = psi.ndim - 5
+    if lead not in ((0, 1) if chains else (0,)) or psi.shape[-1] != 3:
+        raise ValueError(f"packed field must be [{'(n,) ' if chains else ''}X/2,Y,Z,T,3], "
+                         f"got {tuple(psi.shape)}")
+    if lead and not 1 <= psi.shape[0] <= MAX_CHAINS:
+        raise ValueError(f"staggered_w takes 1 to {MAX_CHAINS} chains, got {psi.shape[0]}")
+    lat = tuple(psi.shape[lead:lead + 4])
+    if any(l % 2 for l in lat[1:]):
         raise ValueError(f"the packed staggered kernel needs every lattice extent even, "
-                         f"got {(2 * psi.shape[0],) + tuple(psi.shape[1:4])}")
-    vol = psi.shape[0] * psi.shape[1] * psi.shape[2] * psi.shape[3]
+                         f"got {(2 * lat[0],) + lat[1:]}")
+    vol = lat[0] * lat[1] * lat[2] * lat[3]
     if vol == 0 or 36 * vol >= 2**31:
         raise ValueError(f"packed volume {vol} outside the kernel's 32-bit indexing")
-    want = (DIRS,) + tuple(psi.shape[:4]) + (3, 3)
+    want = tuple(psi.shape[:lead]) + (DIRS,) + lat + (3, 3)
     for t in (psi,) + links:
         if t.device != psi.device or t.dtype != psi.dtype:
             raise TypeError("staggered_w fields must share device and dtype")
@@ -170,29 +193,32 @@ def _hop_packed(u_t, u_s, psi_s, target_parity):
     global launches
     if psi_s.device.type == "cpu":
         return staggered_hop_packed_reference(u_t, u_s, psi_s, target_parity)
-    _check(psi_s, u_t, u_s)
+    _check(psi_s, u_t, u_s, chains=True)
     out = torch.empty_like(psi_s)
     with torch.cuda.device(psi_s.device):
         err = _entry("staggered_hop_packed", psi_s.dtype)(
-            u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(), *psi_s.shape[:4],
-            int(target_parity), torch.cuda.current_stream().cuda_stream)
+            u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(), *psi_s.shape[-5:-1],
+            int(target_parity), *chain_args(psi_s, u_t, 1),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on_error(err, "staggered_hop_packed")
     launches += 1
     return out
 
 
 def _w(u_e, u_o, phi_e, mass):
-    """W on the paths: csrc/staggered_w.cu's two launches, d1 through device memory."""
+    """W on the paths: csrc/staggered_w.cu's two launches, d1 through device memory;
+    each launch serves all chains of a leading chain axis."""
     global launches, w_launches
     if phi_e.device.type == "cpu":
         return staggered_w_reference(u_e, u_o, phi_e, mass)
-    _check(phi_e, u_e, u_o)
+    _check(phi_e, u_e, u_o, chains=True)
     d1 = torch.empty_like(phi_e)
     out = torch.empty_like(phi_e)
     with torch.cuda.device(phi_e.device):
         err = _entry("staggered_w", phi_e.dtype)(
             u_e.data_ptr(), u_o.data_ptr(), phi_e.data_ptr(), d1.data_ptr(), out.data_ptr(),
-            *phi_e.shape[:4], float(mass) ** 2, torch.cuda.current_stream().cuda_stream)
+            *phi_e.shape[-5:-1], float(mass) ** 2, *chain_args(phi_e, u_e, 1),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on_error(err, "staggered_w")
     launches += 1
     w_launches += 1
@@ -221,7 +247,8 @@ def staggered_w_fused(u_e, u_o, phi_e, mass: float):
 
 
 class StaggeredHopPacked(torch.autograd.Function):
-    """D psi_s on target-parity sites (packed even-odd layout)."""
+    """D psi_s on target-parity sites (packed even-odd layout), with or without a
+    leading chain axis."""
 
     @staticmethod
     def forward(ctx, u_t, u_s, psi_s, target_parity):

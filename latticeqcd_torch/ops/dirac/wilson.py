@@ -59,10 +59,11 @@ def refuse_r_off_cpu(r: float, device) -> None:
 
 def apply_boundary_phases(u: torch.Tensor, bc=(1, 1, 1, -1)) -> torch.Tensor:
     """Multiply the last slice of each direction's links by its boundary
-    phase, so periodic shifts implement the fermion BCs. Differentiable."""
+    phase, so periodic shifts implement the fermion BCs. Differentiable; u
+    may lead with a chain axis."""
     if all(phase == 1 for phase in bc):
         return u
-    lattice = tuple(u.shape[1:5])
+    lattice = tuple(u.shape[-6:-2])
     factor = torch.ones((DIRS,) + lattice, dtype=u.real.dtype, device=u.device)
     for mu, phase in enumerate(bc):
         factor[mu].select(mu, lattice[mu] - 1).fill_(phase)

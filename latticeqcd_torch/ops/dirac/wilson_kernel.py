@@ -21,7 +21,11 @@ The public entry points are autograd Functions. A tensor on the CPU
 takes the plain PyTorch version (``dslash_reference``,
 ``hop_packed_reference``: rolls and einsums as in
 latticeqcd_tpu/ops/dirac/wilson.py); a tensor on a CUDA device launches
-the kernel, or the wrapper raises. The backward with respect to the
+the kernel, or the wrapper raises. The packed hop also takes a leading
+chain axis of independent lattices (spinor [n, X/2, Y, Z, T, 4, 3],
+links [n, 4, X/2, Y, Z, T, 3, 3], HMC.step_batched): one launch for all
+n chains on the card, and on the CPU the plain version mapped over the
+chains with torch.func.vmap. The backward with respect to the
 spinor is the kernel again (the adjoint hop is gamma5 H gamma5 with the
 link roles swapped); the backward with respect to the links is written
 with tensor ops: outer products of the projected half spinors with the
@@ -110,7 +114,11 @@ def dslash_reference(u, psi, kappa):
 
 
 def hop_packed_reference(u_t, u_s, psi_s, target_parity: int):
-    """Plain H psi_s on target-parity sites (packed layout, r = 1)."""
+    """Plain H psi_s on target-parity sites (packed layout, r = 1), per chain
+    over a leading chain axis."""
+    if psi_s.ndim == 7:
+        return torch.func.vmap(
+            lambda a, b, c: hop_packed_reference(a, b, c, target_parity))(u_t, u_s, psi_s)
     gplus, gminus, _ = packed_gathers(psi_s, target_parity)
     return _hop(u_t, u_s, psi_s, gplus, gminus)
 
@@ -131,16 +139,28 @@ def _link_grads(g, psi, gplus, gminus):
     return fwd, bwd
 
 
+def _packed_link_grads(g, psi_s, target_parity):
+    """(d u_t, d u_s) of Re<g, H psi_s> on the packed layout, per chain over a
+    leading chain axis."""
+    if psi_s.ndim == 7:
+        return torch.func.vmap(
+            lambda a, b: _packed_link_grads(a, b, target_parity))(g, psi_s)
+    gplus, gminus, scatter = packed_gathers(psi_s, target_parity)
+    fwd, bwd = _link_grads(g, psi_s, gplus, gminus)
+    return torch.stack(fwd), torch.stack([scatter(bwd[mu], mu) for mu in range(DIRS)])
+
+
 # ----------------------------------------------------------------- the kernel
 
 
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PACKED_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _VP]
 # csrc/<name>.cu -> its C entry points (each with a _c64 and a _c128 form) and their arguments
 _ENTRY_POINTS = {
     "wilson_hop": {"wilson_hop_full": [_VP, _VP, _VP, _CI, _CI, _CI, _CI, ctypes.c_double, _VP],
                    "wilson_hop_packed": _PACKED_ARGS},
-    "wilson_hop_packed": {"wilson_hop_brick": _PACKED_ARGS},
+    # the packed mode's arguments, then the chain count and the links' and spinors' chain strides
+    "wilson_hop_packed": {"wilson_hop_brick": _PACKED_ARGS[:-1] + [_CI, _LL, _LL, _VP]},
 }
 
 
@@ -156,16 +176,25 @@ def _fn(lib, entry, dtype):
     return fn
 
 
-def _check(psi, *links, kernel="wilson_hop"):
-    """Raise on anything the kernel (any of the Wilson kernels) does not take."""
+# the grid's y extent, which holds the chains
+MAX_CHAINS = 65535
+
+
+def _check(psi, *links, kernel="wilson_hop", chains=False):
+    """Raise on anything the kernel (any of the Wilson kernels) does not take;
+    with ``chains`` a leading chain axis is allowed."""
     if psi.device.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA tensors, got {psi.device}")
     if psi.dtype not in _SUFFIX:
         raise TypeError(f"{kernel} takes complex64 or complex128, got {psi.dtype}")
-    if psi.ndim != 6 or tuple(psi.shape[4:]) != (4, 3):
-        raise ValueError(f"spinor must be [X,Y,Z,T,4,3], got {tuple(psi.shape)}")
-    want = (DIRS,) + tuple(psi.shape[:4]) + (3, 3)
-    vol = psi.shape[0] * psi.shape[1] * psi.shape[2] * psi.shape[3]
+    lead = psi.ndim - 6
+    if lead not in ((0, 1) if chains else (0,)) or tuple(psi.shape[-2:]) != (4, 3):
+        raise ValueError(f"spinor must be [{'(n,) ' if chains else ''}X,Y,Z,T,4,3], "
+                         f"got {tuple(psi.shape)}")
+    if lead and not 1 <= psi.shape[0] <= MAX_CHAINS:
+        raise ValueError(f"{kernel} takes 1 to {MAX_CHAINS} chains, got {psi.shape[0]}")
+    want = tuple(psi.shape[:lead]) + (DIRS,) + tuple(psi.shape[lead:lead + 4]) + (3, 3)
+    vol = psi.shape[lead] * psi.shape[lead + 1] * psi.shape[lead + 2] * psi.shape[lead + 3]
     if vol == 0 or 36 * vol >= 2**31:
         raise ValueError(f"lattice volume {vol} outside the kernel's 32-bit indexing")
     for t in (psi,) + links:
@@ -199,26 +228,41 @@ def _dslash(u, psi, kappa):
     return out
 
 
-def _packed(lib, entry, u_t, u_s, psi_s, target_parity):
-    """Launch the packed-hop entry point `entry` of csrc/<lib>.cu."""
+def _packed(lib, entry, u_t, u_s, psi_s, target_parity, chains=()):
+    """Launch the packed-hop entry point `entry` of csrc/<lib>.cu; ``chains`` are
+    the chain arguments of an entry point that takes them."""
     out = torch.empty_like(psi_s)
     fn = _fn(lib, entry, psi_s.dtype)
     with torch.cuda.device(psi_s.device):
         err = fn(u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(),
-                 *psi_s.shape[:4], int(target_parity), torch.cuda.current_stream().cuda_stream)
+                 *psi_s.shape[-6:-2], int(target_parity), *chains,
+                 torch.cuda.current_stream().cuda_stream)
     _raise_on_error(err, lib, entry)
     return out
 
 
+def chain_args(psi, u, site_ndim: int):
+    """(n, the links' chain stride, the field's chain stride) in elements, for a
+    field whose sites carry ``site_ndim`` axes and may lead with a chain axis;
+    one chain has strides 0."""
+    if psi.ndim == 4 + site_ndim:
+        return 1, 0, 0
+    return psi.shape[0], u[0].numel(), psi[0].numel()
+
+
 def _hop_packed(u_t, u_s, psi_s, target_parity):
-    """The packed hop on the paths: the wilson_hop_packed kernel."""
+    """The packed hop on the paths: the wilson_hop_packed kernel, one launch
+    for all chains of a leading chain axis."""
     global launches
     if psi_s.device.type == "cpu":
         return hop_packed_reference(u_t, u_s, psi_s, target_parity)
-    _check(psi_s, u_t, u_s, kernel="wilson_hop_packed")
-    if psi_s.data_ptr() % 16:  # the kernel's bulk copies read 16-byte aligned rows
+    _check(psi_s, u_t, u_s, kernel="wilson_hop_packed", chains=True)
+    # the kernel's bulk copies read 16-byte aligned rows; every chain's rows are then aligned
+    # too (a chain's spinors are a multiple of 96 bytes)
+    if psi_s.data_ptr() % 16:
         psi_s = psi_s.clone()
-    out = _packed("wilson_hop_packed", "wilson_hop_brick", u_t, u_s, psi_s, target_parity)
+    out = _packed("wilson_hop_packed", "wilson_hop_brick", u_t, u_s, psi_s, target_parity,
+                  chain_args(psi_s, u_t, 2))
     launches += 1
     return out
 
@@ -264,7 +308,8 @@ class WilsonDslash(torch.autograd.Function):
 
 
 class WilsonHopPacked(torch.autograd.Function):
-    """H psi_s on target-parity sites (packed even-odd layout, r = 1)."""
+    """H psi_s on target-parity sites (packed even-odd layout, r = 1), with or
+    without a leading chain axis."""
 
     @staticmethod
     def forward(ctx, u_t, u_s, psi_s, target_parity):
@@ -283,10 +328,7 @@ class WilsonHopPacked(torch.autograd.Function):
             # u_s supplies the forward links and u_t the backward ones
             d_psi = gamma5(_hop_packed(u_s, u_t, gamma5(g), 1 - ctx.parity))
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            gplus, gminus, scatter = packed_gathers(psi_s, ctx.parity)
-            fwd, bwd = _link_grads(g, psi_s, gplus, gminus)
-            d_ut = torch.stack(fwd)
-            d_us = torch.stack([scatter(bwd[mu], mu) for mu in range(DIRS)])
+            d_ut, d_us = _packed_link_grads(g, psi_s, ctx.parity)
         return d_ut, d_us, d_psi, None
 
 

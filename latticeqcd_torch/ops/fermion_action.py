@@ -23,6 +23,16 @@ Counterpart of latticeqcd_tpu/ops/fermion_action.py (``_project_force``,
   Nf in 5..8, rational powers by Gauss-Jacobi partial fractions and the
   multi-shift CG.
 
+The Wilson action (csw = 0, r = 1, all-even lattices) and the staggered
+action (all-even lattices) also have batched forms for the independent
+chains of HMC.step_batched (``*_batched``): links [n, 4, X, Y, Z, T, NC,
+NC], one kernel launch per hop for all chains, the solves per chain in
+one masked batched CG (solvers.cg_multi) or multi-shift CG
+(solvers.multishift_cg_multi), per-chain chronological guesses, and the
+force the gradient of the sum over chains of each chain's quadratic
+form, which is per chain by construction; the packing of the links and
+the force's projection are mapped over the chains with torch.func.vmap.
+
 Each force solves once (detached, as jax.lax.stop_gradient does) and
 differentiates the operator's quadratic form in the solutions with
 respect to the bare links through the boundary phases, the link packing
@@ -89,6 +99,34 @@ def _project_force(u, grad_c):
         m = 1j * sun.mul(u[mu], sun.dagger(grad_c[mu]))
         out.append(0.5 * sun.traceless_hermitian(m))
     return torch.stack(out, dim=0)
+
+
+# ---------------------------------------------------- independent chains
+
+
+def _chain_inner(a, b):
+    """Re<a_i, b_i> of each chain of a leading chain axis."""
+    return torch.real(torch.sum(a.conj() * b, dim=tuple(range(1, a.ndim))))
+
+
+def _chain_packed_links(dirac, up):
+    """(u_e, u_o) of each chain, each with the chain axis in front."""
+    return torch.func.vmap(dirac.packed_links)(up)
+
+
+def _chain_noise(normals, dtype):
+    """Unit complex Gaussian noise (re + i im) / sqrt(2) from stacked normals."""
+    return (torch.complex(*normals) / math.sqrt(2.0)).to(dtype)
+
+
+def _chain_force(us, quadratic):
+    """_project_force of each chain for the gradient of quadratic(leaf), a real
+    scalar summed over the chains (the solves held fixed), with respect to the
+    stacked links."""
+    uu = us.detach().requires_grad_(True)
+    with torch.enable_grad():
+        (g,) = torch.autograd.grad(quadratic(uu), uu)
+    return torch.func.vmap(_project_force)(us, g)
 
 
 @dataclass(frozen=True)
@@ -167,6 +205,47 @@ class WilsonFermiAction:
             c = torch.real(inner(x, self._d_ddag(uup, packed, clover)(x)))
             (g,) = torch.autograd.grad(c, uu)
         return _project_force(u, g), x
+
+    # HMC.step_batched: csw = 0, r = 1 and an all-even lattice (the packed Dhat)
+    def batched_refusal(self, lattice) -> Optional[str]:
+        """Why the batched forms do not apply on ``lattice`` (ROADMAP A12.7b), or None."""
+        if self.dirac.csw != 0.0:
+            return "clover-improved Wilson fermions"
+        if self.dirac.r != 1.0:
+            return f"Wilson fermions at r = {self.dirac.r}"
+        if not eo_pack.packable(lattice):
+            return f"Wilson fermions on the lattice {lattice}, which cannot be packed"
+        return None
+
+    def _ddag_chains(self, up):
+        ueo = _chain_packed_links(self.dirac, up)
+        return lambda v: self.dirac.apply_dhat_ddag(ueo, v)
+
+    @torch.no_grad()
+    def sample_pseudofermion_batched(self, us, normals):
+        """(S_old per chain, phi [n, X/2, Y, Z, T, 4, NC]) for the chains' links
+        ``us`` [n, 4, X, Y, Z, T, NC, NC] from their stacked normals (re, im)."""
+        xi = _chain_noise(normals, us.dtype)
+        phi = self.dirac.apply_dhat(_chain_packed_links(self.dirac, self._phased(us)), xi)
+        return _chain_inner(xi, xi), phi
+
+    @torch.no_grad()
+    def action_batched(self, us, phi, log=None):
+        """S of each chain: one batched CG over the chains."""
+        x, _, _ = solvers.cg_multi(self._ddag_chains(self._phased(us)), phi, eps=self.eps_cg,
+                                   maxiter=self.max_cg, log=log)
+        return _chain_inner(phi, x)
+
+    def force_batched_with_guess(self, us, phi, x0, log=None):
+        """The force of each chain with its CG warm-started from x0 (one batched
+        CG over the chains); returns (force, x)."""
+        with torch.no_grad():
+            x, _, _ = solvers.cg_multi(self._ddag_chains(self._phased(us)), phi, x0=x0,
+                                       eps=self.eps_cg, maxiter=self.max_cg, log=log)
+        def quadratic(uu):
+            return torch.real(inner(x, self._ddag_chains(self._phased(uu))(x)))
+
+        return _chain_force(us, quadratic), x
 
 
 # ---------------------------------------------------------------------------
@@ -625,6 +704,89 @@ class StaggeredFermiAction:
                     c = c + float(a) * torch.real(inner(xs[j], w_d(xs[j])))
             (g,) = torch.autograd.grad(c, uu)
         return _project_force(u, g), xs_out
+
+    # HMC.step_batched: an all-even lattice (the packed W); the pseudofermions stay packed
+    def batched_refusal(self, lattice) -> Optional[str]:
+        """Why the batched forms do not apply on ``lattice`` (ROADMAP A12.7b), or None."""
+        if not eo_pack.packable(lattice):
+            return f"staggered fermions on the lattice {lattice}, which cannot be packed"
+        return None
+
+    def _w_chains(self, up):
+        ueo = _chain_packed_links(self.dirac, up)
+        return lambda v: self.dirac.apply_w_packed(ueo, v)
+
+    @torch.no_grad()
+    def sample_pseudofermion_batched(self, us, normals):
+        """(S_old per chain, phi [n, n_pf, X/2, Y, Z, T, NC], packed even sites) for
+        the chains' links ``us`` from their stacked normals (re, im)."""
+        xi_all = _chain_noise(normals, us.dtype)
+        w = self._w_chains(self._phased(us))
+        lo, hi = self._bounds()
+        beta = self.sample_beta
+        phis = []
+        s_old = 0.0
+        for k in range(self.n_pf):
+            xi = xi_all[:, k].contiguous()
+            s_old = s_old + _chain_inner(xi, xi)
+            if abs(beta - 1.0) < 1e-14:
+                phi = w(xi)
+            else:
+                pf = rational.rational_power(beta, lo, hi, tol=self.rational_tol)
+                ys, _, _ = solvers.multishift_cg_multi(w, xi, pf.shifts, eps=self.eps_cg,
+                                                       maxiter=self.max_cg)
+                phi = float(pf.const) * xi
+                for j, a in enumerate(pf.residues):
+                    phi = phi + float(a) * ys[j]
+            phis.append(phi)
+        return s_old, torch.stack(phis, dim=1)
+
+    @torch.no_grad()
+    def action_batched(self, us, phi, log=None):
+        """S of each chain: one batched multi-shift CG per pseudofermion."""
+        pf = self._pf_action()
+        w = self._w_chains(self._phased(us))
+        total = 0.0
+        for k in range(phi.shape[1]):
+            p = phi[:, k].contiguous()
+            xs, _, _ = solvers.multishift_cg_multi(w, p, pf.shifts, eps=self.eps_cg,
+                                                   maxiter=self.max_cg, log=log)
+            s = pf.const * _chain_inner(p, p)
+            for j, a in enumerate(pf.residues):
+                s = s + float(a) * _chain_inner(p, xs[j])
+            total = total + s
+        return total
+
+    def force_batched_with_guess(self, us, phi, x0, log=None):
+        """The force of each chain: for the single-pole rational a batched CG per
+        pseudofermion warm-started from x0 [n_pf, n, ...], else the batched
+        multi-shift CG from zero. Returns (force, solutions or None)."""
+        pf = self._pf_action()
+        single = self._is_single_pole(pf)
+        xs_all = []
+        with torch.no_grad():
+            w = self._w_chains(self._phased(us))
+            for k in range(phi.shape[1]):
+                b = phi[:, k].contiguous()
+                if single:
+                    x, _, _ = solvers.cg_multi(w, b, x0=None if x0 is None else x0[k],
+                                               eps=self.eps_cg, maxiter=self.max_cg, log=log)
+                    xs = x[None]
+                else:
+                    xs, _, _ = solvers.multishift_cg_multi(w, b, pf.shifts, eps=self.eps_cg,
+                                                           maxiter=self.max_cg, log=log)
+                xs_all.append(xs)
+
+        def quadratic(uu):
+            w_d = self._w_chains(self._phased(uu))
+            c = 0.0
+            for xs in xs_all:
+                for j, a in enumerate(pf.residues):
+                    c = c + float(a) * torch.real(inner(xs[j], w_d(xs[j])))
+            return c
+
+        force = _chain_force(us, quadratic)
+        return force, (torch.stack([xs[0] for xs in xs_all]) if single else None)
 
     @staticmethod
     def _is_single_pole(pf) -> bool:

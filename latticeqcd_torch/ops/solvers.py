@@ -1,7 +1,9 @@
 """Krylov solvers for the fermion solves: CG, batched CG and multi-shift CG.
 
 Counterpart of latticeqcd_tpu/ops/solvers.py ``cg``, ``cg_multi``,
-``cg_multi_auto`` and ``multishift_cg``: stopping criterion
+``cg_multi_auto`` and ``multishift_cg``, and of the last under jax.vmap
+(``multishift_cg_multi``, the independent chains of HMC.step_batched):
+stopping criterion
 |r|^2 < eps * max(|b|^2, 1), eps clamped per dtype to an attainable
 target, and for ``cg`` and ``cg_multi`` in reduced precision
 verified-exit restarts gated on the true residual (per right-hand side
@@ -207,53 +209,78 @@ def multishift_cg(apply_a: Callable, b: torch.Tensor, shifts, eps: float = 1e-19
     shifts must be >= 0 and A positive definite. Convergence is tested on
     the unshifted residual (the slowest). Returns (xs[k], iterations,
     |r|^2). ``log``, if given, receives one dict per solve as ``cg``'s
-    does, with the number of shifts."""
-    rdtype = b.real.dtype
-    sigma = torch.as_tensor(np.asarray(shifts, dtype=np.float64), dtype=rdtype, device=b.device)
-    ns = sigma.shape[0]
+    does, with the number of shifts. It is ``multishift_cg_multi`` on one
+    system."""
+    xs, it, rsq = multishift_cg_multi(lambda v: apply_a(v[0])[None], b[None], shifts, eps=eps,
+                                      maxiter=maxiter, log=log)
+    return xs[:, 0], it, rsq[0]
 
+
+def multishift_cg_multi(apply_a: Callable, b: torch.Tensor, shifts, eps: float = 1e-19,
+                        maxiter: int = 3000, log: Optional[list] = None):
+    """``multishift_cg`` for a stack of independent systems: b has a leading
+    chain axis (n, ...) and ``apply_a`` maps the stack, chain i with its own
+    operator A_i. Each chain carries its own CG steps, zeta recurrences and
+    exit: a chain whose unshifted |r|^2 has met its target is frozen (its
+    state no longer changes) while the others run, so each solves as it would
+    alone, up to rounding; that is multishift_cg under jax.vmap, whose
+    while_loop runs until every chain is done. One host read per iteration
+    tests every chain. Returns (xs [n_shifts, n, ...], iterations, per-chain
+    |r|^2); ``log``, if given, receives one dict per solve with the worst
+    chain's relative |r|^2, the number of shifts and the number of chains."""
+    rdtype = b.real.dtype
+    n = b.shape[0]
+    axes = tuple(range(1, b.ndim))
+
+    def rdot(u, v):
+        return torch.real(torch.sum(u.conj() * v, dim=axes))
+
+    def per_chain(c):  # [n] or [ns, n] coefficients over a chain's field axes
+        return c.reshape(tuple(c.shape) + (1,) * (b.ndim - 1)).to(b.dtype)
+
+    sigma = torch.as_tensor(np.asarray(shifts, dtype=np.float64), dtype=rdtype,
+                            device=b.device)[:, None]
+    ns = sigma.shape[0]
     x = torch.zeros((ns,) + tuple(b.shape), dtype=b.dtype, device=b.device)
     r = b
     p = r
     ps = b.expand((ns,) + tuple(b.shape)).clone()
-    zeta = torch.ones((ns,), dtype=rdtype, device=b.device)
+    zeta = torch.ones((ns, n), dtype=rdtype, device=b.device)
     zeta_prev = torch.ones_like(zeta)
-    a_prev = torch.ones((), dtype=rdtype, device=b.device)
-    b_prev = torch.zeros((), dtype=rdtype, device=b.device)
-    rsq = torch.real(_vdot(r, r))
-    bsq = max(float(torch.real(_vdot(b, b))), 1.0)
+    a_prev = torch.ones((n,), dtype=rdtype, device=b.device)
+    b_prev = torch.zeros((n,), dtype=rdtype, device=b.device)
+    rsq = rdot(r, r)
+    bsq = torch.clamp(rdot(b, b), min=1.0)
     target = _effective_eps(eps, b.dtype) * bsq
+    zero = torch.zeros_like(rsq)
 
     it = 0
-    rsq_h = float(rsq)
-    while rsq_h > target and it < maxiter:
+    live = rsq > target
+    while it < maxiter and bool(torch.any(live)):
         ap = apply_a(p)
-        a_n = rsq / torch.real(_vdot(p, ap))
+        a_n = torch.where(live, _safe_div(rsq, rdot(p, ap)), zero)
         zeta_new_raw = zeta * zeta_prev * a_prev / (
             a_n * b_prev * (zeta_prev - zeta) + zeta_prev * a_prev * (1.0 + sigma * a_n))
-        # freeze shifted systems whose residual |r_s|^2 ~ zeta^2 rsq is
-        # already below target: their zeta underflows geometrically and
-        # would poison the recurrence with 0/0 at tight tolerances
-        active = (zeta * zeta) * rsq > target
+        # freeze shifted systems whose residual |r_s|^2 ~ zeta^2 rsq is already below target
+        # (their zeta underflows geometrically and would poison the recurrence with 0/0 at
+        # tight tolerances), and every shift of a frozen chain
+        active = ((zeta * zeta) * rsq > target) & live
         zeta_new = torch.where(active, zeta_new_raw, zeta)
         ratio = torch.where(active, zeta_new_raw / torch.where(active, zeta, torch.ones_like(zeta)),
                             torch.zeros_like(zeta))
-        x = x + _bcast(a_n * ratio, ps).to(b.dtype) * ps
-        r_new = r - a_n * ap
-        rsq_new = torch.real(_vdot(r_new, r_new))
-        b_n = rsq_new / rsq
-        p = r_new + b_n * p
-        ps = (_bcast(torch.where(active, zeta_new, torch.zeros_like(zeta)), ps).to(b.dtype)
-              * r_new[None] + _bcast(b_n * ratio ** 2, ps).to(b.dtype) * ps)
-        zeta_prev, zeta, a_prev, b_prev = zeta, zeta_new, a_n, b_n
+        x = x + per_chain(a_n * ratio) * ps
+        r_new = r - per_chain(a_n) * ap
+        rsq_new = rdot(r_new, r_new)
+        b_n = torch.where(live, _safe_div(rsq_new, rsq), zero)
+        p = torch.where(live.reshape((n,) + (1,) * (b.ndim - 1)), r_new + per_chain(b_n) * p, p)
+        ps = (per_chain(torch.where(active, zeta_new, torch.zeros_like(zeta))) * r_new[None]
+              + per_chain(b_n * ratio ** 2) * ps)
+        zeta_prev, zeta = torch.where(live, zeta, zeta_prev), zeta_new
+        a_prev, b_prev = torch.where(live, a_n, a_prev), torch.where(live, b_n, b_prev)
         r, rsq = r_new, rsq_new
-        rsq_h = float(rsq)
+        live = rsq > target
         it += 1
     if log is not None:
-        log.append({"iterations": it, "rsq": rsq_h / bsq, "target": target / bsq, "shifts": ns})
+        log.append({"iterations": it, "rsq": float(torch.max(rsq / bsq)),
+                    "target": float(torch.max(target / bsq)), "shifts": ns, "rhs": n})
     return x, it, rsq
-
-
-def _bcast(coeffs, field):
-    """Broadcast per-shift coefficients over field axes."""
-    return coeffs.reshape((-1,) + (1,) * (field.ndim - 1))

@@ -64,8 +64,6 @@ def check_supported(p: Params, device="cuda") -> None:
     for method in p.measurement_methods or ():  # refused here, before any trajectory
         if "fermion_parameters" in method:
             build_dirac_from_params(method["fermion_parameters"], p.L, device=device)
-    if p.MDprecision == "mixed":
-        _not_ported("mixed-precision MD", "A12")
 
 
 def build_gauge_action(p: Params) -> ga.GaugeAction:

@@ -18,6 +18,26 @@ fermion action sees smear(U) wherever it is evaluated (the
 pseudofermion, the force through torch.autograd, the final action),
 and the gauge action the bare links.
 
+With md_precision = "mixed" the MD state (U, H) is lifted to complex128
+(ops/mdpair.py) after the momenta are drawn in the production dtype, so
+the trajectory starts from the plain path's H; the kinetic energies are
+taken in float64 on the lifted H; every force sees the state lowered to
+the production dtype, and each kick adds its increment into the
+complex128 H; S_g(U_old), the pseudofermion and both fermion actions stay
+in the production dtype, and the lowered U_new (or the old U) goes to the
+next trajectory. "auto" and "plain" are plain arithmetic in the links'
+dtype.
+
+``step_batched`` runs n independent chains in one call (the JAX
+package's vmap of its fused trajectory): links with a leading chain axis,
+each chain with its own momenta, pseudofermion, solves and Metropolis
+decision, so that chain i evolves as ``step`` would evolve it alone. The
+gauge side (forces, action values, kinetic energies, plaquettes) is
+mapped over the chains with torch.func.vmap; the Wilson and staggered
+fermion actions take the chain axis themselves (``*_batched``), each hop
+one kernel launch for all chains. What has no batched form yet raises
+before any work (ROADMAP A12.7b).
+
 The random numbers of one trajectory are a ``Draws``: the momentum
 normals, the pseudofermion normals and the Metropolis uniform, in the
 order the JAX package splits its key (k_mom, k_ferm, k_acc). They come
@@ -35,7 +55,7 @@ import torch
 
 from latticeqcd_torch.md import integrators
 from latticeqcd_torch.ops import gauge_action as ga
-from latticeqcd_torch.ops import sun
+from latticeqcd_torch.ops import mdpair, sun
 
 
 @dataclass(frozen=True)
@@ -101,11 +121,13 @@ class HMC:
             raise ValueError(f"md_precision must be auto/plain/mixed, got {self.md_precision!r}")
         if self.scheme not in ("QPQ", "PQP", "Omelyan"):
             raise ValueError(f"unknown MD scheme {self.scheme!r}")
-        if self.md_precision == "mixed":
-            raise NotImplementedError("mixed-precision MD is not ported yet (ROADMAP A12)")
 
     def _smear(self, u):
         return u if self.smearing is None else self.smearing.smear(u)
+
+    def _md_state(self, u, h):
+        """The MD state (U, H): lifted to complex128 in mixed mode."""
+        return (mdpair.lift(u), mdpair.lift(h)) if self.md_precision == "mixed" else (u, h)
 
     @torch.no_grad()
     def step(self, u: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -120,6 +142,8 @@ class HMC:
             draws = Draws.sample(self, u, generator)
         h = draws.momentum(u)
         cg_log: list = []
+        # every force sees the MD state in the production dtype
+        view = lambda uu: uu.to(u.dtype)  # noqa: E731
 
         force_fermion = force_fine = None
         s_f_old = 0.0
@@ -135,7 +159,7 @@ class HMC:
                 guess = {"x": None}
 
                 def force(uu):
-                    f, guess["x"] = force_with_guess(uu, eta, guess["x"], log=cg_log,
+                    f, guess["x"] = force_with_guess(view(uu), eta, guess["x"], log=cg_log,
                                                      smear_fn=smear_fn)
                     return f
 
@@ -150,20 +174,22 @@ class HMC:
                 force_fermion = chained(fa.force_with_guess)
             else:
                 def force_fermion(uu):
-                    return fa.force(uu, eta, log=cg_log, smear_fn=smear_fn)
+                    return fa.force(view(uu), eta, log=cg_log, smear_fn=smear_fn)
 
-        force_gauge = lambda uu: ga.force(self.action, uu)
-        sp_old = sun.kinetic_energy(h)
+        force_gauge = lambda uu: ga.force(self.action, view(uu))  # noqa: E731
+        u_md, h_md = self._md_state(u, h)
+        sp_old = sun.kinetic_energy(h_md)
         sg_old = ga.action_value(self.action, u)
         s_old = sp_old + sg_old + s_f_old
 
         u_new, h_new = integrators.run_md(
-            u, h, force_gauge, self.dtau, self.md_steps, force_fermion=force_fermion,
+            u_md, h_md, force_gauge, self.dtau, self.md_steps, force_fermion=force_fermion,
             scheme=self.scheme, sexton_weingarten=self.sexton_weingarten, nsw=self.nsw,
             omelyan_lambda=self.omelyan_lambda, force_fine=force_fine,
         )
 
         sp_new = sun.kinetic_energy(h_new)
+        u_new = view(u_new)
         sg_new = ga.action_value(self.action, u_new)
         s_f_new = 0.0
         if not self.quench:
@@ -181,6 +207,103 @@ class HMC:
             "sf_old": float(s_f_old),
             "sf_new": float(s_f_new),
             "plaq": float(ga.mean_plaquette(u_out)),
+            "cg": cg_log,
+        }
+        return u_out, stats
+
+    # ------------------------------------------------ independent chains
+    def _unbatched(self, lattice) -> Optional[str]:
+        """What step_batched has no batched form of yet (ROADMAP A12.7b), or None.
+        A fermion action with batched forms says itself, through batched_refusal,
+        on which lattices and with which options it has them."""
+        if self.smearing is not None:
+            return "stout smearing"
+        fa = self.fermi_action
+        if fa is None:
+            return None
+        refusal = getattr(fa, "batched_refusal", None)
+        return f"the fermion action {type(fa).__name__}" if refusal is None else refusal(lattice)
+
+    @torch.no_grad()
+    def step_batched(self, us: torch.Tensor, generators=None, draws=None):
+        """n independent trajectories in one call: (us [n, 4, X, Y, Z, T, NC, NC],
+        n generators or n Draws) -> (us', stats).
+
+        Chain i evolves as step(us[i], generators[i]) would alone, up to the
+        rounding of batched sums: the draws of each chain in step's order, its
+        own solves (a chain whose residual meets its target is frozen while the
+        others run) and its own Metropolis decision. Each entry of stats but
+        ``cg`` is a CPU tensor with a leading chain axis; ``cg`` holds one record
+        per batched solve, with ``rhs`` the number of chains."""
+        self._validate()
+        if us.ndim != 8:
+            raise ValueError(f"us must be [nchain, 4, X, Y, Z, T, NC, NC], got shape "
+                             f"{tuple(us.shape)}")
+        what = self._unbatched(tuple(us.shape[2:6]))
+        if what is not None:
+            raise NotImplementedError(f"step_batched: {what} has no batched form yet "
+                                      "(ROADMAP A12.7b); run step per chain")
+        n = us.shape[0]
+        if draws is None:
+            if generators is None or len(generators) != n:
+                raise ValueError(f"step_batched needs {n} generators or {n} draws")
+            draws = [Draws.sample(self, us[i], generators[i]) for i in range(n)]
+        if len(draws) != n:
+            raise ValueError(f"step_batched needs {n} draws, got {len(draws)}")
+        stack = lambda parts: tuple(torch.stack(p) for p in zip(*parts))  # noqa: E731
+        h = sun.random_hermitian_momentum(us.shape[:-2], us.shape[-1], dtype=us.dtype,
+                                          device=us.device, normals=stack(d.mom for d in draws))
+        cg_log: list = []
+        view = lambda uu: uu.to(us.dtype)  # noqa: E731
+        chains = torch.func.vmap
+
+        force_fermion = None
+        s_f_old = torch.zeros((n,), dtype=us.real.dtype, device=us.device)
+        if not self.quench:
+            fa = self.fermi_action
+            s_f_old, eta = fa.sample_pseudofermion_batched(us, stack(d.xi for d in draws))
+            guess = {"x": None}
+
+            def force_fermion(uu):
+                f, guess["x"] = fa.force_batched_with_guess(view(uu), eta, guess["x"], log=cg_log)
+                return f
+
+        gauge_force = chains(lambda u: ga.force(self.action, u))
+        action_value = chains(lambda u: ga.action_value(self.action, u))
+        kinetic = chains(sun.kinetic_energy)
+        force_gauge = lambda uu: gauge_force(view(uu))  # noqa: E731
+        u_md, h_md = self._md_state(us, h)
+        sp_old = kinetic(h_md)
+        sg_old = action_value(us)
+        s_old = sp_old + sg_old + s_f_old
+
+        u_new, h_new = integrators.run_md(
+            u_md, h_md, force_gauge, self.dtau, self.md_steps, force_fermion=force_fermion,
+            scheme=self.scheme, sexton_weingarten=self.sexton_weingarten, nsw=self.nsw,
+            omelyan_lambda=self.omelyan_lambda,
+        )
+
+        sp_new = kinetic(h_new)
+        u_new = view(u_new)
+        sg_new = action_value(u_new)
+        s_f_new = torch.zeros_like(s_f_old)
+        if not self.quench:
+            s_f_new = self.fermi_action.action_batched(u_new, eta, log=cg_log)
+        d_h = sp_new + sg_new + s_f_new - s_old
+        uniform = torch.tensor([d.uniform for d in draws], dtype=d_h.dtype, device=d_h.device)
+        accept = torch.exp(-d_h) >= uniform
+        u_out = torch.where(accept.reshape((n,) + (1,) * 7), u_new, us)
+        host = lambda t: t.detach().to("cpu", torch.float64)  # noqa: E731
+        stats = {
+            "accepted": accept.cpu(),
+            "dH": host(d_h),
+            "sg_old": host(sg_old),
+            "sg_new": host(sg_new),
+            "sp_old": host(sp_old),
+            "sp_new": host(sp_new),
+            "sf_old": host(s_f_old),
+            "sf_new": host(s_f_new),
+            "plaq": host(chains(ga.mean_plaquette)(u_out)),
             "cg": cg_log,
         }
         return u_out, stats

@@ -146,23 +146,18 @@ def test_run_refuses_what_is_not_ported(field, value):
         with pytest.raises(ValueError, match="only for quench"):
             run_lqcd_params(_params(**{field: value}), device="cpu")
         return
-    ported = {"SextonWeingargten": dict(N_SextonWeingargten=2),
+    ported = {"SextonWeingargten": dict(N_SextonWeingargten=2), "MDprecision": {},
               "smearing_for_fermion": dict(stout_numlayers=1, stout_rho=[0.1]),
               "couplinglist": dict(couplingcoeff=[-6.0 / 20]),
               "Domainwall": dict(Domainwall_m=0.3),
               "WilsonClover": dict(Clover_coefficient=1.90952),
               "hasenbusch": dict(hasenbusch_mu=0.5)}
+    # ported: one CPU trajectory with a finite dH
     key = value if field == "Dirac_operator" else field
-    if key in ported:
-        # ported: one CPU trajectory with a finite dH
-        history = []
-        p = _params(**{field: value}, **ported[key], Nsteps=1, MDsteps=2,
-                    measurement_methods=[])
-        plaq = run_lqcd_params(p, device="cpu", history=history)
-        assert 0.0 < plaq < 1.0 and len(history) == 1 and np.isfinite(history[0]["dH"])
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_lqcd_params(_params(**{field: value}), device="cpu")
+    history = []
+    p = _params(**{field: value}, **ported[key], Nsteps=1, MDsteps=2, measurement_methods=[])
+    plaq = run_lqcd_params(p, device="cpu", history=history)
+    assert 0.0 < plaq < 1.0 and len(history) == 1 and np.isfinite(history[0]["dH"])
 
 
 def test_cli_runs_a_toml_on_the_cpu(tmp_path):

@@ -7,7 +7,9 @@ std::barrier over the block's threads. Blocks run one after another.
 The result is held against the plain packed hop (hop_packed_reference)
 at shapes where the brick wraps onto itself or does not divide the
 lattice: X/2 = 1, extent-2 y and T (and every extent 2 at once),
-extents 6 and 10, t cut into segments. On the card the kernel itself is
+extents 6 and 10, t cut into segments; and with a chain axis of two
+lattices with different links (the grid's y axis), each chain against its
+own plain hop. On the card the kernel itself is
 checked by the ``gpu`` test in test_torch_wilson.py and by chip_smoke.py.
 """
 
@@ -63,7 +65,8 @@ inline void bulk_copy_g2s(void* d, const void* s, unsigned n, uint64_t*) { std::
 inline void mbar_wait(uint64_t*, unsigned) { block_barrier->arrive_and_wait(); }
 inline void prefetch_l2(const void*, unsigned) {}
 """
-# run<R, BY, BZ, TSMAX, MINB>: the launch function's grid and block, one block at a time
+# run<R, BY, BZ, TSMAX, MINB>: the launch function's grid and block for nchain chains, one
+# block at a time
 _HARNESS = """
 #include <cstdio>
 #include <cstdlib>
@@ -72,16 +75,18 @@ _HARNESS = """
 #include "body.inc"
 namespace { alignas(16) unsigned char smem[1 << 20]; }
 template <typename R, int BY, int BZ, int TSMAX, int MINB>
-int run(int x2, int ly, int lz, int lt, int parity) {
+int run(int x2, int ly, int lz, int lt, int parity, int nchain) {
   using V = typename Vec<R>::type;
   const long vol = (long)x2 * ly * lz * lt;
-  std::vector<V> ut(36 * vol), us(36 * vol), psi(12 * vol), out(12 * vol);
+  std::vector<V> ut(36 * vol * nchain), us(36 * vol * nchain), psi(12 * vol * nchain),
+      out(12 * vol * nchain);
   for (auto* f : {&ut, &us, &psi})
     if (fread(f->data(), sizeof(V), f->size(), stdin) != f->size()) return 1;
   std::memset(out.data(), 0xff, out.size() * sizeof(V));  // a site never written shows as NaN
   const int nts = (lt + TSMAX - 1) / TSMAX, ts = ((lt + nts - 1) / nts + 1) / 2 * 2;
   const int blocks = x2 * ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * ((lt + ts - 1) / ts);
   const int threads = 3 * BY * BZ * ts;
+  for (int c = 0; c < nchain; ++c)
   for (int b = 0; b < blocks; ++b) {
     std::barrier<> bar(threads);
     block_barrier = &bar;
@@ -90,9 +95,12 @@ int run(int x2, int ly, int lz, int lt, int parity) {
     for (int tid = 0; tid < threads; ++tid)
       th.emplace_back([&, tid] {
         threadIdx = dim3{(unsigned)tid, 1, 1};
-        blockIdx = dim3{(unsigned)b, 1, 1};
-        wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB>(
-            ut.data(), us.data(), psi.data(), out.data(), x2, ly, lz, lt, ts, parity);
+        blockIdx = dim3{(unsigned)b, (unsigned)c, 0};
+        // the launch function's choice: the kernel without the chain offsets for one chain
+        auto kernel = nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false>
+                                  : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true>;
+        kernel(ut.data(), us.data(), psi.data(), out.data(), x2, ly, lz, lt, ts, parity, 36 * vol,
+               12 * vol);
       });
     for (auto& t : th) t.join();
   }
@@ -102,12 +110,13 @@ int run(int x2, int ly, int lz, int lt, int parity) {
 int main(int argc, char** argv) {
   const int x2 = atoi(argv[1]), ly = atoi(argv[2]), lz = atoi(argv[3]), lt = atoi(argv[4]);
   const int parity = atoi(argv[5]), c128 = atoi(argv[6]), brick = atoi(argv[7]);
+  const int nchain = atoi(argv[8]);
   if (brick == 0)  // the bricks of the C entry points
-    return c128 ? run<double, WILSON_BRICK_C128>(x2, ly, lz, lt, parity)
-                : run<float, WILSON_BRICK_C64>(x2, ly, lz, lt, parity);
+    return c128 ? run<double, WILSON_BRICK_C128>(x2, ly, lz, lt, parity, nchain)
+                : run<float, WILSON_BRICK_C64>(x2, ly, lz, lt, parity, nchain);
   // 4 x 4 bricks and t segments of at most 4 sites
-  return c128 ? run<double, 4, 4, 4, 1>(x2, ly, lz, lt, parity)
-              : run<float, 4, 4, 4, 1>(x2, ly, lz, lt, parity);
+  return c128 ? run<double, 4, 4, 4, 1>(x2, ly, lz, lt, parity, nchain)
+              : run<float, 4, 4, 4, 1>(x2, ly, lz, lt, parity, nchain);
 }
 """
 BRICKS = ["entry", "ragged"]
@@ -149,9 +158,38 @@ def test_brick_kernel_body_on_the_cpu(brick_body_exe, lat, dtype, brick):
     for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
         out = subprocess.run(
             [brick_body_exe, *map(str, half), str(parity), str(int(dtype == "complex128")),
-             str(BRICKS.index(brick))],
+             str(BRICKS.index(brick)), "1"],
             input=b"".join(to_numpy(f).tobytes() for f in (u_t, u_s, x)),
             capture_output=True, check=True)
         got = np.frombuffer(out.stdout, dtype=np.dtype(dtype)).reshape(x.shape)
         ref = to_numpy(wk.hop_packed_reference(u_t, u_s, x, parity))
         assert float(np.abs(got - ref).max()) < (1e-12 if dtype == "complex128" else 1e-5)
+
+
+@pytest.mark.parametrize("brick", BRICKS)
+@pytest.mark.parametrize("lat", [(2, 4, 2, 6), (8, 6, 10, 4)], ids=["x2is1", "y6z10"])
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_brick_kernel_body_with_a_chain_axis(brick_body_exe, lat, dtype, brick):
+    """Two chains with different links and spinors in one launch (the chain on the
+    grid's y axis, offset by the links' and the spinors' chain strides), each
+    chain against its own plain hop, both target parities."""
+    tdt = getattr(torch, dtype)
+    half = (lat[0] // 2,) + lat[1:]
+    packed = [[f.to(tdt) for f in eo_pack.pack_links(tw.apply_boundary_phases(to_torch(
+        np.asarray(jfields.hot_start(lat, 3, seed=sum(lat) + c)))), lat)] for c in range(2)]
+    x = torch.randn((2,) + half + (4, 3), dtype=tdt, generator=torch.Generator().manual_seed(3))
+    for parity in (0, 1):
+        u_t = torch.stack([p[parity] for p in packed])
+        u_s = torch.stack([p[1 - parity] for p in packed])
+        out = subprocess.run(
+            [brick_body_exe, *map(str, half), str(parity), str(int(dtype == "complex128")),
+             str(BRICKS.index(brick)), "2"],
+            input=b"".join(to_numpy(f).tobytes() for f in (u_t, u_s, x)),
+            capture_output=True, check=True)
+        got = np.frombuffer(out.stdout, dtype=np.dtype(dtype)).reshape(x.shape)
+        for c in range(2):
+            ref = to_numpy(wk.hop_packed_reference(u_t[c], u_s[c], x[c], parity))
+            assert float(np.abs(got[c] - ref).max()) < (1e-12 if dtype == "complex128" else 1e-5)
+        # the chain-axis plain version is the per-chain one
+        assert np.array_equal(to_numpy(wk.hop_packed_reference(u_t, u_s, x, parity))[1],
+                              to_numpy(wk.hop_packed_reference(u_t[1], u_s[1], x[1], parity)))
