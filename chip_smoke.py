@@ -185,6 +185,21 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      beside 4 single-chain steps: seconds per trajectory, configurations per second, launches
      per trajectory, CG iterations and peak memory printed; it fails on a non-finite dH, a solve
      at its limit or a kernel of the path not launched.
+ 30. the front end on the card: (a) phase 6's action written as a legacy .jl file and run
+     through latticeqcd_torch.run_LQCD with no device argument (complex64): its TOML's
+     Params must equal phase 6's in every field but the log and measurement paths, its final
+     plaquette, dH and CG iterations phase 6's bit for bit (phase 6's hot start rejects both
+     trajectories), wilson_hop_packed must have run (wilson_hop's packed
+     mode never) and the phase timings report must show 2 update calls; (b) bicgstab on
+     WilsonDirac(kappa=0.12).apply at 16^3x32 on hot links in complex64 and complex128 (the
+     latter also from the complex64 solution as x0): |D x - b|^2 recomputed on the card
+     within the solver's target (in complex64 within the attainable 3e-11 |b|^2),
+     wilson_window launched twice per iteration (once more with x0); iterations and seconds
+     printed; at 4^4 complex128 the card's solve against the CPU's from the same inputs
+     (the same iterations, x to 1e-10 relative); (c) python -m latticeqcd_torch.run with
+     --profile, one 8^4 Wilson trajectory in complex64: it must exit 0 and its trace hold
+     device events of wilson_hop_packed's kernel; the trace's size printed; (d) python -m
+     latticeqcd_torch.demo 5 must exit 0 with 5 sweep lines.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -552,6 +567,9 @@ def phase_main_path(torch):
     torch.cuda.synchronize()
     launched, site = wk.launches, dict(wk.site_launches)
     STATE["launches"].setdefault("wilson_hop_packed", {})["Wilson main path"] = launched
+    # phase 30 runs the same action from a .jl file and compares with these
+    STATE["wilson_main"] = {"plaq": plaq, "dH": [rec["dH"] for rec in history],
+                            "cg": [sum(c["iterations"] for c in rec["cg"]) for rec in history]}
     for rec in history:
         cg_iters = sum(c["iterations"] for c in rec["cg"])
         worst = max((c["rsq"] / c["target"] for c in rec["cg"]), default=0.0)
@@ -3154,6 +3172,236 @@ def phase_batched_path(torch):
         fail("the batched staggered chains launched staggered_w no time")
 
 
+# phase 6's action as a legacy .jl input (the four-dict Julia format of
+# latticeqcd_torch/system/legacy_input.py); {tmp} is the run's directory
+WILSON_PATH_JL = """\
+# phase 6's action: 16^3x32 SU(3), two-flavour Wilson HMC, QPQ 0.02 x 10
+system["L"] = (16, 16, 16, 32)
+system["β"] = 6.0
+system["NC"] = 3
+system["Nthermalization"] = 0
+system["Nsteps"] = 2
+system["initial"] = "hot"
+system["initialtrj"] = 1
+system["update_method"] = "HMC"
+system["quench"] = false
+system["Dirac_operator"] = "Wilson"
+system["BoundaryCondition"] = [1, 1, 1, -1]
+system["log_dir"] = "{tmp}/logs"
+system["logfile"] = "wilson_path.txt"
+system["saveU_format"] = nothing
+system["verboselevel"] = 2
+system["randomseed"] = 3
+wilson["hop"] = 0.141139
+wilson["r"] = 1
+md["QPQ"] = true
+md["MDsteps"] = 10
+md["Δτ"] = 0.02
+cg["eps"] = 1e-12
+cg["MaxCGstep"] = 3000
+measurement["measurement_basedir"] = "{tmp}/measurements"
+measurement["measurement_dir"] = "wilson_path"
+measurement["measurement_methods"] = Array{{Dict,1}}(undef, 1)
+measurement["measurement_methods"][1]["methodname"] = "Plaquette"
+measurement["measurement_methods"][1]["measure_every"] = 1
+"""
+# the Params fields a .jl file sets apart from the chain: where logs and measurements go
+PATH_FIELDS = {"log_dir", "logfile", "measurement_basedir", "measurement_dir", "measuredir"}
+
+
+def _subprocess(args, cwd, timeout):
+    """Run python -m ... in cwd with the repository on the path; returns the finished process."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def _frontend_jl(torch, tmp):
+    """(a): phase 6's action from a .jl file through the façade, bit for bit phase 6's run."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import latticeqcd_torch
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.system.params import construct_params_from_toml
+
+    if "wilson_main" not in STATE:
+        fail("phase 30 compares with phase 6's run: run phase_main_path first")
+    main = STATE["wilson_main"]
+    jl = os.path.join(tmp, "wilson_path.jl")
+    with open(jl, "w") as f:
+        f.write(WILSON_PATH_JL.format(tmp=tmp))
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        plaq = latticeqcd_torch.run_LQCD(jl, dtype=torch.complex64)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launched, site = wk.launches, dict(wk.site_launches)
+    STATE["launches"].setdefault("wilson_hop_packed", {})["front end .jl"] = launched
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("input file", "Update:", "Snew", "# plaquette", "# CG", "Total",
+                            "# phase timings", "#   update ", "#   measure ", "#   save ")):
+            print(f"  | {line}")
+    toml = os.path.join(tmp, "wilson_path.toml")
+    if f"input file transformed to {toml}" not in text:
+        fail("run_LQCD did not report the .jl file's transformation")
+    got = dataclasses.asdict(construct_params_from_toml(toml, make_dirs=False))
+    want = dataclasses.asdict(_wilson_path_params())
+    differ = sorted(k for k in want if got[k] != want[k])
+    print(f"  the .jl file's Params differ from phase 6's in {differ} only")
+    if set(differ) - PATH_FIELDS:
+        fail(f"the .jl file's Params differ from phase 6's in {sorted(set(differ) - PATH_FIELDS)}")
+    lines = text.splitlines()
+    updates = [line for line in lines if line.startswith("#   update ")]
+    if "# phase timings" not in text or len(updates) != 1 or "(2 calls," not in updates[0]:
+        fail("the .jl run printed no phase timings with 2 update calls")
+    # the verbose lines "Snew - Sold = <dH>; ..." and "# CG: <n> solves, <k> iterations"
+    dh = [float(line.split("=")[1].split(";")[0]) for line in lines if line.startswith("Snew - Sold")]
+    cg = [int(line.split(",")[1].split()[0]) for line in lines if line.startswith("# CG: ")]
+    print(f"  .jl run: final plaquette {plaq!r}, dH {dh}, CG iterations {cg} (phase 6: "
+          f"{main['plaq']!r}, {main['dH']}, {main['cg']}), {seconds:.3f} s in all, "
+          f"wilson_hop_packed {launched} launches, wilson_hop {site} [{STATE['smi']}]", flush=True)
+    if plaq != main["plaq"] or dh != main["dH"] or cg != main["cg"]:
+        fail("the .jl run's plaquette, dH or CG iterations are not phase 6's bit for bit")
+    if launched == 0:
+        fail("the .jl run launched wilson_hop_packed no time")
+    if site["packed"]:
+        fail("the .jl run launched wilson_hop's packed mode")
+
+
+def _frontend_bicgstab(torch):
+    """(b): bicgstab on wilson_window at 16^3x32 in both types, and at 4^4 card against CPU."""
+    import numpy as np
+
+    from latticeqcd_torch.ops import fields
+    from latticeqcd_torch.ops import solvers
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, apply_boundary_phases
+
+    d = WilsonDirac(kappa=0.12)
+
+    def rsq(v):
+        return float(torch.real(torch.sum(v.conj() * v)))
+
+    total = 0
+    x64 = None
+    for dtype, use_x0 in ((torch.complex64, False), (torch.complex128, False),
+                          (torch.complex128, True)):
+        u, b, _ = _fields(torch, MAIN, dtype, seed=31)
+        x0 = x64.to(dtype) if use_x0 else None
+        d.apply(u, b)  # the library's first launch in this type stays out of the timing
+        torch.cuda.synchronize()
+        before = ww.launches
+        t0 = time.time()
+        x, it, r = solvers.bicgstab(lambda v: d.apply(u, v), b, x0=x0)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launched = ww.launches - before
+        total += launched
+        bsq = max(rsq(b), 1.0)
+        target = solvers._effective_eps(1e-19, dtype) * bsq
+        true = rsq(d.apply(u, x) - b)
+        bar = max(target, solvers._VERIFY_FLOOR * bsq) if dtype == torch.complex64 else target
+        name = str(dtype).split(".")[-1] + (" from the c64 solution" if use_x0 else "")
+        print(f"  bicgstab 16^3x32 {name}: {it} iterations, {seconds:.4f} s "
+              f"({1e3 * seconds / max(it, 1):.3f} ms per iteration), wilson_window {launched} "
+              f"launches, |r|^2/|b|^2 {float(r) / bsq:.3e}, true |Dx-b|^2/|b|^2 "
+              f"{true / bsq:.3e} (target {target / bsq:.1e}, bar {bar / bsq:.1e}) "
+              f"[{STATE['smi']}]", flush=True)
+        if not (0 < it < 3000) or not float(r) <= target:
+            fail(f"bicgstab {name} did not meet its target in {it} iterations")
+        if not true <= bar:
+            fail(f"bicgstab {name}: the true residual {true} is above {bar}")
+        if launched != 2 * it + use_x0:
+            fail(f"bicgstab {name} launched wilson_window {launched} times in {it} iterations")
+        if dtype == torch.complex64:
+            x64 = x
+    STATE["launches"].setdefault("wilson_window", {})["bicgstab"] = total
+
+    lat = (4, 4, 4, 4)
+    rng = np.random.default_rng(32)
+    b_host = rng.standard_normal(lat + (4, 3)) + 1j * rng.standard_normal(lat + (4, 3))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        u = apply_boundary_phases(fields.hot_start(lat, 3, seed=32, device=dev))
+        runs[dev] = solvers.bicgstab(lambda v: d.apply(u, v),
+                                     torch.from_numpy(b_host).to(dev), eps=1e-22)
+    xc, xg = runs["cpu"][0], runs["cuda"][0].cpu()
+    rel = float(torch.linalg.vector_norm(xg - xc) / torch.linalg.vector_norm(xc))
+    print(f"  bicgstab 4^4 c128: card {runs['cuda'][1]} iterations, CPU {runs['cpu'][1]}")
+    if runs["cuda"][1] != runs["cpu"][1]:
+        fail("bicgstab at 4^4 takes other iterations on the card than on the CPU")
+    check("bicgstab 4^4 c128 x, card against CPU (relative)", rel, 1e-10)
+
+
+def _frontend_profile(torch, tmp):
+    """(c): one 8^4 Wilson trajectory through the command line with --profile."""
+    from latticeqcd_torch.system.wizard import generate_parameters, write_toml
+
+    toml = write_toml(generate_parameters(
+        L=(8, 8, 8, 8), beta=6.0, fermion="Wilson", hop=KAPPA, initial="hot", nsteps=1,
+        dtau=0.05, md_steps=4, randomseed=3, verboselevel=1, measurements=("Plaquette",)),
+        os.path.join(tmp, "profile.toml"))
+    trace_dir = os.path.join(tmp, "trace")
+    t0 = time.time()
+    out = _subprocess(["-m", "latticeqcd_torch.run", toml, "--f32", "--profile", trace_dir],
+                      cwd=tmp, timeout=300)
+    seconds = time.time() - t0
+    for line in out.stdout.splitlines():
+        if line.startswith(("#   update ", "#   measure ", "#   save ", "# phase", "# profiler",
+                            "final plaquette", "Update:")):
+            print(f"  | {line}")
+    if out.returncode != 0:
+        print(out.stderr[-3000:])
+        fail(f"python -m latticeqcd_torch.run --profile exited {out.returncode}")
+    path = os.path.join(trace_dir, "trace.json")
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    hop = [e for e in kernels if "wilson_hop_brick_kernel" in e.get("name", "")]
+    print(f"  --profile run: {seconds:.1f} s of subprocess, trace {size / 2**20:.1f} MiB, "
+          f"{len(events)} events, {len(kernels)} kernel events of which {len(hop)} "
+          f"wilson_hop_brick_kernel ({sum(e.get('dur', 0) for e in hop) / 1e3:.3f} ms) "
+          f"[{STATE['smi']}]", flush=True)
+    if not hop:
+        fail("the --profile trace holds no device event of wilson_hop_packed's kernel")
+
+
+def _frontend_demo(torch, tmp):
+    """(d): the heatbath demo's command line."""
+    t0 = time.time()
+    out = _subprocess(["-m", "latticeqcd_torch.demo", "5"], cwd=tmp, timeout=300)
+    lines = out.stdout.splitlines()
+    sweeps = [line for line in lines if line.startswith("sweep ")]
+    print(f"  demo: exit {out.returncode} in {time.time() - t0:.1f} s, {len(sweeps)} sweep lines; "
+          f"{lines[-1] if lines else ''}", flush=True)
+    if out.returncode != 0:
+        print(out.stderr[-3000:])
+        fail(f"python -m latticeqcd_torch.demo exited {out.returncode}")
+    if len(sweeps) != 5:
+        fail(f"the demo printed {len(sweeps)} sweep lines, not 5")
+
+
+def phase_frontend(torch):
+    print("== 30. the front end on the card: .jl input, bicgstab, --profile, the demo", flush=True)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_frontend_") as tmp:
+        for name, part in (("(a) .jl input", lambda: _frontend_jl(torch, tmp)),
+                           ("(b) bicgstab", lambda: _frontend_bicgstab(torch)),
+                           ("(c) --profile", lambda: _frontend_profile(torch, tmp)),
+                           ("(d) demo", lambda: _frontend_demo(torch, tmp))):
+            t0 = time.time()
+            part()
+            print(f"  {name}: {time.time() - t0:.1f} s", flush=True)
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
           phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
@@ -3162,7 +3410,7 @@ PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_plaquette_anchor, phase_improved_agreement, phase_improved_path,
           phase_domainwall_agreement, phase_domainwall_path, phase_selflearning_agreement,
           phase_selflearning_path, phase_clover_agreement, phase_clover_path,
-          phase_batched_agreement, phase_batched_path]
+          phase_batched_agreement, phase_batched_path, phase_frontend]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line

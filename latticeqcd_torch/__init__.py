@@ -3,8 +3,15 @@
 A second package beside the JAX reference (latticeqcd_tpu): the same
 layouts and numerics in PyTorch, with the hot stencils as kernels
 written by hand for NVIDIA Hopper (csrc/, built at first use). It never
-imports jax. Entry points: ``python -m latticeqcd_torch.run params.toml``
-and ``latticeqcd_torch.system.lqcd.run_lqcd_params``.
+imports jax. Entry points: ``python -m latticeqcd_torch.run params.toml``,
+``latticeqcd_torch.system.lqcd.run_lqcd_params`` and the façade below,
+which exports what latticeqcd_tpu's does: ``run_LQCD`` and
+``run_LQCD_file`` (a TOML or legacy ``.jl`` file; keyword arguments such as
+``dtype``, ``device`` (``cuda`` unless given), ``resume_checkpoint``,
+``profile_dir`` and ``make_dirs`` pass through to
+``system.lqcd.run_lqcd_file``) and ``run_wizard``. Importing the package
+imports system.lqcd only when one of these is called, so it builds and loads
+no CUDA code.
 """
 
 import torch
@@ -16,4 +23,26 @@ from latticeqcd_torch._version import __version__
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["__version__"]
+
+def run_LQCD(filename, **kwargs):
+    """Run a full lattice-QCD simulation from a parameter file; returns the
+    final-trajectory mean plaquette (LatticeQCD.jl's run_LQCD,
+    src/system/lqcd.jl:31-34)."""
+    from latticeqcd_torch.system.lqcd import run_lqcd_file
+
+    return run_lqcd_file(filename, **kwargs)
+
+
+def run_LQCD_file(filename, **kwargs):
+    from latticeqcd_torch.system.lqcd import run_lqcd_file
+
+    return run_lqcd_file(filename, **kwargs)
+
+
+def run_wizard(*args, **kwargs):
+    from latticeqcd_torch.system.wizard import run_wizard as _run_wizard
+
+    return _run_wizard(*args, **kwargs)
+
+
+__all__ = ["run_LQCD", "run_LQCD_file", "run_wizard", "__version__"]

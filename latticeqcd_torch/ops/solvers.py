@@ -1,7 +1,8 @@
-"""Krylov solvers for the fermion solves: CG, batched CG and multi-shift CG.
+"""Krylov solvers for the fermion solves: CG, batched CG, multi-shift CG and BiCGStab.
 
 Counterpart of latticeqcd_tpu/ops/solvers.py ``cg``, ``cg_multi``,
-``cg_multi_auto`` and ``multishift_cg``, and of the last under jax.vmap
+``cg_multi_auto``, ``multishift_cg`` and ``bicgstab``, and of
+``multishift_cg`` under jax.vmap
 (``multishift_cg_multi``, the independent chains of HMC.step_batched):
 stopping criterion
 |r|^2 < eps * max(|b|^2, 1), eps clamped per dtype to an attainable
@@ -9,7 +10,7 @@ target, and for ``cg`` and ``cg_multi`` in reduced precision
 verified-exit restarts gated on the true residual (per right-hand side
 in ``cg_multi``). Each loop reads its exit test to the host once per
 iteration (one device sync per iteration, for the whole batch in
-``cg_multi``). BiCGStab waits for a later slice (ROADMAP A5).
+``cg_multi``).
 """
 
 from __future__ import annotations
@@ -93,6 +94,39 @@ def _safe_div(a, b):
     is already 0, so a zero step is the right continuation, not NaN)."""
     zero = b == 0
     return torch.where(zero, torch.zeros_like(a), a / torch.where(zero, torch.ones_like(b), b))
+
+
+def bicgstab(apply_a: Callable, b: torch.Tensor, x0=None, eps: float = 1e-19,
+             maxiter: int = 3000):
+    """BiCGStab for general (non-hermitian) A, e.g. the Wilson D itself; returns
+    (x, iterations, |r|^2). Two applications of A per iteration (one more for
+    the initial residual b - A x0), one host read of |r|^2 per iteration."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - apply_a(x) if x0 is not None else b
+    rhat = r
+    rho = _vdot(rhat, r)
+    p = r
+    rsq = torch.real(_vdot(r, r))
+    target = _effective_eps(eps, b.dtype) * max(float(torch.real(_vdot(b, b))), 1.0)
+    it = 0
+    while float(rsq) > target and it < maxiter:
+        v = apply_a(p)
+        alpha = _safe_div(rho, _vdot(rhat, v))
+        s = r - alpha * v
+        t = apply_a(s)
+        # breakdown guards: s == 0 (converged at the alpha half step) makes
+        # omega 0/0; omega = 0 then yields r = s = 0 and a clean exit instead
+        # of a NaN-poisoned x. Likewise rho/omega -> beta.
+        omega = _safe_div(_vdot(t, s), _vdot(t, t))
+        x = x + alpha * p + omega * s
+        r = s - omega * t
+        rho_new = _vdot(rhat, r)
+        beta = _safe_div(rho_new, rho) * _safe_div(alpha, omega)
+        p = r + beta * (p - omega * v)
+        rho = rho_new
+        rsq = torch.real(_vdot(r, r))
+        it += 1
+    return x, it, rsq
 
 
 def cg_multi(apply_a: Callable, b: torch.Tensor, eps: float = 1e-19, maxiter: int = 3000,

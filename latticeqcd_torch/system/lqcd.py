@@ -10,8 +10,11 @@ trajectory, acceptance so far) plus the plaquette, save the links every
 saveU_every steps, measure, flow a copy of the links numflow times and
 measure after each flow step (the gradientflow_measurements), and return
 the final mean plaquette. The self-learning updaters also print their
-effective couplings (beta_eff) per step. The device is explicit (``cuda``
-by default); a run never moves to another one.
+effective couplings (beta_eff) per step. A legacy ``.jl`` input is converted
+to the TOML beside it first. The steps are timed by phase (PhaseTimers, the
+report printed after the run) and, given a profile_dir, traced by
+torch.profiler. The device is explicit (``cuda`` by default); a run never
+moves to another one.
 """
 
 from __future__ import annotations
@@ -33,9 +36,11 @@ from latticeqcd_torch.ops import gauge_action as ga
 from latticeqcd_torch.ops import sun
 from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction
 from latticeqcd_torch.smearing.gradientflow import gradientflow
+from latticeqcd_torch.system.legacy_input import transform_to_toml
 from latticeqcd_torch.system.params import Params, construct_params_from_toml
 from latticeqcd_torch.system.universe import build_universe
 from latticeqcd_torch.updates.factory import updatemethod
+from latticeqcd_torch.utils.timers import TRACE_FILE, PhaseTimers, torch_trace
 
 
 # saveU_format -> (file extension, writer)
@@ -80,21 +85,26 @@ class Savedata:
 
 
 def run_lqcd_file(filename, make_dirs: bool = True, dtype=torch.complex128, device="cuda",
-                  resume_checkpoint=None):
-    """Run from a TOML parameter file (or a Params)."""
+                  resume_checkpoint=None, profile_dir=None):
+    """Run from a TOML parameter file, a legacy ``.jl`` one (converted first to
+    the TOML beside it), or a Params."""
     if isinstance(filename, Params):
         parameters = filename
     else:
         ext = os.path.splitext(str(filename))[1]
-        if ext not in (".toml", ""):
+        if ext == ".jl":
+            # legacy pre-1.0 input: convert like the reference (lqcd.jl:51)
+            filename = transform_to_toml(str(filename))
+            print(f"input file transformed to {filename}")
+        elif ext not in (".toml", ""):
             raise ValueError(f"{filename} is not supported. use a TOML format.")
         parameters = construct_params_from_toml(filename, make_dirs=make_dirs)
     return run_lqcd_params(parameters, make_dirs=make_dirs, dtype=dtype, device=device,
-                           resume_checkpoint=resume_checkpoint)
+                           resume_checkpoint=resume_checkpoint, profile_dir=profile_dir)
 
 
 def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, device="cuda",
-                    history: Optional[list] = None, resume_checkpoint=None):
+                    history: Optional[list] = None, resume_checkpoint=None, profile_dir=None):
     """Run the steps of p on ``device``; returns the final mean plaquette.
 
     resume_checkpoint: a checkpoint.npz. The run continues from its links and
@@ -110,8 +120,14 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
     Fileloading), accepted, the solver records of that trajectory (CG and
     multi-shift CG alike), save_seconds (None if nothing was saved),
     flow_seconds (the flow and its measurements; None without them) and
-    beta_eff (the self-learning updaters' couplings after the step, else None)."""
+    beta_eff (the self-learning updaters' couplings after the step, else None).
+    The steps are timed by phase (update, save, measure, gradientflow; each
+    phase ends in a device sync on a CUDA device), reported at verboselevel 1
+    after the run; profile_dir, if given, receives a torch.profiler trace of
+    the steps (utils/timers.py)."""
     device = torch.device(device)
+    timers = PhaseTimers(
+        sync=(lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None)
     univ = build_universe(p, dtype=dtype, device=device)
     generator = torch.Generator(device=device).manual_seed(p.randomseed)
     vp = univ.verbose_print
@@ -176,57 +192,62 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
 
     numaccepts = 0
     t_all = time.time()
-    for itrj in range(p.initialtrj, nsteps + 1):
-        vp.println_verbose_level1(f"# itrj = {itrj}")
-        t0 = time.time()
-        u, stats = updater.step(u, generator)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        seconds = time.time() - t0
-        accepted = stats["accepted"]
-        vp.println_verbose_level1(f"Update: Elapsed time {seconds} [s]")
-        if "dH" in stats:
-            vp.println_verbose_level2(
-                f"Snew - Sold = {stats['dH']}; " + ("Accepted" if accepted else "Rejected"))
-            vp.println_verbose_level1(f"# plaquette = {stats['plaq']}")
-        if "beta_eff" in stats:  # the self-learning updaters' effective couplings
-            vp.println_verbose_level2(f"beta_eff = {stats['beta_eff']}")
-        cg = stats.get("cg", [])
-        if cg:
-            iters = sum(c["iterations"] for c in cg)
-            vp.println_verbose_level2(f"# CG: {len(cg)} solves, {iters} iterations")
-        if accepted:
-            numaccepts += 1
-        if reunit_every and itrj % reunit_every == 0:
-            defect = float(sun.unitarity_defect(u))
-            u = sun.reunitarize(u)
-            vp.println_verbose_level1(f"# unitarity defect {defect:.3e} (reprojected)")
-        save_seconds = savedata.save(u, itrj, generator)
-        measurements.calc_measurement_values(itrj, u)
-        flow_seconds = None
-        if measurements_for_flow.measurements and p.numflow > 0:
+    with torch_trace(profile_dir, device):
+        for itrj in range(p.initialtrj, nsteps + 1):
+            vp.println_verbose_level1(f"# itrj = {itrj}")
             t0 = time.time()
-            usmr = u
-            for istep in range(1, p.numflow + 1):
-                for _ in range(p.Nflow):
-                    usmr = gf.flow(usmr)
-                # itrj appears twice in a flowed line, as in the JAX package
-                measurements_for_flow.calc_measurement_values(
-                    itrj, usmr, additional_string=f"{itrj} {istep} {istep * dtau_flow} ",
-                    step=istep)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            flow_seconds = time.time() - t0
-        if history is not None:
-            history.append({"itrj": itrj, "seconds": seconds, "dH": stats.get("dH"),
-                            "accepted": accepted, "plaq": stats.get("plaq"), "cg": cg,
-                            "save_seconds": save_seconds, "flow_seconds": flow_seconds,
-                            "beta_eff": stats.get("beta_eff")})
-        vp.println_verbose_level1(
-            f"Acceptance {numaccepts}/{itrj} : {round(numaccepts * 100 / itrj)} %")
-        vp.flush()
+            with timers.phase("update"):  # the phase's sync ends the step's device work
+                u, stats = updater.step(u, generator)
+            seconds = time.time() - t0
+            accepted = stats["accepted"]
+            vp.println_verbose_level1(f"Update: Elapsed time {seconds} [s]")
+            if "dH" in stats:
+                vp.println_verbose_level2(
+                    f"Snew - Sold = {stats['dH']}; " + ("Accepted" if accepted else "Rejected"))
+                vp.println_verbose_level1(f"# plaquette = {stats['plaq']}")
+            if "beta_eff" in stats:  # the self-learning updaters' effective couplings
+                vp.println_verbose_level2(f"beta_eff = {stats['beta_eff']}")
+            cg = stats.get("cg", [])
+            if cg:
+                iters = sum(c["iterations"] for c in cg)
+                vp.println_verbose_level2(f"# CG: {len(cg)} solves, {iters} iterations")
+            if accepted:
+                numaccepts += 1
+            if reunit_every and itrj % reunit_every == 0:
+                defect = float(sun.unitarity_defect(u))
+                u = sun.reunitarize(u)
+                vp.println_verbose_level1(f"# unitarity defect {defect:.3e} (reprojected)")
+            with timers.phase("save"):
+                save_seconds = savedata.save(u, itrj, generator)
+            with timers.phase("measure"):
+                measurements.calc_measurement_values(itrj, u)
+            flow_seconds = None
+            if measurements_for_flow.measurements and p.numflow > 0:
+                t0 = time.time()
+                with timers.phase("gradientflow"):
+                    usmr = u
+                    for istep in range(1, p.numflow + 1):
+                        for _ in range(p.Nflow):
+                            usmr = gf.flow(usmr)
+                        # itrj appears twice in a flowed line, as in the JAX package
+                        measurements_for_flow.calc_measurement_values(
+                            itrj, usmr, additional_string=f"{itrj} {istep} {istep * dtau_flow} ",
+                            step=istep)
+                flow_seconds = time.time() - t0
+            if history is not None:
+                history.append({"itrj": itrj, "seconds": seconds, "dH": stats.get("dH"),
+                                "accepted": accepted, "plaq": stats.get("plaq"), "cg": cg,
+                                "save_seconds": save_seconds, "flow_seconds": flow_seconds,
+                                "beta_eff": stats.get("beta_eff")})
+            vp.println_verbose_level1(
+                f"Acceptance {numaccepts}/{itrj} : {round(numaccepts * 100 / itrj)} %")
+            vp.flush()
 
     vp.println_verbose_level1(f"Total Elapsed time {time.time() - t_all} [s]")
+    vp.println_verbose_level1(timers.report())
+    if profile_dir is not None:
+        vp.println_verbose_level1(
+            f"# profiler trace written to {os.path.join(profile_dir, TRACE_FILE)}")
     measurements.close()
     measurements_for_flow.close()
     plaq = float(ga.mean_plaquette(u))

@@ -1,7 +1,7 @@
-"""The PyTorch port stands alone: no jax, no JAX package, and its chip
-script refuses to run without a CUDA device or without the port beside it.
-Also pins the port's numpy-only copies (params, gammas, rational, analysis)
-to the JAX package's originals."""
+"""The PyTorch port stands alone: no jax, no JAX package, nothing built at
+import, and its chip script refuses to run without a CUDA device or without
+the port beside it. Also pins the port's numpy-only copies (params, gammas,
+rational, analysis, wizard, legacy_input) to the JAX package's originals."""
 
 import dataclasses
 import os
@@ -53,6 +53,10 @@ PORT_MODULES = [
     "latticeqcd_torch.updates.slhmc",
     "latticeqcd_torch.smearing.gradientflow",
     "latticeqcd_torch.smearing.stout",
+    "latticeqcd_torch.system.wizard",
+    "latticeqcd_torch.system.legacy_input",
+    "latticeqcd_torch.utils.timers",
+    "latticeqcd_torch.demo",
     "chip_smoke",
 ]
 
@@ -64,11 +68,22 @@ def _run(args, cwd, timeout=120):
 
 
 def test_port_imports_no_jax():
+    """Importing every module, and reaching the façade's entry points, imports no
+    jax and nothing of the JAX package, and loads no library built from csrc/."""
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in PORT_MODULES)
+        + "import latticeqcd_torch\n"
+        + "assert callable(latticeqcd_torch.run_LQCD) and callable(latticeqcd_torch.run_LQCD_file)\n"
+        + "assert callable(latticeqcd_torch.run_wizard)\n"
+        + "from latticeqcd_torch.demo import main\n"
+        + "from latticeqcd_torch.utils.timers import PhaseTimers, torch_trace\n"
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'latticeqcd_tpu'))\n"
         + "assert not bad, bad\n"
+        + "from latticeqcd_torch import _nvcc\n"
+        + "assert not _nvcc._LOADED, _nvcc._LOADED\n"
+        + "built = [l for l in open('/proc/self/maps') if str(_nvcc.BUILD) in l]\n"
+        + "assert not built, built\n"
         + "print('clean')\n"
     )
     out = _run(["-c", code], cwd=ROOT)
@@ -164,3 +179,29 @@ def test_analysis_copy_matches_jax_package():
             ta.jackknife(series[: len(series) // 10 * 10 or None], nblocks=5)
     corr = np.cosh(0.4 * (np.arange(16) - 8.0)) + 1e-3 * rng.random(16)
     np.testing.assert_array_equal(ja.effective_mass(corr), ta.effective_mass(corr))
+
+
+def _body(mod):
+    src = open(mod.__file__).read()
+    return src[src.index("from __future__ import annotations"):]
+
+
+def test_wizard_copy_matches_jax_package():
+    """The copy's code is the original's below the module docstring."""
+    from latticeqcd_tpu.system import wizard as jwz
+    from latticeqcd_torch.system import wizard as twz
+
+    assert _body(twz) == _body(jwz)
+
+
+def test_legacy_input_copy_matches_jax_package():
+    """The copy's code is the original's below the module docstring, apart from
+    the one import of write_toml, which comes from the port's wizard."""
+    from latticeqcd_tpu.system import legacy_input as jli
+    from latticeqcd_torch.system import legacy_input as tli
+
+    jax_import = "    from latticeqcd_tpu.system.wizard import write_toml\n"
+    port_import = "    from latticeqcd_torch.system.wizard import write_toml\n"
+    assert _body(jli).count(jax_import) == 1
+    assert _body(tli) == _body(jli).replace(jax_import, port_import)
+    assert "eval(" not in _body(tli).replace("_safe_eval(", "")
