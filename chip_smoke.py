@@ -200,6 +200,22 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      --profile, one 8^4 Wilson trajectory in complex64: it must exit 0 and its trace hold
      device events of wilson_hop_packed's kernel; the trace's size printed; (d) python -m
      latticeqcd_torch.demo 5 must exit 0 with 5 sweep lines.
+ 31. the process grid (parallel/mesh.py): (a) in one process, 16^3x32 cut in two along each
+     axis in turn, each block's face buffers built from the global field: wilson_hop_packed's
+     halo mode (one launch per call) on each block, both parities, complex64 (bar 1e-5) and
+     complex128 (1e-12), against the block of the global kernel's output and against the plain
+     halo hop, and its backward (d psi through the halo mode, d u_t and d u_s) against the
+     global autograd's block; whether the match is bitwise; the halo mode timed on a block
+     beside the kernel without it on the same block and on the whole lattice, and the bytes
+     of a face message; the global draws timed against the block's own; (b) two gloo ranks on
+     the one card, grid (1, 1, 1, 2), started as python -m latticeqcd_torch.multirun
+     subprocesses under a timeout: a 16^3x32 complex128 Wilson trajectory against the same in
+     one process (dH 1e-8, links 1e-10, the ranks' dH bitwise equal), then phase 6's action in
+     complex64 for 2 trajectories (its Params phase 6's but for the paths and Nsteps): dH
+     finite and bitwise equal on both ranks, every verified CG residual at or below its target,
+     plaquette in (0, 1), halo-mode launches on each rank and no hop without it, the saved
+     configuration the gathered blocks bit for bit, seconds per trajectory beside phase 6's;
+     (c) the same on nccl when the machine has two or more cards (else it says so).
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -569,7 +585,8 @@ def phase_main_path(torch):
     STATE["launches"].setdefault("wilson_hop_packed", {})["Wilson main path"] = launched
     # phase 30 runs the same action from a .jl file and compares with these
     STATE["wilson_main"] = {"plaq": plaq, "dH": [rec["dH"] for rec in history],
-                            "cg": [sum(c["iterations"] for c in rec["cg"]) for rec in history]}
+                            "cg": [sum(c["iterations"] for c in rec["cg"]) for rec in history],
+                            "seconds": [rec["seconds"] for rec in history]}
     for rec in history:
         cg_iters = sum(c["iterations"] for c in rec["cg"])
         worst = max((c["rsq"] / c["target"] for c in rec["cg"]), default=0.0)
@@ -2807,7 +2824,7 @@ def _zero_counts():
     from latticeqcd_torch.ops.dirac import wilson_kernel as wk
     from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
 
-    wk.launches = ww.launches = 0
+    wk.launches = ww.launches = wk.halo_launches = 0
     wk.site_launches.update(full=0, packed=0)
     sk.launches = sk.w_launches = sk.fused_launches = 0
 
@@ -3402,6 +3419,331 @@ def phase_frontend(torch):
             print(f"  {name}: {time.time() - t0:.1f} s", flush=True)
 
 
+# phase 6's action as a TOML for python -m latticeqcd_torch.multirun, saving every trajectory
+GRID_TOML = """\
+["Physical setting"]
+L = [16, 16, 16, 32]
+NC = 3
+beta = 6.0
+initial = "hot"
+update_method = "HMC"
+quench = false
+Dirac_operator = "Wilson"
+hop = 0.141139
+r = 1.0
+BoundaryCondition = [1, 1, 1, -1]
+QPQ = true
+dtau = 0.02
+MDsteps = 10
+Nsteps = {nsteps}
+eps = 1e-12
+MaxCGstep = 3000
+randomseed = 3
+verboselevel = 2
+
+["System Control"]
+logfile = ""
+saveU_format = "NPZ"
+saveU_every = 1
+saveU_dir = "{d}/saves"
+
+["Measurement set"]
+measurement_basedir = "{d}/meas"
+measurement_dir = "grid"
+measurement_methods = [{{ methodname = "Plaquette", measure_every = 1 }}]
+"""
+GRID_FIELDS = {"saveU_format", "saveU_every", "saveU_dir", "logfile", "measurement_basedir",
+               "measurement_dir", "measuredir", "Nsteps"}
+
+
+def _face_slab(grid, f, mu, at, lead=0):
+    """The slab at global index ``at`` along mu of a global field f, over this block's range
+    along the other axes (lattice axes lead..lead + 3), contiguous, axis mu removed."""
+    local = [n // p for n, p in zip(f.shape[lead:lead + 4], grid.pes)]
+    idx = tuple(at if d == mu else slice(c * n, (c + 1) * n)
+                for d, (c, n) in enumerate(zip(grid.coords, local)))
+    return f[(slice(None),) * lead + idx].contiguous()
+
+
+def _block_faces(grid, psi, u_s):
+    """A block's face buffers from the global packed field and links, as the exchange
+    builds them: {mu: (lo, hi)} of psi and {mu: the -mu neighbour's last slab of u_s[mu]}."""
+    faces, links = {}, {}
+    for mu in grid.partitioned:
+        n = psi.shape[mu] // grid.pes[mu]
+        lo, hi = (grid.coords[mu] * n - 1) % psi.shape[mu], ((grid.coords[mu] + 1) * n) % psi.shape[mu]
+        faces[mu] = (_face_slab(grid, psi, mu, lo), _face_slab(grid, psi, mu, hi))
+        links[mu] = _face_slab(grid, u_s[mu], mu, lo)
+    return faces, links
+
+
+def _grid_kernel(torch):
+    """(a): the halo mode on the card, one process: 16^3x32 cut in two along each axis."""
+    from latticeqcd_torch.ops.dirac import eo_pack
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac.wilson import gaussian_spinor
+    from latticeqcd_torch.parallel import mesh
+
+    dev = torch.device("cuda")
+    lat = MAIN
+    worst = {}
+    for dtype in (torch.complex64, torch.complex128):
+        name = str(dtype).split(".")[1]
+        bar = BARS[name]
+        u, _, g = _fields(torch, lat, dtype, seed=31)
+        u_e, u_o = eo_pack.pack_links(u, lat)
+        half = (lat[0] // 2,) + lat[1:]
+        x = gaussian_spinor(half, 3, dtype=dtype, device=dev, generator=g)
+        cot = gaussian_spinor(half, 3, dtype=dtype, device=dev, generator=g)
+        g5 = wk.gamma5(cot)
+        bitwise = {"forward": True, "d psi": True}
+        for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
+            ref = wk.wilson_hop_packed(u_t, u_s, x, parity)
+            leaves = [t.detach().clone().requires_grad_(True) for t in (u_t, u_s, x)]
+            grads = torch.autograd.grad(wk.wilson_hop_packed(*leaves, parity), leaves, cot)
+            _, moving, _ = wk.halo_link_grads(cot, x, parity, {})  # the global field's
+            for mu in range(4):
+                pes = tuple(2 if d == mu else 1 for d in range(4))
+                for rank in (0, 1):
+                    grid = mesh.ProcessGrid(pes, lat, rank=rank, device=dev)
+                    tag = f"cut {'xyzt'[mu]} block {rank} p={parity} {name}"
+                    ut_b, us_b, x_b = (grid.block(t, lead).contiguous()
+                                       for t, lead in ((u_t, 1), (u_s, 1), (x, 0)))
+                    faces, links = _block_faces(grid, x, u_s)
+                    before = wk.halo_launches
+                    got = wk.hop_packed_halo(ut_b, us_b, x_b, parity, faces, links)
+                    torch.cuda.synchronize()
+                    if wk.halo_launches != before + 1:
+                        fail("the halo mode of wilson_hop_packed did not launch once")
+                    want = grid.block(ref)
+                    bitwise["forward"] &= bool(torch.equal(got, want))
+                    check(f"halo hop {tag} vs the global kernel", maxdiff(got, want), bar,
+                          "wilson_hop_packed")
+                    plain = wk.hop_packed_halo_reference(ut_b, us_b, x_b, parity, faces, links)
+                    check(f"halo hop {tag} vs plain", maxdiff(got, plain), bar, "wilson_hop_packed")
+                    # the backward: d psi is the adjoint hop through the halo mode (u_s forward,
+                    # u_t backward links, faces of gamma5 cot); d u_t from the forward's faces;
+                    # d u_s with the heads the exchange would bring
+                    gfaces, tlinks = _block_faces(grid, g5, u_t)
+                    d_psi = wk.gamma5(wk.hop_packed_halo(us_b, ut_b, grid.block(g5).contiguous(),
+                                                         1 - parity, gfaces, tlinks))
+                    bitwise["d psi"] &= bool(torch.equal(d_psi, grid.block(grads[2])))
+                    check(f"halo backward d psi {tag}", maxdiff(d_psi, grid.block(grads[2])), bar,
+                          "wilson_hop_packed")
+                    d_ut, moving_b, staying = wk.halo_link_grads(grid.block(cot), x_b, parity, faces)
+                    n = x.shape[mu] // 2
+                    heads = {mu: _face_slab(grid, moving[mu], mu, ((rank + 1) * n) % x.shape[mu])}
+                    d_us = wk.scatter_halo(moving_b, staying, heads)
+                    check(f"halo backward d u_t {tag}", maxdiff(d_ut, grid.block(grads[0], 1)), bar,
+                          "wilson_hop_packed")
+                    check(f"halo backward d u_s {tag}", maxdiff(d_us, grid.block(grads[1], 1)), bar,
+                          "wilson_hop_packed")
+        worst[name] = STATE["err"]["wilson_hop_packed"]
+        print(f"  halo mode {name}: bitwise equal to the global kernel's block: forward "
+              f"{bitwise['forward']}, d psi {bitwise['d psi']}", flush=True)
+
+        # timing: the halo mode on each cut's block against the kernel without it on a block of
+        # the same shape (its own periodic wrap) and on the whole lattice (phase 4's case)
+        u_t, u_s = u_e, u_o
+        whole = _time_device(torch, lambda: wk.wilson_hop_packed(u_t, u_s, x, 0))
+        line = [f"whole 16^3x32 {whole * 1e3:.1f} us"]
+        for mu in range(4):
+            pes = tuple(2 if d == mu else 1 for d in range(4))
+            grid = mesh.ProcessGrid(pes, lat, rank=0, device=dev)
+            ut_b, us_b, x_b = (grid.block(t, lead).contiguous()
+                               for t, lead in ((u_t, 1), (u_s, 1), (x, 0)))
+            faces, links = _block_faces(grid, x, u_s)
+            t_halo = _time_device(torch, lambda: wk.hop_packed_halo(ut_b, us_b, x_b, 0, faces, links))
+            t_plain = _time_device(torch, lambda: wk.wilson_hop_packed(ut_b, us_b, x_b, 0))
+            face_bytes = faces[mu][0].numel() * faces[mu][0].element_size()
+            line.append(f"cut {'xyzt'[mu]}: halo {t_halo * 1e3:.1f} us, no halo on the block "
+                        f"{t_plain * 1e3:.1f} us, {face_bytes} B per spinor face message")
+        print(f"  timing {name} (cold is not separated here: one input set): " + "; ".join(line)
+              + f" [{STATE['smi']}]", flush=True)
+
+
+def _grid_draws(torch):
+    """The cost of the global draws: Draws.sample of phase 6's action at 16^3x32 complex64 on
+    one block of the grid (1, 1, 1, 2) (the global normals, then the block kept) against the
+    block's own shapes drawn without a grid."""
+    from latticeqcd_torch.ops import fields, gauge_action as ga
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import WilsonFermiAction
+    from latticeqcd_torch.parallel import mesh
+    from latticeqcd_torch.updates.hmc import HMC, Draws
+
+    dev = torch.device("cuda")
+    grid = mesh.ProcessGrid((1, 1, 1, 2), MAIN, rank=0, device=dev)
+    with mesh.use_grid(grid):
+        u = fields.hot_start(MAIN, 3, seed=3, dtype=torch.complex64, device=dev)
+    hmc = HMC(action=ga.wilson_gauge_action(3, 6.0), dtau=0.02, md_steps=10,
+              fermi_action=WilsonFermiAction(WilsonDirac(kappa=KAPPA)))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    times = {"global": [], "local": []}
+    for label in ("global", "local", "local", "global") * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mesh.use_grid(grid if label == "global" else None):
+            draws = Draws.sample(hmc, u, gen)
+            if label == "global":
+                draws = draws.block(grid)
+        torch.cuda.synchronize()
+        times[label].append(time.perf_counter() - t0)
+    nbytes = 4 * (2 * 4 * math.prod(MAIN) * 9 + 2 * math.prod(MAIN) // 2 * 12)
+    print(f"  global draws at 16^3x32 complex64: {nbytes / 1e6:.1f} MB of normals per trajectory "
+          f"on each rank; {statistics.median(times['global']) * 1e3:.3f} ms (sample and keep the "
+          f"block) against {statistics.median(times['local']) * 1e3:.3f} ms for the block's own "
+          f"shapes [{STATE['smi']}]", flush=True)
+
+
+def _multirun(tmp, tag, nsteps, dtype_flag, pes, backend, timeout=300):
+    """python -m latticeqcd_torch.multirun on GRID_TOML: one rank per block of the grid pes,
+    each with --report; returns (the reports, the run's directory). Every
+    process is killed if the group does not finish in time."""
+    import socket
+
+    import numpy as np
+
+    nprocs = math.prod(pes)
+    d = os.path.join(tmp, tag)
+    os.makedirs(d)
+    toml = os.path.join(d, "params.toml")
+    with open(toml, "w") as f:
+        f.write(GRID_TOML.format(nsteps=nsteps, d=d))
+    report = os.path.join(d, "report")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    cmds = []
+    if nprocs == 1:
+        cmds.append([toml, "--device", "cuda:0"])
+    else:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        for rank in range(nprocs):
+            cmds.append([toml, *map(str, pes), "--coordinator", f"127.0.0.1:{port}",
+                         "--nprocs", str(nprocs), "--procid", str(rank), "--backend", backend,
+                         "--device", f"cuda:{rank if backend == 'nccl' else 0}"])
+    procs = [subprocess.Popen([sys.executable, "-m", "latticeqcd_torch.multirun", *c, dtype_flag,
+                               "--report", report], cwd=d, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-3000:])
+            print(err[-3000:])
+            fail(f"multirun {tag} rank {rank} exited {p.returncode}")
+    reports = []
+    for rank in range(nprocs):
+        with open(os.path.join(report, f"rank{rank}.json")) as f:
+            rep = json.load(f)
+        rep["u"] = np.load(os.path.join(report, f"rank{rank}_u.npy"))
+        reports.append(rep)
+    return reports, d
+
+
+def _grid_runs(torch, tmp, backend, pes=(1, 1, 1, 2)):
+    """(b), or (c) under nccl: the grid pes through multirun, a complex128 trajectory against
+    one process, then phase 6's complex64 path for 2 trajectories."""
+    import dataclasses
+
+    import numpy as np
+
+    from latticeqcd_torch.parallel import mesh
+    from latticeqcd_torch.system.params import construct_params_from_toml
+
+    n = math.prod(pes)
+    label = f"{backend}, {n} ranks {pes}"
+    t0 = time.time()
+    two, d2 = _multirun(tmp, f"c128_{backend}_{n}", 1, "--f64", pes, backend)
+    one, d1 = _multirun(tmp, f"c128_one_{backend}_{n}", 1, "--f64", (1, 1, 1, 1), backend)
+    dh = [rep["history"][0]["dH"] for rep in two]
+    if len({float(v).hex() for v in dh}) != 1:
+        fail(f"the ranks' dH differ: {dh}")
+    ddh = abs(dh[0] - one[0]["history"][0]["dH"])
+    a = np.load(os.path.join(d2, "saves", "conf_00000001.npz"))["u"]
+    b = np.load(os.path.join(d1, "saves", "conf_00000001.npz"))["u"]
+    print(f"  ({label}) 16^3x32 complex128 trajectory: dH {dh[0]!r} (one process "
+          f"{one[0]['history'][0]['dH']!r}), accepted {two[0]['history'][0]['accepted']}; "
+          f"{time.time() - t0:.1f} s for both runs", flush=True)
+    check(f"({label}) complex128 trajectory |ddH| against one process", ddh, 1e-8)
+    check(f"({label}) complex128 trajectory max|dU| against one process",
+          float(np.abs(a - b).max()), 1e-10)
+
+    t0 = time.time()
+    reps, d = _multirun(tmp, f"c64_{backend}_{n}", 2, "--f32", pes, backend)
+    got = construct_params_from_toml(os.path.join(d, "params.toml"), make_dirs=False)
+    differ = sorted(k for k, v in dataclasses.asdict(_wilson_path_params()).items()
+                    if getattr(got, k) != v)
+    if set(differ) - GRID_FIELDS:
+        fail(f"the grid run's Params differ from phase 6's in {sorted(set(differ) - GRID_FIELDS)}")
+    for i in range(2):
+        dhs = [rep["history"][i]["dH"] for rep in reps]
+        if not all(math.isfinite(v) for v in dhs) or len({float(v).hex() for v in dhs}) != 1:
+            fail(f"trajectory {i + 1}: the ranks' dH are not finite and equal: {dhs}")
+    for rep in reps:
+        worst = max(c["rsq"] / c["target"] for rec in rep["history"] for c in rec["cg"])
+        if worst > 1.0:
+            fail(f"rank {rep['rank']}: a CG returned a verified residual above its target")
+        if not 0.0 < rep["plaquette"] < 1.0:
+            fail(f"rank {rep['rank']}: plaquette {rep['plaquette']} outside (0, 1)")
+        if rep["launches"]["wilson_hop_packed_halo"] == 0:
+            fail(f"rank {rep['rank']}: the halo mode of wilson_hop_packed never launched")
+        if rep["launches"]["wilson_hop_packed"]:
+            fail(f"rank {rep['rank']}: a hop ran without the halo mode under the grid")
+    saved = np.load(os.path.join(d, "saves", "conf_00000002.npz"))["u"]
+    gathered = np.empty_like(saved)
+    for rep in reps:
+        grid = mesh.ProcessGrid(pes, MAIN, rank=rep["rank"])
+        gathered[(slice(None),) + tuple(slice(o, o + m) for o, m in zip(grid.origin, grid.local))] = \
+            rep["u"]
+    if saved.tobytes() != gathered.tobytes():
+        fail("the saved configuration is not the ranks' blocks bit for bit")
+    main = STATE["wilson_main"]
+    halo = [rep["launches"]["wilson_hop_packed_halo"] for rep in reps]
+    STATE["launches"].setdefault("wilson_hop_packed", {})[f"grid path, {label} (halo)"] = sum(halo)
+    for i, rec in enumerate(reps[0]["history"]):
+        cg = sum(c["iterations"] for c in rec["cg"])
+        print(f"  ({label}) trajectory {rec['itrj']}: {rec['seconds']:.3f} s (phase 6: "
+              f"{main['seconds'][i]:.3f} s)  CG iterations {cg} (phase 6: {main['cg'][i]})  dH "
+              f"{rec['dH']:.6f} (phase 6: {main['dH'][i]:.6f})  accepted {rec['accepted']} "
+              f"[{STATE['smi']}]", flush=True)
+    print(f"  ({label}) final plaquette {reps[0]['plaquette']!r} (phase 6 {main['plaq']!r}); "
+          f"halo launches per rank {halo}; the saved configuration equals the gathered blocks "
+          f"bit for bit; {time.time() - t0:.1f} s for the run", flush=True)
+
+
+def phase_grid(torch):
+    print("== 31. the process grid: the halo mode of wilson_hop_packed, 2 ranks on the card",
+          flush=True)
+    import tempfile
+
+    if "wilson_main" not in STATE:
+        fail("phase 31 compares with phase 6's run: run phase_main_path first")
+    t0 = time.time()
+    _grid_kernel(torch)
+    _grid_draws(torch)
+    print(f"  (a) halo mode and draws: {time.time() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as tmp:
+        t0 = time.time()
+        _grid_runs(torch, tmp, "gloo")
+        print(f"  (b) 2 ranks, gloo, one card: {time.time() - t0:.1f} s", flush=True)
+        if torch.cuda.device_count() >= 2:
+            t0 = time.time()
+            _grid_runs(torch, tmp, "nccl")
+            print(f"  (c) 2 ranks, nccl, 2 cards: {time.time() - t0:.1f} s", flush=True)
+        else:
+            print(f"  (c) nccl: not run, this machine has {torch.cuda.device_count()} card",
+                  flush=True)
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
           phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
@@ -3410,7 +3752,7 @@ PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_plaquette_anchor, phase_improved_agreement, phase_improved_path,
           phase_domainwall_agreement, phase_domainwall_path, phase_selflearning_agreement,
           phase_selflearning_path, phase_clover_agreement, phase_clover_path,
-          phase_batched_agreement, phase_batched_path, phase_frontend]
+          phase_batched_agreement, phase_batched_path, phase_frontend, phase_grid]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line

@@ -8,14 +8,17 @@ imports jax. Entry points: ``python -m latticeqcd_torch.run params.toml``,
 which exports what latticeqcd_tpu's does: ``run_LQCD`` and
 ``run_LQCD_file`` (a TOML or legacy ``.jl`` file; keyword arguments such as
 ``dtype``, ``device`` (``cuda`` unless given), ``resume_checkpoint``,
-``profile_dir`` and ``make_dirs`` pass through to
-``system.lqcd.run_lqcd_file``) and ``run_wizard``. Importing the package
+``profile_dir``, ``make_dirs`` and ``grid`` pass through to
+``system.lqcd.run_lqcd_file``) and ``run_wizard``. ``latticeqcd_torch.parallel``
+is the 4D process grid on torch.distributed, and ``python -m
+latticeqcd_torch.multirun`` its entry point. Importing the package
 imports system.lqcd only when one of these is called, so it builds and loads
 no CUDA code.
 """
 
 import torch
 
+from latticeqcd_torch import parallel  # noqa: F401
 from latticeqcd_torch._version import __version__
 
 # The MD link updates and staples are batched 3x3 complex products; TF32

@@ -53,6 +53,16 @@
 // x'), an extent 2 in y or z (the halo onto the brick), T = 2 (t + 1 and t - 1 one site)
 // and extents that the brick does not divide need no special case; lanes whose site lies
 // outside the lattice compute on wrapped coordinates and do not write.
+// Halo mode (a block of a process grid, parallel/mesh.py): for each axis mu whose bit is set
+// in the partition mask, a neighbour outside the block is read from a face buffer instead of
+// wrapping inside the block. A row slot whose coordinate leaves the block along mu copies its
+// row from the face lo[mu] (the -mu neighbour's last source-parity slab) or hi[mu] (the +mu
+// neighbour's first), each the packed slab with axis mu removed, so that its rows along t are
+// contiguous and 16-byte aligned like psi's; a t neighbour outside the block reads lo[3] or
+// hi[3] per site, as the out-of-segment t neighbours read psi; a backward link at x - mu
+// outside the block reads link[mu], the -mu neighbour's last slab of u_s[mu]. A slot that
+// leaves the block along two axes is read only by lanes that write nothing. No chain axis.
+// Mask 0 is the kernel without the halo branches (HALO false), as before the halo mode.
 #include "tma.h"
 #include "wilson_dir.h"
 
@@ -62,6 +72,15 @@
 #define WILSON_BRICK_C128 2, 1, 16, 5
 
 namespace {
+
+// The face buffers of the halo mode: lo, hi and link per axis mu, used where mask bit mu is set.
+template <typename V>
+struct Halo {
+  int mask;
+  const V* lo[4];
+  const V* hi[4];
+  const V* link[4];
+};
 
 // Row slots of a BY x BZ brick in shared memory, each holding one t segment of a source row:
 // the x' + dx rows (dx = -1, 0, +1) of the brick's (y, z) rows, then the y halo rows
@@ -73,37 +92,57 @@ struct Slots {
   __device__ static int xrow(int dx, int iy, int iz) { return (dx + 1) * OWN + iy * BZ + iz; }
   __device__ static int yhalo(int side, int iz) { return 3 * OWN + side * BZ + iz; }
   __device__ static int zhalo(int side, int iy) { return 3 * OWN + 2 * BZ + side * BY + iy; }
-  // The (x', y, z) row held by slot i, for the brick at (x, y0, z0), wrapped into the lattice.
+  // The (x', y, z) row held by slot i, for the brick at (x, y0, z0), wrapped into the lattice
+  // (WRAP) or as it is (the halo mode, where a coordinate outside the block names a face).
+  template <bool WRAP>
   __device__ static void row(int i, int x, int y0, int z0, int x2, int ly, int lz, int& rx,
                              int& ry, int& rz) {
+    auto w = [](int a, int n) { return WRAP ? wrap(a, n) : a; };
     if (i < 3 * OWN) {
-      rx = wrap(x + i / OWN - 1, x2);
-      ry = wrap(y0 + i % OWN / BZ, ly);
-      rz = wrap(z0 + i % BZ, lz);
+      rx = w(x + i / OWN - 1, x2);
+      ry = w(y0 + i % OWN / BZ, ly);
+      rz = w(z0 + i % BZ, lz);
     } else if (i < 3 * OWN + 2 * BZ) {
       const int j = i - 3 * OWN;
       rx = x;
-      ry = wrap(y0 - 1 + j / BZ * (BY + 1), ly);
-      rz = wrap(z0 + j % BZ, lz);
+      ry = w(y0 - 1 + j / BZ * (BY + 1), ly);
+      rz = w(z0 + j % BZ, lz);
     } else {
       const int j = i - 3 * OWN - 2 * BZ;
       rx = x;
-      ry = wrap(y0 + j % BY, ly);
-      rz = wrap(z0 - 1 + j / BY * (BZ + 1), lz);
+      ry = w(y0 + j % BY, ly);
+      rz = w(z0 - 1 + j / BY * (BZ + 1), lz);
     }
   }
 };
 
+// The halo mode's source of the t segment [t0, ...) of the unwrapped row (rx, ry, rz): a face
+// buffer when the row leaves the block along a cut axis, else psi at the wrapped coordinates.
+template <typename V>
+__device__ __forceinline__ const V* halo_row_source(int rx, int ry, int rz, int x2, int ly, int lz,
+                                                    int lt, int t0, const V* psi,
+                                                    const Halo<V>& h) {
+  const int wx = wrap(rx, x2), wy = wrap(ry, ly), wz = wrap(rz, lz);
+  if ((h.mask & 1) && (rx < 0 || rx >= x2))
+    return (rx < 0 ? h.lo[0] : h.hi[0]) + 12 * ((wy * lz + wz) * lt + t0);
+  if ((h.mask & 2) && (ry < 0 || ry >= ly))
+    return (ry < 0 ? h.lo[1] : h.hi[1]) + 12 * ((wx * lz + wz) * lt + t0);
+  if ((h.mask & 4) && (rz < 0 || rz >= lz))
+    return (rz < 0 ? h.lo[2] : h.hi[2]) + 12 * ((wx * ly + wy) * lt + t0);
+  return psi + 12 * (((wx * ly + wy) * lz + wz) * lt + t0);
+}
+
 // One block per brick: (x', BY y rows from y0, BZ z rows from z0, t segment [t0, t0 + ts)).
 // Thread tid is colour a = tid % 3 of brick site tid / 3, t fastest. Thread 0 first copies
 // the brick's source spinor rows into shared memory.
-template <typename R, int BY, int BZ, int TSMAX, int MINB, bool CHAINS>
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool CHAINS, bool HALO>
 __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
     wilson_hop_brick_kernel(const typename Vec<R>::type* __restrict__ u_t,
                             const typename Vec<R>::type* __restrict__ u_s,
                             const typename Vec<R>::type* __restrict__ psi,
                             typename Vec<R>::type* __restrict__ out, int x2, int ly, int lz, int lt,
-                            int ts, int parity, long long u_chain, long long psi_chain) {
+                            int ts, int parity, long long u_chain, long long psi_chain,
+                            Halo<typename Vec<R>::type> halo) {
   using V = typename Vec<R>::type;
   using S = Slots<BY, BZ>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -136,8 +175,10 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
     mbar_arrive_expect_tx(&bar, S::ROWS * row_bytes);
     for (int i = 0; i < S::ROWS; ++i) {
       int rx, ry, rz;
-      S::row(i, x, y0, z0, x2, ly, lz, rx, ry, rz);
-      bulk_copy_g2s(smem + i * ts * 12 * sizeof(V), psi + 12 * (rx * sx + ry * sy + rz * lt + t0),
+      S::template row<!HALO>(i, x, y0, z0, x2, ly, lz, rx, ry, rz);
+      bulk_copy_g2s(smem + i * ts * 12 * sizeof(V),
+                    HALO ? halo_row_source(rx, ry, rz, x2, ly, lz, lt, t0, psi, halo)
+                         : psi + 12 * (rx * sx + ry * sy + rz * lt + t0),
                     row_bytes, &bar);
     }
   }
@@ -154,9 +195,15 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
   // the neighbour spinor held at index i of row slot `slot`
   auto nb = [&](int slot, int i) { return rows + 12 * (slot * ts + i); };
 
+  // in the halo mode, a backward link outside the block comes from the link face of its axis
+  // (`out` tells whether the link x - mu leaves the block, `i` is its index in the face)
+  auto ubw = [&](int mu, const V* inside, bool out, int i) {
+    return HALO && (halo.mask >> mu & 1) && out ? halo.link[mu] + 9 * i : inside;
+  };
+
   V uf[3], ub[3];  // the first links' loads overlap the wait for the copies
   load_link_line<false>(u_t + 9 * s, a, uf);
-  load_link_line<true>(u_s + 9 * bx, a, ub);
+  load_link_line<true>(ubw(0, u_s + 9 * bx, !off && x == 0, (y * lz + z) * lt + t), a, ub);
 
   V acc[4];
 #pragma unroll
@@ -169,20 +216,27 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
   lane_hop<0, true>(acc, nb(S::xrow(off - 1, iy, iz), it), ub);
   // y: a row of the brick or a halo row
   load_link_line<false>(u_t + 9 * (vol + s), a, uf);
-  load_link_line<true>(u_s + 9 * (vol + by), a, ub);
+  load_link_line<true>(ubw(1, u_s + 9 * (vol + by), y == 0, (x * lz + z) * lt + t), a, ub);
   lane_hop<1, false>(acc, nb(iy + 1 < BY ? S::xrow(0, iy + 1, iz) : S::yhalo(1, iz), it), uf);
   lane_hop<1, true>(acc, nb(iy > 0 ? S::xrow(0, iy - 1, iz) : S::yhalo(0, iz), it), ub);
   // z
   load_link_line<false>(u_t + 9 * (2 * vol + s), a, uf);
-  load_link_line<true>(u_s + 9 * (2 * vol + bz), a, ub);
+  load_link_line<true>(ubw(2, u_s + 9 * (2 * vol + bz), z == 0, (x * ly + y) * lt + t), a, ub);
   lane_hop<2, false>(acc, nb(iz + 1 < BZ ? S::xrow(0, iy, iz + 1) : S::zhalo(1, iy), it), uf);
   lane_hop<2, true>(acc, nb(iz > 0 ? S::xrow(0, iy, iz - 1) : S::zhalo(0, iy), it), ub);
-  // t: in the own row's segment (which wraps when it is the whole row), else device memory
+  // t: in the own row's segment (which wraps when it is the whole row), else device memory;
+  // in the halo mode a t neighbour outside the block (`out`) is in a t face
   const bool fin = tf - t0 >= 0 && tf - t0 < cnt, bin = tb - t0 >= 0 && tb - t0 < cnt;
+  auto tnb = [&](bool in, int tt, bool out, const V* face) {
+    return HALO && (halo.mask & 8) && out ? face + 12 * ((x * ly + y) * lz + z)
+           : in                           ? nb(S::xrow(0, iy, iz), tt - t0)
+                                          : psi + 12 * (s - t + tt);
+  };
   load_link_line<false>(u_t + 9 * (3 * vol + s), a, uf);
-  load_link_line<true>(u_s + 9 * (3 * vol + s - t + tb), a, ub);
-  lane_hop<3, false>(acc, fin ? nb(S::xrow(0, iy, iz), tf - t0) : psi + 12 * (s - t + tf), uf);
-  lane_hop<3, true>(acc, bin ? nb(S::xrow(0, iy, iz), tb - t0) : psi + 12 * (s - t + tb), ub);
+  load_link_line<true>(ubw(3, u_s + 9 * (3 * vol + s - t + tb), t == 0, (x * ly + y) * lz + z),
+                       a, ub);
+  lane_hop<3, false>(acc, tnb(fin, tf, t + 1 == lt, halo.hi[3]), uf);
+  lane_hop<3, true>(acc, tnb(bin, tb, t == 0, halo.lo[3]), ub);
 
   if (valid) {
     V* o = out + 12 * s + a;
@@ -193,9 +247,12 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
 
 // Launch on a grid of bricks times chains: t is cut into the fewest segments of at most TSMAX
 // sites, of even length (so that a segment of spinors is a whole number of 16-byte units).
+// A non-zero mask launches the halo mode (one chain) with faces[mu], faces[4 + mu] and
+// faces[8 + mu] as lo[mu], hi[mu] and link[mu].
 template <typename R, int BY, int BZ, int TSMAX, int MINB>
 int launch(const void* u_t, const void* u_s, const void* psi, void* out, int x2, int ly, int lz,
-           int lt, int parity, int nchain, long long u_chain, long long psi_chain, void* stream) {
+           int lt, int parity, int nchain, long long u_chain, long long psi_chain, int mask,
+           const void* const* faces, void* stream) {
   using V = typename Vec<R>::type;
   using S = Slots<BY, BZ>;
   static_assert(TSMAX % 2 == 0, "t segments are of even length");
@@ -205,33 +262,56 @@ int launch(const void* u_t, const void* u_s, const void* psi, void* out, int x2,
   const int ts = ((lt + nts - 1) / nts + 1) / 2 * 2;
   const int bytes = S::ROWS * 12 * ts * static_cast<int>(sizeof(V));
   const int blocks = x2 * ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * ((lt + ts - 1) / ts);
-  auto kernel = nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false>
-                            : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true>;
+  Halo<V> halo{mask, {}, {}, {}};
+  for (int mu = 0; mask && mu < 4; ++mu) {
+    halo.lo[mu] = static_cast<const V*>(faces[mu]);
+    halo.hi[mu] = static_cast<const V*>(faces[4 + mu]);
+    halo.link[mu] = static_cast<const V*>(faces[8 + mu]);
+  }
+  auto kernel = mask ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, true>
+                : nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, false>
+                              : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true, false>;
   kernel<<<dim3(blocks, nchain), 3 * BY * BZ * ts, bytes, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const V*>(u_t), static_cast<const V*>(u_s), static_cast<const V*>(psi),
-          static_cast<V*>(out), x2, ly, lz, lt, ts, parity, u_chain, psi_chain);
+          static_cast<V*>(out), x2, ly, lz, lt, ts, parity, u_chain, psi_chain, halo);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes): wilson_hop.cu's packed mode followed by the chain
-// count and the chain strides of the links and of the spinors, in elements. Each returns
-// cudaGetLastError() after the launch. psi_s must be 16-byte aligned.
+// count and the chain strides of the links and of the spinors, in elements; the halo mode's
+// (one chain) by the partition mask (bit mu: axis mu is cut) and an array of 12 face pointers
+// (lo[0..3], hi[0..3], link[0..3]; those of uncut axes are not read). Each returns
+// cudaGetLastError() after the launch. psi_s and the spinor faces must be 16-byte aligned.
 extern "C" {
 
 int wilson_hop_brick_c64(const void* u_t, const void* u_s, const void* psi_s, void* out, int x2,
                          int ly, int lz, int lt, int target_parity, int nchain, long long u_chain,
                          long long psi_chain, void* stream) {
   return launch<float, WILSON_BRICK_C64>(u_t, u_s, psi_s, out, x2, ly, lz, lt, target_parity,
-                                         nchain, u_chain, psi_chain, stream);
+                                         nchain, u_chain, psi_chain, 0, nullptr, stream);
 }
 
 int wilson_hop_brick_c128(const void* u_t, const void* u_s, const void* psi_s, void* out, int x2,
                           int ly, int lz, int lt, int target_parity, int nchain, long long u_chain,
                           long long psi_chain, void* stream) {
   return launch<double, WILSON_BRICK_C128>(u_t, u_s, psi_s, out, x2, ly, lz, lt, target_parity,
-                                           nchain, u_chain, psi_chain, stream);
+                                           nchain, u_chain, psi_chain, 0, nullptr, stream);
+}
+
+int wilson_hop_halo_c64(const void* u_t, const void* u_s, const void* psi_s, void* out, int x2,
+                        int ly, int lz, int lt, int target_parity, int mask,
+                        const void* const* faces, void* stream) {
+  return launch<float, WILSON_BRICK_C64>(u_t, u_s, psi_s, out, x2, ly, lz, lt, target_parity, 1,
+                                         0, 0, mask, faces, stream);
+}
+
+int wilson_hop_halo_c128(const void* u_t, const void* u_s, const void* psi_s, void* out, int x2,
+                         int ly, int lz, int lt, int target_parity, int mask,
+                         const void* const* faces, void* stream) {
+  return launch<double, WILSON_BRICK_C128>(u_t, u_s, psi_s, out, x2, ly, lz, lt, target_parity,
+                                           1, 0, 0, mask, faces, stream);
 }
 
 }  // extern "C"

@@ -7,6 +7,10 @@ over ordered pairs of the traceless antihermitian loop sums (plaquette,
 clover, and the O(a^2)-improved clover-rectangle mix), E over
 NV * 6 * NC * 8 from the clover sums, and W(R, T) over NV * 3 * NC,
 wrapping through the periodic roll when R or T reaches the extent.
+Under a process grid (parallel/mesh.py) every sum is global and every
+volume the global lattice's; the Polyakov line multiplies each block's
+own t product with those of the blocks after it along t, moved in by
+sharded rolls.
 """
 
 from __future__ import annotations
@@ -18,8 +22,10 @@ import numpy as np
 import torch
 
 from latticeqcd_torch.ops import gauge_action as ga
-from latticeqcd_torch.ops import sun, wilsonline
+from latticeqcd_torch.ops import rolls, sun, wilsonline
 from latticeqcd_torch.ops.wilsonline import Wilsonline
+from latticeqcd_torch.parallel import mesh
+from latticeqcd_torch.parallel.mesh import global_sum, global_volume
 
 
 def mean_plaquette(u: torch.Tensor) -> torch.Tensor:
@@ -33,7 +39,17 @@ def polyakov_loop(u: torch.Tensor) -> torch.Tensor:
     acc = u[3][:, :, :, 0]
     for t in range(1, nt):
         acc = sun.mul(acc, u[3][:, :, :, t])
-    return torch.mean(sun.trace(acc)) / nc
+    grid = mesh.sharded()
+    if grid is None:
+        return torch.mean(sun.trace(acc)) / nc
+    # the blocks after this one along t, in order: the trace of the cyclic product is the
+    # line's on every block of a t column, so the sum over ranks counts each line PT times
+    line, block = acc, acc[:, :, :, None]
+    for _ in range(grid.pes[3] - 1):
+        block = rolls.roll(block, -1, 3)
+        line = sun.mul(line, block[:, :, :, 0])
+    # global sites / local T = the spatial volume times PT
+    return global_sum(torch.sum(sun.trace(line))) / (global_volume(u.shape[1:5]) // nt) / nc
 
 
 # The Levi-Civita symbol in four dimensions.
@@ -99,7 +115,7 @@ def _q_from_fields(f, num) -> torch.Tensor:
             continue
         s = torch.sum(sun.trace(sun.mul(f[(mu, nu)], f[(rho, sig)])))
         q = q + e * torch.real(s) / num ** 2
-    return -q / (32 * math.pi ** 2)
+    return -global_sum(q) / (32 * math.pi ** 2)
 
 
 def topological_charge(u: torch.Tensor, kind: str = "clover") -> torch.Tensor:
@@ -119,21 +135,21 @@ def energy_density(u: torch.Tensor) -> torch.Tensor:
     """Clover E: W_munu the sum of the 4 leaves, E = Re sum_{mu != nu}
     tr(W W)/4 / (NV 6 NC 8)."""
     nc = u.shape[-1]
-    nv = math.prod(u.shape[1:5])
+    nv = global_volume(u.shape[1:5])
     total = 0.0
     loops, _ = _loopset_munu("clover")
     for ls in loops.values():
         acc = _loop_sum(u, ls)
         total = total + torch.sum(sun.trace(sun.mul(acc, acc))) / 4.0
-    return torch.real(total) / nv / 6.0 / nc / 8.0
+    return torch.real(global_sum(total)) / nv / 6.0 / nc / 8.0
 
 
 def wilson_loop_rt(u: torch.Tensor, ls: int, lt: int) -> torch.Tensor:
     """<Re tr W(ls x lt)> over the 3 spatial directions, over NV 3 NC."""
     nc = u.shape[-1]
-    nv = math.prod(u.shape[1:5])
+    nv = global_volume(u.shape[1:5])
     total = 0.0
     for mu in range(3):
         w = wilsonline.evaluate_line(u, Wilsonline([(mu, ls), (3, lt), (mu, -ls), (3, -lt)]))
         total = total + torch.sum(torch.real(sun.trace(w)))
-    return total / (nv * 3 * nc)
+    return global_sum(total) / (nv * 3 * nc)

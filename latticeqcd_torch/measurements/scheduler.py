@@ -24,6 +24,7 @@ from latticeqcd_torch.measurements import fermionic, observables
 from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
 from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, refuse_r_off_cpu
+from latticeqcd_torch.parallel import mesh
 
 
 def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1, -1),
@@ -155,6 +156,7 @@ class FermionicMeasurement(Measurement):
     solves: Optional[list] = None
 
     def _dirac(self, u):
+        mesh.refuse_under_grid(f"the fermionic measurement {self.name}")
         fparams = self.params.get("fermion_parameters", {"Dirac_operator": self.default_operator})
         return fparams, build_dirac_from_params(fparams, u.shape[1:5], device=u.device)
 
@@ -239,14 +241,14 @@ class MeasurementSet:
                      append: bool = False):
         """One measurement per method dict, each writing
         <measuredir>/<methodname><suffix>.txt (appending to it if ``append``, as
-        a resumed run does)."""
+        a resumed run does); under a process grid only rank 0 writes."""
         ms = []
         for method in method_dicts or []:
             name = method.get("methodname")
             if name not in _REGISTRY:
                 raise ValueError(f"measurement method {name!r} is not supported")
             fp = None
-            if measuredir is not None:
+            if measuredir is not None and mesh.is_rank0():
                 os.makedirs(measuredir, exist_ok=True)
                 fp = open(os.path.join(measuredir, f"{name}{suffix}.txt"), "a" if append else "w")
             interval = int(method.get("measure_every", 1))

@@ -52,6 +52,7 @@ from torch.autograd.function import once_differentiable
 from latticeqcd_torch import _nvcc
 from latticeqcd_torch.ops.dirac import eo_pack
 from latticeqcd_torch.ops.dirac.wilson_kernel import MAX_CHAINS, chain_args
+from latticeqcd_torch.parallel import mesh
 
 DIRS = 4
 launches = 0
@@ -272,12 +273,16 @@ class StaggeredHopPacked(torch.autograd.Function):
 
 
 def staggered_hop_packed(u_t, u_s, psi_s, target_parity: int):
-    """Packed D psi_s through the kernel on CUDA, the plain version on the CPU."""
+    """Packed D psi_s through the kernel on CUDA, the plain version on the CPU.
+    No halo mode yet: it raises under a process grid."""
+    mesh.refuse_under_grid("the staggered_w kernel")
     return StaggeredHopPacked.apply(u_t, u_s, psi_s, int(target_parity))
 
 
 def staggered_w(u_e, u_o, phi_e, mass: float):
     """Packed W phi_e through the two-launch kernel on CUDA, the plain version
     on the CPU. Not differentiable: callers that need a gradient compose two
-    ``staggered_hop_packed`` (StaggeredDirac.apply_w_packed does)."""
+    ``staggered_hop_packed`` (StaggeredDirac.apply_w_packed does). No halo mode
+    yet: it raises under a process grid."""
+    mesh.refuse_under_grid("the staggered_w kernel")
     return _w(u_e, u_o, phi_e, float(mass))

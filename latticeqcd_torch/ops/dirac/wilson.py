@@ -41,6 +41,8 @@ from latticeqcd_torch.ops import sun
 from latticeqcd_torch.ops.dirac import eo_pack, gammas, wilson_kernel, wilson_window_kernel
 from latticeqcd_torch.ops.dirac.wilson_kernel import gamma5
 from latticeqcd_torch.ops.wilsonline import evaluate_line, make_cloverloops
+from latticeqcd_torch.parallel import mesh
+from latticeqcd_torch.parallel.mesh import global_sum
 
 DIRS = 4
 # sigma_munu = [g_mu, g_nu] / 2 on the six planes mu < nu; sigma_numu = -sigma_munu
@@ -60,13 +62,17 @@ def refuse_r_off_cpu(r: float, device) -> None:
 def apply_boundary_phases(u: torch.Tensor, bc=(1, 1, 1, -1)) -> torch.Tensor:
     """Multiply the last slice of each direction's links by its boundary
     phase, so periodic shifts implement the fermion BCs. Differentiable; u
-    may lead with a chain axis."""
+    may lead with a chain axis. Under a process grid u is this rank's block,
+    and only the block that holds the global last slice along mu takes mu's
+    phase."""
     if all(phase == 1 for phase in bc):
         return u
+    grid = mesh.sharded()
     lattice = tuple(u.shape[-6:-2])
     factor = torch.ones((DIRS,) + lattice, dtype=u.real.dtype, device=u.device)
     for mu, phase in enumerate(bc):
-        factor[mu].select(mu, lattice[mu] - 1).fill_(phase)
+        if grid is None or grid.holds_last(mu):
+            factor[mu].select(mu, lattice[mu] - 1).fill_(phase)
     return u * factor[..., None, None]
 
 
@@ -81,7 +87,10 @@ class WilsonDirac:
 
     def apply(self, u: torch.Tensor, psi: torch.Tensor, clover=None) -> torch.Tensor:
         """D psi; u must already carry the boundary phases. With csw != 0,
-        ``clover`` is clover_term(u), built here when not given."""
+        ``clover`` is clover_term(u), built here when not given. The full D
+        (the wilson_window kernel) has no halo mode yet: it raises under a
+        process grid."""
+        mesh.refuse_under_grid("the full Wilson D (wilson_window)")
         if self.r == 1.0:
             out = wilson_window_kernel.wilson_window(u, psi, self.kappa)
         else:
@@ -233,5 +242,6 @@ def z4_spinor(lattice, nc, nspin=4, dtype=torch.complex128, device="cuda",
 
 
 def inner(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Global <a, b> = sum conj(a) b, in the working dtype."""
-    return torch.sum(a.conj() * b)
+    """Global <a, b> = sum conj(a) b, in the working dtype (over the ranks of a
+    process grid)."""
+    return global_sum(torch.sum(a.conj() * b))

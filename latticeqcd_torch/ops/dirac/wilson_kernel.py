@@ -30,12 +30,26 @@ spinor is the kernel again (the adjoint hop is gamma5 H gamma5 with the
 link roles swapped); the backward with respect to the links is written
 with tensor ops: outer products of the projected half spinors with the
 incoming gradient, summed over spin.
+
+Under a process grid (parallel/mesh.py) the fields are this rank's
+blocks and the packed hop runs in its halo mode (``hop_packed_halo``):
+before each hop the source field's boundary slabs are exchanged with the
+neighbours (two messages per cut axis), and the kernel, or on the CPU
+its plain version ``hop_packed_halo_reference``, reads the neighbours
+outside the block from these face buffers. The backward links' faces
+(the -mu neighbour's last slab of u_s[mu]) are exchanged once per link
+tensor and kept while it lives and is not changed in place. The
+backward reuses the forward's faces for the link gradient and exchanges
+one slab more per cut axis to move the gradient of each backward link
+onto the rank that holds it. ``halo_launches`` counts the halo mode's
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -43,9 +57,11 @@ from torch.autograd.function import once_differentiable
 from latticeqcd_torch import _nvcc
 from latticeqcd_torch.ops import rolls
 from latticeqcd_torch.ops.dirac import eo_pack, gammas
+from latticeqcd_torch.parallel import mesh
 
 DIRS = 4
 launches = 0
+halo_launches = 0
 site_launches = {"full": 0, "packed": 0}
 
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
@@ -67,10 +83,12 @@ def gamma5(psi: torch.Tensor) -> torch.Tensor:
     return torch.cat([psi[..., :2, :], -psi[..., 2:, :]], dim=-2)
 
 
-def _hop(u_fwd, u_bwd, psi, gplus, gminus):
+def _hop(u_fwd, u_bwd, psi, gplus, gminus, glink=None):
     """sum_mu 2 Vm[mu] U_fwd(x) (Vm^dag psi)(x+mu)
             + 2 Vp[mu] U_bwd(x-mu)^dag (Vp^dag psi)(x-mu),
-    with the neighbour gathers given (half-spinor form, r = 1)."""
+    with the neighbour gathers given (half-spinor form, r = 1); ``glink`` gathers
+    the backward links (``gminus`` unless given)."""
+    glink = gminus if glink is None else glink
     vm, vp = _half_factors(psi.dtype, psi.device)
     hop = 0.0
     for mu in range(DIRS):
@@ -78,7 +96,7 @@ def _hop(u_fwd, u_bwd, psi, gplus, gminus):
         half = torch.einsum("...ab,...hb->...ha", u_fwd[mu], half)
         hop = hop + 2.0 * torch.einsum("sh,...hc->...sc", vm[mu], half)
         half = torch.einsum("sh,...sc->...hc", vp[mu].conj(), gminus(psi, mu))
-        half = torch.einsum("...ba,...hb->...ha", gminus(u_bwd[mu], mu).conj(), half)
+        half = torch.einsum("...ba,...hb->...ha", glink(u_bwd[mu], mu).conj(), half)
         hop = hop + 2.0 * torch.einsum("sh,...hc->...sc", vp[mu], half)
     return hop
 
@@ -123,6 +141,44 @@ def hop_packed_reference(u_t, u_s, psi_s, target_parity: int):
     return _hop(u_t, u_s, psi_s, gplus, gminus)
 
 
+def _shift(f, mu, step, face):
+    """f(x - step mu) on a block (step +-1): torch.roll along an axis the grid does
+    not cut (face None), else the block's own slabs and the neighbour's face."""
+    if face is None:
+        return torch.roll(f, step, mu)
+    n = f.shape[mu]
+    if step < 0:
+        return torch.cat([f.narrow(mu, 1, n - 1), face.unsqueeze(mu)], dim=mu)
+    return torch.cat([face.unsqueeze(mu), f.narrow(mu, 0, n - 1)], dim=mu)
+
+
+def halo_gathers(psi_s, target_parity, faces, link_faces):
+    """(gather_plus, gather_minus, gather_link) of the packed layout on a block of a
+    process grid, reading the neighbours outside the block from ``faces`` {mu: (lo,
+    hi)} and, for the backward links, ``link_faces`` {mu: face}."""
+    lattice = (2 * psi_s.shape[0],) + tuple(psi_s.shape[1:4])
+    s_t = eo_pack.offset_field(lattice, target_parity)
+
+    def plus(f, mu):
+        moved = _shift(f, mu, -1, faces[mu][1] if mu in faces else None)
+        return torch.where(eo_pack._mask(s_t, f.ndim - 4, f.device), moved, f) if mu == 0 else moved
+
+    def minus_with(face_of):
+        def minus(f, mu):
+            moved = _shift(f, mu, 1, face_of(mu))
+            return torch.where(eo_pack._mask(s_t, f.ndim - 4, f.device), f, moved) if mu == 0 else moved
+        return minus
+
+    return (plus, minus_with(lambda mu: faces[mu][0] if mu in faces else None),
+            minus_with(link_faces.get))
+
+
+def hop_packed_halo_reference(u_t, u_s, psi_s, target_parity: int, faces, link_faces):
+    """Plain H psi_s on a block of a process grid (packed layout, r = 1), the
+    neighbours outside the block from the face buffers."""
+    return _hop(u_t, u_s, psi_s, *halo_gathers(psi_s, target_parity, faces, link_faces))
+
+
 def _link_grads(g, psi, gplus, gminus):
     """Gradients of Re<g, H psi> (PyTorch's convention for a real loss of
     complex inputs) w.r.t. the forward links U_fwd(x) and the backward
@@ -159,8 +215,10 @@ _PACKED_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _VP]
 _ENTRY_POINTS = {
     "wilson_hop": {"wilson_hop_full": [_VP, _VP, _VP, _CI, _CI, _CI, _CI, ctypes.c_double, _VP],
                    "wilson_hop_packed": _PACKED_ARGS},
-    # the packed mode's arguments, then the chain count and the links' and spinors' chain strides
-    "wilson_hop_packed": {"wilson_hop_brick": _PACKED_ARGS[:-1] + [_CI, _LL, _LL, _VP]},
+    # the packed mode's arguments, then the chain count and the links' and spinors' chain
+    # strides; the halo mode's, then the partition mask and the array of 12 face pointers
+    "wilson_hop_packed": {"wilson_hop_brick": _PACKED_ARGS[:-1] + [_CI, _LL, _LL, _VP],
+                          "wilson_hop_halo": _PACKED_ARGS[:-1] + [_CI, _VP, _VP]},
 }
 
 
@@ -267,6 +325,100 @@ def _hop_packed(u_t, u_s, psi_s, target_parity):
     return out
 
 
+def _check_faces(psi_s, u_s, faces, link_faces):
+    for mu, (lo, hi) in faces.items():
+        want = tuple(psi_s.shape[:mu]) + tuple(psi_s.shape[mu + 1:])
+        lwant = tuple(u_s.shape[1:1 + mu]) + tuple(u_s.shape[2 + mu:])
+        for face, shape in ((lo, want), (hi, want), (link_faces[mu], lwant)):
+            if tuple(face.shape) != shape or face.dtype != psi_s.dtype or face.device != psi_s.device:
+                raise ValueError(f"a face along {mu} must be {shape} {psi_s.dtype} on "
+                                 f"{psi_s.device}, got {tuple(face.shape)} {face.dtype} {face.device}")
+            if not face.is_contiguous() or face.data_ptr() % 16:
+                raise ValueError("the halo mode's faces must be contiguous and 16-byte aligned")
+
+
+def hop_packed_halo(u_t, u_s, psi_s, target_parity: int, faces, link_faces):
+    """H psi_s on this rank's block of a process grid: ``faces`` {mu: (lo, hi)} holds,
+    for each cut axis mu, the -mu neighbour's last and the +mu neighbour's first slab
+    of psi_s with axis mu removed, ``link_faces`` {mu: the -mu neighbour's last slab of
+    u_s[mu]}. The kernel's halo mode on CUDA (one launch), the plain version on the CPU."""
+    global halo_launches
+    if psi_s.device.type == "cpu":
+        return hop_packed_halo_reference(u_t, u_s, psi_s, target_parity, faces, link_faces)
+    _check(psi_s, u_t, u_s, kernel="wilson_hop_packed")
+    _check_faces(psi_s, u_s, faces, link_faces)
+    ptrs = [None] * 12
+    for mu, (lo, hi) in faces.items():
+        ptrs[mu], ptrs[4 + mu], ptrs[8 + mu] = lo.data_ptr(), hi.data_ptr(), link_faces[mu].data_ptr()
+    out = torch.empty_like(psi_s)
+    fn = _fn("wilson_hop_packed", "wilson_hop_halo", psi_s.dtype)
+    with torch.cuda.device(psi_s.device):
+        err = fn(u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(),
+                 *psi_s.shape[:4], int(target_parity), sum(1 << mu for mu in faces),
+                 (ctypes.c_void_p * 12)(*ptrs), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(err, "wilson_hop_packed", "wilson_hop_halo")
+    halo_launches += 1
+    return out
+
+
+_LINK_FACES: dict = {}
+
+
+def link_faces(u_s, grid):
+    """{mu: the -mu neighbour's last slab of u_s[mu]} for each cut axis: exchanged once
+    per link tensor and kept while it lives and is not changed in place."""
+    hit = _LINK_FACES.get(id(u_s))
+    if hit is not None and hit[0]() is u_s and hit[1] == u_s._version:
+        return hit[2]
+    faces = mesh.pass_slabs({mu: u_s[mu].select(mu, u_s.shape[1 + mu] - 1)
+                             for mu in grid.partitioned}, +1, grid)
+    key = id(u_s)
+    _LINK_FACES[key] = (weakref.ref(u_s, lambda _, k=key: _LINK_FACES.pop(k, None)),
+                        u_s._version, faces)
+    return faces
+
+
+def _grid_hop(u_t, u_s, psi_s, target_parity, grid):
+    """(H psi_s, the faces of psi_s) on a block of ``grid``: the faces exchanged, then
+    the halo mode."""
+    if psi_s.ndim != 6:
+        raise NotImplementedError("a chain axis under a process grid is not ported yet "
+                                  "(ROADMAP A14b)")
+    faces = mesh.exchange_faces(psi_s, grid)
+    return hop_packed_halo(u_t, u_s, psi_s, target_parity, faces, link_faces(u_s, grid)), faces
+
+
+def halo_link_grads(g, psi_s, target_parity, faces):
+    """The link gradients of Re<g, H psi_s> on a block, from the faces of psi_s:
+    (d u_t, moving, staying), the gradients of the backward links, held at the
+    target sites x, split into the part that moves to x - mu (``moving[mu]``) and the
+    part that stays (``staying``, x only: the sites whose gather did not move)."""
+    gplus, gminus, _ = halo_gathers(psi_s, target_parity, faces, {})
+    fwd, bwd = _link_grads(g, psi_s, gplus, gminus)
+    lattice = (2 * psi_s.shape[0],) + tuple(psi_s.shape[1:4])
+    b = eo_pack._mask(eo_pack.offset_field(lattice, target_parity), bwd[0].ndim - 4, g.device)
+    zero = torch.zeros_like(bwd[0])
+    return torch.stack(fwd), [torch.where(b, zero, bwd[0])] + bwd[1:], torch.where(b, bwd[0], zero)
+
+
+def scatter_halo(moving, staying, heads):
+    """d u_s from halo_link_grads' parts: moving[mu] shifted to x - mu, its slab past the
+    block's end from ``heads`` {mu: the +mu neighbour's first slab of moving[mu]} (an
+    axis without a head wraps), plus the part that stays."""
+    d_us = [_shift(moving[mu], mu, -1, heads.get(mu)) for mu in range(DIRS)]
+    d_us[0] = d_us[0] + staying
+    return torch.stack(d_us)
+
+
+def _grid_link_grads(g, psi_s, target_parity, faces, grid):
+    """(d u_t, d u_s) of Re<g, H psi_s> on a block, from the forward's faces; the
+    gradients of the backward links move across the block's faces by one more slab
+    per cut axis."""
+    d_ut, moving, staying = halo_link_grads(g, psi_s, target_parity, faces)
+    heads = mesh.pass_slabs({mu: moving[mu].select(mu, 0) for mu in grid.partitioned}, -1, grid)
+    return d_ut, scatter_halo(moving, staying, heads)
+
+
 def hop_packed_site(u_t, u_s, psi_s, target_parity: int):
     """The same packed hop through wilson_hop's one-thread-per-site packed
     mode (forward only), kept as the yardstick of wilson_hop_packed."""
@@ -315,20 +467,31 @@ class WilsonHopPacked(torch.autograd.Function):
     def forward(ctx, u_t, u_s, psi_s, target_parity):
         ctx.save_for_backward(u_t, u_s, psi_s)
         ctx.parity = target_parity
-        return _hop_packed(u_t, u_s, psi_s, target_parity)
+        ctx.grid = mesh.sharded()
+        if ctx.grid is None:
+            return _hop_packed(u_t, u_s, psi_s, target_parity)
+        out, ctx.faces = _grid_hop(u_t, u_s, psi_s, target_parity, ctx.grid)
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         u_t, u_s, psi_s = ctx.saved_tensors
         g = g.contiguous()
+        grid = ctx.grid
         d_ut = d_us = d_psi = None
         if ctx.needs_input_grad[2]:
             # H_ts^dag = g5 H_st g5: the source parity becomes the target,
             # u_s supplies the forward links and u_t the backward ones
-            d_psi = gamma5(_hop_packed(u_s, u_t, gamma5(g), 1 - ctx.parity))
+            if grid is None:
+                d_psi = gamma5(_hop_packed(u_s, u_t, gamma5(g), 1 - ctx.parity))
+            else:
+                d_psi = gamma5(_grid_hop(u_s, u_t, gamma5(g), 1 - ctx.parity, grid)[0])
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            d_ut, d_us = _packed_link_grads(g, psi_s, ctx.parity)
+            if grid is None:
+                d_ut, d_us = _packed_link_grads(g, psi_s, ctx.parity)
+            else:
+                d_ut, d_us = _grid_link_grads(g, psi_s, ctx.parity, ctx.faces, grid)
         return d_ut, d_us, d_psi, None
 
 

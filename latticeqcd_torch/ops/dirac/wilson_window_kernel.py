@@ -28,6 +28,7 @@ import torch
 
 from latticeqcd_torch import _nvcc
 from latticeqcd_torch.ops.dirac import wilson_kernel
+from latticeqcd_torch.parallel import mesh
 
 launches = 0
 
@@ -65,5 +66,7 @@ def _dslash(u, psi, kappa):
 
 
 def wilson_window(u, psi, kappa):
-    """Full D psi (r = 1) through the kernel on CUDA, the plain version on the CPU."""
+    """Full D psi (r = 1) through the kernel on CUDA, the plain version on the CPU.
+    No halo mode yet: it raises under a process grid."""
+    mesh.refuse_under_grid("the wilson_window kernel")
     return wilson_kernel.WilsonDslash.apply(u, psi, float(kappa), _dslash)

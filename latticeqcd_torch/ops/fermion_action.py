@@ -61,6 +61,8 @@ from latticeqcd_torch.ops.dirac.wilson import (
     inner,
 )
 from latticeqcd_torch.ops.dirac.wilson_kernel import gamma5
+from latticeqcd_torch.parallel import mesh
+from latticeqcd_torch.parallel.mesh import global_sum
 
 DIRS = 4
 
@@ -106,7 +108,7 @@ def _project_force(u, grad_c):
 
 def _chain_inner(a, b):
     """Re<a_i, b_i> of each chain of a leading chain axis."""
-    return torch.real(torch.sum(a.conj() * b, dim=tuple(range(1, a.ndim))))
+    return global_sum(torch.real(torch.sum(a.conj() * b, dim=tuple(range(1, a.ndim)))))
 
 
 def _chain_packed_links(dirac, up):
@@ -154,8 +156,14 @@ class WilsonFermiAction:
     @torch.no_grad()
     def sample_pseudofermion(self, u, generator: Optional[torch.Generator] = None, normals=None):
         """(S_old, phi): phi = A xi with unit Gaussian xi (from the
-        Generator, or the injected normals (re, im)); S_old = |xi|^2."""
+        Generator, or the injected normals (re, im)); S_old = |xi|^2. Under a
+        process grid the Generator's normals are the global lattice's, this
+        rank's block kept."""
         up = self._phased(u)
+        if normals is None and mesh.sharded() is not None:
+            shape, rdtype = self.noise_shape(u), sun.real_dtype(u.dtype)
+            normals = tuple(mesh.randn_block(shape, 0, generator, rdtype, u.device)
+                            for _ in range(2))
         xi = gaussian_spinor(self.noise_shape(u)[:4], u.shape[-1], nspin=4, dtype=u.dtype,
                              device=u.device, generator=generator, normals=normals)
         if self._eo(tuple(u.shape[1:5])):

@@ -2,7 +2,10 @@
 
 Counterpart of latticeqcd_tpu/ops/fields.py: one tensor
 U[mu, x, y, z, t, a, b], made on the card unless the caller names
-another device.
+another device. Under a process grid (parallel/mesh.py) ``lattice`` is
+the global lattice and each start returns this rank's block: the hot and
+one-instanton starts build the global links on the host and keep the
+block, so a sharded start is bit for bit the single-process one.
 """
 
 from __future__ import annotations
@@ -11,13 +14,15 @@ import numpy as np
 import torch
 
 from latticeqcd_torch.ops import sun
+from latticeqcd_torch.parallel import mesh
 
 DIRS = 4
 
 
 def cold_start(lattice, nc: int, dtype=torch.complex128, device="cuda") -> torch.Tensor:
     """All links = identity."""
-    shape = (DIRS, *lattice, nc, nc)
+    grid = mesh.sharded()
+    shape = (DIRS, *(lattice if grid is None else grid.local), nc, nc)
     return torch.eye(nc, dtype=dtype, device=device).expand(shape).contiguous()
 
 
@@ -26,7 +31,7 @@ def hot_start(lattice, nc: int, seed: int = 0, dtype=torch.complex128, device="c
     the JAX package's hot_start for the same seed."""
     rng = np.random.default_rng(seed)
     u = sun.random_sun_host(rng, (DIRS, *lattice), nc)
-    return torch.from_numpy(u).to(device=device, dtype=dtype)
+    return mesh.shard_links(torch.from_numpy(u)).to(device=device, dtype=dtype)
 
 
 def one_instanton_start(lattice, nc: int, dtype=torch.complex128, device="cuda") -> torch.Tensor:
@@ -77,7 +82,7 @@ def one_instanton_start(lattice, nc: int, dtype=torch.complex128, device="cuda")
         u = np.zeros((DIRS, *lattice, nc, nc), dtype=np.complex128)
         u[..., :, :] = np.eye(nc)
         u[..., :2, :2] = links
-    return torch.from_numpy(u).to(device=device, dtype=dtype)
+    return mesh.shard_links(torch.from_numpy(u)).to(device=device, dtype=dtype)
 
 
 def initialize_gaugefields(nc, lattice, condition="cold", seed=0, dtype=torch.complex128,

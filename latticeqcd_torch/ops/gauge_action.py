@@ -17,6 +17,7 @@ import torch
 
 from latticeqcd_torch.ops import sun, wilsonline
 from latticeqcd_torch.ops.wilsonline import make_loops_fromname
+from latticeqcd_torch.parallel.mesh import global_sum, global_volume
 
 DIRS = 4
 
@@ -146,14 +147,12 @@ def plaquette_sum(u: torch.Tensor) -> torch.Tensor:
             a = sun.mul(umu, wilsonline._roll_to(unu, _unit(mu)))
             b = sun.mul(unu, wilsonline._roll_to(umu, _unit(nu)))
             total = total + torch.sum(torch.real(sun.trace(sun.mul(a, sun.dagger(b)))))
-    return total
+    return global_sum(total)
 
 
 def mean_plaquette(u: torch.Tensor) -> torch.Tensor:
     """<Re tr P> / (6 NV NC) in 4D."""
     nc = u.shape[-1]
-    nv = 1
-    for n in u.shape[1:5]:
-        nv *= n
+    nv = global_volume(u.shape[1:5])
     comb = DIRS * (DIRS - 1) // 2
     return plaquette_sum(u) / (comb * nv * nc)

@@ -20,6 +20,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from latticeqcd_torch.parallel.mesh import global_sum
+
 # Reduced precision: the attainable relative TRUE |r|^2, and how many
 # restarts from the true residual may run (the JAX package's numbers).
 _N_RESTARTS = {torch.complex64: 2, torch.float32: 2}
@@ -27,7 +29,7 @@ _VERIFY_FLOOR = 3e-11
 
 
 def _vdot(a, b):
-    return torch.sum(a.conj() * b)
+    return global_sum(torch.sum(a.conj() * b))
 
 
 def _effective_eps(eps: float, dtype) -> float:
@@ -148,7 +150,7 @@ def cg_multi(apply_a: Callable, b: torch.Tensor, eps: float = 1e-19, maxiter: in
     axes = tuple(range(1, b.ndim))
 
     def rdot(u, v):
-        return torch.real(torch.sum(u.conj() * v, dim=axes))
+        return global_sum(torch.real(torch.sum(u.conj() * v, dim=axes)))
 
     def bcast(c):
         return c.reshape((-1,) + (1,) * (b.ndim - 1)).to(b.dtype)
@@ -267,7 +269,7 @@ def multishift_cg_multi(apply_a: Callable, b: torch.Tensor, shifts, eps: float =
     axes = tuple(range(1, b.ndim))
 
     def rdot(u, v):
-        return torch.real(torch.sum(u.conj() * v, dim=axes))
+        return global_sum(torch.real(torch.sum(u.conj() * v, dim=axes)))
 
     def per_chain(c):  # [n] or [ns, n] coefficients over a chain's field axes
         return c.reshape(tuple(c.shape) + (1,) * (b.ndim - 1)).to(b.dtype)

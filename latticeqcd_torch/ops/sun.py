@@ -14,6 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from latticeqcd_torch.parallel.mesh import global_sum
+
 
 def real_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.complex128 else torch.float32
@@ -74,8 +76,8 @@ def random_hermitian_momentum(shape_prefix, nc: int, dtype=torch.complex128, dev
 
 
 def kinetic_energy(h: torch.Tensor) -> torch.Tensor:
-    """tr(H^2) summed over all batch axes."""
-    return torch.sum(torch.real(trace(mul(h, h))))
+    """tr(H^2) summed over all batch axes (and over the ranks of a process grid)."""
+    return global_sum(torch.sum(torch.real(trace(mul(h, h)))))
 
 
 def det(m: torch.Tensor) -> torch.Tensor:

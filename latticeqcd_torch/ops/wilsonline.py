@@ -16,6 +16,7 @@ from typing import Iterable, Sequence
 import torch
 
 from latticeqcd_torch.ops import rolls, sun
+from latticeqcd_torch.parallel.mesh import global_sum
 
 DIRS = 4
 
@@ -118,11 +119,11 @@ def evaluate_line(u: torch.Tensor, line: Wilsonline) -> torch.Tensor:
 
 
 def evaluate_loop_trace_sum(u: torch.Tensor, lines) -> torch.Tensor:
-    """sum_x sum_lines tr W(x) (complex scalar)."""
+    """sum_x sum_lines tr W(x) (complex scalar), over the ranks of a process grid."""
     total = 0.0
     for line in lines:
         total = total + torch.sum(sun.trace(evaluate_line(u, line)))
-    return total
+    return global_sum(total)
 
 
 def _occurrence_staple(u: torch.Tensor, steps, k: int, offsets) -> torch.Tensor:

@@ -14,7 +14,10 @@ effective couplings (beta_eff) per step. A legacy ``.jl`` input is converted
 to the TOML beside it first. The steps are timed by phase (PhaseTimers, the
 report printed after the run) and, given a profile_dir, traced by
 torch.profiler. The device is explicit (``cuda`` by default); a run never
-moves to another one.
+moves to another one. Given a process grid (``grid``, the counterpart of
+the JAX package's shard_mesh), each process runs the same loop on its
+block of the lattice (parallel/mesh.py): rank 0 alone prints, writes the
+measurement files and the trace, and saves the gathered configuration.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from latticeqcd_torch.measurements.scheduler import MeasurementSet
 from latticeqcd_torch.ops import gauge_action as ga
 from latticeqcd_torch.ops import sun
 from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction
+from latticeqcd_torch.parallel import mesh
 from latticeqcd_torch.smearing.gradientflow import gradientflow
 from latticeqcd_torch.system.legacy_input import transform_to_toml
 from latticeqcd_torch.system.params import Params, construct_params_from_toml
@@ -55,7 +59,9 @@ class Savedata:
     checkpoint.npz with the links, the trajectory counter and the run's
     torch.Generator state, from which a run resumes bit for bit. Nothing is
     saved under Fileloading. An unknown format is refused here, before any
-    trajectory. Saving from several processes waits for ROADMAP A14."""
+    trajectory. Under a process grid every rank calls ``save``, the blocks
+    are gathered to rank 0 (the run's only gather), and rank 0 writes both
+    files."""
 
     def __init__(self, saveU_format, saveU_dir, saveU_every, update_method, vp):
         self.issaved = saveU_format is not None and update_method != "Fileloading"
@@ -73,7 +79,10 @@ class Savedata:
         if not self.issaved or itrj % self.every != 0:
             return None
         t0 = time.time()
-        host = to_numpy(u)  # one copy to the host for the file and the checkpoint
+        # one copy to the host for the file and the checkpoint, the global links on rank 0
+        host = to_numpy(u) if mesh.sharded() is None else mesh.to_host_global(u, lead=1)
+        if host is None:
+            return None
         ext, write = _SAVERS[self.fmt]
         write(os.path.join(self.dir, f"conf_{itrj:08d}.{ext}"), host)
         if generator is not None:
@@ -85,9 +94,11 @@ class Savedata:
 
 
 def run_lqcd_file(filename, make_dirs: bool = True, dtype=torch.complex128, device="cuda",
-                  resume_checkpoint=None, profile_dir=None):
+                  resume_checkpoint=None, profile_dir=None, grid=None, history=None,
+                  final=None):
     """Run from a TOML parameter file, a legacy ``.jl`` one (converted first to
-    the TOML beside it), or a Params."""
+    the TOML beside it), or a Params; ``grid``, ``history`` and ``final`` as
+    run_lqcd_params takes them."""
     if isinstance(filename, Params):
         parameters = filename
     else:
@@ -100,12 +111,22 @@ def run_lqcd_file(filename, make_dirs: bool = True, dtype=torch.complex128, devi
             raise ValueError(f"{filename} is not supported. use a TOML format.")
         parameters = construct_params_from_toml(filename, make_dirs=make_dirs)
     return run_lqcd_params(parameters, make_dirs=make_dirs, dtype=dtype, device=device,
-                           resume_checkpoint=resume_checkpoint, profile_dir=profile_dir)
+                           resume_checkpoint=resume_checkpoint, profile_dir=profile_dir,
+                           grid=grid, history=history, final=final)
 
 
 def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, device="cuda",
-                    history: Optional[list] = None, resume_checkpoint=None, profile_dir=None):
+                    history: Optional[list] = None, resume_checkpoint=None, profile_dir=None,
+                    grid=None, final: Optional[dict] = None):
     """Run the steps of p on ``device``; returns the final mean plaquette.
+
+    grid: None (one process), a parallel.mesh.ProcessGrid over p.L, or its PEs
+    (PE1, PE2, PE3, PE4), built over the initialised process group. Every rank
+    calls this with the same p; each runs on its block of the links, draws the
+    global normals and keeps its block, and returns the same plaquette. A
+    resumed run reads the checkpoint on every rank and keeps its block, so it
+    continues bit for bit. final, if given, receives the last links (this rank's
+    block) as "u".
 
     resume_checkpoint: a checkpoint.npz. The run continues from its links and
     trajectory counter (initialtrj = itrj + 1) and, if the port wrote it,
@@ -126,6 +147,17 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
     after the run; profile_dir, if given, receives a torch.profiler trace of
     the steps (utils/timers.py)."""
     device = torch.device(device)
+    if grid is not None and not isinstance(grid, mesh.ProcessGrid):
+        grid = mesh.make_process_grid(grid, p.L, device)
+    if grid is not None and tuple(grid.lattice) != tuple(p.L):
+        raise ValueError(f"the process grid is over {grid.lattice}, the run's lattice is {p.L}")
+    with mesh.use_grid(grid):
+        return _run(p, make_dirs, dtype, device, history, resume_checkpoint, profile_dir, grid,
+                    final)
+
+
+def _run(p, make_dirs, dtype, device, history, resume_checkpoint, profile_dir, grid, final):
+    """run_lqcd_params's loop, under the active process grid."""
     timers = PhaseTimers(
         sync=(lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None)
     univ = build_universe(p, dtype=dtype, device=device)
@@ -133,7 +165,7 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
     vp = univ.verbose_print
     if resume_checkpoint is not None:
         ck = load_checkpoint(resume_checkpoint, dtype=dtype, device=device)
-        univ.u = ck["u"]
+        univ.u = mesh.shard_links(ck["u"])
         if "torch_rng_state" in ck:
             generator.set_state(ck["torch_rng_state"])
         else:
@@ -150,6 +182,10 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
     vp.println_verbose_level1(f"latticeqcd_torch {__version__} (torch {torch.__version__})")
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     vp.println_verbose_level1(f"# device={device} ({name}) dtype={dtype}")
+    if grid is not None:
+        vp.println_verbose_level1(
+            f"# process grid PEs {grid.pes} ({grid.nprocs} processes, backend {grid.backend}): "
+            f"local lattice {grid.local}")
     vp.println_verbose_level1("# effective parameters:")
     for f_ in dc_fields(p):
         vp.println_verbose_level1(f"#   {f_.name} = {getattr(p, f_.name)!r}")
@@ -192,7 +228,8 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
 
     numaccepts = 0
     t_all = time.time()
-    with torch_trace(profile_dir, device):
+    # one trace per run: rank 0's
+    with torch_trace(profile_dir if mesh.is_rank0() else None, device):
         for itrj in range(p.initialtrj, nsteps + 1):
             vp.println_verbose_level1(f"# itrj = {itrj}")
             t0 = time.time()
@@ -252,4 +289,6 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
     measurements_for_flow.close()
     plaq = float(ga.mean_plaquette(u))
     vp.close()
+    if final is not None:
+        final["u"] = u
     return plaq

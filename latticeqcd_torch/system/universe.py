@@ -12,7 +12,10 @@ updated by HMC (with or without Sexton-Weingarten), (quenched) Heatbath,
 the self-learning SLHMC and SLMC or the integrated-fermion IntegratedHMC
 and IntegratedHB, or loaded by Fileloading, with gradient-flow
 measurements. Everything else raises NotImplementedError naming the
-ROADMAP item that will port it.
+ROADMAP item that will port it. Under a process grid (parallel/mesh.py)
+the links are this rank's block, and only quenched and two-flavour
+Wilson HMC (csw = 0, r = 1, no Hasenbusch, no smearing) with gauge
+measurements runs; the rest raises naming ROADMAP A14b before any work.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from latticeqcd_torch.ops.fermion_action import (DomainwallFermiAction,
                                                  HasenbuschWilsonFermiAction,
                                                  StaggeredFermiAction, WilsonFermiAction)
 from latticeqcd_torch.ops.wilsonline import Wilsonline, make_loops_fromname
+from latticeqcd_torch.parallel import mesh
 from latticeqcd_torch.smearing.stout import CovNet, stout_stack
 from latticeqcd_torch.system.params import Params
 from latticeqcd_torch.utils.logger import VerbosePrint
@@ -53,8 +57,32 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def params_grid_refusal(p: Params) -> Optional[str]:
+    """What of p has no multi-process form yet (ROADMAP A14b), or None."""
+    if p.update_method != "HMC":
+        return f"update_method {p.update_method!r}"
+    if not p.quench and p.Dirac_operator != "Wilson":
+        return f"Dirac_operator {p.Dirac_operator!r}"
+    if not p.quench and p.r != 1.0:
+        return f"Wilson fermions at r = {p.r}"
+    if not p.quench and p.hasenbusch:
+        return "Hasenbusch mass preconditioning"
+    if p.smearing_for_fermion != "nothing":
+        return f"smearing_for_fermion {p.smearing_for_fermion!r}"
+    for method in list(p.measurement_methods or ()) + list(p.measurements_for_flow or ()):
+        # the methods that solve with a Dirac operator
+        if (method.get("methodname") in ("Chiral_condensate", "Pion_correlator", "Dirac_spectrum")
+                or "fermion_parameters" in method):
+            return f"the fermionic measurement {method.get('methodname')}"
+    return None
+
+
 def check_supported(p: Params, device="cuda") -> None:
-    """Refuse, by name, what the port does not run (on ``device``)."""
+    """Refuse, by name, what the port does not run (on ``device``, under the
+    active process grid)."""
+    what = params_grid_refusal(p)
+    if what is not None:
+        mesh.refuse_under_grid(what)
     if (not p.quench and p.Dirac_operator == "Staggered"
             and torch.device(device).type != "cpu" and not eo_pack.packable(p.L)):
         _not_ported(f"staggered fermions on {device} with an odd lattice extent {tuple(p.L)} "
@@ -132,7 +160,8 @@ def _load_initial(p: Params, dtype=torch.complex128, device="cuda") -> torch.Ten
     if p.initial in ("cold", "hot", "one instanton"):
         return fields.initialize_gaugefields(p.NC, p.L, condition=p.initial, seed=p.randomseed,
                                              dtype=dtype, device=device)
-    return load_config(p.loadU_format, p.initial, p.L, p.NC, dtype, device)  # file start
+    # a file start: every rank reads the file and keeps its block
+    return mesh.shard_links(load_config(p.loadU_format, p.initial, p.L, p.NC, dtype, device))
 
 
 def build_universe(p: Params, dtype=torch.complex128, device="cuda") -> Univ:
@@ -143,7 +172,7 @@ def build_universe(p: Params, dtype=torch.complex128, device="cuda") -> Univ:
         logdir = p.log_dir or "."
         os.makedirs(logdir, exist_ok=True)
         logfilename = os.path.join(os.getcwd(), logdir, p.logfile)
-    vp = VerbosePrint(level=p.verboselevel, filename=logfilename)
+    vp = VerbosePrint(level=p.verboselevel, myid=mesh.get_myrank(), filename=logfilename)
     if p.initial not in ("cold", "hot", "one instanton"):
         vp.println_verbose_level2(".....  File start")
         vp.println_verbose_level1(f"File name is {p.initial}")

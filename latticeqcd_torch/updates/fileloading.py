@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 from typing import List
 
 from latticeqcd_torch.io import ILDG, load_config
+from latticeqcd_torch.parallel import mesh
 
 _EXT = {"JLD": (".jld2", ".npz"), "NPZ": (".npz",), "ILDG": (".ildg",), "BridgeText": (".txt",)}
 
@@ -78,6 +79,7 @@ class GivenConfigurations:
     def step(self, u, generator=None):
         """(U, generator) -> (the next configuration, in U's dtype and on its
         device; stats), as HMC.step. Always accepted; draws nothing."""
+        mesh.refuse_under_grid("Fileloading")
         fn = self.filelist[self.current]
         self.current += 1
         return self._load(fn, u.dtype, u.device), {"accepted": True}

@@ -43,6 +43,7 @@ import torch
 
 from latticeqcd_torch.ops import gauge_action as ga
 from latticeqcd_torch.ops import sun
+from latticeqcd_torch.parallel import mesh
 
 DIRS = 4
 # Below this alpha Creutz's inversion replaces the KP proposal per site: both
@@ -272,6 +273,8 @@ class Heatbath:
 
     def _sweep_impl(self, u, uniforms, or_mode: bool = False, with_diag: bool = False,
                     coeffs=None):
+        # the early stop once every masked site is done would need a global any
+        mesh.refuse_under_grid("the heatbath and overrelaxation")
         nc = self.action.nc
         shape = tuple(u.shape[1:5])
         rdt = sun.real_dtype(u.dtype)

@@ -44,6 +44,17 @@ order the JAX package splits its key (k_mom, k_ferm, k_acc). They come
 from a torch.Generator, or are injected, so that a test can replay the
 JAX package's own draws. The JAX package's staged multi-program path
 exists for its TPU runtime and has no counterpart here.
+
+Under a process grid (parallel/mesh.py) ``step`` takes this rank's block
+of the links. Quenched and two-flavour Wilson HMC (csw = 0, r = 1, no
+Hasenbusch, no smearing) run there; every other action raises before any
+draw (ROADMAP A14b). The draws are those of the global lattice: every
+rank draws the global normals from the run's generator, which has the
+same seed on every rank, and keeps its block, so a sharded trajectory
+draws what one process draws (at 16^3 x 32 complex64 about 44 MB of
+normals per trajectory on every rank). Injected draws are global arrays,
+sliced the same way. The Metropolis uniform, and the dH it is compared
+with (global sums, bitwise the same on every rank), agree everywhere.
 """
 
 from __future__ import annotations
@@ -56,6 +67,8 @@ import torch
 from latticeqcd_torch.md import integrators
 from latticeqcd_torch.ops import gauge_action as ga
 from latticeqcd_torch.ops import mdpair, sun
+from latticeqcd_torch.ops.fermion_action import WilsonFermiAction
+from latticeqcd_torch.parallel import mesh
 
 
 @dataclass(frozen=True)
@@ -67,7 +80,8 @@ class Draws:
         action's noise_shape(u) (the Hasenbusch action's leading axis
         holds its two noises), or None (quenched, or an action that
         draws none);
-    uniform: the Metropolis uniform in [0, 1)."""
+    uniform: the Metropolis uniform in [0, 1).
+    Under a process grid the normals are the global lattice's."""
 
     mom: tuple
     xi: Optional[tuple]
@@ -77,11 +91,14 @@ class Draws:
     def sample(cls, hmc: "HMC", u: torch.Tensor, generator: torch.Generator) -> "Draws":
         rdtype = sun.real_dtype(u.dtype)
         kw = dict(generator=generator, dtype=rdtype, device=u.device)
-        shape = tuple(u.shape)
+        grid = mesh.sharded()
+        shape = tuple(u.shape) if grid is None else grid.global_shape(u.shape, lead=1)
         mom = (torch.randn(shape, **kw), torch.randn(shape, **kw))
         xi = None
         xshape = None if hmc.quench else hmc.fermi_action.noise_shape(u)
         if xshape is not None:  # None: an action without noise (the integrated log det)
+            if grid is not None:
+                xshape = grid.global_shape(xshape, lead=0)
             xi = (torch.randn(xshape, **kw), torch.randn(xshape, **kw))
         uniform = float(torch.rand((), generator=generator, dtype=rdtype, device=u.device))
         return cls(mom, xi, uniform)
@@ -89,6 +106,29 @@ class Draws:
     def momentum(self, u: torch.Tensor) -> torch.Tensor:
         return sun.random_hermitian_momentum(u.shape[:-2], u.shape[-1], dtype=u.dtype,
                                              device=u.device, normals=self.mom)
+
+    def block(self, grid) -> "Draws":
+        """This rank's block of global draws (the pseudofermion's lattice axes lead)."""
+        return Draws(tuple(grid.block(m, lead=1).contiguous() for m in self.mom),
+                     None if self.xi is None else tuple(grid.block(x).contiguous()
+                                                        for x in self.xi), self.uniform)
+
+
+def grid_refusal(fermi_action, smearing=None) -> Optional[str]:
+    """What of an HMC has no multi-process form yet (ROADMAP A14b), or None: the slice
+    that runs on a process grid is quenched and two-flavour Wilson HMC at csw = 0,
+    r = 1, without Hasenbusch and without smearing."""
+    if smearing is not None:
+        return "stout smearing"
+    if fermi_action is None:
+        return None
+    if type(fermi_action) is not WilsonFermiAction:
+        return f"the fermion action {type(fermi_action).__name__}"
+    if fermi_action.dirac.csw != 0.0:
+        return "clover-improved Wilson fermions"
+    if fermi_action.dirac.r != 1.0:
+        return f"Wilson fermions at r = {fermi_action.dirac.r}"
+    return None
 
 
 @dataclass(frozen=True)
@@ -121,6 +161,9 @@ class HMC:
             raise ValueError(f"md_precision must be auto/plain/mixed, got {self.md_precision!r}")
         if self.scheme not in ("QPQ", "PQP", "Omelyan"):
             raise ValueError(f"unknown MD scheme {self.scheme!r}")
+        what = grid_refusal(self.fermi_action, self.smearing)
+        if what is not None:
+            mesh.refuse_under_grid(what)
 
     def _smear(self, u):
         return u if self.smearing is None else self.smearing.smear(u)
@@ -140,6 +183,9 @@ class HMC:
         self._validate()
         if draws is None:
             draws = Draws.sample(self, u, generator)
+        grid = mesh.sharded()
+        if grid is not None:
+            draws = draws.block(grid)
         h = draws.momentum(u)
         cg_log: list = []
         # every force sees the MD state in the production dtype
@@ -235,6 +281,7 @@ class HMC:
         others run) and its own Metropolis decision. Each entry of stats but
         ``cg`` is a CPU tensor with a leading chain axis; ``cg`` holds one record
         per batched solve, with ``rhs`` the number of chains."""
+        mesh.refuse_under_grid("HMC.step_batched")
         self._validate()
         if us.ndim != 8:
             raise ValueError(f"us must be [nchain, 4, X, Y, Z, T, NC, NC], got shape "

@@ -49,6 +49,7 @@ from latticeqcd_torch.ops.dirac import eo_pack
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
 from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
 from latticeqcd_torch.ops.wilsonline import Wilsonline, make_loops_fromname
+from latticeqcd_torch.parallel import mesh
 from latticeqcd_torch.updates.heatbath import GeneratorUniforms, Heatbath
 from latticeqcd_torch.updates.hmc import Draws
 
@@ -212,6 +213,7 @@ class SLHMC:
     def step(self, u: torch.Tensor, generator: Optional[torch.Generator] = None,
              draws: Optional[Draws] = None):
         """One trajectory: (U, generator or draws) -> (U', stats)."""
+        mesh.refuse_under_grid(f"{type(self).__name__}")
         if draws is None:
             draws = Draws.sample(self, u, generator)
         u0 = u
@@ -307,6 +309,7 @@ class SLMC:
              uniforms=None, uniform: Optional[float] = None):
         """nsweeps proposal sweeps and the Metropolis test: (U, generator, or
         the sweeps' uniforms and the Metropolis uniform) -> (U', stats)."""
+        mesh.refuse_under_grid(f"{type(self).__name__}")
         rdtype = sun.real_dtype(u.dtype)
         coeffs = torch.as_tensor(self.beta_eff, dtype=rdtype, device=u.device)
         sg_old, seff_old, feats_old = self._values(u, coeffs)

@@ -1,0 +1,327 @@
+"""The port's 4D process grid (latticeqcd_torch/parallel/mesh.py) on the CPU.
+
+Each grid runs as a group of gloo processes (one torch thread each,
+joined under a timeout so that a hang fails): the sharded roll against
+torch.roll of the global field, bit for bit, forward and backward, along
+every axis and across several at once; the shard and gather round trip;
+the boundary phases; the global sum, bitwise the same on every rank.
+Without processes: default_pes pinned to the JAX function, the grid's
+local extents and neighbours, odd local extents refused, and every path
+outside the slice refusing under a grid (ROADMAP A14b) before any draw
+or message.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from latticeqcd_torch.parallel import mesh  # noqa: E402
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(TESTS)
+GRIDS = [(1, 1, 1, 2), (1, 1, 2, 2), (2, 1, 1, 2)]
+GRID_IDS = ["t2", "z2t2", "x2t2"]
+LAT = (4, 4, 4, 8)
+JOIN_TIMEOUT_S = 120
+
+
+# ------------------------------------------------------------- rank groups
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(module: str, case: str, pes, outdir, *args):
+    """Run ``module``.``case``(grid, outdir, *args) on one gloo process per block of
+    the grid pes over LAT's lattice (as passed in args[0] if given), one torch thread
+    each; returns each rank's saved npz as a dict. Fails if a rank fails or the
+    group does not finish within JOIN_TIMEOUT_S."""
+    nprocs = int(np.prod(pes))
+    port = _free_port()
+    code = (f"import sys; sys.path[:0] = [{TESTS!r}, {ROOT!r}]; import {module} as m; "
+            f"m._rank_main(sys.argv[1:])")
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", code, case, str(rank), str(port),
+                               ",".join(map(str, pes)), str(outdir), *map(str, args)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, cwd=ROOT,
+                              text=True) for rank in range(nprocs)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=JOIN_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank} of {pes} failed:\n{out}\n{err[-4000:]}"
+    return [dict(np.load(os.path.join(outdir, f"rank{rank}.npz"))) for rank in range(nprocs)]
+
+
+def rank_main(argv, cases, lattice=LAT):
+    """A rank of a group: join the gloo group, run cases[case](grid, *args) under
+    the grid on the CPU, save what it returns (a dict of arrays) as rank<r>.npz."""
+    case, rank, port, pes, outdir, *args = argv
+    torch.set_num_threads(1)
+    pes = tuple(int(p) for p in pes.split(","))
+    mesh.init_process_grid("gloo", f"127.0.0.1:{port}", int(np.prod(pes)), int(rank),
+                           timeout_s=JOIN_TIMEOUT_S)
+    try:
+        grid = mesh.make_process_grid(pes, lattice, "cpu")
+        with mesh.use_grid(grid):
+            out = cases[case](grid, *args)
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+    finally:
+        mesh.close_process_grid()
+
+
+# --------------------------------------------------------------- the cases
+
+SHIFTS = (1, -1, 2, -2)
+MULTI = [((1, -2), (0, 3)), ((-1, 1, 2), (1, 2, 3)), ((2, -1), (3, 0)), ((3, 5), (3, 2))]
+
+
+def _globals():
+    rng = np.random.default_rng(5)
+    f = rng.standard_normal(LAT + (4, 3)) + 1j * rng.standard_normal(LAT + (4, 3))
+    w = rng.standard_normal(LAT + (4, 3))
+    packed = rng.standard_normal((LAT[0] // 2,) + LAT[1:] + (4, 3))
+    return torch.from_numpy(f), torch.from_numpy(w), torch.from_numpy(packed)
+
+
+def _case_fields(grid):
+    from latticeqcd_torch.ops import fields, rolls
+    from latticeqcd_torch.ops.dirac.wilson import apply_boundary_phases
+
+    f, w, packed = _globals()
+    out = {}
+    for mu in range(4):
+        ok_f = ok_b = True
+        for s in SHIFTS:
+            ok_f &= torch.equal(rolls.roll(grid.block(f), s, mu), grid.block(torch.roll(f, s, mu)))
+            x = grid.block(w).clone().requires_grad_(True)
+            wb = grid.block(torch.roll(w, 3 * s, 2))  # a cotangent that differs per site
+            (g,) = torch.autograd.grad(torch.sum(rolls.roll(x, s, mu) * wb), x)
+            ok_b &= torch.equal(g, grid.block(torch.roll(torch.roll(w, 3 * s, 2), -s, mu)))
+        out[f"roll{mu}"], out[f"roll_backward{mu}"] = ok_f, ok_b
+    out["multi"] = all(torch.equal(rolls.roll(grid.block(f), s, a),
+                                   grid.block(torch.roll(f, s, a))) for s, a in MULTI)
+    x = grid.block(w).clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(torch.sum(rolls.roll(x, (1, -2), (0, 3)) * grid.block(w)), x)
+    out["multi_backward"] = torch.equal(g, grid.block(torch.roll(w, (2, -1), (3, 0))))
+    out["packed_x"] = all(torch.equal(rolls.roll(grid.block(packed), s, 0),
+                                      grid.block(torch.roll(packed, s, 0))) for s in SHIFTS)
+    u = fields.hot_start(LAT, 3, seed=9, device="cpu")  # this rank's block
+    with mesh.use_grid(None):
+        u_global = fields.hot_start(LAT, 3, seed=9, device="cpu")
+        phased_global = apply_boundary_phases(u_global)
+    out["hot_start_block"] = torch.equal(u, grid.block(u_global, lead=1))
+    gathered = mesh.to_host_global(u, lead=1)
+    out["gather_rank0"] = (gathered is None) if grid.rank else np.array_equal(gathered,
+                                                                              u_global.numpy())
+    out["gather_all"] = np.array_equal(mesh.to_host_global(u, lead=1, all_ranks=True),
+                                       u_global.numpy())
+    out["shard_links"] = torch.equal(mesh.shard_links(u_global), u)
+    out["phases"] = torch.equal(apply_boundary_phases(u), grid.block(phased_global, lead=1))
+    partial = torch.tensor(0.1 * (grid.rank + 1) + 1e-17 * grid.rank, dtype=torch.float64)
+    total = mesh.global_sum(partial)
+    out["sum"] = total.numpy()
+    out["sum_complex"] = mesh.global_sum(torch.sum(grid.block(f))).numpy()
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+CASES = {"fields": _case_fields}
+
+
+def _rank_main(argv):
+    rank_main(argv, CASES)
+
+
+@pytest.fixture(scope="module", params=GRIDS, ids=GRID_IDS)
+def fields_group(request, tmp_path_factory):
+    out = tmp_path_factory.mktemp("grid_fields")
+    return request.param, run_ranks("test_torch_grid", "fields", request.param, out)
+
+
+# ------------------------------------------------------------------- tests
+
+
+@pytest.mark.parametrize("mu", range(4), ids=list("xyzt"))
+def test_sharded_roll_is_torch_roll(fields_group, mu):
+    """rolls.roll of a block is the block of torch.roll of the global field, bit for bit,
+    for shifts +-1 and +-2, and its backward is the opposite roll."""
+    pes, ranks = fields_group
+    for r, res in enumerate(ranks):
+        assert res[f"roll{mu}"], (pes, r)
+        assert res[f"roll_backward{mu}"], (pes, r)
+
+
+def test_sharded_roll_multi_axis_and_packed(fields_group):
+    """Multi-axis shifts (axis by axis, a shift longer than a block included) and the
+    packed x' axis, bit for bit; the multi-axis backward is the opposite roll."""
+    pes, ranks = fields_group
+    for res in ranks:
+        assert res["multi"] and res["multi_backward"] and res["packed_x"], pes
+
+
+def test_shard_and_gather_round_trip(fields_group):
+    """hot_start under the grid is the block of the global start; gathering the blocks
+    gives the global links back bit for bit, on rank 0 and on every rank."""
+    pes, ranks = fields_group
+    for res in ranks:
+        assert res["hot_start_block"] and res["shard_links"], pes
+        assert res["gather_rank0"] and res["gather_all"], pes
+
+
+def test_boundary_phases_match_single_process(fields_group):
+    pes, ranks = fields_group
+    for res in ranks:
+        assert res["phases"], pes
+
+
+def test_global_sum_is_bitwise_the_same_on_every_rank(fields_group):
+    pes, ranks = fields_group
+    n = len(ranks)
+    want = sum(0.1 * (r + 1) + 1e-17 * r for r in range(n))
+    assert abs(float(ranks[0]["sum"]) - want) < 1e-15
+    f = _globals()[0]
+    assert abs(complex(ranks[0]["sum_complex"]) - complex(torch.sum(f))) < 1e-12
+    for res in ranks[1:]:
+        assert res["sum"].tobytes() == ranks[0]["sum"].tobytes()
+        assert res["sum_complex"].tobytes() == ranks[0]["sum_complex"].tobytes()
+
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_default_pes_matches_jax(n):
+    from latticeqcd_tpu.parallel.mesh import default_pes as jax_default_pes
+
+    assert mesh.default_pes(n) == jax_default_pes(n)
+
+
+@pytest.mark.parametrize("pes,local,coords,neighbours", [
+    ((1, 1, 1, 2), (4, 4, 4, 4), (0, 0, 0, 1), {3: (0, 0)}),
+    ((1, 1, 2, 2), (4, 4, 2, 4), (0, 0, 1, 1), {2: (1, 1), 3: (2, 2)}),
+    ((2, 1, 1, 2), (2, 4, 4, 4), (1, 0, 0, 1), {0: (1, 1), 3: (2, 2)}),
+], ids=GRID_IDS)
+def test_local_extents_and_neighbours(pes, local, coords, neighbours):
+    """The last rank of each grid over 4x4x4x8: its extents, coordinates (t fastest, as
+    the JAX mesh orders its devices), origin and its neighbours (-mu, +mu)."""
+    grid = mesh.ProcessGrid(pes, LAT, rank=int(np.prod(pes)) - 1)
+    assert grid.local == local and grid.coords == coords
+    assert grid.origin == tuple(c * n for c, n in zip(coords, local))
+    assert grid.partitioned == tuple(sorted(neighbours))
+    for mu, (lo, hi) in neighbours.items():
+        assert (grid.neighbour(mu, -1), grid.neighbour(mu, +1)) == (lo, hi)
+    assert all(grid.holds_last(mu) for mu in range(4))
+    assert mesh.ProcessGrid(pes, LAT, rank=0).holds_last(3) is False
+
+
+@pytest.mark.parametrize("pes,lattice", [((1, 1, 1, 2), (4, 4, 4, 6)), ((2, 1, 1, 1), (6, 4, 4, 4)),
+                                         ((1, 1, 2, 1), (4, 4, 2, 4)), ((1, 1, 1, 3), (4, 4, 4, 8))])
+def test_odd_or_ragged_local_extents_refused(pes, lattice):
+    with pytest.raises(ValueError, match="even|divide"):
+        mesh.ProcessGrid(pes, lattice)
+
+
+# ----------------------------------------------------------------- refusals
+
+
+def _refusal_cases():
+    """name -> a callable that must raise NotImplementedError naming A14b under a grid."""
+    from latticeqcd_torch.measurements.scheduler import MeasurementSet
+    from latticeqcd_torch.ops import fields, gauge_action as ga
+    from latticeqcd_torch.ops.dirac import staggered_kernel, wilson_window_kernel
+    from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
+    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import (DomainwallFermiAction,
+                                                     HasenbuschWilsonFermiAction,
+                                                     StaggeredFermiAction, WilsonFermiAction)
+    from latticeqcd_torch.smearing.stout import stout_stack
+    from latticeqcd_torch.system.params import Params
+    from latticeqcd_torch.system.universe import check_supported
+    from latticeqcd_torch.updates.fileloading import GivenConfigurations
+    from latticeqcd_torch.updates.heatbath import Heatbath
+    from latticeqcd_torch.updates.hmc import HMC
+    from latticeqcd_torch.updates.slhmc import SLHMC, SLMC, integrated_hb, integrated_hmc
+
+    act = ga.wilson_gauge_action(3, 6.0)
+    local = (4, 4, 4, 4)
+    gen = torch.Generator().manual_seed(1)
+    u = lambda: fields.cold_start(local, 3, device="cpu")  # noqa: E731
+    hmc = lambda fa=None, **kw: HMC(action=act, dtau=0.1, md_steps=2, fermi_action=fa, **kw)  # noqa: E731
+    wilson = WilsonDirac(kappa=0.12)
+    meas = lambda name: MeasurementSet.from_methods([{"methodname": name}]).measurements[0]  # noqa: E731
+
+    def toml(**kw):
+        base = dict(L=(4, 4, 4, 8), NC=3, beta=6.0, update_method="HMC", quench=False,
+                    Dirac_operator="Wilson")
+        base.update(kw)
+        return lambda: check_supported(Params(**base), "cpu")
+
+    return {
+        "staggered HMC": lambda: hmc(StaggeredFermiAction(StaggeredDirac(0.5, local), nf=4)).step(u(), gen),
+        "clover HMC": lambda: hmc(WilsonFermiAction(WilsonDirac(0.12, csw=1.0))).step(u(), gen),
+        "Hasenbusch HMC": lambda: hmc(HasenbuschWilsonFermiAction(wilson, mu=0.5)).step(u(), gen),
+        "domain-wall HMC": lambda: hmc(DomainwallFermiAction(DomainwallDirac(0.1, -1.8, 4))).step(u(), gen),
+        "stout HMC": lambda: hmc(WilsonFermiAction(wilson), smearing=stout_stack((0.1,))).step(u(), gen),
+        "step_batched": lambda: hmc().step_batched(u()[None], [gen]),
+        "heatbath": lambda: Heatbath(action=act).step(u(), gen),
+        "overrelaxation": lambda: Heatbath(action=act).overrelax(u()),
+        "SLHMC": lambda: SLHMC(act, 0.1, 2).step(u(), gen),
+        "SLMC": lambda: SLMC(act).step(u(), gen),
+        "IntegratedHMC": lambda: integrated_hmc(act, 0.1, 2).step(u(), gen),
+        "IntegratedHB": lambda: integrated_hb(act).step(u(), gen),
+        "Fileloading": lambda: GivenConfigurations("NPZ", ".", local, 3, ["x.npz"]).step(u()),
+        "Chiral_condensate": lambda: meas("Chiral_condensate").measure(u(), 1),
+        "Pion_correlator": lambda: meas("Pion_correlator").measure(u(), 1),
+        "Dirac_spectrum": lambda: meas("Dirac_spectrum").measure(u(), 1),
+        "full Wilson D": lambda: wilson.apply(u(), torch.zeros(local + (4, 3), dtype=torch.complex128)),
+        "wilson_window": lambda: wilson_window_kernel.wilson_window(
+            u(), torch.zeros(local + (4, 3), dtype=torch.complex128), 0.12),
+        "staggered_w": lambda: staggered_kernel.staggered_w(
+            u()[:, :2], u()[:, :2], torch.zeros((2, 4, 4, 4, 3), dtype=torch.complex128), 0.5),
+        "TOML staggered": toml(Dirac_operator="Staggered"),
+        "TOML clover": toml(Dirac_operator="WilsonClover"),
+        "TOML Hasenbusch": toml(hasenbusch=True),
+        "TOML stout": toml(smearing_for_fermion="stout"),
+        "TOML heatbath": toml(update_method="Heatbath", quench=True),
+        "TOML fermionic measurement": toml(measurement_methods=[{"methodname": "Pion_correlator"}]),
+    }
+
+
+REFUSALS = [
+    "staggered HMC", "clover HMC", "Hasenbusch HMC", "domain-wall HMC", "stout HMC",
+    "step_batched", "heatbath", "overrelaxation", "SLHMC", "SLMC", "IntegratedHMC",
+    "IntegratedHB", "Fileloading", "Chiral_condensate", "Pion_correlator", "Dirac_spectrum",
+    "full Wilson D", "wilson_window", "staggered_w", "TOML staggered", "TOML clover",
+    "TOML Hasenbusch", "TOML stout", "TOML heatbath", "TOML fermionic measurement"]
+
+
+@pytest.mark.parametrize("what", REFUSALS)
+def test_outside_the_slice_refused_under_a_grid(what):
+    """Under a two-process grid, each path outside the slice raises NotImplementedError
+    naming ROADMAP A14b before any message or draw: no torch.distributed call is made
+    (each one raises here) and the generator has drawn nothing."""
+    cases = _refusal_cases()
+    grid = mesh.ProcessGrid((1, 1, 1, 2), (4, 4, 4, 8), rank=0)
+    forbidden = mock.Mock(side_effect=AssertionError("a message before the refusal"))
+    with mesh.use_grid(grid), \
+            mock.patch.multiple(torch.distributed, batch_isend_irecv=forbidden,
+                                all_reduce=forbidden, all_gather=forbidden), \
+            mock.patch.object(torch, "randn", side_effect=AssertionError("a draw")), \
+            mock.patch.object(torch, "rand", side_effect=AssertionError("a draw")):
+        with pytest.raises(NotImplementedError, match="A14b"):
+            cases[what]()
+    assert set(REFUSALS) == set(cases)

@@ -1,0 +1,210 @@
+"""The communication of the port's process grid, counted (the gloo counterpart of
+tests/test_collective_audit.py).
+
+A group of 4 gloo processes on the grid (1, 1, 2, 2) over 4x4x4x8 (two cut
+axes, z and t) runs with torch.distributed's calls wrapped by a counting
+communicator: every point-to-point message (its peer and its number of
+elements), every all-reduce, all-gather and gather. The pins:
+
+* a packed Wilson hop sends exactly 2 spinor face messages per cut axis;
+  the backward links' faces go once per link tensor (2 per cut axis for a
+  Dhat on fresh packed links, none on the next);
+* a CG iteration adds 4 hops' face messages and scalar all-reduces only;
+* a whole Wilson trajectory sends no message of a field's size and has no
+  gather; its all-reduces are scalar;
+* Savedata's gather of the links to rank 0 is the only field-sized traffic.
+"""
+
+import os
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+torch.set_num_threads(1)
+
+from latticeqcd_torch.parallel import mesh  # noqa: E402
+from test_torch_grid import rank_main, run_ranks  # noqa: E402
+
+PES = (1, 1, 2, 2)
+LAT = (4, 4, 4, 8)
+LOCAL = (4, 4, 2, 4)
+NPROCS = 4
+
+
+class CountingCommunicator:
+    """Wraps torch.distributed's calls and records them, per phase."""
+
+    def __init__(self):
+        self.phase = "setup"
+        self.log = Counter()
+        real_batch, real_reduce = dist.batch_isend_irecv, dist.all_reduce
+        real_gather, real_allgather = dist.gather, dist.all_gather
+
+        def batch(ops):
+            for op in ops:
+                kind = "send" if op.op is dist.isend else "recv"
+                self._count(f"{kind}:{op.tensor.numel()}:{op.peer}")
+            return real_batch(ops)
+
+        def reduce(t, *a, **k):
+            self._count(f"all_reduce:{t.numel()}")
+            return real_reduce(t, *a, **k)
+
+        def gather(*a, **k):
+            self._count("gather")
+            return real_gather(*a, **k)
+
+        def all_gather(out, t, *a, **k):
+            self._count(f"all_gather:{t.numel()}")
+            return real_allgather(out, t, *a, **k)
+
+        dist.batch_isend_irecv, dist.all_reduce = batch, reduce
+        dist.gather, dist.all_gather = gather, all_gather
+
+    def _count(self, key):
+        self.log[(self.phase, key)] += 1
+
+    def events(self, phase):
+        return {k: n for (p, k), n in self.log.items() if p == phase}
+
+
+def _case_audit(grid, savedir):
+    from latticeqcd_torch.ops import fields, solvers
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, apply_boundary_phases
+    from latticeqcd_torch.system.lqcd import Savedata
+    from latticeqcd_torch.updates.hmc import HMC
+    from latticeqcd_torch.utils.logger import VerbosePrint
+    from test_torch_grid_hmc import _hmc
+
+    comm = CountingCommunicator()
+    d = WilsonDirac(kappa=0.141139)
+    u = fields.hot_start(LAT, 3, seed=3, device="cpu")
+    ueo = d.packed_links(apply_boundary_phases(u))
+    gen = torch.Generator().manual_seed(4)
+    shape = (LOCAL[0] // 2,) + LOCAL[1:] + (4, 3)
+    x = torch.complex(*(mesh.randn_block(shape, 0, gen, torch.float64, "cpu") for _ in range(2)))
+    out = {}
+    for phase in ("dhat_fresh", "dhat_again"):
+        comm.phase = phase
+        d.apply_dhat(ueo, x)
+    for n in (3, 4):
+        comm.phase = f"cg{n}"
+        solvers.cg(lambda v: d.apply_dhat_ddag(ueo, v), x, eps=1e-300, maxiter=n)
+    comm.phase = "trajectory"
+    hmc = _hmc(True)
+    u_new, st = HMC(action=hmc.action, dtau=0.1, md_steps=2,
+                    fermi_action=hmc.fermi_action).step(u, gen)
+    comm.phase = "save"
+    Savedata("NPZ", savedir, 1, "HMC", VerbosePrint(level=0, myid=grid.rank)).save(u_new, 1, gen)
+    for phase in ("dhat_fresh", "dhat_again", "cg3", "cg4", "trajectory", "save"):
+        events = comm.events(phase)
+        out[phase] = np.array(sorted(f"{k}={n}" for k, n in events.items()))
+    return out
+
+
+def _rank_main(argv):
+    rank_main(argv, {"audit": _case_audit})
+
+
+@pytest.fixture(scope="module")
+def audit(tmp_path_factory):
+    out = tmp_path_factory.mktemp("grid_audit")
+    save = tmp_path_factory.mktemp("grid_audit_save")
+    ranks = run_ranks("test_torch_grid_audit", "audit", PES, out, save)
+    parsed = []
+    for res in ranks:
+        parsed.append({phase: Counter({k: int(n) for k, n in (e.rsplit("=", 1)
+                                                              for e in res[phase])})
+                       for phase in ("dhat_fresh", "dhat_again", "cg3", "cg4", "trajectory", "save")})
+    return parsed, save
+
+
+def _sends(events):
+    """{(number of elements, peer): count} of the messages sent."""
+    out = Counter()
+    for key, n in events.items():
+        kind, *rest = key.split(":")
+        if kind == "send":
+            out[(int(rest[0]), int(rest[1]))] += n
+    return out
+
+
+def _face(mu, site_elems):
+    """Elements of a packed face along mu (X/2 local) of a field with site_elems per site."""
+    packed = (LOCAL[0] // 2,) + LOCAL[1:]
+    return int(np.prod(packed)) // packed[mu] * site_elems
+
+
+def _neighbours(rank):
+    grid = mesh.ProcessGrid(PES, LAT, rank=rank)
+    return {mu: (grid.neighbour(mu, -1), grid.neighbour(mu, +1)) for mu in grid.partitioned}
+
+
+def test_packed_hop_sends_two_spinor_faces_per_cut_axis(audit):
+    """A Dhat is two packed hops: 2 spinor face messages per cut axis each (to the +mu
+    neighbour its last slab, to the -mu neighbour its first), and on fresh packed links
+    one link face per link tensor and cut axis (u_e and u_o), none on the same links again."""
+    ranks, _ = audit
+    for rank, res in enumerate(ranks):
+        want_again, want_fresh = Counter(), Counter()
+        for mu, (lo, hi) in _neighbours(rank).items():
+            spinor = _face(mu, 12)
+            want_again[(spinor, hi)] += 2  # one per hop
+            want_again[(spinor, lo)] += 2
+            want_fresh[(_face(mu, 9), hi)] += 2  # u_e's and u_o's link faces
+        want_fresh.update(want_again)
+        assert _sends(res["dhat_again"]) == want_again, rank
+        assert _sends(res["dhat_fresh"]) == want_fresh, rank
+        for phase in ("dhat_fresh", "dhat_again"):
+            assert not [k for k in res[phase] if not k.startswith(("send", "recv"))], rank
+
+
+def test_cg_iteration_adds_face_messages_and_scalar_all_reduces(audit):
+    """One more CG iteration: 4 hops' face messages (2 per cut axis each) and two scalar
+    all-reduces (p.Ap and |r|^2, one complex slot per rank), nothing else."""
+    ranks, _ = audit
+    for rank, res in enumerate(ranks):
+        extra = res["cg4"] - res["cg3"]
+        want = Counter()
+        for mu, (lo, hi) in _neighbours(rank).items():
+            want[f"send:{_face(mu, 12)}:{hi}"] += 4
+            want[f"send:{_face(mu, 12)}:{lo}"] += 4
+            want[f"recv:{_face(mu, 12)}:{hi}"] += 4
+            want[f"recv:{_face(mu, 12)}:{lo}"] += 4
+        want[f"all_reduce:{2 * NPROCS}"] += 2
+        assert extra == want, (rank, extra)
+
+
+def test_trajectory_has_no_field_sized_traffic(audit):
+    """A Wilson trajectory: every message at most one slab of a 3x3 link field (the
+    sharded rolls of the gauge force, the faces of the hops), no gather, and all-reduces
+    of one slot per rank (re and im) only."""
+    ranks, _ = audit
+    slab = int(np.prod(LOCAL)) // min(LOCAL) * 9
+    for rank, res in enumerate(ranks):
+        events = res["trajectory"]
+        assert events, rank
+        for key in events:
+            kind, *rest = key.split(":")
+            assert kind in ("send", "recv", "all_reduce"), key
+            if kind == "all_reduce":
+                assert int(rest[0]) <= 2 * NPROCS, key
+            else:
+                assert int(rest[0]) <= slab, key
+
+
+def test_savedata_gather_is_the_only_field_traffic(audit):
+    """Savedata gathers the links to rank 0: one block-sized message from each other
+    rank, and rank 0 writes the file and the checkpoint."""
+    ranks, save = audit
+    block = 4 * int(np.prod(LOCAL)) * 9
+    for rank, res in enumerate(ranks):
+        if rank == 0:
+            assert res["save"] == Counter({f"recv:{block}:{r}": 1 for r in range(1, NPROCS)})
+        else:
+            assert res["save"] == Counter({f"send:{block}:0": 1}), rank
+    assert sorted(os.listdir(save)) == ["checkpoint.npz", "conf_00000001.npz"]
+    assert np.load(os.path.join(save, "conf_00000001.npz"))["u"].shape == (4,) + LAT + (3, 3)

@@ -9,8 +9,12 @@ at shapes where the brick wraps onto itself or does not divide the
 lattice: X/2 = 1, extent-2 y and T (and every extent 2 at once),
 extents 6 and 10, t cut into segments; and with a chain axis of two
 lattices with different links (the grid's y axis), each chain against its
-own plain hop. On the card the kernel itself is
-checked by the ``gpu`` test in test_torch_wilson.py and by chip_smoke.py.
+own plain hop; and in its halo mode (a block of a process grid): a global
+lattice cut in two along each axis (and along x and t at once), each
+block's hop with the face buffers built from the global field against
+the block of the global plain hop and against the plain halo hop. On the
+card the kernel itself is checked by the ``gpu`` tests in
+test_torch_wilson.py and test_torch_grid_hmc.py and by chip_smoke.py.
 """
 
 import functools
@@ -66,7 +70,8 @@ inline void mbar_wait(uint64_t*, unsigned) { block_barrier->arrive_and_wait(); }
 inline void prefetch_l2(const void*, unsigned) {}
 """
 # run<R, BY, BZ, TSMAX, MINB>: the launch function's grid and block for nchain chains, one
-# block at a time
+# block at a time; with a partition mask, the halo mode of one lattice block, its face
+# buffers read after the fields (lo, hi and link of each cut axis in turn)
 _HARNESS = """
 #include <cstdio>
 #include <cstdlib>
@@ -75,13 +80,27 @@ _HARNESS = """
 #include "body.inc"
 namespace { alignas(16) unsigned char smem[1 << 20]; }
 template <typename R, int BY, int BZ, int TSMAX, int MINB>
-int run(int x2, int ly, int lz, int lt, int parity, int nchain) {
+int run(int x2, int ly, int lz, int lt, int parity, int nchain, int mask) {
   using V = typename Vec<R>::type;
   const long vol = (long)x2 * ly * lz * lt;
   std::vector<V> ut(36 * vol * nchain), us(36 * vol * nchain), psi(12 * vol * nchain),
       out(12 * vol * nchain);
   for (auto* f : {&ut, &us, &psi})
     if (fread(f->data(), sizeof(V), f->size(), stdin) != f->size()) return 1;
+  const int ext[4] = {x2, ly, lz, lt};
+  std::vector<V> faces[12];
+  Halo<V> halo{mask, {}, {}, {}};
+  for (int mu = 0; mu < 4; ++mu) {
+    if (!(mask >> mu & 1)) continue;
+    for (int k = 0; k < 3; ++k) {
+      auto& f = faces[4 * k + mu];
+      f.resize((k == 2 ? 9 : 12) * vol / ext[mu]);
+      if (fread(f.data(), sizeof(V), f.size(), stdin) != f.size()) return 1;
+    }
+    halo.lo[mu] = faces[mu].data();
+    halo.hi[mu] = faces[4 + mu].data();
+    halo.link[mu] = faces[8 + mu].data();
+  }
   std::memset(out.data(), 0xff, out.size() * sizeof(V));  // a site never written shows as NaN
   const int nts = (lt + TSMAX - 1) / TSMAX, ts = ((lt + nts - 1) / nts + 1) / 2 * 2;
   const int blocks = x2 * ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * ((lt + ts - 1) / ts);
@@ -96,11 +115,13 @@ int run(int x2, int ly, int lz, int lt, int parity, int nchain) {
       th.emplace_back([&, tid] {
         threadIdx = dim3{(unsigned)tid, 1, 1};
         blockIdx = dim3{(unsigned)b, (unsigned)c, 0};
-        // the launch function's choice: the kernel without the chain offsets for one chain
-        auto kernel = nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false>
-                                  : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true>;
+        // the launch function's choice: the halo mode for a mask, else the kernel without the
+        // chain offsets for one chain
+        auto kernel = mask ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, true>
+                      : nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, false>
+                                    : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true, false>;
         kernel(ut.data(), us.data(), psi.data(), out.data(), x2, ly, lz, lt, ts, parity, 36 * vol,
-               12 * vol);
+               12 * vol, halo);
       });
     for (auto& t : th) t.join();
   }
@@ -110,13 +131,13 @@ int run(int x2, int ly, int lz, int lt, int parity, int nchain) {
 int main(int argc, char** argv) {
   const int x2 = atoi(argv[1]), ly = atoi(argv[2]), lz = atoi(argv[3]), lt = atoi(argv[4]);
   const int parity = atoi(argv[5]), c128 = atoi(argv[6]), brick = atoi(argv[7]);
-  const int nchain = atoi(argv[8]);
+  const int nchain = atoi(argv[8]), mask = argc > 9 ? atoi(argv[9]) : 0;
   if (brick == 0)  // the bricks of the C entry points
-    return c128 ? run<double, WILSON_BRICK_C128>(x2, ly, lz, lt, parity, nchain)
-                : run<float, WILSON_BRICK_C64>(x2, ly, lz, lt, parity, nchain);
+    return c128 ? run<double, WILSON_BRICK_C128>(x2, ly, lz, lt, parity, nchain, mask)
+                : run<float, WILSON_BRICK_C64>(x2, ly, lz, lt, parity, nchain, mask);
   // 4 x 4 bricks and t segments of at most 4 sites
-  return c128 ? run<double, 4, 4, 4, 1>(x2, ly, lz, lt, parity, nchain)
-              : run<float, 4, 4, 4, 1>(x2, ly, lz, lt, parity, nchain);
+  return c128 ? run<double, 4, 4, 4, 1>(x2, ly, lz, lt, parity, nchain, mask)
+              : run<float, 4, 4, 4, 1>(x2, ly, lz, lt, parity, nchain, mask);
 }
 """
 BRICKS = ["entry", "ragged"]
@@ -193,3 +214,104 @@ def test_brick_kernel_body_with_a_chain_axis(brick_body_exe, lat, dtype, brick):
         # the chain-axis plain version is the per-chain one
         assert np.array_equal(to_numpy(wk.hop_packed_reference(u_t, u_s, x, parity))[1],
                               to_numpy(wk.hop_packed_reference(u_t[1], u_s[1], x[1], parity)))
+
+
+# global lattices cut in two along each axis: every local extent even; (4, 8, 12, 4) gives X/2 = 1
+# and local z = 6 (not a multiple of the ragged brick's 4) when cut along x or z
+HALO_LATTICES = [(8, 4, 4, 8), (4, 8, 12, 4)]
+HALO_CUTS = {"x": (2, 1, 1, 1), "y": (1, 2, 1, 1), "z": (1, 1, 2, 1), "t": (1, 1, 1, 2),
+             "xt": (2, 1, 1, 2)}
+
+
+def block_faces(grid, psi, u_s):
+    """A block's face buffers, built from the global packed field psi and links u_s as
+    the exchange builds them: {mu: (lo, hi)} (the -mu neighbour's last and the +mu
+    neighbour's first slab of psi, axis mu removed) and {mu: the -mu neighbour's last
+    slab of u_s[mu]}."""
+    local = [n // p for n, p in zip(psi.shape[:4], grid.pes)]
+
+    def cut(f, mu, at):  # the slab at global index `at` along mu, the block's along the others
+        return f[tuple(at if d == mu else slice(c * n, (c + 1) * n)
+                       for d, (c, n) in enumerate(zip(grid.coords, local)))].contiguous()
+
+    faces, links = {}, {}
+    for mu in grid.partitioned:
+        lo = (grid.coords[mu] * local[mu] - 1) % psi.shape[mu]
+        hi = ((grid.coords[mu] + 1) * local[mu]) % psi.shape[mu]
+        faces[mu] = (cut(psi, mu, lo), cut(psi, mu, hi))
+        links[mu] = cut(u_s[mu], mu, lo)
+    return faces, links
+
+
+@pytest.mark.parametrize("brick", BRICKS)
+@pytest.mark.parametrize("cut", list(HALO_CUTS))
+@pytest.mark.parametrize("lat", HALO_LATTICES, ids=["8x4x4x8", "4x8x12x4"])
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_brick_kernel_body_halo_mode(brick_body_exe, lat, dtype, cut, brick):
+    """The kernel's halo mode, thread by thread, on every block of a global lattice cut
+    along one axis (or x and t), both target parities: each block's output against the
+    block of the plain hop of the global field and against the plain halo hop."""
+    from latticeqcd_torch.parallel import mesh
+
+    tdt = getattr(torch, dtype)
+    bar = 1e-12 if dtype == "complex128" else 1e-5
+    u = tw.apply_boundary_phases(to_torch(np.asarray(jfields.hot_start(lat, 3, seed=sum(lat)))))
+    u_e, u_o = (f.to(tdt) for f in eo_pack.pack_links(u, lat))
+    half = (lat[0] // 2,) + lat[1:]
+    x = torch.randn(half + (4, 3), dtype=tdt, generator=torch.Generator().manual_seed(7))
+    pes = HALO_CUTS[cut]
+    for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
+        ref = wk.hop_packed_reference(u_t, u_s, x, parity)
+        for rank in range(int(np.prod(pes))):
+            grid = mesh.ProcessGrid(pes, lat, rank=rank)
+            faces, links = block_faces(grid, x, u_s)
+            mask = sum(1 << mu for mu in faces)
+            blocks = [grid.block(f, lead=1).contiguous() for f in (u_t, u_s)] + [
+                grid.block(x).contiguous()]
+            data = [to_numpy(f).tobytes() for f in blocks]
+            for mu in sorted(faces):
+                data += [to_numpy(f).tobytes() for f in (*faces[mu], links[mu])]
+            out = subprocess.run(
+                [brick_body_exe, *map(str, blocks[2].shape[:4]), str(parity),
+                 str(int(dtype == "complex128")), str(BRICKS.index(brick)), "1", str(mask)],
+                input=b"".join(data), capture_output=True, check=True)
+            got = np.frombuffer(out.stdout, dtype=np.dtype(dtype)).reshape(blocks[2].shape)
+            want = to_numpy(grid.block(ref))
+            assert float(np.abs(got - want).max()) < bar, (cut, rank, parity)
+            plain = wk.hop_packed_halo_reference(*blocks, parity, faces, links)
+            assert float(np.abs(got - to_numpy(plain)).max()) < bar, (cut, rank, parity)
+
+
+@pytest.mark.gpu
+def test_halo_mode_on_gpu():
+    """On the card: the halo mode of wilson_hop_packed (one launch per call) on every block
+    of 8x4x4x8 and 4x8x12x4 cut along each axis and along x and t, both parities, both
+    types, against the block of the global kernel's output and the plain halo hop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run: python -m pytest -m gpu tests/test_torch_hop_packed.py)")
+    from latticeqcd_torch.parallel import mesh
+
+    dev = torch.device("cuda")
+    for lat in HALO_LATTICES:
+        for dtype, bar in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
+            u = tw.apply_boundary_phases(to_torch(np.asarray(jfields.hot_start(lat, 3, seed=5)),
+                                                  device=dev, dtype=dtype))
+            u_e, u_o = eo_pack.pack_links(u, lat)
+            half = (lat[0] // 2,) + lat[1:]
+            x = torch.randn(half + (4, 3), dtype=dtype, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(3))
+            for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
+                ref = wk.wilson_hop_packed(u_t, u_s, x, parity)
+                for pes in HALO_CUTS.values():
+                    for rank in range(int(np.prod(pes))):
+                        grid = mesh.ProcessGrid(pes, lat, rank=rank, device=dev)
+                        faces, links = block_faces(grid, x, u_s)
+                        blocks = [grid.block(f, lead=1).contiguous() for f in (u_t, u_s)] + [
+                            grid.block(x).contiguous()]
+                        before = wk.halo_launches
+                        got = wk.hop_packed_halo(*blocks, parity, faces, links)
+                        torch.cuda.synchronize()
+                        assert wk.halo_launches == before + 1
+                        assert float((got - grid.block(ref)).abs().max()) < bar, (pes, rank)
+                        plain = wk.hop_packed_halo_reference(*blocks, parity, faces, links)
+                        assert float((got - plain).abs().max()) < bar, (pes, rank)

@@ -57,6 +57,10 @@ PORT_MODULES = [
     "latticeqcd_torch.system.legacy_input",
     "latticeqcd_torch.utils.timers",
     "latticeqcd_torch.demo",
+    "latticeqcd_torch.parallel",
+    "latticeqcd_torch.parallel.mesh",
+    "latticeqcd_torch.ops.rolls",
+    "latticeqcd_torch.multirun",
     "chip_smoke",
 ]
 
