@@ -111,8 +111,8 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      against plain path (dH 1e-9, links 1e-10) and MD reversibility (1e-8);
  23. the domain-wall path: run_lqcd_params at 16^3x32, SU(3), beta = 6.0, two-flavour Shamir
      domain wall at M = -1.8, L5 = 16, m = 0.04 (Pauli-Villars partner at m = 1), QPQ 10 steps
-     of 0.02, complex64, hot start, 2 trajectories, with the pion correlator, the condensate
-     (Nr = 10) and the spectrum at itrj 0 and 2; every kernel's launch count set to 0 just
+     of 0.02, complex64, hot start, 1 trajectory, with the pion correlator, the condensate
+     (Nr = 10) and the spectrum at itrj 0 and 1; every kernel's launch count set to 0 just
      before and read just after; it fails if dH is not finite, a solve (the
      pseudofermion's too) reaches MaxCGstep or misses its target, the unitarity defect exceeds
      1e-4, a plaquette leaves (0, 1), a pion correlator value is not positive, the Ritz values
@@ -125,11 +125,12 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      on the card through their plain versions and on the CPU from the same host draws (dH 1e-9,
      links 1e-10, beta_eff 1e-7 relative, its difference printed): quenched SLHMC learning
      beta = 5.7 from beta_eff = 3.0 (5 trajectories), one SLHMC trajectory with Wilson fermions
-     at kappa 0.141139 and one with staggered Nf = 4 at m = 1.0, 3 SLMC steps of the Iwasaki
-     action on a plaquette + rectangle basis, the dense fermion determinant of Wilson (dim 3072,
-     3072 wilson_window launches) and staggered fermions (W_e of dim 384, 384 staggered_w
-     launches; relative 1e-12), one IntegratedHMC trajectory and one IntegratedHB step with the
-     Wilson determinant;
+     at kappa 0.141139 and one with staggered Nf = 4 at m = 1.0, one SLMC step of the Iwasaki
+     action on a plaquette + rectangle basis, the dense fermion
+     determinant of Wilson (dim 3072, 3072 wilson_window launches) and staggered fermions (W_e
+     of dim 384, 384 staggered_w launches; relative 1e-12) card against CPU and kernel against
+     plain, one IntegratedHMC trajectory and one IntegratedHB step with the Wilson determinant
+     (kernel path against plain path);
  25. the self-learning path: run_lqcd_params at 16^3x32, complex64, hot start, QPQ 10 steps of
      0.02, 4 steps each of SLHMC with two-flavour Wilson fermions (beta 6.0, kappa 0.141139) on a
      plaquette + rectangle basis from beta_eff [6, 0] and of quenched SLMC (beta 6.0 from
@@ -210,12 +211,29 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      of a face message; the global draws timed against the block's own; (b) two gloo ranks on
      the one card, grid (1, 1, 1, 2), started as python -m latticeqcd_torch.multirun
      subprocesses under a timeout: a 16^3x32 complex128 Wilson trajectory against the same in
-     one process (dH 1e-8, links 1e-10, the ranks' dH bitwise equal), then phase 6's action in
-     complex64 for 2 trajectories (its Params phase 6's but for the paths and Nsteps): dH
+     one process (in this one; dH 1e-8, links 1e-10, the ranks' dH bitwise equal), then phase
+     6's action in complex64 for 1 trajectory with phase 32's three fermionic measurements
+     (its Params phase 6's but for the paths, Nsteps and the methods): dH
      finite and bitwise equal on both ranks, every verified CG residual at or below its target,
      plaquette in (0, 1), halo-mode launches on each rank and no hop without it, the saved
      configuration the gathered blocks bit for bit, seconds per trajectory beside phase 6's;
      (c) the same on nccl when the machine has two or more cards (else it says so).
+ 32. the process grid for staggered, clover and the fermionic measurements: (a) in one process,
+     16^3x32 cut in two along each axis in turn: staggered_w's halo mode (the hop onto both
+     parities, and the grid W's axpy launch on the faces of d1) and wilson_window's halo mode
+     (the full D) on each block, complex64 (bar 1e-5) and complex128 (1e-12), one launch per
+     call, against the block of the global kernel's output and the plain halo versions,
+     whether the match is bitwise; the t cut's block timed in the halo mode beside mask 0 on
+     the same shape, and the bytes of the face messages; (b) two gloo ranks on the one card
+     through multirun: one 16^3x32 complex128 trajectory (2 MD steps of 0.005) each of
+     staggered Nf = 4, staggered Nf = 2 RHMC and clover HMC against one process (in this one;
+     dH 1e-8, links 1e-10, the ranks' dH bitwise equal); phase 31's complex64 run carries
+     Chiral_condensate (staggered), Pion_correlator (clover) and Dirac_spectrum (Wilson),
+     their numbers bitwise the same on both ranks, finite, the correlator positive and the
+     Ritz values ascending and positive (checked there); in every run no launch
+     of staggered_w, wilson_window or wilson_hop_packed outside a halo mode, every solve at or
+     below its target, the saved configuration the gathered blocks bit for bit; seconds per
+     trajectory on the grid beside one process; (c) the same on nccl with two or more cards.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -1999,8 +2017,8 @@ def phase_domainwall_agreement(torch):
 
 def phase_domainwall_path(torch):
     print("== 23. domain-wall path: run_lqcd_params, 16^3x32 two-flavour Shamir domain wall "
-          f"(M = {DW_M5}, L5 = {DW_L5}, m = {DW_MASS}), complex64, 2 trajectories with the "
-          "domain-wall measurements at itrj 0 and 2", flush=True)
+          f"(M = {DW_M5}, L5 = {DW_L5}, m = {DW_MASS}), complex64, 1 trajectory with the "
+          "domain-wall measurements at itrj 0 and 1", flush=True)
     import numpy as np
 
     from latticeqcd_torch.measurements import scheduler
@@ -2027,8 +2045,8 @@ def phase_domainwall_path(torch):
         L=MAIN, NC=3, beta=6.0, initial="hot", update_method="HMC", quench=False,
         Dirac_operator="Domainwall", Domainwall_m=DW_MASS, Domainwall_M=DW_M5,
         Domainwall_L5=DW_L5, BoundaryCondition=(1, 1, 1, -1), QPQ=True, dtau=0.02, MDsteps=10,
-        Nsteps=2, eps=1e-12, MaxCGstep=maxcg, randomseed=3, verboselevel=1,
-        measurement_methods=[{**m, "measure_every": 2} for m in methods],
+        Nsteps=1, eps=1e-12, MaxCGstep=maxcg, randomseed=3, verboselevel=1,
+        measurement_methods=[{**m, "measure_every": 1} for m in methods],
     )
     records, samples, last = [], [], {}
     step, sample = HMC.step, DomainwallFermiAction.sample_pseudofermion
@@ -2126,8 +2144,8 @@ def phase_domainwall_path(torch):
                 np.all(np.diff(value) >= 0) and np.all(np.asarray(value) > 0)):
             fail("the domain-wall low eigenvalues are not ascending and positive")
     if sorted((r["method"], r["itrj"]) for r in records) != sorted(
-            (m["methodname"], i) for m in methods for i in (0, 2)):
-        fail("the domain-wall path did not run every method at itrj 0 and 2")
+            (m["methodname"], i) for m in methods for i in (0, 1)):
+        fail("the domain-wall path did not run every method at itrj 0 and 1")
     defect = float(sun.unitarity_defect(last["u"]))
     traj = counts["wilson_hop_packed"] - measured["wilson_hop_packed"]
     print(f"  run_lqcd_params {total:.3f} s, final plaquette {plaq:.8f}, unitarity defect "
@@ -2207,12 +2225,12 @@ def _check_steps(label, st_a, u_a, st_b, u_b, what):
         fail(f"{label}: {what} disagree on accept")
 
 
-def _sl_chain(torch, label, make, u, nsteps, seed, kernels=True):
+def _sl_chain(torch, label, make, u, nsteps, seed, kernels=True, cpu=True):
     """nsteps of three updaters made alike (the card through the kernels, the card through
     their plain versions, the CPU) from the same host draws, each step checked; SLHMC takes
     hmc.Draws, SLMC host uniforms (_HostUniforms) and a Metropolis uniform. Without
-    ``kernels`` (a quenched updater, which launches none) the plain path is left out.
-    Returns the kernel launches of the card's kernel path."""
+    ``kernels`` (a quenched updater, which launches none) the plain path is left out, without
+    ``cpu`` the CPU path. Returns the kernel launches of the card's kernel path."""
     import numpy as np
 
     from latticeqcd_torch.updates.hmc import Draws
@@ -2223,7 +2241,7 @@ def _sl_chain(torch, label, make, u, nsteps, seed, kernels=True):
     launched = {}
     for k in range(nsteps):
         sts = {}
-        for path in ("card", "plain", "cpu") if kernels else ("card", "cpu"):
+        for path in ("card",) + (("plain",) if kernels else ()) + (("cpu",) if cpu else ()):
             up = ups[path]
             if isinstance(up, SLHMC):
                 d = Draws.sample(up, us["cpu"], torch.Generator().manual_seed(seed + k))
@@ -2250,7 +2268,8 @@ def _sl_chain(torch, label, make, u, nsteps, seed, kernels=True):
             print(f"  {label} step {k + 1} {path}: {seconds:.2f} s  dH {st['dH']:.10f}  accepted "
                   f"{st['accepted']}  beta_eff {st['beta_eff']}"
                   + (f"  launches {diff}" if path == "card" else ""), flush=True)
-        _check_steps(label, sts["card"], us["card"], sts["cpu"], us["cpu"], "card vs CPU")
+        if cpu:
+            _check_steps(label, sts["card"], us["card"], sts["cpu"], us["cpu"], "card vs CPU")
         if kernels:
             _check_steps(label, sts["card"], us["card"], sts["plain"], us["plain"],
                          "kernel vs plain")
@@ -2291,7 +2310,7 @@ def phase_selflearning_agreement(torch):
     _sl_chain(torch, "SLMC, plaquette + rectangle basis (Iwasaki from beta_eff [9, 0])",
               lambda: SLMC(iwasaki, beta_eff=[9.0, 0.0], firstlearn=2,
                            couplinglist=("plaquette", "rectangular")),
-              _warm_links(torch, lat, 3, 74, "cpu"), 3, 75, kernels=False)
+              _warm_links(torch, lat, 3, 74, "cpu"), 1, 75, kernels=False)
 
     # the dense log det, Wilson (3072 wilson_window launches) and staggered (384 staggered_w)
     cases = [("Wilson", WilsonDirac(kappa=KAPPA), lat + (4, 3), 1.0, 3072),
@@ -2321,16 +2340,17 @@ def phase_selflearning_agreement(torch):
         if launched != {kernel: ncols}:
             fail(f"the {name} log det launched {launched}, not {ncols} {kernel}")
 
-    # the integrated updaters with the exact two-flavour Wilson determinant, one step each (each
-    # step's plain and CPU paths rebuild the dense determinant, 25-35 s a step)
+    # the integrated updaters with the exact two-flavour Wilson determinant, one step each,
+    # kernel path against plain path (each plain step rebuilds the dense determinant, 15-16 s;
+    # the determinant itself is held card against CPU just above)
     sfw = dense_logdet_fermi_action(WilsonDirac(kappa=KAPPA), lat + (4, 3), 1.0)
     logdet = lambda uu: sfw(apply_boundary_phases(uu))  # noqa: E731
     _sl_chain(torch, "IntegratedHMC (Wilson)",
               lambda: integrated_hmc(wilson57, dtau=0.02, md_steps=10, fermi_logdet=logdet),
-              hot, 1, 76)
+              hot, 1, 76, cpu=False)
     _sl_chain(torch, "IntegratedHB (Wilson)",
               lambda: integrated_hb(wilson57, fermi_logdet=logdet),
-              _warm_links(torch, lat, 3, 77, "cpu"), 1, 78)
+              _warm_links(torch, lat, 3, 77, "cpu"), 1, 78, cpu=False)
 
 
 def phase_selflearning_path(torch):
@@ -3450,10 +3470,10 @@ saveU_dir = "{d}/saves"
 ["Measurement set"]
 measurement_basedir = "{d}/meas"
 measurement_dir = "grid"
-measurement_methods = [{{ methodname = "Plaquette", measure_every = 1 }}]
+measurement_methods = [{{ methodname = "Plaquette", measure_every = 1 }}{methods}]
 """
 GRID_FIELDS = {"saveU_format", "saveU_every", "saveU_dir", "logfile", "measurement_basedir",
-               "measurement_dir", "measuredir", "Nsteps"}
+               "measurement_dir", "measuredir", "Nsteps", "measurement_methods"}
 
 
 def _face_slab(grid, f, mu, at, lead=0):
@@ -3596,20 +3616,22 @@ def _grid_draws(torch):
           f"shapes [{STATE['smi']}]", flush=True)
 
 
-def _multirun(tmp, tag, nsteps, dtype_flag, pes, backend, timeout=300):
-    """python -m latticeqcd_torch.multirun on GRID_TOML: one rank per block of the grid pes,
-    each with --report; returns (the reports, the run's directory). Every
-    process is killed if the group does not finish in time."""
+def _multirun(tmp, tag, nsteps, dtype_flag, pes, backend, timeout=300, toml=None, methods=""):
+    """python -m latticeqcd_torch.multirun on GRID_TOML with the measurement methods
+    ``methods`` beside the plaquette (or on ``toml``, written in the run's directory tmp/tag
+    already): one rank per block of the grid pes, each with --report; returns (the reports,
+    the run's directory). Every process is killed if the group does not finish in time."""
     import socket
 
     import numpy as np
 
     nprocs = math.prod(pes)
     d = os.path.join(tmp, tag)
-    os.makedirs(d)
-    toml = os.path.join(d, "params.toml")
-    with open(toml, "w") as f:
-        f.write(GRID_TOML.format(nsteps=nsteps, d=d))
+    if toml is None:
+        os.makedirs(d)
+        toml = os.path.join(d, "params.toml")
+        with open(toml, "w") as f:
+            f.write(GRID_TOML.format(nsteps=nsteps, d=d, methods=methods))
     report = os.path.join(d, "report")
     env = dict(os.environ, PYTHONPATH=ROOT)
     cmds = []
@@ -3649,9 +3671,27 @@ def _multirun(tmp, tag, nsteps, dtype_flag, pes, backend, timeout=300):
     return reports, d
 
 
+def _one_process(torch, toml, dtype):
+    """(history, final links, seconds) of the run of ``toml`` on one process in this one,
+    nothing saved or measured."""
+    import dataclasses
+
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+    from latticeqcd_torch.system.params import construct_params_from_toml
+
+    p = construct_params_from_toml(toml, make_dirs=False)
+    p = dataclasses.replace(p, saveU_format=None, measurement_methods=[], verboselevel=0)
+    history, final = [], {}
+    t0 = time.time()
+    run_lqcd_params(p, make_dirs=False, dtype=dtype, device="cuda:0", history=history,
+                    final=final)
+    return history, final["u"], time.time() - t0
+
+
 def _grid_runs(torch, tmp, backend, pes=(1, 1, 1, 2)):
     """(b), or (c) under nccl: the grid pes through multirun, a complex128 trajectory against
-    one process, then phase 6's complex64 path for 2 trajectories."""
+    one process (in this one), then phase 6's complex64 path for 1 trajectory with phase 32's
+    three fermionic measurements (checked by _grid_measured)."""
     import dataclasses
 
     import numpy as np
@@ -3663,28 +3703,28 @@ def _grid_runs(torch, tmp, backend, pes=(1, 1, 1, 2)):
     label = f"{backend}, {n} ranks {pes}"
     t0 = time.time()
     two, d2 = _multirun(tmp, f"c128_{backend}_{n}", 1, "--f64", pes, backend)
-    one, d1 = _multirun(tmp, f"c128_one_{backend}_{n}", 1, "--f64", (1, 1, 1, 1), backend)
+    one, u_one, _ = _one_process(torch, os.path.join(d2, "params.toml"), torch.complex128)
     dh = [rep["history"][0]["dH"] for rep in two]
     if len({float(v).hex() for v in dh}) != 1:
         fail(f"the ranks' dH differ: {dh}")
-    ddh = abs(dh[0] - one[0]["history"][0]["dH"])
+    ddh = abs(dh[0] - one[0]["dH"])
     a = np.load(os.path.join(d2, "saves", "conf_00000001.npz"))["u"]
-    b = np.load(os.path.join(d1, "saves", "conf_00000001.npz"))["u"]
     print(f"  ({label}) 16^3x32 complex128 trajectory: dH {dh[0]!r} (one process "
-          f"{one[0]['history'][0]['dH']!r}), accepted {two[0]['history'][0]['accepted']}; "
+          f"{one[0]['dH']!r}), accepted {two[0]['history'][0]['accepted']}; "
           f"{time.time() - t0:.1f} s for both runs", flush=True)
     check(f"({label}) complex128 trajectory |ddH| against one process", ddh, 1e-8)
     check(f"({label}) complex128 trajectory max|dU| against one process",
-          float(np.abs(a - b).max()), 1e-10)
+          maxdiff(torch.from_numpy(a).to(u_one.device), u_one), 1e-10)
 
     t0 = time.time()
-    reps, d = _multirun(tmp, f"c64_{backend}_{n}", 2, "--f32", pes, backend)
+    reps, d = _multirun(tmp, f"c64_{backend}_{n}", 1, "--f32", pes, backend,
+                        methods=GRID_METHODS)
     got = construct_params_from_toml(os.path.join(d, "params.toml"), make_dirs=False)
     differ = sorted(k for k, v in dataclasses.asdict(_wilson_path_params()).items()
                     if getattr(got, k) != v)
     if set(differ) - GRID_FIELDS:
         fail(f"the grid run's Params differ from phase 6's in {sorted(set(differ) - GRID_FIELDS)}")
-    for i in range(2):
+    for i in range(len(reps[0]["history"])):
         dhs = [rep["history"][i]["dH"] for rep in reps]
         if not all(math.isfinite(v) for v in dhs) or len({float(v).hex() for v in dhs}) != 1:
             fail(f"trajectory {i + 1}: the ranks' dH are not finite and equal: {dhs}")
@@ -3698,7 +3738,7 @@ def _grid_runs(torch, tmp, backend, pes=(1, 1, 1, 2)):
             fail(f"rank {rep['rank']}: the halo mode of wilson_hop_packed never launched")
         if rep["launches"]["wilson_hop_packed"]:
             fail(f"rank {rep['rank']}: a hop ran without the halo mode under the grid")
-    saved = np.load(os.path.join(d, "saves", "conf_00000002.npz"))["u"]
+    saved = np.load(os.path.join(d, "saves", "conf_00000001.npz"))["u"]
     gathered = np.empty_like(saved)
     for rep in reps:
         grid = mesh.ProcessGrid(pes, MAIN, rank=rep["rank"])
@@ -3715,7 +3755,9 @@ def _grid_runs(torch, tmp, backend, pes=(1, 1, 1, 2)):
               f"{main['seconds'][i]:.3f} s)  CG iterations {cg} (phase 6: {main['cg'][i]})  dH "
               f"{rec['dH']:.6f} (phase 6: {main['dH'][i]:.6f})  accepted {rec['accepted']} "
               f"[{STATE['smi']}]", flush=True)
-    print(f"  ({label}) final plaquette {reps[0]['plaquette']!r} (phase 6 {main['plaq']!r}); "
+    _grid_measured(reps, label)
+    print(f"  ({label}) final plaquette {reps[0]['plaquette']!r} (phase 6 after its 2 "
+          f"trajectories {main['plaq']!r}); "
           f"halo launches per rank {halo}; the saved configuration equals the gathered blocks "
           f"bit for bit; {time.time() - t0:.1f} s for the run", flush=True)
 
@@ -3744,6 +3786,283 @@ def phase_grid(torch):
                   flush=True)
 
 
+# ------------------------------------------- 32. staggered, clover and measurements on the grid
+
+
+def _halo_kernels(torch):
+    """(a): the halo modes of staggered_w and wilson_window on the card, one process: every
+    block of 16^3x32 cut in two along each axis, against the block of the global kernel's
+    output and the plain halo version; then the t cut's block against mask 0 on a block of
+    the same shape."""
+    from latticeqcd_torch.ops.dirac import eo_pack
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.ops.dirac.wilson import gaussian_spinor
+    from latticeqcd_torch.parallel import mesh
+
+    dev = torch.device("cuda")
+    lat = MAIN
+    half = (lat[0] // 2,) + lat[1:]
+    for dtype in (torch.complex64, torch.complex128):
+        name = str(dtype).split(".")[1]
+        bar = BARS[name]
+        u, psi, g = _fields(torch, lat, dtype, seed=41)
+        u_e, u_o = eo_pack.pack_links(u, lat)
+        x = gaussian_spinor(half, 3, nspin=1, dtype=dtype, device=dev, generator=g)
+        d1 = sk.staggered_hop_packed(u_o, u_e, x, 1)
+        # (kernel, what, forward links, backward links, source, global output, the block's call)
+        cases = [("staggered_w", f"hop p={p}", ut, us, x, sk.staggered_hop_packed(ut, us, x, p),
+                  lambda ut_b, us_b, s_b, f, l, grid, p=p: sk.hop_packed_halo(ut_b, us_b, s_b, p,
+                                                                              f, l))
+                 for p, (ut, us) in ((0, (u_e, u_o)), (1, (u_o, u_e)))]
+        cases.append(("staggered_w", "W (axpy launch on the faces of d1)", u_e, u_o, d1,
+                      sk.staggered_w(u_e, u_o, x, MASS),
+                      lambda ut_b, us_b, s_b, f, l, grid: sk.hop_packed_halo(
+                          ut_b, us_b, s_b, 0, f, l, phi=grid.block(x).contiguous(), mass=MASS)))
+        cases.append(("wilson_window", "D", u, u, psi, ww.wilson_window(u, psi, KAPPA),
+                      lambda ut_b, us_b, s_b, f, l, grid: ww.dslash_halo(ut_b, s_b, KAPPA, f, l)))
+        bitwise = {}
+        for kernel, what, ut, us, src, ref, call in cases:
+            module = ww if kernel == "wilson_window" else sk
+            for mu in range(4):
+                pes = tuple(2 if d == mu else 1 for d in range(4))
+                for rank in (0, 1):
+                    grid = mesh.ProcessGrid(pes, lat, rank=rank, device=dev)
+                    tag = f"{kernel} {what} cut {'xyzt'[mu]} block {rank} {name}"
+                    ut_b, us_b = grid.block(ut, 1).contiguous(), grid.block(us, 1).contiguous()
+                    s_b = grid.block(src).contiguous()
+                    faces, links = _block_faces(grid, src, us)
+                    before = module.halo_launches
+                    got = call(ut_b, us_b, s_b, faces, links, grid)
+                    torch.cuda.synchronize()
+                    if module.halo_launches != before + 1:
+                        fail(f"the halo mode of {kernel} did not launch once")
+                    want = grid.block(ref)
+                    key = f"{kernel} {what.split(' ')[0]}"
+                    bitwise[key] = bitwise.get(key, True) and bool(torch.equal(got, want))
+                    check(f"halo {tag} vs the global kernel", maxdiff(got, want), bar, kernel)
+                    if kernel == "wilson_window":
+                        plain = wk.dslash_halo_reference(ut_b, s_b, KAPPA, faces, links)
+                    else:
+                        plain = sk.hop_packed_halo_reference(ut_b, us_b, s_b, int(what == "hop p=1"),
+                                                             faces, links)
+                        if what.startswith("W"):
+                            plain = MASS ** 2 * grid.block(x) - plain
+                    check(f"halo {tag} vs plain", maxdiff(got, plain), bar, kernel)
+        print(f"  halo modes {name}: bitwise equal to the global kernel's block: {bitwise}",
+              flush=True)
+
+        # timing: the t cut's 16^3x16 block in the halo mode against mask 0 on the same shape
+        grid = mesh.ProcessGrid((1, 1, 1, 2), lat, rank=0, device=dev)
+        ue_b, uo_b = grid.block(u_e, 1).contiguous(), grid.block(u_o, 1).contiguous()
+        u_b, x_b, psi_b = grid.block(u, 1).contiguous(), grid.block(x).contiguous(), \
+            grid.block(psi).contiguous()
+        xf, xl = _block_faces(grid, x, u_o)
+        _, el = _block_faces(grid, x, u_e)
+        df, dl = _block_faces(grid, d1, u_o)
+        d1_b = grid.block(d1).contiguous()
+        pf, pl = _block_faces(grid, psi, u)
+        rows = [
+            ("staggered hop", lambda: sk.hop_packed_halo(ue_b, uo_b, x_b, 0, xf, xl),
+             lambda: sk.staggered_hop_packed(ue_b, uo_b, x_b, 0), xf),
+            ("staggered W", lambda: (sk.hop_packed_halo(uo_b, ue_b, x_b, 1, xf, el),
+                                     sk.hop_packed_halo(ue_b, uo_b, d1_b, 0, df, dl, phi=x_b,
+                                                        mass=MASS)),
+             lambda: sk.staggered_w(ue_b, uo_b, x_b, MASS), df),
+            ("window D", lambda: ww.dslash_halo(u_b, psi_b, KAPPA, pf, pl),
+             lambda: ww.wilson_window(u_b, psi_b, KAPPA), pf),
+        ]
+        line = []
+        for label, halo, plain, faces in rows:
+            t_halo, t_plain = _time_device(torch, halo), _time_device(torch, plain)
+            STATE.setdefault("halo_timing", {})[(label, name)] = (t_halo, t_plain)
+            face_bytes = faces[3][0].numel() * faces[3][0].element_size()
+            line.append(f"{label}: halo {t_halo * 1e3:.2f} us, mask 0 {t_plain * 1e3:.2f} us "
+                        f"({100 * (t_halo / t_plain - 1):+.1f}%), {face_bytes} B per t face message")
+        xcut = mesh.ProcessGrid((2, 1, 1, 1), lat, rank=0, device=dev)
+        xs = {k: _block_faces(xcut, f, uu)[0][0][0] for k, f, uu in (("staggered", x, u_o),
+                                                                     ("window", psi, u))}
+        print(f"  warm block 16^3x16 (one input set, CUDA graphs) {name}: " + "; ".join(line)
+              + "; x cut face messages: " + ", ".join(f"{k} {t.numel() * t.element_size()} B"
+                                                       for k, t in xs.items())
+              + f" [{STATE['smi']}]", flush=True)
+
+
+def _grid_toml(d, physics, nsteps, dtau, md_steps, eps):
+    """A TOML for python -m latticeqcd_torch.multirun at 16^3x32: ``physics`` the action's
+    lines, saving every trajectory into d/saves."""
+    return f"""\
+["Physical setting"]
+L = [16, 16, 16, 32]
+NC = 3
+initial = "hot"
+update_method = "HMC"
+quench = false
+BoundaryCondition = [1, 1, 1, -1]
+QPQ = true
+dtau = {dtau}
+MDsteps = {md_steps}
+Nsteps = {nsteps}
+eps = {eps}
+MaxCGstep = 3000
+randomseed = 5
+verboselevel = 1
+{physics}
+
+["System Control"]
+logfile = ""
+saveU_format = "NPZ"
+saveU_every = 1
+saveU_dir = "{d}/saves"
+
+["Measurement set"]
+measurement_basedir = "{d}/meas"
+measurement_dir = "grid"
+measurement_methods = [{{ methodname = "Plaquette", measure_every = 1 }}]
+"""
+
+
+GRID_ACTIONS = {
+    # phase 10's staggered actions and phase 27's clover action: name -> (tag, the TOML lines)
+    "staggered Nf=4": ("staggered_nf4", 'beta = 5.7\nDirac_operator = "Staggered"\nmass = 0.5\n'
+                                        'Nf = 4'),
+    "staggered Nf=2 RHMC": ("staggered_nf2", 'beta = 5.7\nDirac_operator = "Staggered"\n'
+                                             'mass = 0.5\nNf = 2'),
+    "clover HMC": ("clover", 'beta = 5.3\nDirac_operator = "WilsonClover"\nhop = 0.13625\n'
+                             'Clover_coefficient = 1.90952\nr = 1.0'),
+}
+# phase 32's three measurements, one operator each, carried by phase 31's complex64 run
+GRID_METHODS = (
+    ', { methodname = "Chiral_condensate", Nr = 2, eps = 1e-10, fermion_parameters = '
+    '{ Dirac_operator = "Staggered", mass = 0.5, Nf = 4 } }'
+    ', { methodname = "Pion_correlator", eps = 1e-10, fermion_parameters = '
+    '{ Dirac_operator = "WilsonClover", hop = 0.12, Clover_coefficient = 1.0 } }'
+    ', { methodname = "Dirac_spectrum", Neig = 4, Nlanczos = 24, fermion_parameters = '
+    '{ Dirac_operator = "Wilson", hop = 0.12 } }')
+
+
+def _grid2_run(torch, tmp, tag, name, toml_text, dtype_flag, pes, backend):
+    """One multirun group on the grid pes (``name`` the run's, in the launch counts); checks
+    what every grid run must show and returns (the reports, the saved links)."""
+    import numpy as np
+
+    from latticeqcd_torch.parallel import mesh
+
+    d = os.path.join(tmp, tag)
+    os.makedirs(d)
+    with open(os.path.join(d, "params.toml"), "w") as f:
+        f.write(toml_text.replace("{d}", d))
+    reps, _ = _multirun(tmp, tag, None, dtype_flag, pes, backend, toml=os.path.join(d, "params.toml"))
+    for rep in reps:
+        launches = rep["launches"]
+        outside = {k: launches[k] for k in ("staggered_w", "wilson_window", "wilson_hop_packed")
+                   if launches[k]}
+        if outside:
+            fail(f"{tag} rank {rep['rank']}: kernels launched outside the halo mode: {outside}")
+        for rec in rep["history"]:
+            if rec["cg"] and max(c["rsq"] / c["target"] for c in rec["cg"]) > 1.0:
+                fail(f"{tag} rank {rep['rank']}: a solve ended above its target")
+    nsteps = len(reps[0]["history"])
+    saved = np.load(os.path.join(d, "saves", f"conf_{nsteps:08d}.npz"))["u"]
+    gathered = np.empty_like(saved)
+    for rep in reps:
+        grid = mesh.ProcessGrid(pes, MAIN, rank=rep["rank"])
+        gathered[(slice(None),) + tuple(slice(o, o + m) for o, m in zip(grid.origin, grid.local))] = \
+            rep["u"]
+    if saved.tobytes() != gathered.tobytes():
+        fail(f"{tag}: the saved configuration is not the ranks' blocks bit for bit")
+    for key in ("staggered_w_halo", "wilson_window_halo", "wilson_hop_packed_halo"):
+        n = sum(rep["launches"][key] for rep in reps)
+        if n:
+            kernel = key[:-5]
+            STATE["launches"].setdefault(kernel, {})[f"grid {name}, {backend}, {len(reps)} "
+                                                     "ranks (halo)"] = n
+    return reps, saved
+
+
+def _grid2_runs(torch, tmp, backend, pes=(1, 1, 1, 2)):
+    """(b), or (c) under nccl: one complex128 trajectory of each action against one process
+    (the three measurements ride on phase 31's complex64 run, _grid_measured)."""
+    n = math.prod(pes)
+    label = f"{backend}, {n} ranks {pes}"
+    for action, (short, physics) in GRID_ACTIONS.items():
+        t0 = time.time()
+        tag = f"{short}_{backend}_{n}"
+        # a short trajectory (dH well under 1 from a hot start), so that it is accepted and the
+        # links compared are the evolved ones
+        text = _grid_toml("{d}", physics, 1, 0.005, 2, 1e-16)
+        reps, saved = _grid2_run(torch, tmp, tag, action, text, "--f64", pes, backend)
+        dh = [rep["history"][0]["dH"] for rep in reps]
+        if len({float(v).hex() for v in dh}) != 1:
+            fail(f"{action}: the ranks' dH differ: {dh}")
+        t_grid = time.time() - t0
+        hist, u_one, t_one = _one_process(torch, os.path.join(tmp, tag, "params.toml"),
+                                          torch.complex128)
+        ddh = abs(dh[0] - hist[0]["dH"])
+        dmax = maxdiff(torch.from_numpy(saved).to(u_one.device), u_one)
+        check(f"({label}) {action} complex128 trajectory |ddH| against one process", ddh, 1e-8)
+        check(f"({label}) {action} complex128 trajectory max|dU| against one process", dmax, 1e-10)
+        cg = sum(c["iterations"] for c in reps[0]["history"][0]["cg"])
+        cg1 = sum(c["iterations"] for c in hist[0]["cg"])
+        print(f"  ({label}) {action}, 16^3x32 complex128, 1 trajectory of 2 MD steps: dH "
+              f"{dh[0]!r} (one process {hist[0]['dH']!r}), accepted "
+              f"{reps[0]['history'][0]['accepted']} ({hist[0]['accepted']}); "
+              f"{reps[0]['history'][0]['seconds']:.3f} s "
+              f"per trajectory on the grid against {hist[0]['seconds']:.3f} s on one process "
+              f"({reps[0]['history'][0]['seconds'] / hist[0]['seconds']:.2f}x); solver iterations "
+              f"{cg} ({cg1}); launches {reps[0]['launches']}; {t_grid:.1f} s with the ranks' "
+              f"start, {t_one:.1f} s one process [{STATE['smi']}]", flush=True)
+
+
+
+def _grid_measured(reps, label):
+    """Phase 32's check of the three fermionic measurements of a grid run (phase 31's c64
+    path carries them): the same bit for bit on every rank, finite, the correlator positive
+    and the Ritz values ascending and positive."""
+    got = [rep["history"][0]["measured"] for rep in reps]
+    names = ("Chiral_condensate", "Pion_correlator", "Dirac_spectrum")
+    if any(set(names) - set(m) for m in got):
+        fail(f"the grid run measured {sorted(got[0])}, not {names}")
+    for m in got[1:]:
+        if json.dumps(m, sort_keys=True) != json.dumps(got[0], sort_keys=True):
+            fail(f"the ranks' measurements differ: {got}")
+    pbp, cpi, lam = (got[0][k] for k in names)
+    if not (all(math.isfinite(v) for v in cpi) and min(cpi) > 0 and min(lam) > 0
+            and lam == sorted(lam) and math.isfinite(pbp[0])):
+        fail(f"the measurements are not finite and ordered: {got[0]}")
+    STATE["checks"] += 1
+    for kernel in ("staggered_w", "wilson_window"):
+        n = sum(rep["launches"][f"{kernel}_halo"] for rep in reps)
+        if n == 0:
+            fail(f"the grid's measurements never launched {kernel}'s halo mode")
+        STATE["launches"].setdefault(kernel, {})[f"grid measurements, {label} (halo)"] = n
+    print(f"  ({label}) complex64 trajectory with phase 32's three measurements, the same bit for "
+          f"bit on every rank: pbp {pbp[0]!r} (staggered), C(0..3) {cpi[:4]} (clover), lowest "
+          f"Ritz values {lam} (Wilson D^dag D)", flush=True)
+
+
+def phase_grid_fermions(torch):
+    print("== 32. the process grid: staggered, clover and the measurements (halo modes of "
+          "staggered_w and wilson_window), 2 ranks on the card", flush=True)
+    import tempfile
+
+    t0 = time.time()
+    _halo_kernels(torch)
+    print(f"  (a) halo modes: {time.time() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid2_") as tmp:
+        t0 = time.time()
+        _grid2_runs(torch, tmp, "gloo")
+        print(f"  (b) 2 ranks, gloo, one card: {time.time() - t0:.1f} s", flush=True)
+        if torch.cuda.device_count() >= 2:
+            t0 = time.time()
+            _grid2_runs(torch, tmp, "nccl")
+            print(f"  (c) 2 ranks, nccl, 2 cards: {time.time() - t0:.1f} s", flush=True)
+        else:
+            print(f"  (c) nccl: not run, this machine has {torch.cuda.device_count()} card",
+                  flush=True)
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
           phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
@@ -3752,7 +4071,8 @@ PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_plaquette_anchor, phase_improved_agreement, phase_improved_path,
           phase_domainwall_agreement, phase_domainwall_path, phase_selflearning_agreement,
           phase_selflearning_path, phase_clover_agreement, phase_clover_path,
-          phase_batched_agreement, phase_batched_path, phase_frontend, phase_grid]
+          phase_batched_agreement, phase_batched_path, phase_frontend, phase_grid,
+          phase_grid_fermions]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line

@@ -36,20 +36,46 @@
 // lattice's W took 31.3-31.7 us against the W's 30.3-30.6 before the chain axis; without them
 // 29.9-30.2 against 30.1-30.5 (chip_smoke.py phase 8, cold, 16^3 x 32 complex64, each pair of
 // versions in turns on one NVIDIA H100 80GB HBM3 at 700 W).
+//
+// Halo mode (a block of a process grid, parallel/mesh.py): for each axis mu whose bit is set in
+// the partition mask, a neighbour outside the block is read from a face buffer instead of
+// wrapping inside the block: a forward neighbour past the block's end from hi[mu] (the +mu
+// neighbour's first source-parity slab), a backward one before its start from lo[mu] (the -mu
+// neighbour's last slab), and its backward link U_mu(x - mu) from link[mu] (the -mu neighbour's
+// last slab of u_bwd[mu]); each face is the packed slab with axis mu removed, indexed by the
+// site's other coordinates. Along x the packed cut is per site: a target site at x' = X/2 - 1
+// with off = 1 has its x + 1 neighbour at x' = 0 of the +x block, one at x' = 0 with off = 0
+// its x - 1 neighbour at x' = X/2 - 1 of the -x block. Every local extent of a grid is even, so
+// every block's origin is even: the row offset off and the KS signs computed from the block's
+// own coordinates are the global ones, and the kernel takes no origin. No chain axis. The
+// site's work is one function (hop_site): mask 0 launches it without the halo branch (HALO
+// false, staggered_hop_kernel, as before the halo mode), the halo mode with it
+// (staggered_hop_halo_kernel). Under a grid W is two halo launches with the faces of d1
+// exchanged between them (staggered_kernel.py).
 #include "lattice_site.h"
 
 namespace {
 
+// The face buffers of the halo mode: lo, hi and link per axis mu, used where mask bit mu is set.
+template <typename V>
+struct Halo {
+  int mask;
+  const V* lo[4];
+  const V* hi[4];
+  const V* link[4];
+};
+
 // One thread per target site of the packed layout (lx = X/2) of chain blockIdx.y. AXPY:
-// out = m2 phi - D psi, else out = D psi.
-template <typename R, bool AXPY, bool CHAINS>
-__global__ void __launch_bounds__(128)
-    staggered_hop_kernel(const typename Vec<R>::type* __restrict__ u_fwd,
-                         const typename Vec<R>::type* __restrict__ u_bwd,
-                         const typename Vec<R>::type* __restrict__ psi,
-                         const typename Vec<R>::type* __restrict__ phi,
-                         typename Vec<R>::type* __restrict__ out, int lx, int ly, int lz, int lt,
-                         int parity, R m2, long long u_chain, long long psi_chain) {
+// out = m2 phi - D psi, else out = D psi. HALO: the halo mode of one block (no chains).
+template <typename R, bool AXPY, bool CHAINS, bool HALO>
+__device__ __forceinline__ void hop_site(const typename Vec<R>::type* __restrict__ u_fwd,
+                                         const typename Vec<R>::type* __restrict__ u_bwd,
+                                         const typename Vec<R>::type* __restrict__ psi,
+                                         const typename Vec<R>::type* __restrict__ phi,
+                                         typename Vec<R>::type* __restrict__ out, int lx, int ly,
+                                         int lz, int lt, int parity, R m2, long long u_chain,
+                                         long long psi_chain,
+                                         const Halo<typename Vec<R>::type>& halo) {
   using V = typename Vec<R>::type;
   const int vol = lx * ly * lz * lt;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
@@ -76,6 +102,19 @@ __global__ void __launch_bounds__(128)
     const V* ub = u_bwd + 9 * (mu * vol + n.bw[mu]);
     const V* pf = psi + 3 * n.fw[mu];
     const V* pb = psi + 3 * n.bw[mu];
+    if (HALO && (halo.mask >> mu & 1)) {
+      // the site's index in a face of axis mu: its coordinates with axis mu removed
+      const int c[4] = {n.x, n.y, n.z, n.t}, e[4] = {lx, ly, lz, lt};
+      int fi = 0;
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+        if (d != mu) fi = fi * e[d] + c[d];
+      if (mu == 0 ? n.x + n.off == lx : c[mu] + 1 == e[mu]) pf = halo.hi[mu] + 3 * fi;
+      if (mu == 0 ? n.x + n.off == 0 : c[mu] == 0) {
+        pb = halo.lo[mu] + 3 * fi;
+        ub = halo.link[mu] + 9 * fi;
+      }
+    }
     V f[3], b[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -109,6 +148,32 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// The kernel of one process (mask 0), with or without the chain offsets.
+template <typename R, bool AXPY, bool CHAINS>
+__global__ void __launch_bounds__(128)
+    staggered_hop_kernel(const typename Vec<R>::type* __restrict__ u_fwd,
+                         const typename Vec<R>::type* __restrict__ u_bwd,
+                         const typename Vec<R>::type* __restrict__ psi,
+                         const typename Vec<R>::type* __restrict__ phi,
+                         typename Vec<R>::type* __restrict__ out, int lx, int ly, int lz, int lt,
+                         int parity, R m2, long long u_chain, long long psi_chain) {
+  hop_site<R, AXPY, CHAINS, false>(u_fwd, u_bwd, psi, phi, out, lx, ly, lz, lt, parity, m2,
+                                   u_chain, psi_chain, Halo<typename Vec<R>::type>{});
+}
+
+// The halo mode: one block of a process grid, its faces in `halo`.
+template <typename R, bool AXPY>
+__global__ void __launch_bounds__(128)
+    staggered_hop_halo_kernel(const typename Vec<R>::type* __restrict__ u_fwd,
+                              const typename Vec<R>::type* __restrict__ u_bwd,
+                              const typename Vec<R>::type* __restrict__ psi,
+                              const typename Vec<R>::type* __restrict__ phi,
+                              typename Vec<R>::type* __restrict__ out, int lx, int ly, int lz,
+                              int lt, int parity, R m2, Halo<typename Vec<R>::type> halo) {
+  hop_site<R, AXPY, false, true>(u_fwd, u_bwd, psi, phi, out, lx, ly, lz, lt, parity, m2, 0, 0,
+                                 halo);
+}
+
 // The chain strides of a launch: nchain lattices, their links u_chain and their fields
 // psi_chain elements apart.
 struct Chains {
@@ -129,6 +194,30 @@ int launch(const void* u_fwd, const void* u_bwd, const void* psi, const void* ph
           static_cast<const V*>(u_fwd), static_cast<const V*>(u_bwd), static_cast<const V*>(psi),
           static_cast<const V*>(phi), static_cast<V*>(out), x2, ly, lz, lt, parity,
           static_cast<R>(m2), ch.u, ch.psi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The halo mode of one block: faces[mu], faces[4 + mu] and faces[8 + mu] are lo[mu], hi[mu]
+// and link[mu]; with phi the m^2 axpy of W's second launch.
+template <typename R>
+int launch_halo(const void* u_fwd, const void* u_bwd, const void* psi, const void* phi, void* out,
+                int x2, int ly, int lz, int lt, int parity, double m2, int mask,
+                const void* const* faces, void* stream) {
+  using V = typename Vec<R>::type;
+  const int vol = x2 * ly * lz * lt;
+  const int threads = 128;
+  const int blocks = (vol + threads - 1) / threads;
+  Halo<V> halo{mask, {}, {}, {}};
+  for (int mu = 0; mu < 4; ++mu) {
+    halo.lo[mu] = static_cast<const V*>(faces[mu]);
+    halo.hi[mu] = static_cast<const V*>(faces[4 + mu]);
+    halo.link[mu] = static_cast<const V*>(faces[8 + mu]);
+  }
+  auto kernel = phi ? staggered_hop_halo_kernel<R, true> : staggered_hop_halo_kernel<R, false>;
+  kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(u_fwd), static_cast<const V*>(u_bwd), static_cast<const V*>(psi),
+      static_cast<const V*>(phi), static_cast<V*>(out), x2, ly, lz, lt, parity, static_cast<R>(m2),
+      halo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -175,6 +264,24 @@ int staggered_w_c128(const void* u_e, const void* u_o, const void* phi, void* d1
                      long long psi_chain, void* stream) {
   return apply_w<double>(u_e, u_o, phi, d1, out, x2, ly, lz, lt, m2,
                          Chains{nchain, u_chain, psi_chain}, stream);
+}
+
+// The halo mode (one block of a process grid, one chain): the hop's arguments, then phi (null:
+// out = D psi; else out = m2 phi - D psi, W's second launch), m2, the partition mask (bit mu:
+// axis mu is cut) and an array of 12 face pointers (lo[0..3], hi[0..3], link[0..3]; those of
+// uncut axes are not read).
+int staggered_hop_halo_c64(const void* u_t, const void* u_s, const void* psi_s, const void* phi,
+                           void* out, int x2, int ly, int lz, int lt, int target_parity, double m2,
+                           int mask, const void* const* faces, void* stream) {
+  return launch_halo<float>(u_t, u_s, psi_s, phi, out, x2, ly, lz, lt, target_parity, m2, mask,
+                            faces, stream);
+}
+
+int staggered_hop_halo_c128(const void* u_t, const void* u_s, const void* psi_s, const void* phi,
+                            void* out, int x2, int ly, int lz, int lt, int target_parity,
+                            double m2, int mask, const void* const* faces, void* stream) {
+  return launch_halo<double>(u_t, u_s, psi_s, phi, out, x2, ly, lz, lt, target_parity, m2, mask,
+                             faces, stream);
 }
 
 }  // extern "C"

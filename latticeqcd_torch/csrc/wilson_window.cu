@@ -63,6 +63,18 @@
 // compute on wrapped coordinates and do not write. A t neighbour outside a cut segment is
 // read from device memory. The spin rule is wilson_dir.h, shared with wilson_hop and
 // wilson_hop_packed.
+// Halo mode (a block of a process grid, parallel/mesh.py), woven into the same march: for each
+// axis mu whose bit is set in the partition mask, a neighbour outside the block is read from a
+// face buffer instead of wrapping inside the block. lo[mu] is the -mu neighbour's last slab of
+// psi and hi[mu] the +mu neighbour's first, each with axis mu removed, so that a face row along
+// t is T contiguous spinors and the bulk copies stage it as they stage psi's rows; link[mu] is
+// the -mu neighbour's last slab of U_mu, the backward links U_mu(x - mu) of the block's first
+// slab. Under an x cut the carry of the chunk at x = 0 comes from lo[0] and link[0], and the
+// own row of slice X (psi(x + 1) at the last slice) from hi[0]; a y or z row slot outside the
+// block copies its row from the y or z face; a t neighbour past the row's end reads lo[3] or
+// hi[3] per site, as the out-of-segment t neighbours read psi. A slot that leaves the block
+// along two axes is read only by lanes that write nothing. Mask 0 is the kernel without the
+// halo branches (HALO false), as before the halo mode.
 #include <atomic>
 
 #include "tma.h"
@@ -75,6 +87,31 @@
 #define WILSON_WINDOW_TILE_C128 1, 1, 16, 6, true
 
 namespace {
+
+// The face buffers of the halo mode: lo, hi and link per axis mu, used where mask bit mu is set.
+template <typename V>
+struct Halo {
+  int mask;
+  const V* lo[4];
+  const V* hi[4];
+  const V* link[4];
+};
+
+// The halo mode's source of the t segment [t0, ...) of the unwrapped row (rx, ry, rz): a face
+// buffer when the row leaves the block along a cut axis, else psi at the wrapped coordinates.
+template <typename V>
+__device__ __forceinline__ const V* halo_row_source(int rx, int ry, int rz, int lx, int ly, int lz,
+                                                    int lt, int t0, const V* psi,
+                                                    const Halo<V>& h) {
+  const int wx = wrap(rx, lx), wy = wrap(ry, ly), wz = wrap(rz, lz);
+  if ((h.mask & 1) && (rx < 0 || rx >= lx))
+    return (rx < 0 ? h.lo[0] : h.hi[0]) + 12 * ((wy * lz + wz) * lt + t0);
+  if ((h.mask & 2) && (ry < 0 || ry >= ly))
+    return (ry < 0 ? h.lo[1] : h.hi[1]) + 12 * ((wx * lz + wz) * lt + t0);
+  if ((h.mask & 4) && (rz < 0 || rz >= lz))
+    return (rz < 0 ? h.lo[2] : h.hi[2]) + 12 * ((wx * ly + wy) * lt + t0);
+  return psi + 12 * (((wx * ly + wy) * lz + wz) * lt + t0);
+}
 
 // Row slots of a BY x BZ tile in shared memory, each holding one t segment of a spinor row:
 // a ring of three slices of the tile's own rows, then a ring of two slices of its halo rows
@@ -98,12 +135,17 @@ struct Ring {
 // xs + i, and at i = 0 the own rows of slice xs) completes on bar[i % 2]: thread 0 issues
 // group 0 before the march and group i + 1 in step i, after the barrier that frees its slots,
 // and with PREFETCH the tile's forward link rows of slice xs + i into L2 with group i.
-template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH>
-__global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
+// HALO: the halo mode of one block of a process grid, bounded at one block per SM fewer where
+// MINB is above 2: at complex64's 3 (96 registers) its selects spill 28 bytes, and the halo
+// mode took 16.7 us on the x cut's 8x16x16x32 block and 22.1 on the t cut's 16^3x16 against
+// 15.0 and 20.9 at 2 (155 registers, no spill; scripts/ab_window_halo.py, warm, NVIDIA H100
+// 80GB HBM3 at 700 W).
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool HALO = false>
+__global__ void __launch_bounds__(3 * BY * BZ * TSMAX, HALO && MINB > 2 ? MINB - 1 : MINB)
     wilson_window_kernel(const typename Vec<R>::type* __restrict__ u,
                          const typename Vec<R>::type* __restrict__ psi,
                          typename Vec<R>::type* __restrict__ out, int lx, int ly, int lz, int lt,
-                         int ts, int chunk, R kappa) {
+                         int ts, int chunk, R kappa, Halo<typename Vec<R>::type> halo = {}) {
   using V = typename Vec<R>::type;
   using S = Ring<BY, BZ>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -132,12 +174,14 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
 
   // thread 0: the copies of group i into the ring slots of steps i (halo) and i + 1 (own)
   auto issue = [&](int i) {
-    const int x = xs + i, xn = x + 1 == lx ? 0 : x + 1;
+    // in the halo mode x + 1 stays unwrapped: past the block's end it names the x face
+    const int x = xs + i, xn = HALO ? x + 1 : x + 1 == lx ? 0 : x + 1;
     uint64_t* bi = &bar[i & 1];
     mbar_arrive_expect_tx(bi, ((i == 0 ? 2 : 1) * S::OWN + S::HALO) * row_bytes);
     auto copy = [&](int slot, int rx, int ry, int rz) {
       bulk_copy_g2s(smem + slot * ts * 12 * sizeof(V),
-                    psi + 12 * (rx * slice + wrap(ry, ly) * sy + wrap(rz, lz) * lt + t0),
+                    HALO ? halo_row_source(rx, ry, rz, lx, ly, lz, lt, t0, psi, halo)
+                         : psi + 12 * (rx * slice + wrap(ry, ly) * sy + wrap(rz, lz) * lt + t0),
                     row_bytes, bi);
     };
     for (int iy = 0; iy < BY; ++iy)
@@ -173,14 +217,20 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
   const bool fin = tf - t0 >= 0 && tf - t0 < cnt, bin = tb - t0 >= 0 && tb - t0 < cnt;
   // the spinor held at index j of row slot `slot`
   auto nb = [&](int slot, int j) { return rows + 12 * (slot * ts + j); };
+  // in the halo mode, a backward link or a t neighbour outside the block comes from a face of
+  // its axis (`out` tells whether it leaves the block, `i` is its index in the face)
+  auto cut = [&](int mu, bool out) { return HALO && (halo.mask >> mu & 1) && out; };
+  auto ubw = [&](int mu, const V* inside, bool out, int i) {
+    return cut(mu, out) ? halo.link[mu] + 9 * i : inside;
+  };
 
   // the -x term of the chunk's first slice, colour a of U_0(x-1)^dag (1 + g_0) psi(x-1)
   V carry[2];
   {
     const int xm = xs == 0 ? lx - 1 : xs - 1;
     V site[12], half[2][3], ul[3];
-    load_link_line<true>(u + 9 * (xm * slice + s3), a, ul);
-    load_site(psi + 12 * (xm * slice + s3), site);
+    load_link_line<true>(ubw(0, u + 9 * (xm * slice + s3), xs == 0, s3), a, ul);
+    load_site(cut(0, xs == 0) ? halo.lo[0] + 12 * s3 : psi + 12 * (xm * slice + s3), site);
     project<0, true>(site, half);
     lane_mul<true>(ul, half, carry);
   }
@@ -209,21 +259,31 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
     }
     // y: a row of the tile or a halo row
     load_link_line<false>(u + 9 * (vol + o), a, uf);
-    load_link_line<true>(u + 9 * (vol + x * slice + by), a, ub);
+    load_link_line<true>(ubw(1, u + 9 * (vol + x * slice + by), y == 0, (x * lz + z) * lt + t), a,
+                         ub);
     lane_hop<1, false>(acc, nb(iy + 1 < BY ? S::own(i % 3, iy + 1, iz) : S::yhalo(i & 1, 1, iz), it),
                        uf);
     lane_hop<1, true>(acc, nb(iy > 0 ? S::own(i % 3, iy - 1, iz) : S::yhalo(i & 1, 0, iz), it), ub);
     // z
     load_link_line<false>(u + 9 * (2 * vol + o), a, uf);
-    load_link_line<true>(u + 9 * (2 * vol + x * slice + bz), a, ub);
+    load_link_line<true>(ubw(2, u + 9 * (2 * vol + x * slice + bz), z == 0, (x * ly + y) * lt + t),
+                         a, ub);
     lane_hop<2, false>(acc, nb(iz + 1 < BZ ? S::own(i % 3, iy, iz + 1) : S::zhalo(i & 1, 1, iy), it),
                        uf);
     lane_hop<2, true>(acc, nb(iz > 0 ? S::own(i % 3, iy, iz - 1) : S::zhalo(i & 1, 0, iy), it), ub);
-    // t: in the own row's segment (which wraps when it is the whole row), else device memory
+    // t: in the own row's segment (which wraps when it is the whole row), else device memory;
+    // in the halo mode a t neighbour outside the block is in a t face
+    const int ft = (x * ly + y) * lz + z;  // the site's index in a t face
     load_link_line<false>(u + 9 * (3 * vol + o), a, uf);
-    load_link_line<true>(u + 9 * (3 * vol + o - t + tb), a, ub);
-    lane_hop<3, false>(acc, fin ? nb(cur, tf - t0) : psi + 12 * (o - t + tf), uf);
-    lane_hop<3, true>(acc, bin ? nb(cur, tb - t0) : psi + 12 * (o - t + tb), ub);
+    load_link_line<true>(ubw(3, u + 9 * (3 * vol + o - t + tb), t == 0, ft), a, ub);
+    lane_hop<3, false>(acc, cut(3, t + 1 == lt) ? halo.hi[3] + 12 * ft
+                            : fin               ? nb(cur, tf - t0)
+                                                : psi + 12 * (o - t + tf),
+                       uf);
+    lane_hop<3, true>(acc, cut(3, t == 0) ? halo.lo[3] + 12 * ft
+                           : bin          ? nb(cur, tb - t0)
+                                          : psi + 12 * (o - t + tb),
+                      ub);
 
     if (valid) {
       const V* p = nb(cur, it) + a;
@@ -238,13 +298,20 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
 }
 
 // Launch one wave: t is cut into the fewest segments of at most TSMAX sites, and x into the
-// fewest chunks that give every block the card holds at once a chunk.
-template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH>
+// fewest chunks that give every block the card holds at once a chunk. HALO: the halo mode, with
+// faces[mu], faces[4 + mu] and faces[8 + mu] as lo[mu], hi[mu] and link[mu].
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool HALO = false>
 int launch(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
-           double kappa, void* stream) {
+           double kappa, void* stream, int mask = 0, const void* const* faces = nullptr) {
   using V = typename Vec<R>::type;
   constexpr int smem_max = Ring<BY, BZ>::ROWS * 12 * TSMAX * sizeof(V);
-  auto* kernel = wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH>;
+  auto* kernel = wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, HALO>;
+  Halo<V> halo{mask, {}, {}, {}};
+  for (int mu = 0; HALO && mu < 4; ++mu) {
+    halo.lo[mu] = static_cast<const V*>(faces[mu]);
+    halo.hi[mu] = static_cast<const V*>(faces[4 + mu]);
+    halo.link[mu] = static_cast<const V*>(faces[8 + mu]);
+  }
   // once per device: opt in to the shared memory and read how many blocks the card holds at
   // once (threads that race here set and read the same values twice, which is harmless)
   constexpr int MAX_DEVICES = 64;
@@ -275,7 +342,7 @@ int launch(const void* u, const void* psi, void* out, int lx, int ly, int lz, in
   const int smem = Ring<BY, BZ>::ROWS * 12 * ts * static_cast<int>(sizeof(V));
   kernel<<<tiles * nchunk, 3 * BY * BZ * ts, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const V*>(u), static_cast<const V*>(psi), static_cast<V*>(out), lx, ly, lz, lt,
-      ts, chunk, static_cast<R>(kappa));
+      ts, chunk, static_cast<R>(kappa), halo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -283,7 +350,9 @@ int launch(const void* u, const void* psi, void* out, int lx, int ly, int lz, in
 
 // Plain C entry points (loaded with ctypes). Each returns cudaGetLastError() after the launch,
 // a CUDA error if the set-up failed, or -1 if no block of the tile fits on the device. psi
-// must be 16-byte aligned.
+// and the spinor faces must be 16-byte aligned. The halo mode's (one block of a process grid)
+// end in the partition mask (bit mu: axis mu is cut) and an array of 12 face pointers (lo[0..3],
+// hi[0..3], link[0..3]; those of uncut axes are not read).
 extern "C" {
 
 int wilson_window_c64(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
@@ -294,6 +363,20 @@ int wilson_window_c64(const void* u, const void* psi, void* out, int lx, int ly,
 int wilson_window_c128(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
                        double kappa, void* stream) {
   return launch<double, WILSON_WINDOW_TILE_C128>(u, psi, out, lx, ly, lz, lt, kappa, stream);
+}
+
+int wilson_window_halo_c64(const void* u, const void* psi, void* out, int lx, int ly, int lz,
+                           int lt, double kappa, int mask, const void* const* faces,
+                           void* stream) {
+  return launch<float, WILSON_WINDOW_TILE_C64, true>(u, psi, out, lx, ly, lz, lt, kappa, stream,
+                                                     mask, faces);
+}
+
+int wilson_window_halo_c128(const void* u, const void* psi, void* out, int lx, int ly, int lz,
+                            int lt, double kappa, int mask, const void* const* faces,
+                            void* stream) {
+  return launch<double, WILSON_WINDOW_TILE_C128, true>(u, psi, out, lx, ly, lz, lt, kappa,
+                                                       stream, mask, faces);
 }
 
 }  // extern "C"

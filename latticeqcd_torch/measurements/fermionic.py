@@ -25,6 +25,10 @@ even lattices (wilson_hop_packed), full-volume 5D CGNE otherwise
 (wilson_window). The noise and the Lanczos start vector come from a
 ``torch.Generator`` or are injected: jax.random streams cannot be
 reproduced in torch, so the tests hand both packages the same numbers.
+Under a process grid (parallel/mesh.py) every field is this rank's block:
+the noise and the start vector are the global fields' draws with the
+block kept, every sum is global, and every rank returns the same numbers
+(the domain-wall measurements have no multi-process form yet).
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ from latticeqcd_torch.ops.dirac.wilson import (
     gaussian_spinor,
     z4_spinor,
 )
+from latticeqcd_torch.parallel import mesh
+from latticeqcd_torch.parallel.mesh import global_sum
 
 # seed of the Lanczos start vector of dirac_low_spectrum (the JAX package's PRNGKey)
 SPECTRUM_SEED = 20260822
@@ -194,13 +200,13 @@ def chiral_condensate(u, dirac, generator: Optional[torch.Generator] = None, nr:
     either way."""
     up = apply_boundary_phases(u, dirac.bc)
     lattice = tuple(u.shape[1:5])
-    nv = int(np.prod(lattice))
+    nv = mesh.global_volume(lattice)
     r = torch.stack([
         z4_spinor(lattice, u.shape[-1], nspin=_nspin(dirac), dtype=u.dtype, device=u.device,
                   generator=generator, draws=None if draws is None else draws[i])
         for i in range(nr)])
     p = _propagate(dirac, up, r, eps, maxiter, deflate_k, log, force_mode)
-    per_noise = torch.real(torch.sum(r.conj() * p, dim=tuple(range(1, r.ndim))))
+    per_noise = global_sum(torch.real(torch.sum(r.conj() * p, dim=tuple(range(1, r.ndim)))))
     per_noise = per_noise.double().cpu().numpy()
     vals = [float(v) / nv for v in per_noise]
     pbp = float(np.sum(per_noise)) / nr / nv * nf_factor
@@ -246,21 +252,30 @@ def dirac_low_spectrum(u, dirac, k: int = 8, m: Optional[int] = None, v0=None):
 def pion_correlator(u, dirac, eps: float = 1e-19, maxiter: int = 3000, deflate_k: int = 0,
                     log: Optional[list] = None, force_mode: Optional[str] = None):
     """C_pi(t) (float64 numpy) from the NC * Nspinor point-source
-    propagators at the origin, solved as one batch."""
+    propagators at the origin, solved as one batch. Under a process grid the
+    source is set on the rank that holds the global origin, each rank's block of
+    C(t) lands at its global t, and the sum over ranks gives every rank the same
+    global C(t)."""
     up = apply_boundary_phases(u, dirac.bc)
     lattice = tuple(u.shape[1:5])
     nc = u.shape[-1]
     nspin = _nspin(dirac)
+    grid = mesh.sharded()
+    source = grid is None or not any(grid.origin)
     if nspin == 1:
         b = torch.zeros((nc,) + lattice + (nc,), dtype=u.dtype, device=u.device)
-        for ic in range(nc):
+        for ic in range(nc if source else 0):
             b[ic, 0, 0, 0, 0, ic] = 1.0
     else:
         b = torch.zeros((nspin * nc,) + lattice + (nspin, nc), dtype=u.dtype, device=u.device)
-        for ic in range(nc):
+        for ic in range(nc if source else 0):
             for isp in range(nspin):
                 b[ic * nspin + isp, 0, 0, 0, 0, isp, ic] = 1.0
     prop = _propagate(dirac, up, b, eps, maxiter, deflate_k, log, force_mode)
     mag2 = torch.abs(prop) ** 2
     axes = (0, 1, 2, 3) + tuple(range(5, mag2.ndim))
-    return torch.sum(mag2, dim=axes).double().cpu().numpy()
+    c = torch.sum(mag2, dim=axes)
+    if grid is not None:
+        t0, lt = grid.origin[3], lattice[3]
+        c = global_sum(torch.cat([c.new_zeros(t0), c, c.new_zeros(grid.lattice[3] - t0 - lt)]))
+    return c.double().cpu().numpy()

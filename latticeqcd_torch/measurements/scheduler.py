@@ -55,6 +55,27 @@ def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1
     raise ValueError(f"unknown Dirac_operator {kind!r}")
 
 
+FERMIONIC = ("Chiral_condensate", "Pion_correlator", "Dirac_spectrum")
+
+
+def measurement_grid_refusal(method: Dict[str, Any]) -> Optional[str]:
+    """What of a measurement method has no multi-process form yet (ROADMAP A14b), or
+    None: a method that solves with a Dirac operator runs under a process grid on the
+    Wilson (r = 1, clover-improved or not) and staggered operators, not on domain
+    wall."""
+    name = method.get("methodname")
+    if name not in FERMIONIC and "fermion_parameters" not in method:
+        return None
+    fparams = method.get("fermion_parameters", {
+        "Dirac_operator": _REGISTRY[name].default_operator if name in _REGISTRY else "Wilson"})
+    kind = fparams.get("Dirac_operator", "Wilson")
+    if kind in ("Domainwall", "domainwall"):
+        return f"the fermionic measurement {name} on the domain-wall operator"
+    if kind in ("Wilson", "WilsonClover") and float(fparams.get("r", 1.0)) != 1.0:
+        return f"the fermionic measurement {name} with Wilson r = {fparams['r']}"
+    return None
+
+
 @dataclass
 class Measurement:
     name: str
@@ -156,7 +177,11 @@ class FermionicMeasurement(Measurement):
     solves: Optional[list] = None
 
     def _dirac(self, u):
-        mesh.refuse_under_grid(f"the fermionic measurement {self.name}")
+        """(fermion_parameters, the operator on the fields of u's lattice: the block's
+        under a process grid)."""
+        what = measurement_grid_refusal(self.params)
+        if what is not None:
+            mesh.refuse_under_grid(what)
         fparams = self.params.get("fermion_parameters", {"Dirac_operator": self.default_operator})
         return fparams, build_dirac_from_params(fparams, u.shape[1:5], device=u.device)
 

@@ -18,7 +18,8 @@ the run's output and writes files; it prints the grid, the backend and
 the process count, then the final plaquette and the elapsed time. With
 --report DIR every rank writes DIR/rank<r>.json (its grid place, its
 trajectories' seconds, dH, accept decisions and solver records, the final
-plaquette and its launches of the packed Wilson hop, halo mode apart) and
+plaquette and its launches of the packed Wilson hop, the staggered hop and
+W and the full Wilson D, each kernel's halo mode apart) and
 DIR/rank<r>_u.npy (its block of the final links).
 """
 
@@ -97,7 +98,7 @@ def _report(outdir, pes, device, plaq, history, u):
     import numpy as np
 
     from latticeqcd_torch.convert import to_numpy
-    from latticeqcd_torch.ops.dirac import wilson_kernel
+    from latticeqcd_torch.ops.dirac import staggered_kernel, wilson_kernel, wilson_window_kernel
     from latticeqcd_torch.parallel import mesh
 
     rank = mesh.get_myrank()
@@ -106,7 +107,11 @@ def _report(outdir, pes, device, plaq, history, u):
         json.dump({"rank": rank, "nprocs": mesh.get_nprocs(), "pes": list(pes),
                    "device": str(device), "plaquette": plaq, "history": history,
                    "launches": {"wilson_hop_packed": wilson_kernel.launches,
-                                "wilson_hop_packed_halo": wilson_kernel.halo_launches}}, f)
+                                "wilson_hop_packed_halo": wilson_kernel.halo_launches,
+                                "staggered_w": staggered_kernel.launches,
+                                "staggered_w_halo": staggered_kernel.halo_launches,
+                                "wilson_window": wilson_window_kernel.launches,
+                                "wilson_window_halo": wilson_window_kernel.halo_launches}}, f)
     np.save(os.path.join(outdir, f"rank{rank}_u.npy"), to_numpy(u))
 
 

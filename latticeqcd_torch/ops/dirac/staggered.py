@@ -16,6 +16,12 @@ on the CPU). The full-volume ``dslash`` and the masked ``apply_w_even``
 are torch ops for the CPU (the tests, and lattices with an odd extent);
 a full-volume mode of the kernel is later work (ROADMAP A11), so they
 refuse a tensor that is not on the CPU.
+
+``lattice`` is the lattice of the fields the operator acts on: under a
+process grid (parallel/mesh.py) the block's extents, every one even. Each
+block's origin is then even, so the KS signs, the parity mask and the
+packed row offsets made from the block's own coordinates are the blocks
+of the global field's.
 """
 
 from __future__ import annotations

@@ -87,10 +87,9 @@ class WilsonDirac:
 
     def apply(self, u: torch.Tensor, psi: torch.Tensor, clover=None) -> torch.Tensor:
         """D psi; u must already carry the boundary phases. With csw != 0,
-        ``clover`` is clover_term(u), built here when not given. The full D
-        (the wilson_window kernel) has no halo mode yet: it raises under a
-        process grid."""
-        mesh.refuse_under_grid("the full Wilson D (wilson_window)")
+        ``clover`` is clover_term(u), built here when not given. Under a process
+        grid the full D is the wilson_window kernel's halo mode and the clover term
+        is built from sharded rolls; both are this rank's block."""
         if self.r == 1.0:
             out = wilson_window_kernel.wilson_window(u, psi, self.kappa)
         else:
@@ -215,12 +214,14 @@ class WilsonDirac:
 def gaussian_spinor(lattice, nc, nspin=4, dtype=torch.complex128, device="cuda",
                     generator: Optional[torch.Generator] = None, normals=None) -> torch.Tensor:
     """Unit-variance complex Gaussian spinor, E|psi_i|^2 = 1: (re + i im)/sqrt(2)
-    from a Generator, or from injected normals (re, im) of that shape."""
+    from a Generator, or from injected normals (re, im) of that shape. Under a
+    process grid ``lattice`` is the block's, and the Generator's normals are the
+    global field's with this rank's block kept (mesh.randn_block)."""
     shape = tuple(lattice) + ((nspin, nc) if nspin > 1 else (nc,))
     if normals is None:
         rdtype = torch.float64 if dtype == torch.complex128 else torch.float32
-        re = torch.randn(shape, generator=generator, dtype=rdtype, device=device)
-        im = torch.randn(shape, generator=generator, dtype=rdtype, device=device)
+        re = mesh.randn_block(shape, 0, generator, rdtype, device)
+        im = mesh.randn_block(shape, 0, generator, rdtype, device)
     else:
         re, im = normals
     return (torch.complex(re, im) / math.sqrt(2.0)).to(dtype)
@@ -231,10 +232,12 @@ def z4_spinor(lattice, nc, nspin=4, dtype=torch.complex128, device="cuda",
     """Z4 noise: entries i^k, k in {0, 1, 2, 3}, uniform; k from a Generator,
     or the injected integers ``draws`` of that shape (the JAX package's
     ``z4_spinor`` draws k with jax.random.randint, whose stream torch cannot
-    reproduce, so a test injects the same integers into both)."""
+    reproduce, so a test injects the same integers into both). Under a process
+    grid ``lattice`` is the block's, and the Generator's integers are the global
+    field's with this rank's block kept (mesh.randint_block)."""
     shape = tuple(lattice) + ((nspin, nc) if nspin > 1 else (nc,))
     if draws is None:
-        k = torch.randint(0, 4, shape, generator=generator, device=device)
+        k = mesh.randint_block(4, shape, 0, generator, device)
     else:
         k = torch.as_tensor(draws, device=device).reshape(shape)
     vals = torch.tensor([1, 1j, -1, -1j], dtype=dtype, device=k.device)

@@ -179,6 +179,22 @@ def hop_packed_halo_reference(u_t, u_s, psi_s, target_parity: int, faces, link_f
     return _hop(u_t, u_s, psi_s, *halo_gathers(psi_s, target_parity, faces, link_faces))
 
 
+def dslash_halo_reference(u, psi, kappa, faces, link_faces):
+    """Plain full-volume D psi = psi - kappa H psi (r = 1) on a block of a process grid,
+    the neighbours outside the block from ``faces`` {mu: (lo, hi)} and the backward
+    links' from ``link_faces`` {mu: face}."""
+    def plus(f, mu):
+        return _shift(f, mu, -1, faces[mu][1] if mu in faces else None)
+
+    def minus(f, mu):
+        return _shift(f, mu, 1, faces[mu][0] if mu in faces else None)
+
+    def link(f, mu):
+        return _shift(f, mu, 1, link_faces.get(mu))
+
+    return psi - kappa * _hop(u, u, psi, plus, minus, link)
+
+
 def _link_grads(g, psi, gplus, gminus):
     """Gradients of Re<g, H psi> (PyTorch's convention for a real loss of
     complex inputs) w.r.t. the forward links U_fwd(x) and the backward
@@ -388,17 +404,24 @@ def _grid_hop(u_t, u_s, psi_s, target_parity, grid):
     return hop_packed_halo(u_t, u_s, psi_s, target_parity, faces, link_faces(u_s, grid)), faces
 
 
+def split_backward(bwd, psi_s, target_parity):
+    """The gradients of the backward links of a packed hop, held at the target sites x
+    (one per mu), split into the part that moves to x - mu (``moving[mu]``) and the part
+    that stays (``staying``, x only: the sites whose gather did not move)."""
+    lattice = (2 * psi_s.shape[0],) + tuple(psi_s.shape[1:4])
+    b = eo_pack._mask(eo_pack.offset_field(lattice, target_parity), bwd[0].ndim - 4,
+                      bwd[0].device)
+    zero = torch.zeros_like(bwd[0])
+    return [torch.where(b, zero, bwd[0])] + list(bwd[1:]), torch.where(b, bwd[0], zero)
+
+
 def halo_link_grads(g, psi_s, target_parity, faces):
     """The link gradients of Re<g, H psi_s> on a block, from the faces of psi_s:
-    (d u_t, moving, staying), the gradients of the backward links, held at the
-    target sites x, split into the part that moves to x - mu (``moving[mu]``) and the
-    part that stays (``staying``, x only: the sites whose gather did not move)."""
+    (d u_t, moving, staying), the gradients of the backward links split by
+    ``split_backward``."""
     gplus, gminus, _ = halo_gathers(psi_s, target_parity, faces, {})
     fwd, bwd = _link_grads(g, psi_s, gplus, gminus)
-    lattice = (2 * psi_s.shape[0],) + tuple(psi_s.shape[1:4])
-    b = eo_pack._mask(eo_pack.offset_field(lattice, target_parity), bwd[0].ndim - 4, g.device)
-    zero = torch.zeros_like(bwd[0])
-    return torch.stack(fwd), [torch.where(b, zero, bwd[0])] + bwd[1:], torch.where(b, bwd[0], zero)
+    return (torch.stack(fwd),) + tuple(split_backward(bwd, psi_s, target_parity))
 
 
 def scatter_halo(moving, staying, heads):
@@ -410,13 +433,19 @@ def scatter_halo(moving, staying, heads):
     return torch.stack(d_us)
 
 
+def scatter_across_faces(moving, staying, grid):
+    """d u_s on a block of ``grid`` from split_backward's parts: the heads of ``moving``
+    come from the +mu neighbours, one slab per cut axis."""
+    heads = mesh.pass_slabs({mu: moving[mu].select(mu, 0) for mu in grid.partitioned}, -1, grid)
+    return scatter_halo(moving, staying, heads)
+
+
 def _grid_link_grads(g, psi_s, target_parity, faces, grid):
     """(d u_t, d u_s) of Re<g, H psi_s> on a block, from the forward's faces; the
     gradients of the backward links move across the block's faces by one more slab
     per cut axis."""
     d_ut, moving, staying = halo_link_grads(g, psi_s, target_parity, faces)
-    heads = mesh.pass_slabs({mu: moving[mu].select(mu, 0) for mu in grid.partitioned}, -1, grid)
-    return d_ut, scatter_halo(moving, staying, heads)
+    return d_ut, scatter_across_faces(moving, staying, grid)
 
 
 def hop_packed_site(u_t, u_s, psi_s, target_parity: int):
@@ -435,8 +464,10 @@ def hop_packed_site(u_t, u_s, psi_s, target_parity: int):
 
 class WilsonDslash(torch.autograd.Function):
     """D psi = psi - kappa H psi (full volume, r = 1) through ``dslash``, the
-    launch of a full-D kernel (this module's full mode, or wilson_window's);
-    the spinor gradient runs ``dslash`` again."""
+    launch of a full-D kernel (this module's full mode, or wilson_window's, which
+    under a process grid runs its halo mode); the spinor gradient runs ``dslash``
+    again. The link gradient's gathers are rolls.roll, which on a block of a
+    process grid exchange the slabs that cross its faces."""
 
     @staticmethod
     def forward(ctx, u, psi, kappa, dslash):
@@ -496,7 +527,9 @@ class WilsonHopPacked(torch.autograd.Function):
 
 
 def wilson_dslash(u, psi, kappa):
-    """Full D psi (r = 1) through the kernel on CUDA, the plain version on the CPU."""
+    """Full D psi (r = 1) through the kernel on CUDA, the plain version on the CPU.
+    wilson_hop's full mode has no halo mode: it raises under a process grid."""
+    mesh.refuse_under_grid("wilson_hop's full mode")
     return WilsonDslash.apply(u, psi, float(kappa), _dslash)
 
 

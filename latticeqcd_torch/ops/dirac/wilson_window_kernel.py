@@ -17,7 +17,16 @@ half-spinor outer products of ``wilson_kernel._link_grads``. A tensor on
 the CPU takes the plain version (``wilson_kernel.dslash_reference``); a
 tensor on a CUDA device launches the kernel, or the wrapper raises.
 
-``launches`` counts kernel launches (forward and backward alike).
+Under a process grid (parallel/mesh.py) the fields are this rank's
+blocks and every D runs the kernel's halo mode (``dslash_halo``): the
+spinor's boundary slabs are exchanged with the neighbours first (two
+messages per cut axis), the backward links' faces once per link tensor
+(wilson_kernel.link_faces), and the kernel, or on the CPU its plain
+version ``wilson_kernel.dslash_halo_reference``, reads the neighbours
+outside the block from these face buffers.
+
+``launches`` counts kernel launches outside the halo mode (forward and
+backward alike), ``halo_launches`` those of the halo mode.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from latticeqcd_torch.ops.dirac import wilson_kernel
 from latticeqcd_torch.parallel import mesh
 
 launches = 0
+halo_launches = 0
 
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
 _LIB = None
@@ -45,12 +55,44 @@ def _lib():
             fn = getattr(lib, f"wilson_window_{suffix}")
             fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ctypes.c_double, vp]
             fn.restype = ci
+            fn = getattr(lib, f"wilson_window_halo_{suffix}")
+            fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ctypes.c_double, ci, vp, vp]
+            fn.restype = ci
         _LIB = lib
     return _LIB
 
 
+def dslash_halo(u, psi, kappa, faces, link_faces):
+    """D psi on this rank's block of a process grid: ``faces`` {mu: (lo, hi)} holds, for
+    each cut axis mu, the -mu neighbour's last and the +mu neighbour's first slab of psi
+    with axis mu removed, ``link_faces`` {mu: the -mu neighbour's last slab of u[mu]}.
+    The kernel's halo mode on CUDA (one launch), the plain version on the CPU."""
+    global halo_launches
+    if psi.device.type == "cpu":
+        return wilson_kernel.dslash_halo_reference(u, psi, kappa, faces, link_faces)
+    wilson_kernel._check(psi, u, kernel="wilson_window")
+    wilson_kernel._check_faces(psi, u, faces, link_faces)
+    ptrs = [None] * 12
+    for mu, (lo, hi) in faces.items():
+        ptrs[mu], ptrs[4 + mu], ptrs[8 + mu] = lo.data_ptr(), hi.data_ptr(), link_faces[mu].data_ptr()
+    out = torch.empty_like(psi)
+    fn = getattr(_lib(), f"wilson_window_halo_{_SUFFIX[psi.dtype]}")
+    with torch.cuda.device(psi.device):
+        err = fn(u.data_ptr(), psi.data_ptr(), out.data_ptr(), *psi.shape[:4], float(kappa),
+                 sum(1 << mu for mu in faces), (ctypes.c_void_p * 12)(*ptrs),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wilson_window halo mode launch failed: CUDA error {err}")
+    halo_launches += 1
+    return out
+
+
 def _dslash(u, psi, kappa):
     global launches
+    grid = mesh.sharded()
+    if grid is not None:
+        return dslash_halo(u, psi, kappa, mesh.exchange_faces(psi, grid),
+                           wilson_kernel.link_faces(u, grid))
     if psi.device.type == "cpu":
         return wilson_kernel.dslash_reference(u, psi, kappa)
     wilson_kernel._check(psi, u, kernel="wilson_window")
@@ -66,7 +108,6 @@ def _dslash(u, psi, kappa):
 
 
 def wilson_window(u, psi, kappa):
-    """Full D psi (r = 1) through the kernel on CUDA, the plain version on the CPU.
-    No halo mode yet: it raises under a process grid."""
-    mesh.refuse_under_grid("the wilson_window kernel")
+    """Full D psi (r = 1) through the kernel on CUDA, the plain version on the CPU;
+    under a process grid the halo mode on this rank's block."""
     return wilson_kernel.WilsonDslash.apply(u, psi, float(kappa), _dslash)

@@ -10,7 +10,11 @@ guess. After m operator applications the Krylov Ritz values bracket both
 spectral ends. The recurrence keeps its basis on the field's device with
 two-pass full reorthogonalization (classical Gram-Schmidt twice), each
 pass one matrix-vector product over the stacked basis; only the m x m
-tridiagonal eigenproblem runs on the host, with numpy in float64.
+tridiagonal eigenproblem runs on the host, with numpy in float64. Under
+a process grid the basis is this rank's block, every inner product and
+re-orthogonalisation coefficient is a global sum (bitwise the same on
+every rank), so the tridiagonal, and its eigenproblem, are the same
+host data on every rank.
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from latticeqcd_torch.parallel.mesh import global_sum
+
 
 def _inner(a, b):
-    """Global <a, b> = sum conj(a) b."""
-    return torch.sum(a.conj() * b)
+    """Global <a, b> = sum conj(a) b (over the ranks of a process grid)."""
+    return global_sum(torch.sum(a.conj() * b))
 
 
 @torch.no_grad()
@@ -45,7 +51,7 @@ def _lanczos_basis(matvec, v0, m: int):
         w = matvec(v)
         alphas[j] = torch.real(_inner(v, w))
         for _ in range(2):
-            coef = flat.conj() @ w.reshape(-1)
+            coef = global_sum(flat.conj() @ w.reshape(-1))
             w = w - (coef @ flat).view(w.shape)
         beta = torch.sqrt(torch.real(_inner(w, w)))
         betas[j] = beta
@@ -127,5 +133,5 @@ def deflation_guess(evals, vecs, b):
     sides: x0_i = sum_k <v_k, b_i> / lambda_k v_k. Exact on the spanned
     subspace and zero outside it, so the CG that follows corrects any Ritz
     imprecision; sentinel eigenvalues divide to ~0."""
-    c = torch.einsum("k...,n...->nk", vecs.conj(), b)
+    c = global_sum(torch.einsum("k...,n...->nk", vecs.conj(), b))
     return torch.einsum("nk,k...->n...", c / evals[None, :].to(c.dtype), vecs)

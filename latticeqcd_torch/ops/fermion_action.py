@@ -145,6 +145,8 @@ class WilsonFermiAction:
     def _eo(self, lattice) -> bool:
         return self.dirac.csw == 0.0 and eo_pack.packable(lattice)
 
+    noise_lead = 0  # the axis where the noise's lattice axes start
+
     def noise_shape(self, u):
         """Shape of the Gaussian normals of one draw of xi: packed even sites
         when even-odd applies, else the full lattice, then (4, NC)."""
@@ -158,12 +160,8 @@ class WilsonFermiAction:
         """(S_old, phi): phi = A xi with unit Gaussian xi (from the
         Generator, or the injected normals (re, im)); S_old = |xi|^2. Under a
         process grid the Generator's normals are the global lattice's, this
-        rank's block kept."""
+        rank's block kept (gaussian_spinor)."""
         up = self._phased(u)
-        if normals is None and mesh.sharded() is not None:
-            shape, rdtype = self.noise_shape(u), sun.real_dtype(u.dtype)
-            normals = tuple(mesh.randn_block(shape, 0, generator, rdtype, u.device)
-                            for _ in range(2))
         xi = gaussian_spinor(self.noise_shape(u)[:4], u.shape[-1], nspin=4, dtype=u.dtype,
                              device=u.device, generator=generator, normals=normals)
         if self._eo(tuple(u.shape[1:5])):
@@ -283,6 +281,8 @@ class HasenbuschWilsonFermiAction:
 
     def _eo(self, lattice) -> bool:
         return self.dirac.csw == 0.0 and eo_pack.packable(lattice)
+
+    noise_lead = 1  # after the axis of the two noises
 
     def noise_shape(self, u):
         """(2,) for the two noises xi1, xi2, then the packed even sites when
@@ -420,6 +420,8 @@ class DomainwallFermiAction:
 
     def _phased(self, u):
         return apply_boundary_phases(u, self.dirac.bc)
+
+    noise_lead = 1  # after the fifth axis
 
     def noise_shape(self, u):
         """(L5,) + the packed even sites (every extent even) or the full
@@ -560,6 +562,9 @@ class StaggeredFermiAction:
             return lambda v: self.dirac.apply_w_packed(ueo, v)
         return lambda v: self.dirac.apply_w_even(up, v)
 
+    # the noise's lattice axes start after its pseudofermion axis
+    noise_lead = 1
+
     def noise_shape(self, u):
         """Shape of the Gaussian normals of one draw: (n_pf,) + the packed
         even sites + (NC,), or the full lattice (masked to even sites)
@@ -573,7 +578,8 @@ class StaggeredFermiAction:
     def _w_matvec_packed_start(self, u, v0=None):
         """(matvec, v0) for spectral estimation: the production W apply and a
         Gaussian start vector from a Generator seeded with SPECTRAL_SEED on
-        the links' device (masked to even sites, packed), unless one is given."""
+        the links' device (masked to even sites, packed), unless one is given;
+        under a process grid the global field's start vector, this rank's block kept."""
         matvec = self._w(self._phased(u))
         if v0 is None:
             g = torch.Generator(device=u.device).manual_seed(SPECTRAL_SEED)
@@ -620,11 +626,13 @@ class StaggeredFermiAction:
         """(S_old, phi): phi_i = W^(Nf/8npf) xi_i with xi_i unit Gaussian on
         even sites (from the Generator, or the injected normals (re, im) of
         noise_shape(u)), so S_old = sum |xi_i|^2 up to the rational
-        tolerance. phi is stacked [n_pf, X, Y, Z, T, NC] on the full lattice."""
+        tolerance. phi is stacked [n_pf, X, Y, Z, T, NC] on the full lattice.
+        Under a process grid the Generator's normals are the global lattice's,
+        this rank's block kept."""
         shape = self.noise_shape(u)
         if normals is None:
-            kw = dict(generator=generator, dtype=u.real.dtype, device=u.device)
-            normals = (torch.randn(shape, **kw), torch.randn(shape, **kw))
+            normals = tuple(mesh.randn_block(shape, self.noise_lead, generator, u.real.dtype,
+                                             u.device) for _ in range(2))
         xi_all = (torch.complex(*normals) / math.sqrt(2.0)).to(u.dtype)
         packed = self._packed()
         if not packed:

@@ -13,9 +13,11 @@ communication out:
   ((cx PY + cy) PZ + cz) PT + ct, the JAX mesh's device order);
 * while a grid is active (``use_grid``), every field is this rank's
   block: ops/rolls.py shifts across a partitioned axis by exchanging
-  boundary slabs with the neighbours, the packed Wilson hop reads its
-  halos from exchanged face buffers (``exchange_faces``), and every
-  lattice sum goes through ``global_sum``;
+  boundary slabs with the neighbours, the kernels (the packed Wilson
+  hop, the staggered hop and W, the full Wilson D) read their halos from
+  exchanged face buffers (``exchange_faces``), every lattice sum goes
+  through ``global_sum``, and every random field is the global field's
+  draw with this rank's block kept (``randn_block``, ``randint_block``);
 * ``global_sum`` all-reduces scalars only. Each rank writes its partial
   sum into its own slot of a vector of nprocs entries, the vector is
   all-reduced (a sum of one value with zeros is exact), and every rank
@@ -315,6 +317,18 @@ def randn_block(shape, lead: int, generator, dtype, device) -> torch.Tensor:
         return torch.randn(shape, generator=generator, dtype=dtype, device=device)
     full = torch.randn(grid.global_shape(shape, lead), generator=generator, dtype=dtype,
                        device=device)
+    return grid.block(full, lead).contiguous()
+
+
+def randint_block(high: int, shape, lead: int, generator, device) -> torch.Tensor:
+    """Integers in [0, high) for a local field of ``shape`` (lattice axes lead..lead + 3),
+    drawn as ``randn_block`` draws its normals: under a grid the global field's, this
+    rank's block kept."""
+    grid = sharded()
+    if grid is None:
+        return torch.randint(0, high, shape, generator=generator, device=device)
+    full = torch.randint(0, high, grid.global_shape(shape, lead), generator=generator,
+                         device=device)
     return grid.block(full, lead).contiguous()
 
 

@@ -28,6 +28,7 @@ import time
 from dataclasses import fields as dc_fields, replace
 from typing import Optional
 
+import numpy as np
 import torch
 
 from latticeqcd_torch._version import __version__
@@ -140,8 +141,10 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
     clock, ending in a device sync), dH and plaq (None under Heatbath and
     Fileloading), accepted, the solver records of that trajectory (CG and
     multi-shift CG alike), save_seconds (None if nothing was saved),
-    flow_seconds (the flow and its measurements; None without them) and
-    beta_eff (the self-learning updaters' couplings after the step, else None).
+    flow_seconds (the flow and its measurements; None without them),
+    beta_eff (the self-learning updaters' couplings after the step, else None)
+    and measured ({method: its numbers} of the step's measurements that keep
+    them, the fermionic ones among them; every rank of a grid has them).
     The steps are timed by phase (update, save, measure, gradientflow; each
     phase ends in a device sync on a CUDA device), reported at verboselevel 1
     after the run; profile_dir, if given, receives a torch.profiler trace of
@@ -154,6 +157,13 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
     with mesh.use_grid(grid):
         return _run(p, make_dirs, dtype, device, history, resume_checkpoint, profile_dir, grid,
                     final)
+
+
+def _numbers(value):
+    """A measurement's value as nested lists of Python floats (for a history record)."""
+    if isinstance(value, (tuple, list)):
+        return [_numbers(v) for v in value]
+    return np.asarray(value, dtype=np.float64).tolist()
 
 
 def _run(p, make_dirs, dtype, device, history, resume_checkpoint, profile_dir, grid, final):
@@ -272,10 +282,13 @@ def _run(p, make_dirs, dtype, device, history, resume_checkpoint, profile_dir, g
                             step=istep)
                 flow_seconds = time.time() - t0
             if history is not None:
+                measured = {m.name: _numbers(m.value) for m in measurements.measurements
+                            if getattr(m, "value", None) is not None
+                            and m.interval > 0 and itrj % m.interval == 0}
                 history.append({"itrj": itrj, "seconds": seconds, "dH": stats.get("dH"),
                                 "accepted": accepted, "plaq": stats.get("plaq"), "cg": cg,
                                 "save_seconds": save_seconds, "flow_seconds": flow_seconds,
-                                "beta_eff": stats.get("beta_eff")})
+                                "beta_eff": stats.get("beta_eff"), "measured": measured})
             vp.println_verbose_level1(
                 f"Acceptance {numaccepts}/{itrj} : {round(numaccepts * 100 / itrj)} %")
             vp.flush()

@@ -13,9 +13,11 @@ the self-learning SLHMC and SLMC or the integrated-fermion IntegratedHMC
 and IntegratedHB, or loaded by Fileloading, with gradient-flow
 measurements. Everything else raises NotImplementedError naming the
 ROADMAP item that will port it. Under a process grid (parallel/mesh.py)
-the links are this rank's block, and only quenched and two-flavour
-Wilson HMC (csw = 0, r = 1, no Hasenbusch, no smearing) with gauge
-measurements runs; the rest raises naming ROADMAP A14b before any work.
+the links are this rank's block, and HMC runs quenched, with two-flavour
+Wilson fermions at r = 1 (clover-improved or not) or with staggered
+fermions (no Hasenbusch, no smearing), with the gauge measurements and
+the fermionic ones on the Wilson, clover and staggered operators; the
+rest raises naming ROADMAP A14b before any work.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from typing import Any, Optional
 import torch
 
 from latticeqcd_torch.io import load_config
-from latticeqcd_torch.measurements.scheduler import build_dirac_from_params
+from latticeqcd_torch.measurements.scheduler import (build_dirac_from_params,
+                                                     measurement_grid_refusal)
 from latticeqcd_torch.ops import fields, gauge_action as ga
 from latticeqcd_torch.ops.dirac import eo_pack
 from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
@@ -57,23 +60,29 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+# the operators that run under a process grid, for HMC and for the fermionic measurements
+GRID_OPERATORS = ("Wilson", "WilsonClover", "Staggered")
+
+
 def params_grid_refusal(p: Params) -> Optional[str]:
-    """What of p has no multi-process form yet (ROADMAP A14b), or None."""
+    """What of p has no multi-process form yet (ROADMAP A14b), or None: HMC, quenched
+    or with Wilson (clover-improved or not) fermions at r = 1 or staggered fermions,
+    without Hasenbusch or smearing, and the fermionic measurements on those
+    operators."""
     if p.update_method != "HMC":
         return f"update_method {p.update_method!r}"
-    if not p.quench and p.Dirac_operator != "Wilson":
+    if not p.quench and p.Dirac_operator not in GRID_OPERATORS:
         return f"Dirac_operator {p.Dirac_operator!r}"
-    if not p.quench and p.r != 1.0:
+    if not p.quench and p.Dirac_operator != "Staggered" and p.r != 1.0:
         return f"Wilson fermions at r = {p.r}"
     if not p.quench and p.hasenbusch:
         return "Hasenbusch mass preconditioning"
     if p.smearing_for_fermion != "nothing":
         return f"smearing_for_fermion {p.smearing_for_fermion!r}"
     for method in list(p.measurement_methods or ()) + list(p.measurements_for_flow or ()):
-        # the methods that solve with a Dirac operator
-        if (method.get("methodname") in ("Chiral_condensate", "Pion_correlator", "Dirac_spectrum")
-                or "fermion_parameters" in method):
-            return f"the fermionic measurement {method.get('methodname')}"
+        what = measurement_grid_refusal(method)
+        if what is not None:
+            return what
     return None
 
 
@@ -136,7 +145,10 @@ def build_fermi_action(p: Params):
         return None
     bc = tuple(p.BoundaryCondition)
     if p.Dirac_operator == "Staggered":
-        dirac = StaggeredDirac(mass=p.mass, lattice=tuple(p.L), bc=bc)
+        # the lattice of the fields it acts on: the block's under a process grid
+        grid = mesh.sharded()
+        dirac = StaggeredDirac(mass=p.mass, lattice=tuple(p.L) if grid is None else grid.local,
+                               bc=bc)
         return StaggeredFermiAction(dirac, nf=p.Nf, eps_cg=p.eps, max_cg=p.MaxCGstep)
     if p.Dirac_operator == "Domainwall":
         dirac = DomainwallDirac(

@@ -46,15 +46,18 @@ JAX package's own draws. The JAX package's staged multi-program path
 exists for its TPU runtime and has no counterpart here.
 
 Under a process grid (parallel/mesh.py) ``step`` takes this rank's block
-of the links. Quenched and two-flavour Wilson HMC (csw = 0, r = 1, no
-Hasenbusch, no smearing) run there; every other action raises before any
-draw (ROADMAP A14b). The draws are those of the global lattice: every
-rank draws the global normals from the run's generator, which has the
-same seed on every rank, and keeps its block, so a sharded trajectory
-draws what one process draws (at 16^3 x 32 complex64 about 44 MB of
-normals per trajectory on every rank). Injected draws are global arrays,
-sliced the same way. The Metropolis uniform, and the dH it is compared
-with (global sums, bitwise the same on every rank), agree everywhere.
+of the links. Quenched HMC, two-flavour Wilson HMC (r = 1, with or
+without the clover term; no Hasenbusch) and staggered HMC/RHMC, without
+smearing, run there; every other action raises before any draw (ROADMAP
+A14b). The draws are those of the global lattice: every rank draws the
+global normals from the run's generator, which has the same seed on
+every rank, and keeps its block, so a sharded trajectory draws what one
+process draws (at 16^3 x 32 complex64 about 44 MB of normals per
+trajectory on every rank). Injected draws are global arrays, sliced the
+same way; the fermion action says where its noise's lattice axes start
+(``noise_lead``: after the staggered pseudofermion axis). The Metropolis
+uniform, and the dH it is compared with (global sums, bitwise the same
+on every rank), agree everywhere.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ import torch
 from latticeqcd_torch.md import integrators
 from latticeqcd_torch.ops import gauge_action as ga
 from latticeqcd_torch.ops import mdpair, sun
-from latticeqcd_torch.ops.fermion_action import WilsonFermiAction
+from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
 from latticeqcd_torch.parallel import mesh
 
 
@@ -98,7 +101,7 @@ class Draws:
         xshape = None if hmc.quench else hmc.fermi_action.noise_shape(u)
         if xshape is not None:  # None: an action without noise (the integrated log det)
             if grid is not None:
-                xshape = grid.global_shape(xshape, lead=0)
+                xshape = grid.global_shape(xshape, lead=noise_lead(hmc.fermi_action))
             xi = (torch.randn(xshape, **kw), torch.randn(xshape, **kw))
         uniform = float(torch.rand((), generator=generator, dtype=rdtype, device=u.device))
         return cls(mom, xi, uniform)
@@ -107,25 +110,31 @@ class Draws:
         return sun.random_hermitian_momentum(u.shape[:-2], u.shape[-1], dtype=u.dtype,
                                              device=u.device, normals=self.mom)
 
-    def block(self, grid) -> "Draws":
-        """This rank's block of global draws (the pseudofermion's lattice axes lead)."""
+    def block(self, grid, xi_lead: int = 0) -> "Draws":
+        """This rank's block of global draws; the pseudofermion noise's lattice axes
+        start at ``xi_lead`` (the fermion action's noise_lead)."""
         return Draws(tuple(grid.block(m, lead=1).contiguous() for m in self.mom),
-                     None if self.xi is None else tuple(grid.block(x).contiguous()
+                     None if self.xi is None else tuple(grid.block(x, lead=xi_lead).contiguous()
                                                         for x in self.xi), self.uniform)
+
+
+def noise_lead(fermi_action) -> int:
+    """Where the lattice axes of the action's noise start (after a pseudofermion or
+    fifth axis): the action says, through its noise_lead."""
+    return getattr(fermi_action, "noise_lead", 0)
 
 
 def grid_refusal(fermi_action, smearing=None) -> Optional[str]:
     """What of an HMC has no multi-process form yet (ROADMAP A14b), or None: the slice
-    that runs on a process grid is quenched and two-flavour Wilson HMC at csw = 0,
-    r = 1, without Hasenbusch and without smearing."""
+    that runs on a process grid is quenched HMC, two-flavour Wilson HMC at r = 1
+    (clover-improved or not) and staggered HMC/RHMC, without Hasenbusch and without
+    smearing."""
     if smearing is not None:
         return "stout smearing"
-    if fermi_action is None:
+    if fermi_action is None or type(fermi_action) is StaggeredFermiAction:
         return None
     if type(fermi_action) is not WilsonFermiAction:
         return f"the fermion action {type(fermi_action).__name__}"
-    if fermi_action.dirac.csw != 0.0:
-        return "clover-improved Wilson fermions"
     if fermi_action.dirac.r != 1.0:
         return f"Wilson fermions at r = {fermi_action.dirac.r}"
     return None
@@ -185,7 +194,7 @@ class HMC:
             draws = Draws.sample(self, u, generator)
         grid = mesh.sharded()
         if grid is not None:
-            draws = draws.block(grid)
+            draws = draws.block(grid, noise_lead(self.fermi_action))
         h = draws.momentum(u)
         cg_log: list = []
         # every force sees the MD state in the production dtype
