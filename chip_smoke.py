@@ -91,7 +91,7 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      one stout layer with QPQ-SW, kernel path against plain path (dH 1e-9, links 1e-10); MD
      reversibility of phase 21's action (1e-8); a plaquette + rectangle action's overrelaxation
      (the action conserved to 1e-8 relative) and heatbath sweep from host uniforms for NC = 2,
-     3, card against CPU;
+     3 on 3^4, card against CPU;
  21. the improved-action path: run_lqcd_params at 16^3x32, SU(3), complex64, hot start, 2
      trajectories of the Iwasaki action at beta_I = 2.6 with 2-flavour Wilson fermions at kappa
      0.12 on 2 plaquette stout layers of rho 0.1, Omelyan with Sexton-Weingarten nsw 4, 5
@@ -224,16 +224,31 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      (the full D) on each block, complex64 (bar 1e-5) and complex128 (1e-12), one launch per
      call, against the block of the global kernel's output and the plain halo versions,
      whether the match is bitwise; the t cut's block timed in the halo mode beside mask 0 on
-     the same shape, and the bytes of the face messages; (b) two gloo ranks on the one card
-     through multirun: one 16^3x32 complex128 trajectory (2 MD steps of 0.005) each of
-     staggered Nf = 4, staggered Nf = 2 RHMC and clover HMC against one process (in this one;
-     dH 1e-8, links 1e-10, the ranks' dH bitwise equal); phase 31's complex64 run carries
-     Chiral_condensate (staggered), Pion_correlator (clover) and Dirac_spectrum (Wilson),
-     their numbers bitwise the same on both ranks, finite, the correlator positive and the
-     Ritz values ascending and positive (checked there); in every run no launch
-     of staggered_w, wilson_window or wilson_hop_packed outside a halo mode, every solve at or
-     below its target, the saved configuration the gathered blocks bit for bit; seconds per
-     trajectory on the grid beside one process; (c) the same on nccl with two or more cards.
+     the same shape, and the bytes of the face messages; (b) one group of two gloo ranks on
+     the one card (as phase 33's, python -c subprocesses of this script) runs through
+     run_lqcd_params(grid=...) one 16^3x32 complex128 trajectory (2 MD steps of 0.005) each of
+     staggered Nf = 4, staggered Nf = 2 RHMC and clover HMC, then this process runs each on one
+     card (dH 1e-8, links 1e-10, the ranks' dH, decisions and plaquettes bitwise equal);
+     phase 31's complex64 run carries Chiral_condensate (staggered), Pion_correlator (clover)
+     and Dirac_spectrum (Wilson), their numbers bitwise the same on both ranks, finite, the
+     correlator positive and the Ritz values ascending and positive (checked there); in every
+     run no launch of staggered_w, wilson_window or wilson_hop_packed outside a halo mode,
+     each run's halo kernel launched, every solve at or below its target; seconds per
+     trajectory on the grid beside one card; (c) the same on nccl with two or more cards.
+ 33. the process grid for Hasenbusch, domain wall and the heatbath: (b) one group of two gloo
+     ranks on the one card (python -c subprocesses of this script under a timeout) runs
+     through run_lqcd_params(grid=...), at 16^3x32 from a hot start: one complex128
+     trajectory (2 MD steps of 0.005) each of domain-wall HMC (phase 23's beta, M and m at
+     L5 = 4), clover Hasenbusch + SW at phase 27's point and Hasenbusch at csw = 0; the three
+     domain-wall measurements (at L5 = 2) on the final links; one Shat^dag Shat on them; and
+     (c) one heatbath step with 3 overrelaxations (SU(3), beta 6.0, complex64), a sweep and an
+     overrelaxation timed; then this process runs each on one card: dH 1e-8 and links 1e-10
+     (the ranks' dH, decisions and measurements bitwise equal; the measurements 1e-9 relative
+     against one card), the heatbath's links within 1e-12 and its generator state one
+     card's; no launch of wilson_hop_packed, wilson_window or staggered_w outside a halo
+     mode, each run's halo kernels launched, 4 L5 halo hops per rank per Shat^dag Shat; the
+     action parts and seconds per step on the grid beside one card printed; (d) the same on
+     nccl with two or more cards.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -1763,13 +1778,14 @@ def phase_improved_agreement(torch):
     u2, _ = integrators.run_md(u1, -h1, force_g, 0.04, 5, **kw)
     check("Iwasaki + 2 stout + Omelyan-SW MD reversibility max|dU|", maxdiff(u2, ug), 1e-8)
 
-    # a plaquette + rectangle action's overrelaxation and heatbath: 4^4 colours of one site
+    # a plaquette + rectangle action's overrelaxation and heatbath on 3^4: 3^4 colours of one
+    # site (4^4's 256 colours took 80 s of the phase, launch-bound on both sides)
     for nc, beta in ((2, 1.9), (3, 5.7)):
         act = ga.general_gauge_action(nc, [beta, -beta / 20.0],
                                       [wilsonline.make_loops_fromname("plaquette"),
                                        wilsonline.make_loops_fromname("rectangular")])
         hb = Heatbath(action=act)
-        w = _warm_links(torch, lat, nc, 66 + nc, "cpu")
+        w = _warm_links(torch, (3, 3, 3, 3), nc, 66 + nc, "cpu")
         cpu, gpu = hb.overrelax(w), hb.overrelax(w.to(dev))
         check(f"rectangle-action overrelaxation SU({nc}), card vs CPU", maxdiff(gpu.cpu(), cpu), bar)
         s0, s1 = float(ga.action_value(act, w.to(dev))), float(ga.action_value(act, gpu))
@@ -3889,49 +3905,6 @@ def _halo_kernels(torch):
               + f" [{STATE['smi']}]", flush=True)
 
 
-def _grid_toml(d, physics, nsteps, dtau, md_steps, eps):
-    """A TOML for python -m latticeqcd_torch.multirun at 16^3x32: ``physics`` the action's
-    lines, saving every trajectory into d/saves."""
-    return f"""\
-["Physical setting"]
-L = [16, 16, 16, 32]
-NC = 3
-initial = "hot"
-update_method = "HMC"
-quench = false
-BoundaryCondition = [1, 1, 1, -1]
-QPQ = true
-dtau = {dtau}
-MDsteps = {md_steps}
-Nsteps = {nsteps}
-eps = {eps}
-MaxCGstep = 3000
-randomseed = 5
-verboselevel = 1
-{physics}
-
-["System Control"]
-logfile = ""
-saveU_format = "NPZ"
-saveU_every = 1
-saveU_dir = "{d}/saves"
-
-["Measurement set"]
-measurement_basedir = "{d}/meas"
-measurement_dir = "grid"
-measurement_methods = [{{ methodname = "Plaquette", measure_every = 1 }}]
-"""
-
-
-GRID_ACTIONS = {
-    # phase 10's staggered actions and phase 27's clover action: name -> (tag, the TOML lines)
-    "staggered Nf=4": ("staggered_nf4", 'beta = 5.7\nDirac_operator = "Staggered"\nmass = 0.5\n'
-                                        'Nf = 4'),
-    "staggered Nf=2 RHMC": ("staggered_nf2", 'beta = 5.7\nDirac_operator = "Staggered"\n'
-                                             'mass = 0.5\nNf = 2'),
-    "clover HMC": ("clover", 'beta = 5.3\nDirac_operator = "WilsonClover"\nhop = 0.13625\n'
-                             'Clover_coefficient = 1.90952\nr = 1.0'),
-}
 # phase 32's three measurements, one operator each, carried by phase 31's complex64 run
 GRID_METHODS = (
     ', { methodname = "Chiral_condensate", Nr = 2, eps = 1e-10, fermion_parameters = '
@@ -3940,80 +3913,6 @@ GRID_METHODS = (
     '{ Dirac_operator = "WilsonClover", hop = 0.12, Clover_coefficient = 1.0 } }'
     ', { methodname = "Dirac_spectrum", Neig = 4, Nlanczos = 24, fermion_parameters = '
     '{ Dirac_operator = "Wilson", hop = 0.12 } }')
-
-
-def _grid2_run(torch, tmp, tag, name, toml_text, dtype_flag, pes, backend):
-    """One multirun group on the grid pes (``name`` the run's, in the launch counts); checks
-    what every grid run must show and returns (the reports, the saved links)."""
-    import numpy as np
-
-    from latticeqcd_torch.parallel import mesh
-
-    d = os.path.join(tmp, tag)
-    os.makedirs(d)
-    with open(os.path.join(d, "params.toml"), "w") as f:
-        f.write(toml_text.replace("{d}", d))
-    reps, _ = _multirun(tmp, tag, None, dtype_flag, pes, backend, toml=os.path.join(d, "params.toml"))
-    for rep in reps:
-        launches = rep["launches"]
-        outside = {k: launches[k] for k in ("staggered_w", "wilson_window", "wilson_hop_packed")
-                   if launches[k]}
-        if outside:
-            fail(f"{tag} rank {rep['rank']}: kernels launched outside the halo mode: {outside}")
-        for rec in rep["history"]:
-            if rec["cg"] and max(c["rsq"] / c["target"] for c in rec["cg"]) > 1.0:
-                fail(f"{tag} rank {rep['rank']}: a solve ended above its target")
-    nsteps = len(reps[0]["history"])
-    saved = np.load(os.path.join(d, "saves", f"conf_{nsteps:08d}.npz"))["u"]
-    gathered = np.empty_like(saved)
-    for rep in reps:
-        grid = mesh.ProcessGrid(pes, MAIN, rank=rep["rank"])
-        gathered[(slice(None),) + tuple(slice(o, o + m) for o, m in zip(grid.origin, grid.local))] = \
-            rep["u"]
-    if saved.tobytes() != gathered.tobytes():
-        fail(f"{tag}: the saved configuration is not the ranks' blocks bit for bit")
-    for key in ("staggered_w_halo", "wilson_window_halo", "wilson_hop_packed_halo"):
-        n = sum(rep["launches"][key] for rep in reps)
-        if n:
-            kernel = key[:-5]
-            STATE["launches"].setdefault(kernel, {})[f"grid {name}, {backend}, {len(reps)} "
-                                                     "ranks (halo)"] = n
-    return reps, saved
-
-
-def _grid2_runs(torch, tmp, backend, pes=(1, 1, 1, 2)):
-    """(b), or (c) under nccl: one complex128 trajectory of each action against one process
-    (the three measurements ride on phase 31's complex64 run, _grid_measured)."""
-    n = math.prod(pes)
-    label = f"{backend}, {n} ranks {pes}"
-    for action, (short, physics) in GRID_ACTIONS.items():
-        t0 = time.time()
-        tag = f"{short}_{backend}_{n}"
-        # a short trajectory (dH well under 1 from a hot start), so that it is accepted and the
-        # links compared are the evolved ones
-        text = _grid_toml("{d}", physics, 1, 0.005, 2, 1e-16)
-        reps, saved = _grid2_run(torch, tmp, tag, action, text, "--f64", pes, backend)
-        dh = [rep["history"][0]["dH"] for rep in reps]
-        if len({float(v).hex() for v in dh}) != 1:
-            fail(f"{action}: the ranks' dH differ: {dh}")
-        t_grid = time.time() - t0
-        hist, u_one, t_one = _one_process(torch, os.path.join(tmp, tag, "params.toml"),
-                                          torch.complex128)
-        ddh = abs(dh[0] - hist[0]["dH"])
-        dmax = maxdiff(torch.from_numpy(saved).to(u_one.device), u_one)
-        check(f"({label}) {action} complex128 trajectory |ddH| against one process", ddh, 1e-8)
-        check(f"({label}) {action} complex128 trajectory max|dU| against one process", dmax, 1e-10)
-        cg = sum(c["iterations"] for c in reps[0]["history"][0]["cg"])
-        cg1 = sum(c["iterations"] for c in hist[0]["cg"])
-        print(f"  ({label}) {action}, 16^3x32 complex128, 1 trajectory of 2 MD steps: dH "
-              f"{dh[0]!r} (one process {hist[0]['dH']!r}), accepted "
-              f"{reps[0]['history'][0]['accepted']} ({hist[0]['accepted']}); "
-              f"{reps[0]['history'][0]['seconds']:.3f} s "
-              f"per trajectory on the grid against {hist[0]['seconds']:.3f} s on one process "
-              f"({reps[0]['history'][0]['seconds'] / hist[0]['seconds']:.2f}x); solver iterations "
-              f"{cg} ({cg1}); launches {reps[0]['launches']}; {t_grid:.1f} s with the ranks' "
-              f"start, {t_one:.1f} s one process [{STATE['smi']}]", flush=True)
-
 
 
 def _grid_measured(reps, label):
@@ -4052,14 +3951,361 @@ def phase_grid_fermions(torch):
     print(f"  (a) halo modes: {time.time() - t0:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_grid2_") as tmp:
         t0 = time.time()
-        _grid2_runs(torch, tmp, "gloo")
+        _grid_group_runs(torch, tmp, "gloo", GRID2_RUNS)
         print(f"  (b) 2 ranks, gloo, one card: {time.time() - t0:.1f} s", flush=True)
         if torch.cuda.device_count() >= 2:
             t0 = time.time()
-            _grid2_runs(torch, tmp, "nccl")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_grid2_nccl_") as tmp2:
+                _grid_group_runs(torch, tmp2, "nccl", GRID2_RUNS)
             print(f"  (c) 2 ranks, nccl, 2 cards: {time.time() - t0:.1f} s", flush=True)
         else:
             print(f"  (c) nccl: not run, this machine has {torch.cuda.device_count()} card",
+                  flush=True)
+
+
+# ------------------------------- 33. Hasenbusch, domain wall and the heatbath on the grid
+
+# the domain-wall trajectory's L5 on the grid, and the measurements' (phase 23 runs 16 on one
+# card; two gloo ranks on one card pay about 5 ms per slice exchange, so neither 16 nor 8 fits
+# the phase's time, PERF.md sec. 6)
+GRID3_DW_L5, GRID3_DW_MEASURE_L5 = 4, 2
+GRID3_DW = {"Dirac_operator": "Domainwall", "Domainwall_m": DW_MASS, "Domainwall_M": DW_M5,
+            "Domainwall_L5": GRID3_DW_MEASURE_L5}
+GRID3_DW_METHODS = [
+    {"methodname": "Chiral_condensate", "Nr": 1, "eps": 1e-10, "fermion_parameters": GRID3_DW},
+    {"methodname": "Pion_correlator", "eps": 1e-10, "fermion_parameters": GRID3_DW},
+    {"methodname": "Dirac_spectrum", "Neig": 4, "Nlanczos": 24, "fermion_parameters": GRID3_DW},
+]
+# phases 32 and 33's runs on the grid, one group of ranks per phase: tag -> (what it is, its
+# type, the halo kernels it must launch)
+GRID2_RUNS = {
+    "staggered_nf4": ("staggered Nf=4", "complex128", ("staggered_w",)),
+    "staggered_nf2": ("staggered Nf=2 RHMC", "complex128", ("staggered_w",)),
+    "clover": ("clover HMC", "complex128", ("wilson_window",)),
+}
+GRID3_RUNS = {
+    "domainwall": (f"domain-wall HMC (L5 = {GRID3_DW_L5})", "complex128",
+                   ("wilson_hop_packed",)),
+    "hasenbusch_clover": ("clover Hasenbusch + SW", "complex128", ("wilson_window",)),
+    "hasenbusch": ("Hasenbusch (csw = 0)", "complex128", ("wilson_hop_packed",)),
+    "heatbath": ("heatbath + 3 overrelaxations", "complex64", ()),
+}
+HALO_KERNELS = ("wilson_hop_packed", "wilson_window", "staggered_w")
+
+
+def _grid_params(tag):
+    """The Params of a run of phase 32 or 33: 16^3x32 from a hot start, one step; an HMC
+    trajectory of 2 MD steps of 0.005 (dH well under 1, so the evolved links are the ones
+    compared): phase 10's staggered actions, phase 27's clover action, and phase 33's."""
+    from latticeqcd_torch.system.params import Params
+
+    base = dict(L=MAIN, NC=3, initial="hot", BoundaryCondition=(1, 1, 1, -1), QPQ=True,
+                Nsteps=1, randomseed=5, verboselevel=0, MaxCGstep=3000)
+    hmc = dict(update_method="HMC", quench=False, dtau=0.005, MDsteps=2)
+    if tag.startswith("staggered"):
+        return Params(**base, **hmc, eps=1e-16, beta=5.7, Dirac_operator="Staggered", mass=MASS,
+                      Nf=4 if tag == "staggered_nf4" else 2)
+    if tag == "clover":
+        return Params(**base, **hmc, eps=1e-16, beta=CLOVER_BETA, Dirac_operator="WilsonClover",
+                      hop=CLOVER_KAPPA, Clover_coefficient=CLOVER_CSW, r=1.0)
+    if tag == "domainwall":
+        return Params(**base, **hmc, eps=1e-16, beta=6.0, Dirac_operator="Domainwall",
+                      Domainwall_m=DW_MASS, Domainwall_M=DW_M5, Domainwall_L5=GRID3_DW_L5)
+    if tag.startswith("hasenbusch"):
+        clover = tag == "hasenbusch_clover"
+        # the final action's solves to |r|^2 / |b|^2 = 1e-20: at 1e-16 their truncation leaves
+        # about 1e-8 of the clover action (3e6) undetermined, the size of the dH bar
+        return Params(**base, **hmc, eps=1e-20, beta=CLOVER_BETA,
+                      Dirac_operator="WilsonClover" if clover else "Wilson", hop=CLOVER_KAPPA,
+                      Clover_coefficient=CLOVER_CSW if clover else 0.0, r=1.0, hasenbusch=True,
+                      hasenbusch_mu=0.5, SextonWeingargten=clover, N_SextonWeingargten=2)
+    return Params(**base, beta=6.0, update_method="Heatbath", quench=True, useOR=True, numOR=3)
+
+
+def _all_counts():
+    """Every Wilson and staggered kernel's launches, each halo mode apart."""
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
+    return {"wilson_hop_packed": wk.launches, "wilson_hop_packed_halo": wk.halo_launches,
+            "wilson_window": ww.launches, "wilson_window_halo": ww.halo_launches,
+            "staggered_w": sk.launches, "staggered_w_halo": sk.halo_launches}
+
+
+def _zero_all_counts():
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
+    wk.launches = wk.halo_launches = ww.launches = ww.halo_launches = 0
+    sk.launches = sk.halo_launches = sk.w_launches = sk.fused_launches = 0
+    wk.site_launches.update(full=0, packed=0)
+
+
+def _grid_step(torch, tag, device, grid=None):
+    """One run of phase 32 or 33 through run_lqcd_params (on ``grid`` if given) with the
+    launches counted from 0: (its record for the JSON report, the final links gathered on
+    rank 0 as numpy (None elsewhere), the final links' block)."""
+    import hashlib
+
+    from latticeqcd_torch.parallel import mesh
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+    from latticeqcd_torch.updates.hmc import HMC
+
+    _, dtype_name, _ = {**GRID2_RUNS, **GRID3_RUNS}[tag]
+    history, final, parts = [], {}, []
+    step = HMC.step
+
+    def stepped(self, u, generator=None, draws=None):  # the trajectory's action parts
+        out = step(self, u, generator, draws)
+        parts.append({k: out[1][k] for k in ("sp_old", "sp_new", "sg_old", "sg_new", "sf_old",
+                                             "sf_new")})
+        return out
+
+    torch.cuda.synchronize(device)
+    _zero_all_counts()
+    t0 = time.time()
+    with mock.patch.object(HMC, "step", stepped):
+        plaq = run_lqcd_params(_grid_params(tag), make_dirs=False,
+                               dtype=getattr(torch, dtype_name), device=device, grid=grid,
+                               history=history, final=final)
+    torch.cuda.synchronize(device)
+    rec = {"seconds_run": time.time() - t0, "plaq": plaq, "launches": _all_counts(),
+           "parts": parts,
+           "generator": hashlib.sha256(final["generator"].get_state().numpy().tobytes()).hexdigest(),
+           "history": [{"seconds": r["seconds"], "dH": r["dH"], "accepted": r["accepted"],
+                        "iterations": [c["iterations"] for c in r["cg"]],
+                        "worst": max((c["rsq"] / c["target"] for c in r["cg"]), default=0.0)}
+                       for r in history]}
+    u = final["u"]
+    host = mesh.to_host_global(u, lead=1, grid=grid) if grid is not None else u.cpu().numpy()
+    return rec, host, u
+
+
+def _grid_extra(torch, tag, u, rec):
+    """What runs on a run's final links (under the active grid, if any): the domain-wall
+    measurements and one Shat^dag Shat's launches; one heatbath and one overrelaxation sweep
+    timed."""
+    from latticeqcd_torch.measurements.scheduler import MeasurementSet
+    from latticeqcd_torch.ops import gauge_action as ga
+    from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
+    from latticeqcd_torch.ops.dirac.wilson import apply_boundary_phases
+    from latticeqcd_torch.parallel import mesh
+    from latticeqcd_torch.updates.heatbath import Heatbath
+
+    dev = u.device
+    if tag == "domainwall":
+        _zero_all_counts()
+        rec["measured"], rec["measure_seconds"] = {}, {}
+        for m in MeasurementSet.from_methods(GRID3_DW_METHODS).measurements:
+            torch.cuda.synchronize(dev)
+            t0 = time.time()
+            m.measure(u, 1)
+            torch.cuda.synchronize(dev)
+            rec["measure_seconds"][m.name] = time.time() - t0
+            value = m.value
+            if m.name == "Chiral_condensate":
+                value = [value[0], *value[1]]
+            rec["measured"][m.name] = [float(v) for v in value]
+        rec["measure_launches"] = _all_counts()
+        d = DomainwallDirac(DW_MASS, DW_M5, GRID3_DW_L5)  # the trajectory's operator
+        ueo = d.packed_links(apply_boundary_phases(u, d.bc))
+        gen = torch.Generator(device=dev).manual_seed(6)
+        shape = (GRID3_DW_L5, u.shape[1] // 2) + tuple(u.shape[2:5]) + (4, 3)
+        x = torch.complex(*(mesh.randn_block(shape, 1, gen, u.real.dtype, dev) for _ in range(2)))
+        d.apply_schur_ddag_d(ueo, x)  # the links' faces exchanged once
+        before = _all_counts()
+        d.apply_schur_ddag_d(ueo, x)
+        torch.cuda.synchronize(dev)
+        rec["per_op"] = {k: v - before[k] for k, v in _all_counts().items()}
+    if tag == "heatbath":
+        hb = Heatbath(action=ga.wilson_gauge_action(3, 6.0))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        for what, fn in (("sweep", lambda: hb.sweep(u, gen)), ("overrelax", lambda: hb.overrelax(u))):
+            torch.cuda.synchronize(dev)
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize(dev)
+            rec[f"{what}_seconds"] = time.time() - t0
+
+
+def _grid_rank(argv):
+    """A rank of a group of phase 32 or 33 (started by _grid_group_runs as its own process):
+    each run named in argv on the grid, its report written as <tmp>/rank<r>.json, rank 0 also
+    writing each run's gathered links as <tmp>/<tag>_u.npy."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from latticeqcd_torch.parallel import mesh
+
+    rank, nprocs, port, backend, tmp = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    pes = tuple(int(p) for p in argv[5].split(","))
+    tags = argv[6].split(",")
+    mesh.init_process_grid(backend, f"127.0.0.1:{port}", nprocs, rank, timeout_s=600)
+    device = torch.device(f"cuda:{rank if backend == 'nccl' else 0}")
+    out = {}
+    try:
+        grid = mesh.make_process_grid(pes, MAIN, device)
+        for tag in tags:
+            rec, host, u = _grid_step(torch, tag, device, grid)
+            if host is not None:
+                np.save(os.path.join(tmp, f"{tag}_u.npy"), host)
+            with mesh.use_grid(grid):
+                _grid_extra(torch, tag, u, rec)
+            out[tag] = rec
+    finally:
+        mesh.close_process_grid()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _grid_group_runs(torch, tmp, backend, runs, pes=(1, 1, 1, 2)):
+    """One group of ranks (a process each, started together) runs every run of ``runs`` on
+    the grid pes; then this process runs each on one card, and the two are compared."""
+    import socket
+
+    import numpy as np
+
+    n = math.prod(pes)
+    label = f"{backend}, {n} ranks {pes}"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as c; "
+            "c._grid_rank(sys.argv[1:])")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(n), str(port), backend, tmp,
+                               ",".join(map(str, pes)), ",".join(runs)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-3000:])
+            print(err[-3000:])
+            fail(f"the grid group's rank {r} exited {p.returncode}")
+    t_group = time.time() - t0
+    reps = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            reps.append(json.load(f))
+    for tag, (what, dtype_name, halo) in runs.items():
+        got = [rep[tag] for rep in reps]
+        for key in ("history", "plaq", "generator", "measured"):
+            vals = {json.dumps([{k: h[k] for k in ("dH", "accepted", "iterations")}
+                                for h in g["history"]] if key == "history" else g.get(key),
+                               sort_keys=True) for g in got}
+            if len(vals) != 1:
+                fail(f"{what}: the ranks' {key} differ: {vals}")
+        for g in got:
+            outside = {k: g["launches"][k] for k in HALO_KERNELS if g["launches"][k]}
+            if outside:
+                fail(f"{what}: kernels launched outside their halo mode on the grid: {outside}")
+            for k in halo:
+                if g["launches"][f"{k}_halo"] == 0:
+                    fail(f"{what}: the halo mode of {k} never launched")
+            for rec in g["history"]:
+                if rec["worst"] > 1.0 or (rec["iterations"] and max(rec["iterations"]) >= 3000):
+                    fail(f"{what}: a solve ended above its target or at its limit")
+        for k in HALO_KERNELS:
+            total = sum(g["launches"][f"{k}_halo"] for g in got)
+            if total:
+                STATE["launches"].setdefault(k, {})[f"grid {what}, {label} (halo)"] = total
+        # the same run on one card, in this process
+        one, host, u_one = _grid_step(torch, tag, torch.device("cuda:0"))
+        _grid_extra(torch, tag, u_one, one)
+        grid_u = np.load(os.path.join(tmp, f"{tag}_u.npy"))
+        dmax = float(np.max(np.abs(grid_u - host)))
+        g0, h_grid, h_one = got[0], got[0]["history"][0], one["history"][0]
+        if g0["parts"]:
+            diffs = {k: g0["parts"][0][k] - one["parts"][0][k] for k in one["parts"][0]}
+            print(f"  ({label}) {what}: the action parts on one card {one['parts'][0]}, the "
+                  f"grid's minus one card's {diffs}", flush=True)
+        if dtype_name == "complex128":
+            if not (h_grid["accepted"] and h_one["accepted"]):
+                fail(f"{what}: a trajectory was rejected, so the links compared are the start's")
+            check(f"({label}) {what} complex128 trajectory |ddH| against one process",
+                  abs(h_grid["dH"] - h_one["dH"]), 1e-8)
+            check(f"({label}) {what} complex128 trajectory max|dU| against one process", dmax,
+                  1e-10)
+        else:
+            check(f"({label}) {what} links against one process", dmax, 1e-12)
+            if g0["generator"] != one["generator"]:
+                fail(f"{what}: the ranks' generator state is not one process's")
+            STATE["checks"] += 1
+        cg = sum(h_grid["iterations"])
+        line = (f"  ({label}) {what}, 16^3x32 {dtype_name}: {h_grid['seconds']:.3f} s per step on "
+                f"the grid against {h_one['seconds']:.3f} s on one card "
+                f"({h_grid['seconds'] / h_one['seconds']:.2f}x)")
+        if h_grid["dH"] is not None:
+            line += (f"; dH {h_grid['dH']!r} (one card {h_one['dH']!r}); solver iterations {cg} "
+                     f"({sum(h_one['iterations'])}) in {len(h_grid['iterations'])} solves")
+        if tag == "heatbath":
+            line += (f"; links bitwise {dmax == 0.0}; generator state one card's; one sweep "
+                     f"{g0['sweep_seconds']:.3f} s ({one['sweep_seconds']:.3f} s), one "
+                     f"overrelaxation {g0['overrelax_seconds']:.3f} s "
+                     f"({one['overrelax_seconds']:.3f} s)")
+        print(line + f"; launches {g0['launches']} [{STATE['smi']}]", flush=True)
+        if tag == "domainwall":
+            for g in got:
+                per_op = g["per_op"]
+                if per_op["wilson_hop_packed_halo"] != 4 * GRID3_DW_L5 or any(
+                        per_op[k] for k in HALO_KERNELS):
+                    fail(f"one Shat^dag Shat on the grid launched {per_op}, not 4 L5 = "
+                         f"{4 * GRID3_DW_L5} halo hops and nothing else")
+            STATE["checks"] += 1
+            for k in HALO_KERNELS:
+                if any(g["measure_launches"][k] for g in got):
+                    fail(f"the grid's domain-wall measurements launched {k} outside its halo mode")
+            for name, vals in g0["measured"].items():
+                check(f"({label}) domain-wall {name} against one process (relative)",
+                      _rel(np.asarray(vals), np.asarray(one["measured"][name])), 1e-9)
+            cpi, lam = g0["measured"]["Pion_correlator"], g0["measured"]["Dirac_spectrum"]
+            if not (min(cpi) > 0 and min(lam) > 0 and lam == sorted(lam)):
+                fail(f"the domain-wall measurements are not positive and ordered: {g0['measured']}")
+            for k in ("wilson_hop_packed", "wilson_window"):
+                total = sum(g["measure_launches"][f"{k}_halo"] for g in got)
+                if total == 0:
+                    fail(f"the grid's domain-wall measurements never launched {k}'s halo mode")
+                STATE["launches"].setdefault(k, {})[
+                    f"grid domain-wall measurements, {label} (halo)"] = total
+            print(f"  ({label}) one Shat^dag Shat: {g0['per_op']['wilson_hop_packed_halo']} halo "
+                  f"hops per rank (4 L5); measurements on the final links, the same bit for bit on "
+                  f"every rank: pbp {g0['measured']['Chiral_condensate'][0]!r}, C(0..3) "
+                  f"{cpi[:4]}, Ritz values {lam}; seconds "
+                  f"{ {k: round(v, 3) for k, v in g0['measure_seconds'].items()} } (one card "
+                  f"{ {k: round(v, 3) for k, v in one['measure_seconds'].items()} }); launches "
+                  f"{g0['measure_launches']} [{STATE['smi']}]", flush=True)
+    print(f"  ({label}) the group's {n} processes ran {t_group:.1f} s", flush=True)
+
+
+def phase_grid_more(torch):
+    print("== 33. the process grid: Hasenbusch, domain wall and the heatbath, 2 ranks on the "
+          "card", flush=True)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid3_") as tmp:
+        t0 = time.time()
+        _grid_group_runs(torch, tmp, "gloo", GRID3_RUNS)
+        print(f"  (b, c) 2 ranks, gloo, one card: {time.time() - t0:.1f} s", flush=True)
+        if torch.cuda.device_count() >= 2:
+            t0 = time.time()
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_grid3_nccl_") as tmp2:
+                _grid_group_runs(torch, tmp2, "nccl", GRID3_RUNS)
+            print(f"  (d) 2 ranks, nccl, 2 cards: {time.time() - t0:.1f} s", flush=True)
+        else:
+            print(f"  (d) nccl: not run, this machine has {torch.cuda.device_count()} card",
                   flush=True)
 
 
@@ -4072,7 +4318,7 @@ PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_domainwall_agreement, phase_domainwall_path, phase_selflearning_agreement,
           phase_selflearning_path, phase_clover_agreement, phase_clover_path,
           phase_batched_agreement, phase_batched_path, phase_frontend, phase_grid,
-          phase_grid_fermions]
+          phase_grid_fermions, phase_grid_more]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line

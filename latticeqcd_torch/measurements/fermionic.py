@@ -27,8 +27,11 @@ even lattices (wilson_hop_packed), full-volume 5D CGNE otherwise
 reproduced in torch, so the tests hand both packages the same numbers.
 Under a process grid (parallel/mesh.py) every field is this rank's block:
 the noise and the start vector are the global fields' draws with the
-block kept, every sum is global, and every rank returns the same numbers
-(the domain-wall measurements have no multi-process form yet).
+block kept, every sum is global, and every rank returns the same numbers.
+The domain-wall propagator runs on blocks as it is: its wall sources and
+the chiral join of its walls act along s, local to a 4D site, and its 5D
+packing uses the block's parity, which is the global one (every local
+origin is even).
 """
 
 from __future__ import annotations

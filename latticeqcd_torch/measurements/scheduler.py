@@ -61,16 +61,14 @@ FERMIONIC = ("Chiral_condensate", "Pion_correlator", "Dirac_spectrum")
 def measurement_grid_refusal(method: Dict[str, Any]) -> Optional[str]:
     """What of a measurement method has no multi-process form yet (ROADMAP A14b), or
     None: a method that solves with a Dirac operator runs under a process grid on the
-    Wilson (r = 1, clover-improved or not) and staggered operators, not on domain
-    wall."""
+    Wilson (r = 1, clover-improved or not), domain-wall (r = 1) and staggered
+    operators."""
     name = method.get("methodname")
     if name not in FERMIONIC and "fermion_parameters" not in method:
         return None
     fparams = method.get("fermion_parameters", {
         "Dirac_operator": _REGISTRY[name].default_operator if name in _REGISTRY else "Wilson"})
     kind = fparams.get("Dirac_operator", "Wilson")
-    if kind in ("Domainwall", "domainwall"):
-        return f"the fermionic measurement {name} on the domain-wall operator"
     if kind in ("Wilson", "WilsonClover") and float(fparams.get("r", 1.0)) != 1.0:
         return f"the fermionic measurement {name} with Wilson r = {fparams['r']}"
     return None

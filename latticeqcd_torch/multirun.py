@@ -18,9 +18,10 @@ the run's output and writes files; it prints the grid, the backend and
 the process count, then the final plaquette and the elapsed time. With
 --report DIR every rank writes DIR/rank<r>.json (its grid place, its
 trajectories' seconds, dH, accept decisions and solver records, the final
-plaquette and its launches of the packed Wilson hop, the staggered hop and
-W and the full Wilson D, each kernel's halo mode apart) and
-DIR/rank<r>_u.npy (its block of the final links).
+plaquette, the SHA-256 of the run's generator state after the last step, and
+its launches of the packed Wilson hop, the staggered hop and W and the full
+Wilson D, each kernel's halo mode apart) and DIR/rank<r>_u.npy (its block of
+the final links).
 """
 
 import json
@@ -88,13 +89,15 @@ def main(argv=None):
         mesh.println_rank0(f"final plaquette = {plaq}")
         mesh.println_rank0(f"elapsed {time.time() - t0:.2f} s")
         if opts["report"] is not None:
-            _report(opts["report"], pes, device, plaq, history, final["u"])
+            _report(opts["report"], pes, device, plaq, history, final)
     finally:
         mesh.close_process_grid()
     return 0
 
 
-def _report(outdir, pes, device, plaq, history, u):
+def _report(outdir, pes, device, plaq, history, final):
+    import hashlib
+
     import numpy as np
 
     from latticeqcd_torch.convert import to_numpy
@@ -106,13 +109,15 @@ def _report(outdir, pes, device, plaq, history, u):
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump({"rank": rank, "nprocs": mesh.get_nprocs(), "pes": list(pes),
                    "device": str(device), "plaquette": plaq, "history": history,
+                   "generator_sha256": hashlib.sha256(
+                       final["generator"].get_state().numpy().tobytes()).hexdigest(),
                    "launches": {"wilson_hop_packed": wilson_kernel.launches,
                                 "wilson_hop_packed_halo": wilson_kernel.halo_launches,
                                 "staggered_w": staggered_kernel.launches,
                                 "staggered_w_halo": staggered_kernel.halo_launches,
                                 "wilson_window": wilson_window_kernel.launches,
                                 "wilson_window_halo": wilson_window_kernel.halo_launches}}, f)
-    np.save(os.path.join(outdir, f"rank{rank}_u.npy"), to_numpy(u))
+    np.save(os.path.join(outdir, f"rank{rank}_u.npy"), to_numpy(final["u"]))
 
 
 if __name__ == "__main__":

@@ -26,6 +26,13 @@ its inverse are pairs of L5 x L5 matrices, one per chirality, built on the
 host in float64 and applied along s. r != 1 takes the generic projector
 form on the CPU and raises elsewhere (ROADMAP A4b), as the Wilson
 operator does; the kernels hold NC = 3 and raise on other CUDA fields.
+
+Under a process grid (parallel/mesh.py) every field is this rank's block
+and each slice goes through its kernel's halo mode: one exchange of the
+slice's faces per hop (2 L5 per Shat, 4 L5 per Shat^dag Shat), the
+backward links' faces once per link tensor, and each slice's link
+gradient moved across the faces by its own backward; autograd sums the
+slices. The L5 x L5 site blocks act along s only and need no exchange.
 """
 
 from __future__ import annotations

@@ -317,11 +317,13 @@ class HasenbuschWilsonFermiAction:
     def sample_pseudofermion(self, u, generator: Optional[torch.Generator] = None, normals=None,
                              log=None):
         """(S_old, (phi1, phi2)) from unit Gaussian xi1, xi2 (from the Generator, or
-        the injected normals (re, im) of noise_shape(u), xi_i = normals[.][i])."""
+        the injected normals (re, im) of noise_shape(u), xi_i = normals[.][i]). Under
+        a process grid the Generator's normals are the global lattice's, this rank's
+        block kept."""
         shape = self.noise_shape(u)
         if normals is None:
-            kw = dict(generator=generator, dtype=u.real.dtype, device=u.device)
-            normals = (torch.randn(shape, **kw), torch.randn(shape, **kw))
+            normals = tuple(mesh.randn_block(shape, self.noise_lead, generator, u.real.dtype,
+                                             u.device) for _ in range(2))
         xi1, xi2 = (torch.complex(*normals) / math.sqrt(2.0)).to(u.dtype)
         a, a_dag = self._ops(self._phased(u), self._eo(tuple(u.shape[1:5])))
         phi1 = self._amu(a, xi1)
@@ -455,11 +457,12 @@ class DomainwallFermiAction:
                              log=None):
         """(S_old, phi): phi = A_PV (A_PV^dag A_PV)^-1 A^dag xi with unit Gaussian
         xi (from the Generator, or the injected normals (re, im) of
-        noise_shape(u)), so that S(phi) = |xi|^2 = S_old."""
+        noise_shape(u)), so that S(phi) = |xi|^2 = S_old. Under a process grid the
+        Generator's normals are the global lattice's, this rank's block kept."""
         shape = self.noise_shape(u)
         if normals is None:
-            kw = dict(generator=generator, dtype=u.real.dtype, device=u.device)
-            normals = (torch.randn(shape, **kw), torch.randn(shape, **kw))
+            normals = tuple(mesh.randn_block(shape, self.noise_lead, generator, u.real.dtype,
+                                             u.device) for _ in range(2))
         xi = (torch.complex(*normals) / math.sqrt(2.0)).to(u.dtype)
         up = self._phased(u)
         packed = eo_pack.packable(tuple(u.shape[1:5]))

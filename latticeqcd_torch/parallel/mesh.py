@@ -16,8 +16,10 @@ communication out:
   boundary slabs with the neighbours, the kernels (the packed Wilson
   hop, the staggered hop and W, the full Wilson D) read their halos from
   exchanged face buffers (``exchange_faces``), every lattice sum goes
-  through ``global_sum``, and every random field is the global field's
-  draw with this rank's block kept (``randn_block``, ``randint_block``);
+  through ``global_sum``, every random field is the global field's
+  draw with this rank's block kept (``randn_block``, ``randint_block``,
+  ``rand_block``), and a loop that stops once a condition holds on every
+  site asks ``global_all``;
 * ``global_sum`` all-reduces scalars only. Each rank writes its partial
   sum into its own slot of a vector of nprocs entries, the vector is
   all-reduced (a sum of one value with zeros is exact), and every rank
@@ -308,28 +310,34 @@ def shard_links(u: torch.Tensor, grid: Optional[ProcessGrid] = None) -> torch.Te
     return u if grid is None else grid.block(u, lead=1).contiguous()
 
 
-def randn_block(shape, lead: int, generator, dtype, device) -> torch.Tensor:
-    """Normals for a local field of ``shape`` (lattice axes lead..lead + 3): under a grid,
-    the global field's normals drawn from ``generator`` (the same seed on every rank) and
-    this rank's block kept, so that a sharded run draws what one process draws."""
+def _drawn_block(draw, shape, lead: int) -> torch.Tensor:
+    """draw(shape) for a local field of ``shape`` (lattice axes lead..lead + 3): under a
+    grid the global field's draw from the run's generator (the same seed on every rank)
+    with this rank's block kept, so that a sharded run draws what one process draws."""
     grid = sharded()
     if grid is None:
-        return torch.randn(shape, generator=generator, dtype=dtype, device=device)
-    full = torch.randn(grid.global_shape(shape, lead), generator=generator, dtype=dtype,
-                       device=device)
-    return grid.block(full, lead).contiguous()
+        return draw(shape)
+    return grid.block(draw(grid.global_shape(shape, lead)), lead).contiguous()
+
+
+def randn_block(shape, lead: int, generator, dtype, device) -> torch.Tensor:
+    """Normals for a local field of ``shape`` (lattice axes lead..lead + 3), drawn as
+    ``_drawn_block`` says."""
+    return _drawn_block(lambda s: torch.randn(s, generator=generator, dtype=dtype,
+                                              device=device), shape, lead)
 
 
 def randint_block(high: int, shape, lead: int, generator, device) -> torch.Tensor:
-    """Integers in [0, high) for a local field of ``shape`` (lattice axes lead..lead + 3),
-    drawn as ``randn_block`` draws its normals: under a grid the global field's, this
-    rank's block kept."""
-    grid = sharded()
-    if grid is None:
-        return torch.randint(0, high, shape, generator=generator, device=device)
-    full = torch.randint(0, high, grid.global_shape(shape, lead), generator=generator,
-                         device=device)
-    return grid.block(full, lead).contiguous()
+    """Integers in [0, high) for a local field of ``shape``, drawn as ``_drawn_block``
+    says."""
+    return _drawn_block(lambda s: torch.randint(0, high, s, generator=generator, device=device),
+                        shape, lead)
+
+
+def rand_block(shape, lead: int, generator, dtype, device) -> torch.Tensor:
+    """Uniforms in [0, 1) for a local field of ``shape``, drawn as ``_drawn_block`` says."""
+    return _drawn_block(lambda s: torch.rand(s, generator=generator, dtype=dtype,
+                                             device=device), shape, lead)
 
 
 def _staged(t: torch.Tensor, grid: ProcessGrid) -> torch.Tensor:
@@ -365,6 +373,17 @@ def global_sum(x):
     if sharded() is None or not torch.is_tensor(x):
         return x
     return _GlobalSum.apply(x)
+
+
+def global_all(flag: bool) -> bool:
+    """Whether ``flag`` holds on every rank of the active grid (one all-reduce of one
+    integer); ``flag`` itself without a grid."""
+    grid = sharded()
+    if grid is None:
+        return bool(flag)
+    t = torch.tensor([0 if flag else 1], dtype=torch.int64, device=grid.comm_device)
+    dist.all_reduce(t)
+    return int(t) == 0
 
 
 def global_volume(local_lattice) -> int:

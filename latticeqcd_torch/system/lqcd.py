@@ -127,7 +127,8 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=torch.complex128, d
     global normals and keeps its block, and returns the same plaquette. A
     resumed run reads the checkpoint on every rank and keeps its block, so it
     continues bit for bit. final, if given, receives the last links (this rank's
-    block) as "u".
+    block) as "u" and the run's torch.Generator, in its state after the last step, as
+    "generator" (under a grid the same state on every rank).
 
     resume_checkpoint: a checkpoint.npz. The run continues from its links and
     trajectory counter (initialtrj = itrj + 1) and, if the port wrote it,
@@ -304,4 +305,5 @@ def _run(p, make_dirs, dtype, device, history, resume_checkpoint, profile_dir, g
     vp.close()
     if final is not None:
         final["u"] = u
+        final["generator"] = generator
     return plaq

@@ -23,6 +23,16 @@ direction. ``GeneratorUniforms`` draws them from a torch.Generator; a test
 can inject its own (the JAX package's key schedule replayed, or numpy
 draws).
 
+Under a process grid (parallel/mesh.py) the links are this rank's block:
+the staples come from sharded rolls, the colours are the global
+lattice's masks with the block kept (an improved action's per-axis
+modulus divides the global extent, not always the block's origin), the
+generator's uniforms are the global field's with the block kept, the
+early stop asks whether every site of every rank is done (one
+all-reduce per check, so that every rank draws as many uniforms as one
+process), and sweep_diag's counts are global. The sweeps with
+coefficients (SLMC) stay refused there (ROADMAP A14b).
+
 With a coupling ``basis`` (a tuple of unit-coupling GaugeActions, as SLMC
 gives it), ``sweep_with_coeffs`` and ``overrelax_with_coeffs`` update
 under the action sum_i coeffs[i] basis[i]: the staple is
@@ -131,7 +141,9 @@ class Uniforms(Protocol):
     """A sweep's uniforms. ``tries`` starts one (mu, colour, subgroup) update
     and yields its tries' (r1, r2, r3, r4): r1, r3 in [1e-30, 1), r2, r4 in
     [0, 1). ``direction`` then gives its (ct, phi): ct in [-1, 1), phi in
-    [0, 2 pi). All of shape ``shape`` in the real type ``dtype``."""
+    [0, 2 pi). All of shape ``shape`` in the real type ``dtype``. Under a
+    process grid ``shape`` is this rank's block; a source may hand over the
+    global field's arrays instead, and the sweep keeps the block of them."""
 
     def tries(self, shape, dtype, device) -> Iterator[Tuple[torch.Tensor, ...]]: ...
 
@@ -140,12 +152,14 @@ class Uniforms(Protocol):
 
 @dataclass
 class GeneratorUniforms:
-    """Uniforms from a torch.Generator on the links' device."""
+    """Uniforms from a torch.Generator on the links' device; under a process grid the
+    global field's uniforms, this rank's block kept (mesh.rand_block), so that every
+    rank draws what one process draws."""
 
     generator: Optional[torch.Generator]
 
     def _rand(self, shape, dtype, device):
-        return torch.rand(shape, generator=self.generator, dtype=dtype, device=device)
+        return mesh.rand_block(shape, 0, self.generator, dtype, device)
 
     def tries(self, shape, dtype, device):
         while True:
@@ -158,6 +172,27 @@ class GeneratorUniforms:
         ct = self._rand(shape, dtype, device) * 2.0 - 1.0
         phi = self._rand(shape, dtype, device) * (2 * math.pi)
         return ct, phi
+
+
+@dataclass
+class _BlockUniforms:
+    """An injected source under a process grid: the global field's arrays it hands
+    over are cut to this rank's block (a source that draws blocks already, as
+    GeneratorUniforms does, passes through)."""
+
+    source: "Uniforms"
+    shape: tuple
+    grid: mesh.ProcessGrid
+
+    def _keep(self, t):
+        return t if tuple(t.shape) == self.shape else self.grid.block(t).contiguous()
+
+    def tries(self, shape, dtype, device):
+        for parts in self.source.tries(shape, dtype, device):
+            yield tuple(self._keep(t) for t in parts)
+
+    def direction(self, shape, dtype, device):
+        return tuple(self._keep(t) for t in self.source.direction(shape, dtype, device))
 
 
 def _kp_sample_a0(alpha, mask, iteration_max, tries):
@@ -180,7 +215,9 @@ def _kp_sample_a0(alpha, mask, iteration_max, tries):
         accept = torch.where(small, acc_c, acc_kp)
         a0 = torch.where(accept & ~done, torch.where(small, a0_c, 1.0 - delta), a0)
         done = done | accept
-        if (it + 1) % _CHECK_EVERY == 0 and bool(done.all()):
+        # under a process grid every rank stops at the same try, so that the ranks
+        # draw as many global uniforms as one process
+        if (it + 1) % _CHECK_EVERY == 0 and mesh.global_all(bool(done.all())):
             break
     return torch.clamp(a0, -1.0, 1.0), done
 
@@ -273,13 +310,22 @@ class Heatbath:
 
     def _sweep_impl(self, u, uniforms, or_mode: bool = False, with_diag: bool = False,
                     coeffs=None):
-        # the early stop once every masked site is done would need a global any
-        mesh.refuse_under_grid("the heatbath and overrelaxation")
+        if coeffs is not None:
+            mesh.refuse_under_grid("a heatbath sweep with coupling coefficients (SLMC)")
         nc = self.action.nc
         shape = tuple(u.shape[1:5])
         rdt = sun.real_dtype(u.dtype)
         staple_of, max_ext = self._staple_and_extent(coeffs)
-        masks = torch.from_numpy(color_masks_ext(max_ext, shape)).to(u.device)
+        grid = mesh.sharded()
+        if grid is None:
+            masks = torch.from_numpy(color_masks_ext(max_ext, shape))
+        else:
+            # the global lattice's colours, this rank's block kept: a block origin need
+            # not be a multiple of an improved action's modulus
+            masks = grid.block(torch.from_numpy(color_masks_ext(max_ext, grid.lattice)), lead=1)
+            if uniforms is not None:
+                uniforms = _BlockUniforms(uniforms, shape, grid)
+        masks = masks.to(u.device)
         subgroups = [(i, j) for i in range(nc) for j in range(i + 1, nc)]
         n_exh = n_att = torch.zeros((), dtype=torch.int64, device=u.device)
         u = u.clone()
@@ -313,4 +359,6 @@ class Heatbath:
                             n_att = n_att + torch.sum(mask)
                     u_mu = _embed_apply(u_mu, v2, i, j, upd)
                 u[mu] = u_mu
+        if with_diag:
+            n_exh, n_att = mesh.global_sum(n_exh), mesh.global_sum(n_att)
         return u, n_exh, n_att

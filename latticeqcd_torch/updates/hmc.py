@@ -47,15 +47,17 @@ exists for its TPU runtime and has no counterpart here.
 
 Under a process grid (parallel/mesh.py) ``step`` takes this rank's block
 of the links. Quenched HMC, two-flavour Wilson HMC (r = 1, with or
-without the clover term; no Hasenbusch) and staggered HMC/RHMC, without
-smearing, run there; every other action raises before any draw (ROADMAP
-A14b). The draws are those of the global lattice: every rank draws the
+without the clover term, with or without Hasenbusch and its
+Sexton-Weingarten split), two-flavour domain-wall HMC (r = 1) and
+staggered HMC/RHMC, without smearing, run there; every other action
+raises before any draw (ROADMAP A14b). The draws are those of the global lattice: every rank draws the
 global normals from the run's generator, which has the same seed on
 every rank, and keeps its block, so a sharded trajectory draws what one
 process draws (at 16^3 x 32 complex64 about 44 MB of normals per
 trajectory on every rank). Injected draws are global arrays, sliced the
 same way; the fermion action says where its noise's lattice axes start
-(``noise_lead``: after the staggered pseudofermion axis). The Metropolis
+(``noise_lead``: after the staggered pseudofermion axis, the Hasenbusch
+noises' axis and the domain-wall fifth axis). The Metropolis
 uniform, and the dH it is compared with (global sums, bitwise the same
 on every rank), agree everywhere.
 """
@@ -70,7 +72,9 @@ import torch
 from latticeqcd_torch.md import integrators
 from latticeqcd_torch.ops import gauge_action as ga
 from latticeqcd_torch.ops import mdpair, sun
-from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
+from latticeqcd_torch.ops.fermion_action import (DomainwallFermiAction,
+                                                 HasenbuschWilsonFermiAction,
+                                                 StaggeredFermiAction, WilsonFermiAction)
 from latticeqcd_torch.parallel import mesh
 
 
@@ -127,13 +131,14 @@ def noise_lead(fermi_action) -> int:
 def grid_refusal(fermi_action, smearing=None) -> Optional[str]:
     """What of an HMC has no multi-process form yet (ROADMAP A14b), or None: the slice
     that runs on a process grid is quenched HMC, two-flavour Wilson HMC at r = 1
-    (clover-improved or not) and staggered HMC/RHMC, without Hasenbusch and without
-    smearing."""
+    (clover-improved or not, with or without Hasenbusch), two-flavour domain-wall HMC
+    at r = 1 and staggered HMC/RHMC, without smearing."""
     if smearing is not None:
         return "stout smearing"
     if fermi_action is None or type(fermi_action) is StaggeredFermiAction:
         return None
-    if type(fermi_action) is not WilsonFermiAction:
+    if type(fermi_action) not in (WilsonFermiAction, HasenbuschWilsonFermiAction,
+                                  DomainwallFermiAction):
         return f"the fermion action {type(fermi_action).__name__}"
     if fermi_action.dirac.r != 1.0:
         return f"Wilson fermions at r = {fermi_action.dirac.r}"

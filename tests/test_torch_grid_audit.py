@@ -12,6 +12,11 @@ elements), every all-reduce, all-gather and gather. The pins:
 * a CG iteration adds 4 hops' face messages and scalar all-reduces only;
 * a whole Wilson trajectory sends no message of a field's size and has no
   gather; its all-reduces are scalar;
+* a domain-wall Shat^dag Shat exchanges each of its 4 L5 slice hops' faces,
+  2 messages per cut axis per hop, and its packed links' faces once;
+* a heatbath sweep's all-reduces are its early-stop checks, one integer
+  each, one per 4 tries (every rank the same number), and an
+  overrelaxation sweep has none;
 * Savedata's gather of the links to rank 0 is the only field-sized traffic.
 """
 
@@ -32,6 +37,9 @@ PES = (1, 1, 2, 2)
 LAT = (4, 4, 4, 8)
 LOCAL = (4, 4, 2, 4)
 NPROCS = 4
+DW_L5 = 2
+PHASES = ("dhat_fresh", "dhat_again", "cg3", "cg4", "trajectory", "save", "dw_fresh", "dw_again",
+          "heatbath", "overrelax")
 
 
 class CountingCommunicator:
@@ -99,10 +107,52 @@ def _case_audit(grid, savedir):
                     fermi_action=hmc.fermi_action).step(u, gen)
     comm.phase = "save"
     Savedata("NPZ", savedir, 1, "HMC", VerbosePrint(level=0, myid=grid.rank)).save(u_new, 1, gen)
-    for phase in ("dhat_fresh", "dhat_again", "cg3", "cg4", "trajectory", "save"):
+    out.update(_domainwall_and_heatbath(comm, u, gen))
+    for phase in PHASES:
         events = comm.events(phase)
         out[phase] = np.array(sorted(f"{k}={n}" for k, n in events.items()))
     return out
+
+
+class _CountingUniforms:
+    """The generator's uniforms, counting the tries drawn."""
+
+    def __init__(self, generator):
+        from latticeqcd_torch.updates.heatbath import GeneratorUniforms
+
+        self.inner, self.tries_drawn = GeneratorUniforms(generator), 0
+
+    def tries(self, shape, dtype, device):
+        for parts in self.inner.tries(shape, dtype, device):
+            self.tries_drawn += 1
+            yield parts
+
+    def direction(self, shape, dtype, device):
+        return self.inner.direction(shape, dtype, device)
+
+
+def _domainwall_and_heatbath(comm, u, gen):
+    """Shat^dag Shat at L5 = DW_L5 on fresh and on the same packed links, a heatbath sweep
+    (its tries counted) and an overrelaxation sweep, each its own phase."""
+    from latticeqcd_torch.ops import gauge_action as ga
+    from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
+    from latticeqcd_torch.ops.dirac.wilson import apply_boundary_phases
+    from latticeqcd_torch.updates.heatbath import Heatbath
+
+    d = DomainwallDirac(0.3, -1.8, DW_L5)
+    ueo = d.packed_links(apply_boundary_phases(u))
+    shape = (DW_L5, LOCAL[0] // 2) + LOCAL[1:] + (4, 3)
+    x = torch.complex(*(mesh.randn_block(shape, 1, gen, torch.float64, "cpu") for _ in range(2)))
+    for phase in ("dw_fresh", "dw_again"):
+        comm.phase = phase
+        d.apply_schur_ddag_d(ueo, x)
+    hb = Heatbath(action=ga.wilson_gauge_action(3, 6.0))
+    uniforms = _CountingUniforms(gen)
+    comm.phase = "heatbath"
+    u = hb.sweep(u, uniforms=uniforms)
+    comm.phase = "overrelax"
+    hb.overrelax(u)
+    return {"heatbath_tries": np.asarray(uniforms.tries_drawn)}
 
 
 def _rank_main(argv):
@@ -118,7 +168,8 @@ def audit(tmp_path_factory):
     for res in ranks:
         parsed.append({phase: Counter({k: int(n) for k, n in (e.rsplit("=", 1)
                                                               for e in res[phase])})
-                       for phase in ("dhat_fresh", "dhat_again", "cg3", "cg4", "trajectory", "save")})
+                       for phase in PHASES})
+        parsed[-1]["heatbath_tries"] = int(res["heatbath_tries"])
     return parsed, save
 
 
@@ -208,3 +259,44 @@ def test_savedata_gather_is_the_only_field_traffic(audit):
             assert res["save"] == Counter({f"send:{block}:0": 1}), rank
     assert sorted(os.listdir(save)) == ["checkpoint.npz", "conf_00000001.npz"]
     assert np.load(os.path.join(save, "conf_00000001.npz"))["u"].shape == (4,) + LAT + (3, 3)
+
+
+def test_domainwall_schur_normal_operator_exchanges_each_slice(audit):
+    """A domain-wall Shat^dag Shat is 4 L5 packed hops, one per slice per hop: 2 spinor face
+    messages per cut axis each (8 L5 in all per cut axis), and on fresh packed links the
+    link faces of u_e and u_o once per cut axis, none on the same links again."""
+    ranks, _ = audit
+    for rank, res in enumerate(ranks):
+        want_again, want_fresh = Counter(), Counter()
+        for mu, (lo, hi) in _neighbours(rank).items():
+            want_again[(_face(mu, 12), hi)] += 4 * DW_L5
+            want_again[(_face(mu, 12), lo)] += 4 * DW_L5
+            want_fresh[(_face(mu, 9), hi)] += 2
+        want_fresh.update(want_again)
+        assert _sends(res["dw_again"]) == want_again, rank
+        assert _sends(res["dw_fresh"]) == want_fresh, rank
+        for phase in ("dw_fresh", "dw_again"):
+            assert not [k for k in res[phase] if not k.startswith(("send", "recv"))], rank
+
+
+def test_heatbath_sweep_all_reduces_are_its_early_stop_checks(audit):
+    """A heatbath sweep all-reduces one integer per early-stop check (every 4 tries of each
+    (mu, colour, subgroup) update), the same number on every rank as the tries each drew,
+    its staples' rolls send at most a slab of links, and an overrelaxation sweep, which
+    draws nothing, has no all-reduce."""
+    ranks, _ = audit
+    slab = int(np.prod(LOCAL)) // min(LOCAL) * 9
+    updates = 4 * 2 * 3  # directions x colours x SU(2) subgroups of SU(3)
+    tries = ranks[0]["heatbath_tries"]
+    assert tries % 4 == 0 and updates * 4 <= tries <= updates * 48
+    for rank, res in enumerate(ranks):
+        assert res["heatbath_tries"] == tries, rank
+        for phase in ("heatbath", "overrelax"):
+            for key, n in res[phase].items():
+                kind, *rest = key.split(":")
+                assert kind in ("send", "recv", "all_reduce"), key
+                if kind != "all_reduce":
+                    assert int(rest[0]) <= slab, key
+        assert {k: n for k, n in res["heatbath"].items() if k.startswith("all_reduce")} == \
+            {"all_reduce:1": tries // 4}, rank
+        assert not [k for k in res["overrelax"] if k.startswith("all_reduce")], rank

@@ -1,9 +1,10 @@
 """The fermionic measurements on the port's process grid, on the CPU: the Wilson operator
-here, the clover and staggered ones in test_torch_grid_measurements_clover.py and
-test_torch_grid_measurements_staggered.py, on this module's machinery.
+here, the clover, staggered and domain-wall ones in test_torch_grid_measurements_clover.py,
+test_torch_grid_measurements_staggered.py and test_torch_grid_measurements_domainwall.py, on
+this module's machinery.
 
-Each grid over 4^4 runs as a group of gloo processes (test_torch_grid's
-run_ranks). For each operator:
+Each grid over 4^4 (the domain-wall one over 4x4x2x4) runs as a group of gloo
+processes (test_torch_grid's run_ranks). For each operator:
 
 * Chiral_condensate, Pion_correlator and Dirac_spectrum through the
   measurement scheduler, their noise and start vector drawn from the
@@ -34,6 +35,8 @@ OPERATORS = {
     "wilson": {"Dirac_operator": "Wilson", "hop": 0.12},
     "clover": {"Dirac_operator": "WilsonClover", "hop": 0.12, "Clover_coefficient": 1.0},
     "staggered": {"Dirac_operator": "Staggered", "mass": 0.5, "Nf": 4},
+    "domainwall": {"Dirac_operator": "Domainwall", "Domainwall_m": 0.3, "Domainwall_M": -1.8,
+                   "Domainwall_L5": 2},
 }
 METHODS = ["Chiral_condensate", "Pion_correlator", "Dirac_spectrum"]
 SEED, KEY = 31, 32
@@ -43,10 +46,10 @@ def _nspin(op):
     return 1 if op == "staggered" else 4
 
 
-def _links():
+def _links(lattice):
     from latticeqcd_torch.ops import fields
 
-    return fields.hot_start(LAT, 3, seed=SEED, device="cpu")  # the block under a grid
+    return fields.hot_start(lattice, 3, seed=SEED, device="cpu")  # the block under a grid
 
 
 def _scheduled(u, ops):
@@ -79,13 +82,14 @@ def _injected(u, z, block, ops):
         pbp, vals = fermionic.chiral_condensate(u, d, nr=NR, nf_factor=nf, eps=EPS,
                                                 draws=block(z[f"z4_{op}"], 1))
         out[f"jaxdraws_{op}_Chiral_condensate"] = np.array([pbp] + vals)
+        v0 = z[f"v0_{op}"]  # domain wall: one 4D field per slice s
         out[f"jaxdraws_{op}_Dirac_spectrum"] = fermionic.dirac_low_spectrum(
-            u, d, k=NEIG, m=NLANCZOS, v0=torch.from_numpy(block(z[f"v0_{op}"], 0)))
+            u, d, k=NEIG, m=NLANCZOS, v0=torch.from_numpy(block(v0, int(op == "domainwall"))))
     return out
 
 
-def _measure(block, draws_file, ops):
-    u = _links()
+def _measure(block, draws_file, lattice, ops):
+    u = _links(lattice)
     out = _scheduled(u, ops)
     out.update(_injected(u, dict(np.load(draws_file)), block, ops))
     for op in ops:
@@ -94,17 +98,17 @@ def _measure(block, draws_file, ops):
 
 
 def _case_measurements(grid, draws_file, *ops):
-    return _measure(lambda a, lead: grid.block(a, lead).copy(), draws_file, ops)
+    return _measure(lambda a, lead: grid.block(a, lead).copy(), draws_file, grid.lattice, ops)
 
 
-def _rank_main(argv):
-    rank_main(argv, {"measurements": _case_measurements}, lattice=LAT)
+def _rank_main(argv, lattice=LAT):
+    rank_main(argv, {"measurements": _case_measurements}, lattice=lattice)
 
 
 # ------------------------------------------------- references, in the parent
 
 
-def _references(tmp_path_factory, ops):
+def _references(tmp_path_factory, ops, lattice):
     """The JAX package's measurements on its own draws, the draws (written for the rank
     groups), and the single-process port's results, for the operators ``ops``."""
     import jax
@@ -113,15 +117,23 @@ def _references(tmp_path_factory, ops):
     from latticeqcd_tpu.ops import fields as jfields
     from latticeqcd_tpu.ops.dirac import staggered as js
     from latticeqcd_tpu.ops.dirac import wilson as jw
+    from latticeqcd_tpu.ops.dirac.domainwall import DomainwallDirac as JD
     from test_torch_measurements import _z4_draws
 
-    u = jfields.hot_start(LAT, 3, seed=SEED)
+    u = jfields.hot_start(lattice, 3, seed=SEED)
     key = jax.random.PRNGKey(KEY)
     draws, jax_out = {}, {}
     for op in ops:
         fp = OPERATORS[op]
+        v0 = np.asarray(jw.gaussian_spinor(jax.random.PRNGKey(20260822), lattice, 3,
+                                           nspin=_nspin(op)))
         if op == "staggered":
-            d, nf = js.StaggeredDirac(mass=fp["mass"], lattice=LAT), 0.25 * fp["Nf"]
+            d, nf = js.StaggeredDirac(mass=fp["mass"], lattice=lattice), 0.25 * fp["Nf"]
+        elif op == "domainwall":
+            d, nf = JD(fp["Domainwall_m"], fp["Domainwall_M"], fp["Domainwall_L5"]), 1.0
+            v0 = np.stack([np.asarray(jw.gaussian_spinor(jax.random.PRNGKey(20260822 + s),
+                                                         lattice, 3))
+                           for s in range(fp["Domainwall_L5"])])
         else:
             d, nf = jw.WilsonDirac(kappa=fp["hop"], csw=fp.get("Clover_coefficient", 0.0)), 1.0
         pbp, vals = jferm.chiral_condensate(u, d, key, nr=NR, nf_factor=nf, eps=EPS)
@@ -129,24 +141,24 @@ def _references(tmp_path_factory, ops):
         jax_out[f"{op}_Pion_correlator"] = np.asarray(jferm.pion_correlator(u, d, eps=EPS))
         jax_out[f"{op}_Dirac_spectrum"] = np.asarray(jferm.dirac_low_spectrum(u, d, k=NEIG,
                                                                               m=NLANCZOS))
-        draws[f"z4_{op}"] = _z4_draws(key, LAT, 3, _nspin(op), NR)
-        draws[f"v0_{op}"] = np.asarray(jw.gaussian_spinor(jax.random.PRNGKey(20260822), LAT, 3,
-                                                          nspin=_nspin(op)))
+        draws[f"z4_{op}"] = _z4_draws(key, lattice, 3, _nspin(op), NR)
+        draws[f"v0_{op}"] = v0
     draws_file = os.path.join(tmp_path_factory.mktemp("grid_measurements"), "draws.npz")
     np.savez(draws_file, **draws)
-    return draws_file, _measure(lambda a, lead: a, draws_file, ops), jax_out
+    return draws_file, _measure(lambda a, lead: a, draws_file, lattice, ops), jax_out
 
 
-def grid_measurement_tests(module, ops):
+def grid_measurement_tests(module, ops, lattice=LAT, grids=GRIDS, grid_ids=GRID_IDS):
     """(the references fixture, the rank-group fixture, and the two tests) of a module that
-    measures the operators ``ops`` on the grids: one operator per module, so that each rank
-    group stays small and loadfile spreads the operators over the workers."""
+    measures the operators ``ops`` on ``lattice`` under the ``grids``: one operator per
+    module, so that each rank group stays small and loadfile spreads the operators over the
+    workers."""
 
     @pytest.fixture(scope="module")
     def references(tmp_path_factory):
-        return _references(tmp_path_factory, ops)
+        return _references(tmp_path_factory, ops, lattice)
 
-    @pytest.fixture(scope="module", params=GRIDS, ids=GRID_IDS)
+    @pytest.fixture(scope="module", params=grids, ids=grid_ids)
     def measurement_group(request, references, tmp_path_factory):
         out = tmp_path_factory.mktemp("grid_measurements_ranks")
         return request.param, run_ranks(module, "measurements", request.param, out,

@@ -2,7 +2,10 @@
 tests/test_distributed.py, with its TOML): a gloo group on the grid (1, 1, 1, 2)
 on the CPU against one process of the same command. The final plaquette
 agrees to 1e-12, the saved configurations agree, and only rank 0 prints the
-run's output and writes the measurement and configuration files.
+run's output and writes the measurement and configuration files. A heatbath
+TOML with overrelaxation runs the same command under torchrun (the env://
+variables) against one process: the same final links, plaquette and
+generator state on every rank.
 """
 
 import os
@@ -188,3 +191,70 @@ def _rank_main(argv):
     from test_torch_grid import rank_main
 
     rank_main(argv, {"resume": _case_resume}, lattice=(4, 4, 4, 4))
+
+
+HEATBATH_TOML = """
+["Physical setting"]
+L = [4, 4, 4, 8]
+NC = 3
+"β" = 6.0
+update_method = "Heatbath"
+quench = true
+useOR = true
+numOR = 2
+Nsteps = 2
+Nthermalization = 0
+randomseed = 113
+initial = "hot"
+verboselevel = 1
+
+["Measurement set"]
+measurement_basedir = "{d}/meas"
+measurement_dir = "hb"
+measurement_methods = [
+  {{ methodname = "Plaquette", measure_every = 1 }},
+]
+"""
+
+
+def test_heatbath_toml_under_torchrun_matches_one_process(tmp_path):
+    """torchrun starts two ranks of multirun on a heatbath TOML (quenched SU(3) with 2
+    overrelaxations per sweep): every rank's report holds the plaquette and the generator
+    state of the one-process run, and the blocks of its final links, bit for bit."""
+    reports = {}
+    procs = []
+    for tag, launcher in (("torchrun", ["-m", "torch.distributed.run", "--nnodes", "1",
+                                        "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+                                        "--master_port", str(_free_port()), "-m",
+                                        "latticeqcd_torch.multirun"]),
+                          ("one", ["-m", "latticeqcd_torch.multirun"])):
+        d = tmp_path / tag
+        (d / "meas").mkdir(parents=True)
+        toml = d / "params.toml"
+        toml.write_text(HEATBATH_TOML.format(d=d))
+        args = [str(toml)] + (["1", "1", "1", "2", "--backend", "gloo"] if tag == "torchrun"
+                              else []) + ["--device", "cpu", "--report", str(d / "report")]
+        env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+        procs.append(subprocess.Popen([sys.executable, *launcher, *args], stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, env=env, cwd=ROOT, text=True))
+        reports[tag] = d / "report"
+    try:
+        outs = [p.communicate(timeout=TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, f"{p.args}\n{out}\n{err[-4000:]}"
+    import json
+
+    one = json.loads((reports["one"] / "rank0.json").read_text())
+    u_one = np.load(reports["one"] / "rank0_u.npy")
+    assert [r["itrj"] for r in one["history"]] == [1, 2]
+    for rank in (0, 1):
+        rep = json.loads((reports["torchrun"] / f"rank{rank}.json").read_text())
+        assert rep["nprocs"] == 2 and rep["pes"] == [1, 1, 1, 2]
+        assert abs(rep["plaquette"] - one["plaquette"]) < 1e-12
+        assert rep["generator_sha256"] == one["generator_sha256"]
+        block = np.load(reports["torchrun"] / f"rank{rank}_u.npy")
+        assert block.tobytes() == u_one[:, :, :, :, 4 * rank:4 * (rank + 1)].tobytes()
