@@ -87,9 +87,10 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      1e-12); the generic plaquette staple against the fused one; the stout-smeared Wilson and
      staggered (Nf = 4, 2) forces kernel path against plain path (1e-10 relative); one
      trajectory each of scenario 7's action (Wilson, beta 5.7, kappa 0.141139, QPQ with
-     Sexton-Weingarten nsw 10, 20 steps of 0.05), phase 21's action and staggered Nf = 2 RHMC on
-     one stout layer with QPQ-SW, kernel path against plain path (dH 1e-9, links 1e-10); MD
-     reversibility of phase 21's action (1e-8); a plaquette + rectangle action's overrelaxation
+     Sexton-Weingarten nsw 10, 5 of its 20 steps of 0.05), phase 21's action and staggered Nf = 2 RHMC on
+     one stout layer with QPQ-SW (4 steps), kernel path against plain path (dH 1e-9, links
+     1e-10); MD reversibility of phase 21's action over 2 steps (1e-8); a plaquette + rectangle
+     action's overrelaxation
      (the action conserved to 1e-8 relative) and heatbath sweep from host uniforms for NC = 2,
      3 on 3^4, card against CPU;
  21. the improved-action path: run_lqcd_params at 16^3x32, SU(3), complex64, hot start, 2
@@ -107,12 +108,12 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      CPU in complex128 (bar 1e-12) and complex64 (1e-5 relative); the action, the force
      with and without one stout layer, the effective propagator, the condensate from injected
      Z4 draws and the spectrum from an injected start, card against CPU (1e-10 relative,
-     solves to 1e-24); r = 0.7 and NC = 2 raise on the card; one trajectory kernel path
-     against plain path (dH 1e-9, links 1e-10) and MD reversibility (1e-8);
+     solves to 1e-24); r = 0.7 and NC = 2 raise on the card; one trajectory of 2 MD steps
+     kernel path against plain path (dH 1e-9, links 1e-10) and MD reversibility (1e-8);
  23. the domain-wall path: run_lqcd_params at 16^3x32, SU(3), beta = 6.0, two-flavour Shamir
      domain wall at M = -1.8, L5 = 16, m = 0.04 (Pauli-Villars partner at m = 1), QPQ 10 steps
      of 0.02, complex64, hot start, 1 trajectory, with the pion correlator, the condensate
-     (Nr = 10) and the spectrum at itrj 0 and 1; every kernel's launch count set to 0 just
+     (Nr = 10) and the spectrum at itrj 0; every kernel's launch count set to 0 just
      before and read just after; it fails if dH is not finite, a solve (the
      pseudofermion's too) reaches MaxCGstep or misses its target, the unitarity defect exceeds
      1e-4, a plaquette leaves (0, 1), a pion correlator value is not positive, the Ritz values
@@ -126,11 +127,11 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      links 1e-10, beta_eff 1e-7 relative, its difference printed): quenched SLHMC learning
      beta = 5.7 from beta_eff = 3.0 (5 trajectories), one SLHMC trajectory with Wilson fermions
      at kappa 0.141139 and one with staggered Nf = 4 at m = 1.0, one SLMC step of the Iwasaki
-     action on a plaquette + rectangle basis, the dense fermion
+     action on a plaquette + rectangle basis (on 3^4), the dense fermion
      determinant of Wilson (dim 3072, 3072 wilson_window launches) and staggered fermions (W_e
      of dim 384, 384 staggered_w launches; relative 1e-12) card against CPU and kernel against
      plain, one IntegratedHMC trajectory and one IntegratedHB step with the Wilson determinant
-     (kernel path against plain path);
+     at 4x4x2x2 (kernel path against plain path);
  25. the self-learning path: run_lqcd_params at 16^3x32, complex64, hot start, QPQ 10 steps of
      0.02, 4 steps each of SLHMC with two-flavour Wilson fermions (beta 6.0, kappa 0.141139) on a
      plaquette + rectangle basis from beta_eff [6, 0] and of quenched SLMC (beta 6.0 from
@@ -249,6 +250,20 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      mode, each run's halo kernels launched, 4 L5 halo hops per rank per Shat^dag Shat; the
      action parts and seconds per step on the grid beside one card printed; (d) the same on
      nccl with two or more cards.
+ 34. the process grid for stout, the self-learning updaters and Fileloading: (a) one group of
+     two gloo ranks on the one card (as phase 33's) runs through run_lqcd_params(grid=...),
+     from a hot start: at 16^3x32 one complex128 trajectory (2 MD steps of 0.005) of
+     two-flavour Wilson HMC on 2 stout layers (rho 0.1) and one SLHMC step on a plaquette +
+     rectangle basis (a reject is allowed: its MD leaves the fermions out), one quenched SLMC
+     step (complex64, beta_eff 5.5 refit), Fileloading over two NPZ configurations this phase
+     saves (complex128, with the plaquette and the energy density); at 4^4 one IntegratedHB
+     step with the staggered dense log det (complex128); then this process runs each on one
+     card: dH 1e-8 and links 1e-10 for the HMC and SLHMC trajectories, the same decision,
+     links 1e-12 and one card's generator state for the others, beta_eff and the measured
+     numbers 1e-12 relative (1e-5 in complex64), the ranks' histories bitwise equal; no
+     launch of wilson_hop_packed, wilson_window or staggered_w outside a halo mode, each run's
+     halo kernel launched; seconds per step on the grid beside one card and the launches
+     printed; (b) the same on nccl with two or more cards.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -1753,7 +1768,8 @@ def phase_improved_agreement(torch):
               maxdiff(f_k, f_p) / float(f_p.abs().max()), 1e-10)
 
     # trajectories: scenario 7's action, the phase-21 action, staggered Nf=2 with stout + QPQ-SW
-    scenario7 = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.05, md_steps=20,
+    # (scenario 7 takes 20 steps of 0.05; 5 of them hold the same kernels, 14 s less)
+    scenario7 = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.05, md_steps=5,
                     sexton_weingarten=True, nsw=10,
                     fermi_action=WilsonFermiAction(WilsonDirac(kappa=KAPPA), eps_cg=1e-19))
     _trajectory_pair(torch, "scenario 7 (Wilson, QPQ-SW nsw 10)", scenario7, ug, 62)
@@ -1762,20 +1778,20 @@ def phase_improved_agreement(torch):
     improved = HMC(action=iwasaki, dtau=0.04, md_steps=5, scheme="Omelyan",
                    sexton_weingarten=True, nsw=4, fermi_action=fa, smearing=net)
     _trajectory_pair(torch, "Iwasaki + 2 stout + Omelyan-SW", improved, ug, 63)
-    stag = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=10,
+    stag = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=4,
                sexton_weingarten=True, nsw=2, smearing=stout_stack([0.1]),
                fermi_action=StaggeredFermiAction(StaggeredDirac(mass=MASS, lattice=lat), nf=2,
                                                  eps_cg=1e-19))
     _trajectory_pair(torch, "staggered Nf=2 + 1 stout + QPQ-SW", stag, ug, 64)
 
-    # reversibility of the phase-21 action: integrate, flip the momenta, integrate back
+    # reversibility of the phase-21 action: integrate 2 steps, flip the momenta, integrate back
     draws = Draws.sample(improved, ug, torch.Generator(device=dev).manual_seed(65))
     _, phi = fa.sample_pseudofermion(net.smear(ug), normals=draws.xi)
     kw = dict(force_fermion=lambda uu: fa.force(uu, phi, smear_fn=net.smear), scheme="Omelyan",
               sexton_weingarten=True, nsw=4)
     force_g = lambda uu: ga.force(iwasaki, uu)
-    u1, h1 = integrators.run_md(ug, draws.momentum(ug), force_g, 0.04, 5, **kw)
-    u2, _ = integrators.run_md(u1, -h1, force_g, 0.04, 5, **kw)
+    u1, h1 = integrators.run_md(ug, draws.momentum(ug), force_g, 0.04, 2, **kw)
+    u2, _ = integrators.run_md(u1, -h1, force_g, 0.04, 2, **kw)
     check("Iwasaki + 2 stout + Omelyan-SW MD reversibility max|dU|", maxdiff(u2, ug), 1e-8)
 
     # a plaquette + rectangle action's overrelaxation and heatbath on 3^4: 3^4 colours of one
@@ -2017,24 +2033,24 @@ def phase_domainwall_agreement(torch):
               _rel(s_g, fermionic.dirac_low_spectrum(u, d, k=3, m=24, v0=v0)), 1e-10)
 
     # one trajectory through the kernels and one through their plain versions, and MD
-    # reversibility
+    # reversibility, 2 MD steps each (every plain slice hop costs milliseconds)
     ug = fields.hot_start(lat, 3, seed=74, dtype=torch.complex128, device=dev)
     fa = DomainwallFermiAction(d, eps_cg=1e-22)
-    hmc = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=5, fermi_action=fa)
+    hmc = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=2, fermi_action=fa)
     _trajectory_pair(torch, "domain wall m=0.3 M=-1.8 L5=4", hmc, ug, 75)
     draws = Draws.sample(hmc, ug, torch.Generator(device=dev).manual_seed(76))
     _, phi = fa.sample_pseudofermion(ug, normals=draws.xi)
     force_f = lambda uu: fa.force(uu, phi)
     force_g = lambda uu: ga.force(hmc.action, uu)
-    u1, h1 = integrators.run_md(ug, draws.momentum(ug), force_g, 0.1, 5, force_fermion=force_f)
-    u2, _ = integrators.run_md(u1, -h1, force_g, 0.1, 5, force_fermion=force_f)
+    u1, h1 = integrators.run_md(ug, draws.momentum(ug), force_g, 0.1, 2, force_fermion=force_f)
+    u2, _ = integrators.run_md(u1, -h1, force_g, 0.1, 2, force_fermion=force_f)
     check("domain-wall MD reversibility max|dU|", maxdiff(u2, ug), 1e-8)
 
 
 def phase_domainwall_path(torch):
     print("== 23. domain-wall path: run_lqcd_params, 16^3x32 two-flavour Shamir domain wall "
           f"(M = {DW_M5}, L5 = {DW_L5}, m = {DW_MASS}), complex64, 1 trajectory with the "
-          "domain-wall measurements at itrj 0 and 1", flush=True)
+          "domain-wall measurements at itrj 0", flush=True)
     import numpy as np
 
     from latticeqcd_torch.measurements import scheduler
@@ -2062,7 +2078,8 @@ def phase_domainwall_path(torch):
         Dirac_operator="Domainwall", Domainwall_m=DW_MASS, Domainwall_M=DW_M5,
         Domainwall_L5=DW_L5, BoundaryCondition=(1, 1, 1, -1), QPQ=True, dtau=0.02, MDsteps=10,
         Nsteps=1, eps=1e-12, MaxCGstep=maxcg, randomseed=3, verboselevel=1,
-        measurement_methods=[{**m, "measure_every": 1} for m in methods],
+        # measured at itrj 0 only: a round of the three methods at L5 16 takes about 25 s
+        measurement_methods=[{**m, "measure_every": 2} for m in methods],
     )
     records, samples, last = [], [], {}
     step, sample = HMC.step, DomainwallFermiAction.sample_pseudofermion
@@ -2160,8 +2177,8 @@ def phase_domainwall_path(torch):
                 np.all(np.diff(value) >= 0) and np.all(np.asarray(value) > 0)):
             fail("the domain-wall low eigenvalues are not ascending and positive")
     if sorted((r["method"], r["itrj"]) for r in records) != sorted(
-            (m["methodname"], i) for m in methods for i in (0, 1)):
-        fail("the domain-wall path did not run every method at itrj 0 and 1")
+            (m["methodname"], 0) for m in methods):
+        fail("the domain-wall path did not run every method at itrj 0 (and only there)")
     defect = float(sun.unitarity_defect(last["u"]))
     traj = counts["wilson_hop_packed"] - measured["wilson_hop_packed"]
     print(f"  run_lqcd_params {total:.3f} s, final plaquette {plaq:.8f}, unitarity defect "
@@ -2321,12 +2338,15 @@ def phase_selflearning_agreement(torch):
     _sl_chain(torch, "staggered Nf=4 SLHMC",
               lambda: SLHMC(wilson57, dtau=0.02, md_steps=10, fermi_action=fs, beta_eff=5.5),
               hot, 1, 73)
-    # SLMC on warm links: a heatbath sweep on Haar-random links amplifies rounding
-    iwasaki = build_gauge_action(Params(L=lat, **IWASAKI))
-    _sl_chain(torch, "SLMC, plaquette + rectangle basis (Iwasaki from beta_eff [9, 0])",
+    # SLMC on warm links (a heatbath sweep on Haar-random links amplifies rounding), on 3^4:
+    # the rectangle basis colours 3^4 by 81 colours of one site (4^4's 256 colours took 42 s,
+    # launch-bound on both sides, as phase 20's sweeps)
+    rect_lat = (3, 3, 3, 3)
+    iwasaki = build_gauge_action(Params(L=rect_lat, **IWASAKI))
+    _sl_chain(torch, "SLMC, plaquette + rectangle basis on 3^4 (Iwasaki from beta_eff [9, 0])",
               lambda: SLMC(iwasaki, beta_eff=[9.0, 0.0], firstlearn=2,
                            couplinglist=("plaquette", "rectangular")),
-              _warm_links(torch, lat, 3, 74, "cpu"), 1, 75, kernels=False)
+              _warm_links(torch, rect_lat, 3, 74, "cpu"), 1, 75, kernels=False)
 
     # the dense log det, Wilson (3072 wilson_window launches) and staggered (384 staggered_w)
     cases = [("Wilson", WilsonDirac(kappa=KAPPA), lat + (4, 3), 1.0, 3072),
@@ -2357,16 +2377,19 @@ def phase_selflearning_agreement(torch):
             fail(f"the {name} log det launched {launched}, not {ncols} {kernel}")
 
     # the integrated updaters with the exact two-flavour Wilson determinant, one step each,
-    # kernel path against plain path (each plain step rebuilds the dense determinant, 15-16 s;
-    # the determinant itself is held card against CPU just above)
-    sfw = dense_logdet_fermi_action(WilsonDirac(kappa=KAPPA), lat + (4, 3), 1.0)
+    # kernel path against plain path on 4x4x2x2 (dim 768: each plain step rebuilds the dense
+    # determinant twice, 18 s a step at 4^4's dim 3072; the 4^4 determinant itself is held
+    # card against CPU and kernel against plain just above)
+    small = (4, 4, 2, 2)
+    sfw = dense_logdet_fermi_action(WilsonDirac(kappa=KAPPA), small + (4, 3), 1.0)
     logdet = lambda uu: sfw(apply_boundary_phases(uu))  # noqa: E731
-    _sl_chain(torch, "IntegratedHMC (Wilson)",
+    _sl_chain(torch, "IntegratedHMC (Wilson, 4x4x2x2)",
               lambda: integrated_hmc(wilson57, dtau=0.02, md_steps=10, fermi_logdet=logdet),
-              hot, 1, 76, cpu=False)
-    _sl_chain(torch, "IntegratedHB (Wilson)",
+              fields.hot_start(small, 3, seed=70, dtype=torch.complex128, device="cpu"), 1, 76,
+              cpu=False)
+    _sl_chain(torch, "IntegratedHB (Wilson, 4x4x2x2)",
               lambda: integrated_hb(wilson57, fermi_logdet=logdet),
-              _warm_links(torch, lat, 3, 77, "cpu"), 1, 78, cpu=False)
+              _warm_links(torch, small, 3, 77, "cpu"), 1, 78, cpu=False)
 
 
 def phase_selflearning_path(torch):
@@ -3990,18 +4013,54 @@ GRID3_RUNS = {
     "hasenbusch": ("Hasenbusch (csw = 0)", "complex128", ("wilson_hop_packed",)),
     "heatbath": ("heatbath + 3 overrelaxations", "complex64", ()),
 }
+# phase 34's: stout, the self-learning updaters and Fileloading. SLHMC's gluonic MD leaves the
+# fermion action out, so its 16^3x32 trajectory may reject (phase 25): the decision is compared
+GRID4_RUNS = {
+    "stout": ("stout-smeared Wilson HMC (2 layers, rho 0.1)", "complex128",
+              ("wilson_hop_packed",)),
+    "slhmc": ("SLHMC (Wilson, plaquette + rectangle basis)", "complex128",
+              ("wilson_hop_packed",)),
+    "slmc": ("quenched SLMC", "complex64", ()),
+    "fileloading": ("Fileloading over 2 NPZ files", "complex128", ()),
+    "integratedhb": ("IntegratedHB, staggered dense log det at 4^4", "complex128",
+                     ("staggered_w",)),
+}
+# the runs held to one card by their links and the generator's state, not by an HMC dH
+GRID_EXACT = ("heatbath", "slmc", "fileloading", "integratedhb")
+GRID4_CONFS = "grid4_confs"
 HALO_KERNELS = ("wilson_hop_packed", "wilson_window", "staggered_w")
 
 
-def _grid_params(tag):
-    """The Params of a run of phase 32 or 33: 16^3x32 from a hot start, one step; an HMC
-    trajectory of 2 MD steps of 0.005 (dH well under 1, so the evolved links are the ones
-    compared): phase 10's staggered actions, phase 27's clover action, and phase 33's."""
+def _grid_params(tag, tmp=None):
+    """The Params of a run of phase 32, 33 or 34: 16^3x32 from a hot start, one step; an
+    HMC trajectory of 2 MD steps of 0.005 (dH well under 1, so the evolved links are the
+    ones compared): phase 10's staggered actions, phase 27's clover action, phase 33's, and
+    phase 34's (Fileloading reads the NPZ files saved under ``tmp``; IntegratedHB runs at
+    4^4, the dense log det's size)."""
     from latticeqcd_torch.system.params import Params
 
     base = dict(L=MAIN, NC=3, initial="hot", BoundaryCondition=(1, 1, 1, -1), QPQ=True,
                 Nsteps=1, randomseed=5, verboselevel=0, MaxCGstep=3000)
     hmc = dict(update_method="HMC", quench=False, dtau=0.005, MDsteps=2)
+    if tag == "stout":
+        return Params(**base, **hmc, eps=1e-16, beta=6.0, Dirac_operator="Wilson", hop=KAPPA,
+                      r=1.0, smearing_for_fermion="stout", stout_numlayers=2, stout_rho=[0.1])
+    if tag == "slhmc":
+        return Params(**dict(base, update_method="SLHMC", quench=False, dtau=0.005, MDsteps=2,
+                             eps=1e-16, beta=6.0, Dirac_operator="Wilson", hop=KAPPA, r=1.0,
+                             couplinglist=["plaquette", "rectangular"], couplingcoeff=[],
+                             beta_eff=[6.0, 0.0], firstlearn=1))
+    if tag == "slmc":
+        return Params(**base, beta=6.0, update_method="SLMC", quench=True, beta_eff=5.5,
+                      firstlearn=1)
+    if tag == "fileloading":
+        return Params(**dict(base, Nsteps=0), beta=6.0, update_method="Fileloading",
+                      loadU_format="NPZ", loadU_dir=os.path.join(tmp, GRID4_CONFS),
+                      measurement_methods=[{"methodname": "Plaquette"},
+                                           {"methodname": "Energy_density"}])
+    if tag == "integratedhb":
+        return Params(**dict(base, L=(4, 4, 4, 4)), beta=5.7, update_method="IntegratedHB",
+                      quench=False, Dirac_operator="Staggered", mass=MASS, Nf=4)
     if tag.startswith("staggered"):
         return Params(**base, **hmc, eps=1e-16, beta=5.7, Dirac_operator="Staggered", mass=MASS,
                       Nf=4 if tag == "staggered_nf4" else 2)
@@ -4043,17 +4102,21 @@ def _zero_all_counts():
     wk.site_launches.update(full=0, packed=0)
 
 
-def _grid_step(torch, tag, device, grid=None):
-    """One run of phase 32 or 33 through run_lqcd_params (on ``grid`` if given) with the
-    launches counted from 0: (its record for the JSON report, the final links gathered on
-    rank 0 as numpy (None elsewhere), the final links' block)."""
+def _grid_step(torch, tag, device, grid=None, tmp=None):
+    """One run of phase 32, 33 or 34 through run_lqcd_params (on ``grid`` if given, or on
+    a grid of its processes over the run's own lattice) with the launches counted from 0:
+    (its record for the JSON report, the final links gathered on rank 0 as numpy (None
+    elsewhere), the final links' block)."""
     import hashlib
 
     from latticeqcd_torch.parallel import mesh
     from latticeqcd_torch.system.lqcd import run_lqcd_params
     from latticeqcd_torch.updates.hmc import HMC
 
-    _, dtype_name, _ = {**GRID2_RUNS, **GRID3_RUNS}[tag]
+    _, dtype_name, _ = {**GRID2_RUNS, **GRID3_RUNS, **GRID4_RUNS}[tag]
+    params = _grid_params(tag, tmp)
+    if grid is not None and tuple(grid.lattice) != tuple(params.L):
+        grid = mesh.make_process_grid(grid.pes, params.L, device)
     history, final, parts = [], {}, []
     step = HMC.step
 
@@ -4067,7 +4130,7 @@ def _grid_step(torch, tag, device, grid=None):
     _zero_all_counts()
     t0 = time.time()
     with mock.patch.object(HMC, "step", stepped):
-        plaq = run_lqcd_params(_grid_params(tag), make_dirs=False,
+        plaq = run_lqcd_params(params, make_dirs=False,
                                dtype=getattr(torch, dtype_name), device=device, grid=grid,
                                history=history, final=final)
     torch.cuda.synchronize(device)
@@ -4076,7 +4139,8 @@ def _grid_step(torch, tag, device, grid=None):
            "generator": hashlib.sha256(final["generator"].get_state().numpy().tobytes()).hexdigest(),
            "history": [{"seconds": r["seconds"], "dH": r["dH"], "accepted": r["accepted"],
                         "iterations": [c["iterations"] for c in r["cg"]],
-                        "worst": max((c["rsq"] / c["target"] for c in r["cg"]), default=0.0)}
+                        "worst": max((c["rsq"] / c["target"] for c in r["cg"]), default=0.0),
+                        "beta_eff": r["beta_eff"], "measured": r["measured"]}
                        for r in history]}
     u = final["u"]
     host = mesh.to_host_global(u, lead=1, grid=grid) if grid is not None else u.cpu().numpy()
@@ -4131,7 +4195,7 @@ def _grid_extra(torch, tag, u, rec):
 
 
 def _grid_rank(argv):
-    """A rank of a group of phase 32 or 33 (started by _grid_group_runs as its own process):
+    """A rank of a group of phase 32, 33 or 34 (started by _grid_group_runs as its own process):
     each run named in argv on the grid, its report written as <tmp>/rank<r>.json, rank 0 also
     writing each run's gathered links as <tmp>/<tag>_u.npy."""
     import numpy as np
@@ -4149,7 +4213,7 @@ def _grid_rank(argv):
     try:
         grid = mesh.make_process_grid(pes, MAIN, device)
         for tag in tags:
-            rec, host, u = _grid_step(torch, tag, device, grid)
+            rec, host, u = _grid_step(torch, tag, device, grid, tmp)
             if host is not None:
                 np.save(os.path.join(tmp, f"{tag}_u.npy"), host)
             with mesh.use_grid(grid):
@@ -4203,7 +4267,8 @@ def _grid_group_runs(torch, tmp, backend, runs, pes=(1, 1, 1, 2)):
     for tag, (what, dtype_name, halo) in runs.items():
         got = [rep[tag] for rep in reps]
         for key in ("history", "plaq", "generator", "measured"):
-            vals = {json.dumps([{k: h[k] for k in ("dH", "accepted", "iterations")}
+            vals = {json.dumps([{k: h[k] for k in ("dH", "accepted", "iterations", "beta_eff",
+                                                   "measured")}
                                 for h in g["history"]] if key == "history" else g.get(key),
                                sort_keys=True) for g in got}
             if len(vals) != 1:
@@ -4223,7 +4288,7 @@ def _grid_group_runs(torch, tmp, backend, runs, pes=(1, 1, 1, 2)):
             if total:
                 STATE["launches"].setdefault(k, {})[f"grid {what}, {label} (halo)"] = total
         # the same run on one card, in this process
-        one, host, u_one = _grid_step(torch, tag, torch.device("cuda:0"))
+        one, host, u_one = _grid_step(torch, tag, torch.device("cuda:0"), tmp=tmp)
         _grid_extra(torch, tag, u_one, one)
         grid_u = np.load(os.path.join(tmp, f"{tag}_u.npy"))
         dmax = float(np.max(np.abs(grid_u - host)))
@@ -4232,25 +4297,43 @@ def _grid_group_runs(torch, tmp, backend, runs, pes=(1, 1, 1, 2)):
             diffs = {k: g0["parts"][0][k] - one["parts"][0][k] for k in one["parts"][0]}
             print(f"  ({label}) {what}: the action parts on one card {one['parts'][0]}, the "
                   f"grid's minus one card's {diffs}", flush=True)
-        if dtype_name == "complex128":
-            if not (h_grid["accepted"] and h_one["accepted"]):
+        if h_grid["accepted"] != h_one["accepted"]:
+            fail(f"{what}: the grid's decision {h_grid['accepted']} is not one card's")
+        if tag not in GRID_EXACT:
+            if not h_grid["accepted"] and tag != "slhmc":
                 fail(f"{what}: a trajectory was rejected, so the links compared are the start's")
             check(f"({label}) {what} complex128 trajectory |ddH| against one process",
                   abs(h_grid["dH"] - h_one["dH"]), 1e-8)
             check(f"({label}) {what} complex128 trajectory max|dU| against one process", dmax,
                   1e-10)
         else:
+            if h_grid["dH"] is not None:
+                check(f"({label}) {what} |ddH| against one process",
+                      abs(h_grid["dH"] - h_one["dH"]), 1e-8)
             check(f"({label}) {what} links against one process", dmax, 1e-12)
             if g0["generator"] != one["generator"]:
                 fail(f"{what}: the ranks' generator state is not one process's")
             STATE["checks"] += 1
+        for key in ("beta_eff", "measured"):
+            a, b = np.asarray(_numbers_of(h_grid[key])), np.asarray(_numbers_of(h_one[key]))
+            if a.shape != b.shape:
+                fail(f"{what}: the grid's {key} {h_grid[key]} against one card's {h_one[key]}")
+            if a.size:
+                check(f"({label}) {what} {key} against one process (relative)", _rel(a, b),
+                      BARS[dtype_name])
         cg = sum(h_grid["iterations"])
-        line = (f"  ({label}) {what}, 16^3x32 {dtype_name}: {h_grid['seconds']:.3f} s per step on "
+        lattice = "x".join(map(str, _grid_params(tag, tmp).L))
+        line = (f"  ({label}) {what}, {lattice} {dtype_name}: {h_grid['seconds']:.3f} s per step on "
                 f"the grid against {h_one['seconds']:.3f} s on one card "
                 f"({h_grid['seconds'] / h_one['seconds']:.2f}x)")
         if h_grid["dH"] is not None:
             line += (f"; dH {h_grid['dH']!r} (one card {h_one['dH']!r}); solver iterations {cg} "
                      f"({sum(h_one['iterations'])}) in {len(h_grid['iterations'])} solves")
+        if tag in ("slhmc", "slmc"):
+            line += f"; accepted {h_grid['accepted']}; beta_eff {h_grid['beta_eff']}"
+        if tag == "fileloading":
+            line += (f"; {len(g0['history'])} configurations, links bitwise {dmax == 0.0}, "
+                     f"measured {[h['measured'] for h in g0['history']]}")
         if tag == "heatbath":
             line += (f"; links bitwise {dmax == 0.0}; generator state one card's; one sweep "
                      f"{g0['sweep_seconds']:.3f} s ({one['sweep_seconds']:.3f} s), one "
@@ -4309,6 +4392,50 @@ def phase_grid_more(torch):
                   flush=True)
 
 
+def _numbers_of(value):
+    """A history record's beta_eff or measured numbers as one flat list of floats."""
+    if value is None:
+        return []
+    if isinstance(value, dict):
+        return [x for k in sorted(value) for x in _numbers_of(value[k])]
+    if isinstance(value, (list, tuple)):
+        return [x for v in value for x in _numbers_of(v)]
+    return [float(value)]
+
+
+def _grid_confs(torch, tmp):
+    """Phase 34's two stored configurations, saved as NPZ under tmp: a 16^3x32 hot start
+    and its complex conjugate (SU(3) too, and a hot start's cost saved)."""
+    from latticeqcd_torch.io import save_u
+    from latticeqcd_torch.ops import fields
+
+    os.makedirs(os.path.join(tmp, GRID4_CONFS))
+    u = fields.hot_start(MAIN, 3, seed=41, dtype=torch.complex128, device="cpu").numpy()
+    for i, conf in ((1, u), (2, u.conj())):
+        save_u(os.path.join(tmp, GRID4_CONFS, f"conf_{i:08d}.npz"), conf)
+
+
+def phase_grid_selflearning(torch):
+    print("== 34. the process grid: stout, the self-learning updaters and Fileloading, 2 ranks "
+          "on the card", flush=True)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid4_") as tmp:
+        _grid_confs(torch, tmp)
+        t0 = time.time()
+        _grid_group_runs(torch, tmp, "gloo", GRID4_RUNS)
+        print(f"  (a) 2 ranks, gloo, one card: {time.time() - t0:.1f} s", flush=True)
+        if torch.cuda.device_count() >= 2:
+            t0 = time.time()
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_grid4_nccl_") as tmp2:
+                _grid_confs(torch, tmp2)
+                _grid_group_runs(torch, tmp2, "nccl", GRID4_RUNS)
+            print(f"  (b) 2 ranks, nccl, 2 cards: {time.time() - t0:.1f} s", flush=True)
+        else:
+            print(f"  (b) nccl: not run, this machine has {torch.cuda.device_count()} card",
+                  flush=True)
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
           phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
@@ -4318,7 +4445,7 @@ PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_domainwall_agreement, phase_domainwall_path, phase_selflearning_agreement,
           phase_selflearning_path, phase_clover_agreement, phase_clover_path,
           phase_batched_agreement, phase_batched_path, phase_frontend, phase_grid,
-          phase_grid_fermions, phase_grid_more]
+          phase_grid_fermions, phase_grid_more, phase_grid_selflearning]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line

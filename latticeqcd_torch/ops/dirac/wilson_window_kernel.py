@@ -91,6 +91,9 @@ def _dslash(u, psi, kappa):
     global launches
     grid = mesh.sharded()
     if grid is not None:
+        if psi.ndim != 6:
+            raise NotImplementedError("wilson_window with a chain axis under a process grid "
+                                      "is not ported yet (ROADMAP A14b)")
         return dslash_halo(u, psi, kappa, mesh.exchange_faces(psi, grid),
                            wilson_kernel.link_faces(u, grid))
     if psi.device.type == "cpu":

@@ -18,8 +18,10 @@ communication out:
   exchanged face buffers (``exchange_faces``), every lattice sum goes
   through ``global_sum``, every random field is the global field's
   draw with this rank's block kept (``randn_block``, ``randint_block``,
-  ``rand_block``), and a loop that stops once a condition holds on every
-  site asks ``global_all``;
+  ``rand_block``), a loop that stops once a condition holds on every
+  site asks ``global_all``, and a dense matrix whose rows are split over
+  the ranks (the dense log det's) is gathered whole on every rank in one
+  collective (``gather_blocks``);
 * ``global_sum`` all-reduces scalars only. Each rank writes its partial
   sum into its own slot of a vector of nprocs entries, the vector is
   all-reduced (a sum of one value with zeros is exact), and every rank
@@ -453,6 +455,31 @@ def exchange_faces(f: torch.Tensor, grid: ProcessGrid) -> dict:
     return {mu: (got[2 * i], got[2 * i + 1]) for i, mu in enumerate(grid.partitioned)}
 
 
+def _assemble(blocks, grid: ProcessGrid, lead: int) -> torch.Tensor:
+    """The global field from every rank's block, in rank order."""
+    b0 = blocks[0]
+    out = torch.empty(grid.global_shape(b0.shape, lead), dtype=b0.dtype, device=b0.device)
+    for r, b in enumerate(blocks):
+        coords = np.unravel_index(r, grid.pes)
+        out[(slice(None),) * lead + tuple(
+            slice(c * b.shape[lead + mu], (c + 1) * b.shape[lead + mu])
+            for mu, c in enumerate(coords))] = b
+    return out
+
+
+def gather_blocks(x: torch.Tensor, lead: int = 0, grid: Optional[ProcessGrid] = None):
+    """The global field whose block on this rank is x (lattice axes lead..lead + 3,
+    any axes after them), on every rank and on x's device: one all_gather. Every rank
+    must call it. Without a grid, x itself."""
+    grid = grid or sharded()
+    if grid is None:
+        return x
+    block = _staged(x, grid)
+    blocks = [torch.empty_like(block) for _ in range(grid.nprocs)]
+    dist.all_gather(blocks, block)
+    return _assemble(blocks, grid, lead).to(x.device)
+
+
 def to_host_global(x: torch.Tensor, lead: int = 0, all_ranks: bool = False,
                    grid: Optional[ProcessGrid] = None):
     """Gather the blocks of a field (lattice axes lead..lead + 3) into one numpy array
@@ -461,20 +488,11 @@ def to_host_global(x: torch.Tensor, lead: int = 0, all_ranks: bool = False,
     grid = grid or sharded()
     if grid is None:
         return x.detach().cpu().numpy()
-    block = _staged(x, grid)
     if all_ranks:
-        blocks = [torch.empty_like(block) for _ in range(grid.nprocs)]
-        dist.all_gather(blocks, block)
-    elif grid.rank == 0:
-        blocks = [block] + _exchange(grid, [], [(r, 32, block) for r in range(1, grid.nprocs)])
-    else:
+        return gather_blocks(x.detach(), lead, grid).cpu().numpy()
+    block = _staged(x, grid)
+    if grid.rank != 0:
         _exchange(grid, [(0, 32, block)], [])
         return None
-    blocks = [b.cpu().numpy() for b in blocks]
-    out = np.empty(grid.global_shape(block.shape, lead), dtype=blocks[0].dtype)
-    for r, b in enumerate(blocks):
-        coords = np.unravel_index(r, grid.pes)
-        out[(slice(None),) * lead + tuple(
-            slice(c * b.shape[lead + mu], (c + 1) * b.shape[lead + mu])
-            for mu, c in enumerate(coords))] = b
-    return out
+    blocks = [block] + _exchange(grid, [], [(r, 32, block) for r in range(1, grid.nprocs)])
+    return _assemble(blocks, grid, lead).cpu().numpy()

@@ -16,8 +16,10 @@ report printed after the run) and, given a profile_dir, traced by
 torch.profiler. The device is explicit (``cuda`` by default); a run never
 moves to another one. Given a process grid (``grid``, the counterpart of
 the JAX package's shard_mesh), each process runs the same loop on its
-block of the lattice (parallel/mesh.py): rank 0 alone prints, writes the
-measurement files and the trace, and saves the gathered configuration.
+block of the lattice (parallel/mesh.py), whatever the update method:
+rank 0 alone prints (the self-learning couplings once), writes the
+measurement files and the trace, and saves the gathered configuration;
+under Fileloading every rank takes its step count from the same file list.
 """
 
 from __future__ import annotations

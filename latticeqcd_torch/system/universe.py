@@ -13,13 +13,14 @@ the self-learning SLHMC and SLMC or the integrated-fermion IntegratedHMC
 and IntegratedHB, or loaded by Fileloading, with gradient-flow
 measurements. Everything else raises NotImplementedError naming the
 ROADMAP item that will port it. Under a process grid (parallel/mesh.py)
-the links are this rank's block: HMC runs quenched, with two-flavour
-Wilson fermions at r = 1 (clover-improved or not, with or without
-Hasenbusch), with domain-wall fermions or with staggered fermions (no
-smearing), the quenched heatbath runs with or without overrelaxation,
-and the gauge measurements and the fermionic ones on the Wilson, clover,
-domain-wall and staggered operators run beside them; the rest raises
-naming ROADMAP A14b before any work.
+the links are this rank's block (a file start reads the global file on
+every rank and keeps the block): every update method runs, HMC and
+SLHMC quenched, with two-flavour Wilson fermions at r = 1
+(clover-improved or not, with or without Hasenbusch), with domain-wall
+fermions or with staggered fermions, each with or without stout
+smearing, and the gauge measurements and the fermionic ones on the
+Wilson, clover, domain-wall and staggered operators run beside them;
+Wilson r != 1 raises naming ROADMAP A14b before any work.
 """
 
 from __future__ import annotations
@@ -64,24 +65,17 @@ def _not_ported(what: str, item: str):
 
 # the operators that run under a process grid, for HMC and for the fermionic measurements
 GRID_OPERATORS = ("Wilson", "WilsonClover", "Domainwall", "Staggered")
-# the update methods that run under a process grid
-GRID_UPDATES = ("HMC", "Heatbath")
 
 
 def params_grid_refusal(p: Params) -> Optional[str]:
-    """What of p has no multi-process form yet (ROADMAP A14b), or None: HMC, quenched
-    or with Wilson (clover-improved or not, with or without Hasenbusch) or domain-wall
-    fermions at r = 1 or staggered fermions, the quenched heatbath with or without
-    overrelaxation, all without smearing, and the fermionic measurements on those
-    operators."""
-    if p.update_method not in GRID_UPDATES:
-        return f"update_method {p.update_method!r}"
+    """What of p has no multi-process form yet (ROADMAP A14b), or None: every update
+    method, HMC and SLHMC quenched or with Wilson (clover-improved or not, with or
+    without Hasenbusch) or domain-wall fermions at r = 1 or staggered fermions, with or
+    without stout smearing, and the fermionic measurements on those operators."""
     if not p.quench and p.Dirac_operator not in GRID_OPERATORS:
         return f"Dirac_operator {p.Dirac_operator!r}"
     if not p.quench and p.Dirac_operator != "Staggered" and p.r != 1.0:
         return f"Wilson fermions at r = {p.r}"
-    if p.smearing_for_fermion != "nothing":
-        return f"smearing_for_fermion {p.smearing_for_fermion!r}"
     for method in list(p.measurement_methods or ()) + list(p.measurements_for_flow or ()):
         what = measurement_grid_refusal(method)
         if what is not None:

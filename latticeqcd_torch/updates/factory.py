@@ -7,7 +7,9 @@ fermion determinant densely: they refuse a Dirac matrix of dimension above
 _INTEGRATED_MAX_DIM (full volume x spin x colour, as the JAX package counts
 it), and any fermion action but two-flavour Wilson (clover included) and
 staggered (so Hasenbusch and domain wall), each with the JAX package's
-ValueError.
+ValueError. Under a process grid every update method runs on this rank's
+block; the dense log det's shape is the global lattice's (p.L), and each
+log det gathers the global matrix once (updates/slhmc.py).
 """
 
 from __future__ import annotations
@@ -103,7 +105,8 @@ _INTEGRATED_MAX_DIM = 4608  # 4^4 Wilson = 3072; the dense log det is O(dim^3)
 
 
 def _exact_logdet(p, univ):
-    """U -> S_f(U) = -w log det(D^dag D), dense, or None when quenched."""
+    """U -> S_f(U) = -w log det(D^dag D), dense, or None when quenched; the field's shape
+    and the cap are the global lattice's under a process grid too."""
     fa = univ.fermi_action
     if fa is None:
         return None

@@ -4,7 +4,10 @@ Counterpart of latticeqcd_tpu/updates/fileloading.py (LatticeQCD.jl's
 GivenConfigurations): scan loadU_dir for the files of loadU_format, or
 read their names from a list file (loadU_fromfile, loadU_filename; one
 name per line, ``#`` comments), and expand a multi-config ILDG file into
-one entry per configuration. A run takes one step per entry.
+one entry per configuration. A run takes one step per entry. Under a
+process grid every rank scans the same list, loads the global
+configuration with the same loader and keeps its block
+(mesh.shard_links), so its block is bit for bit the one-process load's.
 """
 
 from __future__ import annotations
@@ -78,8 +81,8 @@ class GivenConfigurations:
 
     def step(self, u, generator=None):
         """(U, generator) -> (the next configuration, in U's dtype and on its
-        device; stats), as HMC.step. Always accepted; draws nothing."""
-        mesh.refuse_under_grid("Fileloading")
+        device; stats), as HMC.step. Always accepted; draws nothing. Under a process
+        grid the next configuration's block."""
         fn = self.filelist[self.current]
         self.current += 1
-        return self._load(fn, u.dtype, u.device), {"accepted": True}
+        return mesh.shard_links(self._load(fn, u.dtype, u.device)), {"accepted": True}

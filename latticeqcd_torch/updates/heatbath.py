@@ -31,7 +31,8 @@ generator's uniforms are the global field's with the block kept, the
 early stop asks whether every site of every rank is done (one
 all-reduce per check, so that every rank draws as many uniforms as one
 process), and sweep_diag's counts are global. The sweeps with
-coefficients (SLMC) stay refused there (ROADMAP A14b).
+coefficients (SLMC's) run there the same way, with the global lattice's
+colouring for the largest extent over the basis.
 
 With a coupling ``basis`` (a tuple of unit-coupling GaugeActions, as SLMC
 gives it), ``sweep_with_coeffs`` and ``overrelax_with_coeffs`` update
@@ -310,8 +311,6 @@ class Heatbath:
 
     def _sweep_impl(self, u, uniforms, or_mode: bool = False, with_diag: bool = False,
                     coeffs=None):
-        if coeffs is not None:
-            mesh.refuse_under_grid("a heatbath sweep with coupling coefficients (SLMC)")
         nc = self.action.nc
         shape = tuple(u.shape[1:5])
         rdt = sun.real_dtype(u.dtype)

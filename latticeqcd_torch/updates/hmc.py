@@ -49,12 +49,14 @@ Under a process grid (parallel/mesh.py) ``step`` takes this rank's block
 of the links. Quenched HMC, two-flavour Wilson HMC (r = 1, with or
 without the clover term, with or without Hasenbusch and its
 Sexton-Weingarten split), two-flavour domain-wall HMC (r = 1) and
-staggered HMC/RHMC, without smearing, run there; every other action
-raises before any draw (ROADMAP A14b). The draws are those of the global lattice: every rank draws the
-global normals from the run's generator, which has the same seed on
-every rank, and keeps its block, so a sharded trajectory draws what one
-process draws (at 16^3 x 32 complex64 about 44 MB of normals per
-trajectory on every rank). Injected draws are global arrays, sliced the
+staggered HMC/RHMC, each with or without stout smearing (its staples
+through the sharded rolls, whose backward carries the force's chain
+rule across the faces), run there; every other action raises before any
+draw (ROADMAP A14b), and so does ``step_batched``. The draws are those
+of the global lattice: every rank draws the global normals from the
+run's generator, which has the same seed on every rank, and keeps its
+block, so a sharded trajectory draws what one process draws (at 16^3 x
+32 complex64 about 44 MB of normals per trajectory on every rank). Injected draws are global arrays, sliced the
 same way; the fermion action says where its noise's lattice axes start
 (``noise_lead``: after the staggered pseudofermion axis, the Hasenbusch
 noises' axis and the domain-wall fifth axis). The Metropolis
@@ -128,13 +130,11 @@ def noise_lead(fermi_action) -> int:
     return getattr(fermi_action, "noise_lead", 0)
 
 
-def grid_refusal(fermi_action, smearing=None) -> Optional[str]:
+def grid_refusal(fermi_action) -> Optional[str]:
     """What of an HMC has no multi-process form yet (ROADMAP A14b), or None: the slice
     that runs on a process grid is quenched HMC, two-flavour Wilson HMC at r = 1
     (clover-improved or not, with or without Hasenbusch), two-flavour domain-wall HMC
-    at r = 1 and staggered HMC/RHMC, without smearing."""
-    if smearing is not None:
-        return "stout smearing"
+    at r = 1 and staggered HMC/RHMC, each with or without stout smearing."""
     if fermi_action is None or type(fermi_action) is StaggeredFermiAction:
         return None
     if type(fermi_action) not in (WilsonFermiAction, HasenbuschWilsonFermiAction,
@@ -175,7 +175,7 @@ class HMC:
             raise ValueError(f"md_precision must be auto/plain/mixed, got {self.md_precision!r}")
         if self.scheme not in ("QPQ", "PQP", "Omelyan"):
             raise ValueError(f"unknown MD scheme {self.scheme!r}")
-        what = grid_refusal(self.fermi_action, self.smearing)
+        what = grid_refusal(self.fermi_action)
         if what is not None:
             mesh.refuse_under_grid(what)
 

@@ -32,6 +32,13 @@ uniforms, in sweep order, then the Metropolis uniform.
 
 The learner is not in the checkpoint (as in the JAX package): a resumed
 self-learning run restarts its fit from the initial beta_eff.
+
+Under a process grid (parallel/mesh.py) the links are this rank's block:
+the draws are the global lattice's (``Draws`` and the heatbath's
+uniforms, this rank's block kept), the Metropolis uniform and the loop
+values (global sums) are the same on every rank, so every rank's learner
+fits the same history and beta_eff stays bitwise equal across ranks, and
+the dense log det gathers the global matrix once.
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
 from latticeqcd_torch.ops.wilsonline import Wilsonline, make_loops_fromname
 from latticeqcd_torch.parallel import mesh
 from latticeqcd_torch.updates.heatbath import GeneratorUniforms, Heatbath
-from latticeqcd_torch.updates.hmc import Draws
+from latticeqcd_torch.updates.hmc import Draws, grid_refusal, noise_lead
 
 
 # ---------------------------------------------------------------------------
@@ -213,9 +220,15 @@ class SLHMC:
     def step(self, u: torch.Tensor, generator: Optional[torch.Generator] = None,
              draws: Optional[Draws] = None):
         """One trajectory: (U, generator or draws) -> (U', stats)."""
-        mesh.refuse_under_grid(f"{type(self).__name__}")
+        if not isinstance(self.fermi_action, _LogdetAsFermiAction):
+            what = grid_refusal(self.fermi_action)
+            if what is not None:
+                mesh.refuse_under_grid(what)
         if draws is None:
             draws = Draws.sample(self, u, generator)
+        grid = mesh.sharded()
+        if grid is not None:
+            draws = draws.block(grid, noise_lead(self.fermi_action))
         u0 = u
         h = draws.momentum(u)
         cg_log: list = []
@@ -309,7 +322,6 @@ class SLMC:
              uniforms=None, uniform: Optional[float] = None):
         """nsweeps proposal sweeps and the Metropolis test: (U, generator, or
         the sweeps' uniforms and the Metropolis uniform) -> (U', stats)."""
-        mesh.refuse_under_grid(f"{type(self).__name__}")
         rdtype = sun.real_dtype(u.dtype)
         coeffs = torch.as_tensor(self.beta_eff, dtype=rdtype, device=u.device)
         sg_old, seff_old, feats_old = self._values(u, coeffs)
@@ -348,12 +360,18 @@ class SLMC:
 
 
 def _dense(apply, shape, device) -> torch.Tensor:
-    """The matrix of the linear map ``apply`` on fields of ``shape``, column j
-    = apply(e_j), in complex128. The kernels take one field, so the columns
-    go one at a time: one launch each on the card."""
+    """The matrix of the linear map ``apply`` on fields of the global ``shape``,
+    column j = apply(e_j), in complex128. The kernels take one field, so the columns
+    go one at a time: one launch each on the card. Under a process grid each rank
+    applies the map to its block of e_j (one face exchange per column), keeps its
+    rows of every column, and the row slabs are gathered once, so that every rank
+    holds the same global matrix."""
     dim = math.prod(shape)
+    grid = mesh.sharded()
+    keep = (lambda f: f) if grid is None else (lambda f: grid.block(f).contiguous())
     eye = torch.eye(dim, dtype=torch.complex128, device=device)
-    return torch.stack([apply(eye[j].view(shape)).reshape(dim) for j in range(dim)], dim=1)
+    cols = torch.stack([apply(keep(eye[j].view(shape))) for j in range(dim)], dim=-1)
+    return mesh.gather_blocks(cols).reshape(dim, dim)
 
 
 def dense_logdet_fermi_action(dirac, psi_shape, weight: float):
@@ -369,13 +387,19 @@ def dense_logdet_fermi_action(dirac, psi_shape, weight: float):
     determinant of W_e = m^2 - D_eo D_oe (Sylvester), so S_f = -weight 2 log
     det W_e, W_e from the columns of ``apply_w_packed`` (the staggered_w
     kernel) at half the dimension. Staggered with an odd extent: the
-    full-volume D, which runs on the CPU only (ROADMAP A11)."""
+    full-volume D, which runs on the CPU only (ROADMAP A11).
+
+    psi_shape is the global field's. Under a process grid the links are this
+    rank's block, the operators run in their halo modes, and every rank takes
+    slogdet of the same gathered matrix (``_dense``)."""
     psi_shape = tuple(psi_shape)
     lattice = psi_shape[:4]
     packed_w = isinstance(dirac, StaggeredDirac) and eo_pack.packable(lattice)
 
     @torch.no_grad()
     def s_f(u):
+        if isinstance(dirac, WilsonDirac) and dirac.r != 1.0:
+            mesh.refuse_under_grid(f"the dense log det of Wilson fermions at r = {dirac.r}")
         u = u.to(torch.complex128)
         if packed_w:
             ueo = dirac.packed_links(u)

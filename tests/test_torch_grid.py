@@ -42,31 +42,72 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(module: str, case: str, pes, outdir, *args, timeout_s: float = JOIN_TIMEOUT_S):
-    """Run ``module``.``case``(grid, outdir, *args) on one gloo process per block of
+class RankGroup:
+    """Processes started by ``start_ranks`` or ``start_job``, running while the caller
+    works; ``join`` waits for them and returns what each saved (its npz as a dict)."""
+
+    def __init__(self, procs, outfiles, what, timeout_s):
+        self.procs, self.outfiles, self.what, self.timeout_s = procs, outfiles, what, timeout_s
+
+    def kill(self):
+        """End every process still running (the caller failed before its join)."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def join(self):
+        outs = []
+        try:
+            for p in self.procs:
+                outs.append(p.communicate(timeout=self.timeout_s))
+        finally:
+            self.kill()
+        for rank, (p, (out, err)) in enumerate(zip(self.procs, outs)):
+            assert p.returncode == 0, f"rank {rank} of {self.what} failed:\n{out}\n{err[-4000:]}"
+        return [dict(np.load(f)) for f in self.outfiles]
+
+
+def _start(code, argvs, outfiles, what, timeout_s) -> RankGroup:
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", code, *map(str, argv)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, cwd=ROOT,
+                              text=True) for argv in argvs]
+    return RankGroup(procs, outfiles, what, timeout_s)
+
+
+def start_ranks(module: str, case: str, pes, outdir, *args,
+                timeout_s: float = JOIN_TIMEOUT_S) -> RankGroup:
+    """Start ``module``.``case``(grid, outdir, *args) on one gloo process per block of
     the grid pes over LAT's lattice (as passed in args[0] if given), one torch thread
-    each; returns each rank's saved npz as a dict. Fails if a rank fails or the
-    group does not finish within ``timeout_s`` (JOIN_TIMEOUT_S unless given)."""
+    each, and return at once: the caller may compute its references meanwhile. The
+    group must finish within ``timeout_s`` (JOIN_TIMEOUT_S unless given) of its join."""
     nprocs = int(np.prod(pes))
     port = _free_port()
     code = (f"import sys; sys.path[:0] = [{TESTS!r}, {ROOT!r}]; import {module} as m; "
             f"m._rank_main(sys.argv[1:])")
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", code, case, str(rank), str(port),
-                               ",".join(map(str, pes)), str(outdir), *map(str, args)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, cwd=ROOT,
-                              text=True) for rank in range(nprocs)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout_s))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {rank} of {pes} failed:\n{out}\n{err[-4000:]}"
-    return [dict(np.load(os.path.join(outdir, f"rank{rank}.npz"))) for rank in range(nprocs)]
+    argvs = [[case, rank, port, ",".join(map(str, pes)), outdir, *args] for rank in range(nprocs)]
+    return _start(code, argvs, [os.path.join(outdir, f"rank{r}.npz") for r in range(nprocs)],
+                  pes, timeout_s)
+
+
+def start_job(module: str, func: str, outfile, *args,
+              timeout_s: float = JOIN_TIMEOUT_S) -> RankGroup:
+    """Start ``module``.``func``(outfile, *args) in a process of its own (one torch thread,
+    the JAX package on the CPU in x64, as this suite sets it up) and return at once, so
+    that a reference is computed beside the caller's work; func saves its results as the
+    npz ``outfile``, which ``join`` returns (as a one-element list)."""
+    code = (f"import sys; sys.path[:0] = [{TESTS!r}, {ROOT!r}]; import jax; "
+            "jax.config.update('jax_platforms', 'cpu'); "
+            "jax.config.update('jax_enable_x64', True); "
+            f"import {module} as m; m.{func}(*sys.argv[1:])")
+    return _start(code, [[outfile, *args]], [outfile], f"{module}.{func}", timeout_s)
+
+
+def run_ranks(module: str, case: str, pes, outdir, *args, timeout_s: float = JOIN_TIMEOUT_S):
+    """start_ranks and join: each rank's saved npz as a dict. Fails if a rank fails or
+    the group does not finish within ``timeout_s`` (JOIN_TIMEOUT_S unless given)."""
+    return start_ranks(module, case, pes, outdir, *args, timeout_s=timeout_s).join()
 
 
 def rank_main(argv, cases, lattice=LAT):
@@ -239,17 +280,17 @@ def test_odd_or_ragged_local_extents_refused(pes, lattice):
 
 def _refusal_cases():
     """name -> a callable that must raise NotImplementedError naming A14b under a grid."""
+    from latticeqcd_torch.measurements.scheduler import MeasurementSet
     from latticeqcd_torch.ops import fields, gauge_action as ga
-    from latticeqcd_torch.ops.dirac import staggered_kernel
+    from latticeqcd_torch.ops.dirac import staggered_kernel, wilson_kernel, wilson_window_kernel
+    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
     from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
-    from latticeqcd_torch.ops.fermion_action import WilsonFermiAction
-    from latticeqcd_torch.smearing.stout import stout_stack
+    from latticeqcd_torch.ops.fermion_action import (HasenbuschWilsonFermiAction,
+                                                     StaggeredFermiAction, WilsonFermiAction)
     from latticeqcd_torch.system.params import Params
     from latticeqcd_torch.system.universe import check_supported
-    from latticeqcd_torch.updates.fileloading import GivenConfigurations
-    from latticeqcd_torch.updates.heatbath import Heatbath
     from latticeqcd_torch.updates.hmc import HMC
-    from latticeqcd_torch.updates.slhmc import SLHMC, SLMC, integrated_hb, integrated_hmc
+    from latticeqcd_torch.updates.slhmc import SLHMC, dense_logdet_fermi_action
 
     act = ga.wilson_gauge_action(3, 6.0)
     local = (4, 4, 4, 4)
@@ -257,6 +298,10 @@ def _refusal_cases():
     u = lambda: fields.cold_start(local, 3, device="cpu")  # noqa: E731
     hmc = lambda fa=None, **kw: HMC(action=act, dtau=0.1, md_steps=2, fermi_action=fa, **kw)  # noqa: E731
     wilson = WilsonDirac(kappa=0.12)
+    r_half = WilsonDirac(kappa=0.12, r=0.5)
+    packed = torch.zeros((1, 2, 4, 4, 4, 4, 3), dtype=torch.complex128)
+    r_half_method = {"methodname": "Chiral_condensate", "Nr": 1,
+                     "fermion_parameters": {"Dirac_operator": "Wilson", "hop": 0.12, "r": 0.5}}
 
     def toml(**kw):
         base = dict(L=(4, 4, 4, 8), NC=3, beta=6.0, update_method="HMC", quench=False,
@@ -265,33 +310,46 @@ def _refusal_cases():
         return lambda: check_supported(Params(**base), "cpu")
 
     return {
-        "stout HMC": lambda: hmc(WilsonFermiAction(wilson), smearing=stout_stack((0.1,))).step(u(), gen),
         "step_batched": lambda: hmc().step_batched(u()[None], [gen]),
-        "heatbath sweep with coefficients": lambda: Heatbath(action=act, basis=(act,)).sweep_with_coeffs(
-            u(), [1.0], gen),
-        "SLHMC": lambda: SLHMC(act, 0.1, 2).step(u(), gen),
-        "SLMC": lambda: SLMC(act).step(u(), gen),
-        "IntegratedHMC": lambda: integrated_hmc(act, 0.1, 2).step(u(), gen),
-        "IntegratedHB": lambda: integrated_hb(act).step(u(), gen),
-        "Fileloading": lambda: GivenConfigurations("NPZ", ".", local, 3, ["x.npz"]).step(u()),
+        "step_batched Wilson": lambda: hmc(WilsonFermiAction(wilson)).step_batched(u()[None], [gen]),
+        "step_batched staggered": lambda: hmc(StaggeredFermiAction(
+            StaggeredDirac(0.5, local), nf=4)).step_batched(u()[None], [gen]),
         "staggered_w with a chain axis": lambda: staggered_kernel.staggered_w(
             u()[None, :, :2], u()[None, :, :2],
             torch.zeros((1, 2, 4, 4, 4, 3), dtype=torch.complex128), 0.5),
-        "TOML stout": toml(smearing_for_fermion="stout"),
-        "TOML domain-wall stout": toml(Dirac_operator="Domainwall", smearing_for_fermion="stout"),
-        "TOML SLHMC": toml(update_method="SLHMC"),
-        "TOML SLMC": toml(update_method="SLMC", quench=True),
-        "TOML IntegratedHMC": toml(update_method="IntegratedHMC"),
-        "TOML IntegratedHB": toml(update_method="IntegratedHB"),
-        "TOML Fileloading": toml(update_method="Fileloading"),
+        "wilson_hop_packed with a chain axis": lambda: wilson_kernel.wilson_hop_packed(
+            u()[None, :, :2], u()[None, :, :2], packed, 0),
+        "wilson_window with a chain axis": lambda: wilson_window_kernel.wilson_window(
+            u()[None], torch.zeros((1,) + local + (4, 3), dtype=torch.complex128), 0.12),
+        "wilson_hop full mode": lambda: wilson_kernel.wilson_dslash(
+            u(), torch.zeros(local + (4, 3), dtype=torch.complex128), 0.12),
+        "Wilson r = 0.5 HMC": lambda: hmc(WilsonFermiAction(r_half)).step(u(), gen),
+        "clover r = 0.5 HMC": lambda: hmc(WilsonFermiAction(
+            WilsonDirac(kappa=0.12, r=0.5, csw=1.0))).step(u(), gen),
+        "Hasenbusch r = 0.5 HMC": lambda: hmc(HasenbuschWilsonFermiAction(r_half, mu=0.5)).step(
+            u(), gen),
+        "SLHMC Wilson r = 0.5": lambda: SLHMC(act, 0.1, 2, fermi_action=WilsonFermiAction(
+            r_half)).step(u(), gen),
+        "dense log det r = 0.5": lambda: dense_logdet_fermi_action(r_half, (4, 4, 4, 8, 4, 3),
+                                                                   1.0)(u()),
+        "Wilson r = 0.5 measurement": lambda: MeasurementSet.from_methods(
+            [r_half_method]).measurements[0].measure(u(), 1),
+        "TOML Wilson r = 0.5": toml(r=0.5),
+        "TOML clover r = 0.5": toml(Dirac_operator="WilsonClover", r=0.5),
+        "TOML SLHMC r = 0.5": toml(update_method="SLHMC", r=0.5),
+        "TOML IntegratedHB r = 0.5": toml(update_method="IntegratedHB", L=(4, 4, 2, 4), r=0.5),
+        "TOML measurement r = 0.5": toml(quench=True, measurement_methods=[r_half_method]),
     }
 
 
 REFUSALS = [
-    "stout HMC", "step_batched", "heatbath sweep with coefficients", "SLHMC", "SLMC",
-    "IntegratedHMC", "IntegratedHB", "Fileloading", "staggered_w with a chain axis",
-    "TOML stout", "TOML domain-wall stout", "TOML SLHMC", "TOML SLMC", "TOML IntegratedHMC",
-    "TOML IntegratedHB", "TOML Fileloading"]
+    "step_batched", "step_batched Wilson", "step_batched staggered",
+    "staggered_w with a chain axis", "wilson_hop_packed with a chain axis",
+    "wilson_window with a chain axis", "wilson_hop full mode", "Wilson r = 0.5 HMC",
+    "clover r = 0.5 HMC", "Hasenbusch r = 0.5 HMC", "SLHMC Wilson r = 0.5",
+    "dense log det r = 0.5", "Wilson r = 0.5 measurement", "TOML Wilson r = 0.5",
+    "TOML clover r = 0.5", "TOML SLHMC r = 0.5", "TOML IntegratedHB r = 0.5",
+    "TOML measurement r = 0.5"]
 
 
 @pytest.mark.parametrize("what", REFUSALS)

@@ -17,7 +17,15 @@ elements), every all-reduce, all-gather and gather. The pins:
 * a heatbath sweep's all-reduces are its early-stop checks, one integer
   each, one per 4 tries (every rank the same number), and an
   overrelaxation sweep has none;
-* Savedata's gather of the links to rank 0 is the only field-sized traffic.
+* Savedata's gather of the links to rank 0 is the only field-sized traffic;
+* a stout layer sends one slab of links per cut axis of each sharded roll of
+  its staples, and its backward (the opposite rolls) as many of the same
+  sizes, with no collective in either; both equal the global layer's
+  blocks;
+* a dense log det (Wilson D, staggered W) on a grid of the same PEs over
+  2x2x4x4 exchanges the faces of each column once per hop (one exchange per
+  column for D, two for W) and its links' faces once, and gathers the row
+  slabs in one all_gather.
 """
 
 import os
@@ -39,7 +47,9 @@ LOCAL = (4, 4, 2, 4)
 NPROCS = 4
 DW_L5 = 2
 PHASES = ("dhat_fresh", "dhat_again", "cg3", "cg4", "trajectory", "save", "dw_fresh", "dw_again",
-          "heatbath", "overrelax")
+          "heatbath", "overrelax", "stout_forward", "stout_backward", "dense_wilson",
+          "dense_staggered")
+DENSE_LAT = (2, 2, 4, 4)
 
 
 class CountingCommunicator:
@@ -108,6 +118,7 @@ def _case_audit(grid, savedir):
     comm.phase = "save"
     Savedata("NPZ", savedir, 1, "HMC", VerbosePrint(level=0, myid=grid.rank)).save(u_new, 1, gen)
     out.update(_domainwall_and_heatbath(comm, u, gen))
+    out.update(_stout_and_dense(comm, u, grid))
     for phase in PHASES:
         events = comm.events(phase)
         out[phase] = np.array(sorted(f"{k}={n}" for k, n in events.items()))
@@ -155,6 +166,44 @@ def _domainwall_and_heatbath(comm, u, gen):
     return {"heatbath_tries": np.asarray(uniforms.tries_drawn)}
 
 
+def _stout_and_dense(comm, u, grid):
+    """A stout layer's forward and the backward of Re tr of its output, each its own
+    phase; then the Wilson and the staggered dense log det on a grid of the same PEs
+    over DENSE_LAT."""
+    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, apply_boundary_phases
+    from latticeqcd_torch.ops import fields
+    from latticeqcd_torch.smearing.stout import stout_stack
+    from latticeqcd_torch.updates.slhmc import dense_logdet_fermi_action
+
+    rng = np.random.default_rng(6)
+    shape = (4,) + LAT + (3, 3)
+    w_global = torch.from_numpy(rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+    leaf = u.clone().requires_grad_(True)
+    with torch.enable_grad():
+        comm.phase = "stout_forward"
+        smeared = stout_stack((0.1,)).smear(leaf)
+        comm.phase = "stout_backward"
+        (grad,) = torch.autograd.grad(
+            torch.sum(torch.real(grid.block(w_global, lead=1).conj() * smeared)), leaf)
+    comm.phase = "stout_global"
+    with mesh.use_grid(None), torch.enable_grad():  # the global stack, in this process
+        leaf = fields.hot_start(LAT, 3, seed=3, device="cpu").requires_grad_(True)
+        smeared_g = stout_stack((0.1,)).smear(leaf)
+        (grad_g,) = torch.autograd.grad(torch.sum(torch.real(w_global.conj() * smeared_g)), leaf)
+    errors = [float((t - grid.block(g, lead=1)).abs().max())
+              for t, g in ((smeared, smeared_g), (grad, grad_g))]
+    dense = mesh.make_process_grid(grid.pes, DENSE_LAT, "cpu")
+    with mesh.use_grid(dense):
+        v = apply_boundary_phases(fields.hot_start(DENSE_LAT, 3, seed=5, device="cpu"))
+        comm.phase = "dense_wilson"
+        dense_logdet_fermi_action(WilsonDirac(kappa=0.12), DENSE_LAT + (4, 3), 1.0)(v)
+        comm.phase = "dense_staggered"
+        dense_logdet_fermi_action(StaggeredDirac(0.5, dense.local), DENSE_LAT + (3,), 0.5)(v)
+    comm.phase = "done"
+    return {"stout_errors": np.array(errors)}
+
+
 def _rank_main(argv):
     rank_main(argv, {"audit": _case_audit})
 
@@ -170,6 +219,7 @@ def audit(tmp_path_factory):
                                                               for e in res[phase])})
                        for phase in PHASES})
         parsed[-1]["heatbath_tries"] = int(res["heatbath_tries"])
+        parsed[-1]["stout_errors"] = res["stout_errors"]
     return parsed, save
 
 
@@ -300,3 +350,89 @@ def test_heatbath_sweep_all_reduces_are_its_early_stop_checks(audit):
         assert {k: n for k, n in res["heatbath"].items() if k.startswith("all_reduce")} == \
             {"all_reduce:1": tries // 4}, rank
         assert not [k for k in res["overrelax"] if k.startswith("all_reduce")], rank
+
+
+def test_stout_layer_on_two_cut_axes_matches_the_global_layer(audit):
+    """A stout layer and the gradient of Re<W, smear(U)> with respect to the bare links on
+    the blocks of a grid cut along z and t (staple paths cross both cuts, and a face
+    link's gradient lands on the rank that holds it) against the global layer's blocks to
+    1e-12."""
+    ranks, _ = audit
+    for rank, res in enumerate(ranks):
+        assert res["stout_errors"].max() < 1e-12, (rank, res["stout_errors"])
+
+
+def _stout_rolls(rank):
+    """{(number of elements, peer): count} a stout layer's staples send: one slab of links
+    per cut axis of every sharded roll of staple_sum (a multi-axis roll moves axis by axis,
+    each axis to the neighbour against its shift)."""
+    from latticeqcd_torch.ops.wilsonline import make_loops_fromname, path_offsets
+
+    grid = mesh.ProcessGrid(PES, LAT, rank=rank)
+    lines = [l for line in make_loops_fromname("plaquette") for l in (line, line.adjoint())]
+    want = Counter()
+    for mu in range(4):
+        for line in lines:
+            steps = line.expand()
+            offsets = path_offsets(steps)
+            for k, (mu_k, sgn_k) in enumerate(steps):
+                if mu_k != mu or sgn_k <= 0:
+                    continue
+                for j in list(range(k + 1, len(steps))) + list(range(k)):
+                    at = offsets[j] if steps[j][1] > 0 else offsets[j + 1]
+                    for nu in grid.partitioned:
+                        shift = -(at[nu] - offsets[k][nu])
+                        if shift:
+                            slab = int(np.prod(LOCAL)) // LOCAL[nu] * 9
+                            want[(slab, grid.neighbour(nu, 1 if shift > 0 else -1))] += 1
+    return want
+
+
+def test_stout_layer_sends_a_link_slab_per_cut_axis_of_each_roll(audit):
+    """A stout layer's forward sends one slab of links per cut axis of each sharded roll
+    of its staples, and its backward, the opposite rolls, the same number of the same
+    sizes to the opposite neighbours; neither all-reduces or gathers."""
+    ranks, _ = audit
+    for rank, res in enumerate(ranks):
+        fwd, bwd = _sends(res["stout_forward"]), _sends(res["stout_backward"])
+        assert fwd == _stout_rolls(rank), rank
+        grid = mesh.ProcessGrid(PES, LAT, rank=rank)
+        flip = {grid.neighbour(mu, s): grid.neighbour(mu, -s) for mu in grid.partitioned
+                for s in (1, -1)}
+        assert bwd == Counter({(n, flip[peer]): c for (n, peer), c in fwd.items()}), rank
+        for phase in ("stout_forward", "stout_backward"):
+            assert not [k for k in res[phase] if not k.startswith(("send", "recv"))], rank
+
+
+@pytest.mark.parametrize("kind", ["wilson", "staggered"])
+def test_dense_logdet_exchanges_each_column_and_gathers_once(audit, kind):
+    """The dense log det on DENSE_LAT: per column one exchange of the spinor faces per hop
+    (D one hop; staggered W two, the faces of D_oe phi exchanged between them), 2
+    messages per cut axis each, the links' faces once (1 per cut axis; u_e and u_o for
+    W), and one all_gather of this rank's rows of every column, nothing else."""
+    ranks, _ = audit
+    local = tuple(n // p for n, p in zip(DENSE_LAT, PES))
+    nsite = int(np.prod(local))
+    if kind == "wilson":
+        per_site, dim, hops, links = 12, int(np.prod(DENSE_LAT)) * 12, 1, 1
+        face = lambda mu: nsite // local[mu] * per_site  # noqa: E731
+        link = lambda mu: nsite // local[mu] * 9  # noqa: E731
+    else:
+        per_site, dim, hops, links = 3, int(np.prod(DENSE_LAT)) * 3 // 2, 2, 2
+        packed = (local[0] // 2,) + local[1:]
+        face = lambda mu: int(np.prod(packed)) // packed[mu] * per_site  # noqa: E731
+        link = lambda mu: int(np.prod(packed)) // packed[mu] * 9  # noqa: E731
+    rows = dim // NPROCS
+    for rank, res in enumerate(ranks):
+        grid = mesh.ProcessGrid(PES, DENSE_LAT, rank=rank)
+        want = Counter()
+        for mu in grid.partitioned:
+            lo, hi = grid.neighbour(mu, -1), grid.neighbour(mu, +1)
+            want[f"send:{face(mu)}:{hi}"] += hops * dim
+            want[f"send:{face(mu)}:{lo}"] += hops * dim
+            want[f"recv:{face(mu)}:{hi}"] += hops * dim
+            want[f"recv:{face(mu)}:{lo}"] += hops * dim
+            want[f"send:{link(mu)}:{hi}"] += links
+            want[f"recv:{link(mu)}:{lo}"] += links
+        want[f"all_gather:{rows * dim}"] += 1
+        assert res[f"dense_{kind}"] == want, (rank, kind)

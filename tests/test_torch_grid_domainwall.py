@@ -1,7 +1,7 @@
 """Domain-wall fermions on the port's process grid, on the CPU.
 
 Two gloo processes on the grid (1, 1, 1, 2) over 4x4x2x4 at L5 = 4
-(test_torch_grid's run_ranks). Every fifth-dimension slice goes through
+(test_torch_grid's start_ranks). Every fifth-dimension slice goes through
 its kernel's halo mode (on the CPU the plain halo versions, each slice's
 faces exchanged first):
 
@@ -20,6 +20,10 @@ faces exchanged first):
   so that every local extent stays even; 2 MD steps instead of its 20, from
   a hot start) through run_lqcd_params(grid=...) with the three domain-wall
   measurements, against one process.
+
+One group of ranks runs both grids (the second over the same processes),
+started on the JAX package's draws; it runs while the JAX package's
+trajectory and the single-process references are computed.
 """
 
 import os
@@ -31,7 +35,7 @@ import torch
 torch.set_num_threads(1)
 
 from latticeqcd_torch.parallel import mesh  # noqa: E402
-from test_torch_grid import rank_main, run_ranks  # noqa: E402
+from test_torch_grid import rank_main, start_ranks  # noqa: E402
 from test_torch_grid_staggered import _trajectory, assert_values_close  # noqa: E402
 
 PES = (1, 1, 1, 2)
@@ -146,20 +150,49 @@ def _scenario11(grid, measuredir):
     return out
 
 
+def _case_both(grid, draws_file, measuredir):
+    """The domain-wall pieces on the grid (1, 1, 1, 2) over LAT, then scenario 11 on a
+    grid of the same processes, (2, 1, 1, 1) over its own lattice."""
+    out = _case_domainwall(grid, draws_file)
+    out.update(_scenario11(mesh.make_process_grid(SCENARIO11_PES, SCENARIO11_LAT, "cpu"),
+                           measuredir))
+    return out
+
+
 def _rank_main(argv):
-    if argv[0] == "scenario11":
-        rank_main(argv, {"scenario11": _scenario11}, lattice=SCENARIO11_LAT)
-    else:
-        rank_main(argv, {"domainwall": _case_domainwall}, lattice=LAT)
+    rank_main(argv, {"domainwall": _case_both}, lattice=LAT)
 
 
 # ------------------------------------------------- references, in the parent
 
 
 @pytest.fixture(scope="module")
-def references(tmp_path_factory):
-    """The JAX package's trajectory and its draws (written for the rank group), and the
-    single-process port's results."""
+def started(tmp_path_factory):
+    """The JAX package's draws, written for the rank group, and the group started on them
+    (the domain-wall pieces and scenario 11 in one group): it runs while the references
+    are computed."""
+    import jax
+
+    from latticeqcd_tpu.ops import fields as jfields
+    from test_torch_hmc import jax_draws
+
+    u = jfields.hot_start(LAT, 3, seed=SEED)
+    dr = jax_draws(jax.random.PRNGKey(KEY), u, _action().noise_shape(_links()))
+    draws_file = os.path.join(tmp_path_factory.mktemp("grid_domainwall"), "draws.npz")
+    np.savez(draws_file, dw_mom_re=dr.mom[0].numpy(), dw_mom_im=dr.mom[1].numpy(),
+             dw_xi_re=dr.xi[0].numpy(), dw_xi_im=dr.xi[1].numpy(),
+             dw_uniform=np.asarray(dr.uniform))
+    group = start_ranks("test_torch_grid_domainwall", "domainwall", PES,
+                        tmp_path_factory.mktemp("grid_domainwall_ranks"), draws_file,
+                        tmp_path_factory.mktemp("grid_scenario11_measurements"))
+    yield draws_file, group
+    group.kill()
+
+
+@pytest.fixture(scope="module")
+def references(started, tmp_path_factory):
+    """The JAX package's trajectory and the single-process port's results, scenario 11's
+    included, computed while the rank group runs."""
     import jax
 
     from latticeqcd_tpu.ops import fields as jfields
@@ -167,26 +200,20 @@ def references(tmp_path_factory):
     from latticeqcd_tpu.ops.dirac.domainwall import DomainwallDirac as JD
     from latticeqcd_tpu.ops.fermion_action import DomainwallFermiAction as JFA
     from latticeqcd_tpu.updates.hmc import HMC as JHMC
-    from test_torch_hmc import jax_draws
 
-    u = jfields.hot_start(LAT, 3, seed=SEED)
-    key = jax.random.PRNGKey(KEY)
+    draws_file = started[0]
     u_j, _, st_j = JHMC(action=jga.wilson_gauge_action(3, BETA),
                         fermi_action=JFA(JD(MASS, M5, L5), eps_cg=1e-22), staged=False,
-                        **MD).step(u, key)
-    dr = jax_draws(key, u, _action().noise_shape(_links()))
-    draws_file = os.path.join(tmp_path_factory.mktemp("grid_domainwall"), "draws.npz")
-    np.savez(draws_file, dw_mom_re=dr.mom[0].numpy(), dw_mom_im=dr.mom[1].numpy(),
-             dw_xi_re=dr.xi[0].numpy(), dw_xi_im=dr.xi[1].numpy(),
-             dw_uniform=np.asarray(dr.uniform))
+                        **MD).step(jfields.hot_start(LAT, 3, seed=SEED), jax.random.PRNGKey(KEY))
     jax_out = (np.asarray(u_j), float(st_j["dH"]), bool(st_j["accepted"]))
-    return draws_file, _runs(lambda a: a, draws_file), jax_out
+    single = _runs(lambda a: a, draws_file)
+    single.update(_scenario11(None, str(tmp_path_factory.mktemp("grid_scenario11_single"))))
+    return draws_file, single, jax_out
 
 
 @pytest.fixture(scope="module")
-def domainwall_group(references, tmp_path_factory):
-    out = tmp_path_factory.mktemp("grid_domainwall_ranks")
-    return run_ranks("test_torch_grid_domainwall", "domainwall", PES, out, references[0])
+def domainwall_group(started, references):
+    return started[1].join()
 
 
 # ------------------------------------------------------------------- tests
@@ -239,12 +266,9 @@ def test_every_rank_has_the_same_dh_and_decision(domainwall_group):
 
 
 @pytest.fixture(scope="module")
-def scenario11(tmp_path_factory):
+def scenario11(domainwall_group, references):
     """(one process's run, each rank's run) of scenario 11."""
-    out = tmp_path_factory.mktemp("grid_scenario11_ranks")
-    single = _scenario11(None, str(tmp_path_factory.mktemp("grid_scenario11_single")))
-    return single, run_ranks("test_torch_grid_domainwall", "scenario11", SCENARIO11_PES, out,
-                             tmp_path_factory.mktemp("grid_scenario11_measurements"))
+    return references[1], domainwall_group
 
 
 @pytest.mark.parametrize("what", ["plaq", "dh", "Chiral_condensate", "Pion_correlator",

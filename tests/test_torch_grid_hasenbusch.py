@@ -1,7 +1,7 @@
 """Hasenbusch mass preconditioning on the port's process grid, on the CPU.
 
 Two gloo processes on the grid (1, 1, 1, 2) over 4^4 (test_torch_grid's
-run_ranks), at csw = 0 (the packed Schur Dhat: wilson_hop_packed's halo
+start_ranks), at csw = 0 (the packed Schur Dhat: wilson_hop_packed's halo
 mode, the heavy solve's shift mu^2 and the i mu g5 term around it) and
 with the clover term (the full D: wilson_window's halo mode), each with
 and without the Sexton-Weingarten split:
@@ -16,8 +16,11 @@ and without the Sexton-Weingarten split:
   forces on it, against one process to 1e-12;
 * every rank's dH and accept decision bitwise the same.
 
-The JAX package compiles each trajectory, so only the packed split takes
-two MD steps (the light force's warm start); the others take one.
+The rank group starts on the JAX package's draws and runs while the
+JAX package's trajectories and the single-process references are
+computed. The JAX package compiles each trajectory, so only the packed
+split takes two MD steps (the light force's warm start); the others
+take one.
 """
 
 import os
@@ -29,7 +32,7 @@ import torch
 torch.set_num_threads(1)
 
 from latticeqcd_torch.parallel import mesh  # noqa: E402
-from test_torch_grid import rank_main, run_ranks  # noqa: E402
+from test_torch_grid import rank_main, start_ranks  # noqa: E402
 from test_torch_grid_staggered import _trajectory, assert_values_close  # noqa: E402
 
 PES = (1, 1, 1, 2)
@@ -105,9 +108,34 @@ def _rank_main(argv):
 
 
 @pytest.fixture(scope="module")
-def references(tmp_path_factory):
-    """The JAX package's trajectories and their draws (written for the rank group), and
-    the single-process port's results."""
+def started(tmp_path_factory):
+    """The JAX package's draws, written for the rank group, and the group started on them:
+    it runs while the references are computed."""
+    import jax
+
+    from latticeqcd_tpu.ops import fields as jfields
+    from test_torch_hmc import jax_draws
+
+    u = jfields.hot_start(LAT, 3, seed=SEED)
+    key = jax.random.PRNGKey(KEY)
+    draws = {}
+    for op in CSWS:
+        dr = jax_draws(key, u, _action(op).noise_shape(_links()), split_noises=True)
+        draws.update({f"{op}_mom_re": dr.mom[0].numpy(), f"{op}_mom_im": dr.mom[1].numpy(),
+                      f"{op}_xi_re": dr.xi[0].numpy(), f"{op}_xi_im": dr.xi[1].numpy(),
+                      f"{op}_uniform": np.asarray(dr.uniform)})
+    draws_file = os.path.join(tmp_path_factory.mktemp("grid_hasenbusch"), "draws.npz")
+    np.savez(draws_file, **draws)
+    group = start_ranks("test_torch_grid_hasenbusch", "hasenbusch", PES,
+                        tmp_path_factory.mktemp("grid_hasenbusch_ranks"), draws_file)
+    yield draws_file, group
+    group.kill()
+
+
+@pytest.fixture(scope="module")
+def references(started):
+    """The JAX package's trajectories and the single-process port's results, computed
+    while the rank group runs."""
     import jax
 
     from latticeqcd_tpu.ops import fields as jfields
@@ -115,30 +143,22 @@ def references(tmp_path_factory):
     from latticeqcd_tpu.ops.dirac.wilson import WilsonDirac as JW
     from latticeqcd_tpu.ops.fermion_action import HasenbuschWilsonFermiAction as JH
     from latticeqcd_tpu.updates.hmc import HMC as JHMC
-    from test_torch_hmc import jax_draws
 
+    draws_file = started[0]
     u = jfields.hot_start(LAT, 3, seed=SEED)
     key = jax.random.PRNGKey(KEY)
-    draws, jax_out = {}, {}
-    for op in CSWS:
-        dr = jax_draws(key, u, _action(op).noise_shape(_links()), split_noises=True)
-        draws.update({f"{op}_mom_re": dr.mom[0].numpy(), f"{op}_mom_im": dr.mom[1].numpy(),
-                      f"{op}_xi_re": dr.xi[0].numpy(), f"{op}_xi_im": dr.xi[1].numpy(),
-                      f"{op}_uniform": np.asarray(dr.uniform)})
+    jax_out = {}
     for tag, (op, sw) in RUNS.items():
         fa = JH(JW(kappa=KAPPA, csw=CSWS[op]), mu=MU, eps_cg=1e-22)
         u_j, _, st_j = JHMC(action=jga.wilson_gauge_action(3, BETA), fermi_action=fa,
                             staged=False, **_md(op, sw)).step(u, key)
         jax_out[tag] = (np.asarray(u_j), float(st_j["dH"]), bool(st_j["accepted"]))
-    draws_file = os.path.join(tmp_path_factory.mktemp("grid_hasenbusch"), "draws.npz")
-    np.savez(draws_file, **draws)
     return draws_file, _runs(draws_file), jax_out
 
 
 @pytest.fixture(scope="module")
-def hasenbusch_group(references, tmp_path_factory):
-    out = tmp_path_factory.mktemp("grid_hasenbusch_ranks")
-    return run_ranks("test_torch_grid_hasenbusch", "hasenbusch", PES, out, references[0])
+def hasenbusch_group(started, references):
+    return started[1].join()
 
 
 # ------------------------------------------------------------------- tests

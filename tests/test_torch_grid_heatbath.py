@@ -1,6 +1,6 @@
 """The SU(N) heatbath and overrelaxation on the port's process grid, on the CPU.
 
-Two gloo processes on the grid (1, 1, 1, 2) (test_torch_grid's run_ranks; the Iwasaki
+Two gloo processes on the grid (1, 1, 1, 2) (test_torch_grid's start_ranks; the Iwasaki
 action's group in test_torch_grid_heatbath_iwasaki.py, on this module's machinery):
 
 * a heatbath sweep fed the JAX package's own key schedule (each rank
@@ -31,7 +31,7 @@ import torch
 torch.set_num_threads(1)
 
 from latticeqcd_torch.parallel import mesh  # noqa: E402
-from test_torch_grid import rank_main, run_ranks  # noqa: E402
+from test_torch_grid import rank_main, start_job, start_ranks  # noqa: E402
 
 PES = (1, 1, 1, 2)
 LAT = (4, 4, 4, 8)
@@ -168,51 +168,94 @@ def _rank_main(argv):
 # ------------------------------------------------- references, in the parent
 
 
-def _references(tmp_path_factory, group):
+def _links_file(tmp_path_factory, group):
     """The global links of the group's sweeps (hot, and warm ones for the overrelaxation:
     on Haar-random links an overrelaxation amplifies rounding,
-    test_torch_heatbath.warm_links), the JAX package's sweeps on them, and the
-    single-process port's results."""
+    test_torch_heatbath.warm_links), written for the rank group."""
+    from latticeqcd_tpu.ops import fields as jfields
+    from test_torch_heatbath import warm_links
+
+    links = {}
+    for tag in GROUPS[group]:
+        nc, lat, _, seed, _, _ = SWEEPS[tag]
+        links.update({f"{tag}_hot": np.asarray(jfields.hot_start(lat, nc, seed=seed)),
+                      f"{tag}_warm": warm_links(lat, nc, seed=seed + 100)})
+    links_file = os.path.join(tmp_path_factory.mktemp(f"grid_heatbath_{group}"), "links.npz")
+    np.savez(links_file, **links)
+    return links_file
+
+
+def _jax_sweeps(outfile, links_file, group, what):
+    """The JAX package's heatbath sweeps (``what`` "jax", on its key) or overrelaxations
+    ("or") of the group's tags on the links of ``links_file``, saved as the npz
+    ``outfile``."""
     import jax
     import jax.numpy as jnp
 
-    from latticeqcd_tpu.ops import fields as jfields
     from latticeqcd_tpu.system import universe as juniv
     from latticeqcd_tpu.system.params import Params as JParams
     from latticeqcd_tpu.updates import heatbath as jhb
-    from test_torch_heatbath import warm_links
 
-    links, jax_out = {}, {}
+    links, out = dict(np.load(links_file)), {}
     for tag in GROUPS[group]:
-        nc, lat, fields_, seed, key_seed, _ = SWEEPS[tag]
-        hot = np.asarray(jfields.hot_start(lat, nc, seed=seed))
-        warm = warm_links(lat, nc, seed=seed + 100)
-        links.update({f"{tag}_hot": hot, f"{tag}_warm": warm})
+        nc, lat, fields_, _, key_seed, _ = SWEEPS[tag]
         hb = jhb.Heatbath(action=juniv.build_gauge_action(JParams(NC=nc, L=lat, **fields_)))
-        jax_out[f"{tag}_jax"] = np.asarray(hb.sweep(jnp.asarray(hot),
-                                                    jax.random.PRNGKey(key_seed))[0])
-        jax_out[f"{tag}_or"] = np.asarray(hb.overrelax(jnp.asarray(warm),
-                                                       jax.random.PRNGKey(0))[0])
-    links_file = os.path.join(tmp_path_factory.mktemp(f"grid_heatbath_{group}"), "links.npz")
-    np.savez(links_file, **links)
+        if what == "jax":
+            u = hb.sweep(jnp.asarray(links[f"{tag}_hot"]), jax.random.PRNGKey(key_seed))[0]
+        else:
+            u = hb.overrelax(jnp.asarray(links[f"{tag}_warm"]), jax.random.PRNGKey(0))[0]
+        out[f"{tag}_{what}"] = np.asarray(u)
+    np.savez(outfile, **out)
+
+
+def _single(outfile, group, links_file, workdir):
+    """The single-process port's results of the group, saved as the npz ``outfile``."""
+    np.savez(outfile, **_run_group(group, links_file, workdir))
+
+
+def _references(tmp_path_factory, group, links_file):
+    """The JAX package's sweeps on the links of ``links_file`` and the single-process
+    port's results: the overrelaxations and the port's run each in a process of their
+    own, beside the JAX package's heatbath sweeps in this one (the Iwasaki module runs
+    last under loadfile, with three cases, so its references go side by side)."""
+    d = tmp_path_factory.mktemp(f"grid_heatbath_refs_{group}")
     work = tmp_path_factory.mktemp(f"grid_heatbath_single_{group}")
-    return links_file, _run_group(group, links_file, str(work)), jax_out
+    jobs = [start_job("test_torch_grid_heatbath", "_jax_sweeps", d / "or.npz", links_file,
+                      group, "or", timeout_s=600),
+            start_job("test_torch_grid_heatbath", "_single", d / "single.npz", group,
+                      links_file, work, timeout_s=600)]
+    try:
+        _jax_sweeps(d / "sweep.npz", links_file, group, "jax")
+        (overrelax,), (single,) = (job.join() for job in jobs)
+    finally:
+        for job in jobs:
+            job.kill()
+    return links_file, single, {**dict(np.load(d / "sweep.npz")), **overrelax}
 
 
 def sweep_tests(module, group):
-    """(the references fixture, the rank-group fixture and the sweep test) of a module that
-    runs the sweeps of ``group`` on two ranks: one group per module, so that loadfile
-    spreads the lattices over the workers."""
+    """(the fixture that starts the rank group, the references fixture, the fixture that
+    joins the group and the sweep test) of a module that runs the sweeps of ``group`` on
+    two ranks: one group per module, so that loadfile spreads the lattices over the
+    workers. The group starts on the links and runs while the references are computed
+    (``_references``)."""
 
     @pytest.fixture(scope="module")
-    def references(tmp_path_factory):
-        return _references(tmp_path_factory, group)
-
-    @pytest.fixture(scope="module")
-    def rank_group(references, tmp_path_factory):
+    def started(tmp_path_factory):
+        links_file = _links_file(tmp_path_factory, group)
         res = tmp_path_factory.mktemp(f"grid_heatbath_{group}_ranks")
         work = tmp_path_factory.mktemp(f"grid_heatbath_{group}_work")
-        return run_ranks(module, group, PES, res, references[0], work, timeout_s=GROUP_TIMEOUT_S)
+        ranks = start_ranks(module, group, PES, res, links_file, work, timeout_s=GROUP_TIMEOUT_S)
+        yield links_file, ranks
+        ranks.kill()
+
+    @pytest.fixture(scope="module")
+    def references(started, tmp_path_factory):
+        return _references(tmp_path_factory, group, started[0])
+
+    @pytest.fixture(scope="module")
+    def rank_group(started, references):
+        return started[1].join()
 
     @pytest.mark.parametrize("what", ["jax", "or"], ids=["heatbath", "overrelaxation"])
     @pytest.mark.parametrize("tag", GROUPS[group])
@@ -227,11 +270,11 @@ def sweep_tests(module, group):
         for res in rank_group[1:]:
             assert res[key].tobytes() == got.tobytes(), key
 
-    return references, rank_group, test_sweep_matches_jax
+    return started, references, rank_group, test_sweep_matches_jax
 
 
-references, rank_group, test_sweep_matches_jax = sweep_tests("test_torch_grid_heatbath",
-                                                             "plaquette")
+started, references, rank_group, test_sweep_matches_jax = sweep_tests(
+    "test_torch_grid_heatbath", "plaquette")
 
 
 # ------------------------------------------------------------------- tests

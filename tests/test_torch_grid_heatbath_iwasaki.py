@@ -11,7 +11,7 @@ torch.set_num_threads(1)
 from latticeqcd_torch.parallel import mesh  # noqa: E402
 from test_torch_grid_heatbath import IWASAKI_LAT, PES, _action, _rank_main, sweep_tests  # noqa: E402, F401
 
-references, rank_group, test_sweep_matches_jax = sweep_tests(
+started, references, rank_group, test_sweep_matches_jax = sweep_tests(
     "test_torch_grid_heatbath_iwasaki", "iwasaki")
 
 

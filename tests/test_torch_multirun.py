@@ -3,9 +3,10 @@ tests/test_distributed.py, with its TOML): a gloo group on the grid (1, 1, 1, 2)
 on the CPU against one process of the same command. The final plaquette
 agrees to 1e-12, the saved configurations agree, and only rank 0 prints the
 run's output and writes the measurement and configuration files. A heatbath
-TOML with overrelaxation runs the same command under torchrun (the env://
-variables) against one process: the same final links, plaquette and
-generator state on every rank.
+TOML with overrelaxation, a stout-smeared Wilson HMC TOML and a quenched
+SLMC TOML run the same command under torchrun (the env:// variables)
+against one process: the same history (beta_eff included), final links,
+plaquette and generator state on every rank.
 """
 
 import os
@@ -217,10 +218,12 @@ measurement_methods = [
 """
 
 
-def test_heatbath_toml_under_torchrun_matches_one_process(tmp_path):
-    """torchrun starts two ranks of multirun on a heatbath TOML (quenched SU(3) with 2
-    overrelaxations per sweep): every rank's report holds the plaquette and the generator
-    state of the one-process run, and the blocks of its final links, bit for bit."""
+def _torchrun_against_one(tmp_path, text, bitwise):
+    """torchrun starts two ranks of multirun on the TOML ``text`` over a lattice whose t
+    extent the grid (1, 1, 1, 2) halves, beside one process of the same command: every
+    rank's report holds the one-process run's history (dH, decisions, beta_eff; the same
+    bit for bit on every rank), its plaquette and its generator state, and the blocks of
+    its final links (bit for bit if ``bitwise``, else to 1e-12)."""
     reports = {}
     procs = []
     for tag, launcher in (("torchrun", ["-m", "torch.distributed.run", "--nnodes", "1",
@@ -231,7 +234,7 @@ def test_heatbath_toml_under_torchrun_matches_one_process(tmp_path):
         d = tmp_path / tag
         (d / "meas").mkdir(parents=True)
         toml = d / "params.toml"
-        toml.write_text(HEATBATH_TOML.format(d=d))
+        toml.write_text(text.format(d=d))
         args = [str(toml)] + (["1", "1", "1", "2", "--backend", "gloo"] if tag == "torchrun"
                               else []) + ["--device", "cpu", "--report", str(d / "report")]
         env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
@@ -250,11 +253,86 @@ def test_heatbath_toml_under_torchrun_matches_one_process(tmp_path):
 
     one = json.loads((reports["one"] / "rank0.json").read_text())
     u_one = np.load(reports["one"] / "rank0_u.npy")
-    assert [r["itrj"] for r in one["history"]] == [1, 2]
+    nt = u_one.shape[4] // 2
+    keys = ("itrj", "dH", "accepted", "beta_eff")
+    history = lambda rep: [[r[k] for k in keys] for r in rep["history"]]  # noqa: E731
+    first = None
     for rank in (0, 1):
         rep = json.loads((reports["torchrun"] / f"rank{rank}.json").read_text())
         assert rep["nprocs"] == 2 and rep["pes"] == [1, 1, 1, 2]
         assert abs(rep["plaquette"] - one["plaquette"]) < 1e-12
         assert rep["generator_sha256"] == one["generator_sha256"]
+        for got, want in zip(history(rep), history(one)):
+            assert got[0] == want[0] and got[2] == want[2]
+            for a, b in zip(got[1:2] + list(got[3] or ()), want[1:2] + list(want[3] or ())):
+                assert a is None and b is None or abs(a - b) < 1e-12 * max(1.0, abs(b))
+        first = first or history(rep)
+        assert history(rep) == first
         block = np.load(reports["torchrun"] / f"rank{rank}_u.npy")
-        assert block.tobytes() == u_one[:, :, :, :, 4 * rank:4 * (rank + 1)].tobytes()
+        want = u_one[:, :, :, :, nt * rank:nt * (rank + 1)]
+        if bitwise:
+            assert block.tobytes() == want.tobytes()
+        else:
+            assert np.abs(block - want).max() < 1e-12
+    return one
+
+
+def test_heatbath_toml_under_torchrun_matches_one_process(tmp_path):
+    """torchrun starts two ranks of multirun on a heatbath TOML (quenched SU(3) with 2
+    overrelaxations per sweep): every rank's report holds the plaquette and the generator
+    state of the one-process run, and the blocks of its final links, bit for bit."""
+    one = _torchrun_against_one(tmp_path, HEATBATH_TOML, bitwise=True)
+    assert [r["itrj"] for r in one["history"]] == [1, 2]
+
+
+STOUT_TOML = """
+["Physical setting"]
+L = [4, 4, 2, 4]
+NC = 3
+"β" = 5.7
+update_method = "HMC"
+Nsteps = 1
+randomseed = 117
+initial = "hot"
+verboselevel = 1
+
+["Physical setting(fermions)"]
+quench = false
+Dirac_operator = "Wilson"
+hop = 0.13
+eps = 1e-22
+smearing_for_fermion = "stout"
+stout_numlayers = 2
+stout_rho = [0.1]
+
+["HMC related"]
+MDsteps = 2
+"Δτ" = 0.05
+"""
+
+SLMC_TOML = """
+["Physical setting"]
+L = [4, 4, 2, 4]
+NC = 3
+"β" = 6.0
+update_method = "SLMC"
+quench = true
+"βeff" = 5.5
+firstlearn = 1
+Nsteps = 3
+randomseed = 119
+initial = "hot"
+verboselevel = 2
+"""
+
+
+@pytest.mark.parametrize("text", [STOUT_TOML, SLMC_TOML], ids=["stout", "SLMC"])
+def test_toml_under_torchrun_matches_one_process(tmp_path, text):
+    """A TOML of stout-smeared two-flavour Wilson HMC (2 layers) and one of quenched SLMC
+    (learning from its first step) under torchrun: the one-process run's history, beta_eff
+    included, plaquette, generator state and links (to 1e-12: the global sums of the
+    grid round in another order) on every rank."""
+    one = _torchrun_against_one(tmp_path, text, bitwise=False)
+    assert all(r["dH"] is not None for r in one["history"])
+    if "SLMC" in text:
+        assert one["history"][-1]["beta_eff"][0] != 5.5
