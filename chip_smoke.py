@@ -10,16 +10,25 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      (X/2 = 1), 4x2x6x2 (extent-2 y and T), 8x6x10x4 and 16^3x32, in complex64 (bar 1e-5) and
      complex128 (bar 1e-12): wilson_hop_packed for both target parities and the backward of
      WilsonHopPacked through it; wilson_hop's full mode and its packed mode (the yardstick);
-  4. timing at 16^3x32 (CUDA graphs between CUDA events): kernel and plain, each beside its
-     bound, the least time the card could take (bytes over 3.35 TB/s, operations over the peak);
+     and at r = 0.5 wilson_hop_packed's r mode at 16^3x32 in both types: both parities with a
+     chain axis of 2 (one launch), the backward, and the halo mode on each 16^3x16 block of a
+     t cut (faces cut from the global field), against the plain versions at r = 0.5;
+  4. timing at 16^3x32 (CUDA graphs between CUDA events): kernel and plain (the plain
+     version over fewer calls), each beside its bound, the least time the card could take
+     (bytes over 3.35 TB/s, operations over the peak);
      the kernel cold (three input sets taken in turn, beyond the L2) and warm (one set);
      wilson_hop_packed and wilson_hop's packed mode also in turns (site, brick, brick, site);
+     a row for the r mode at r = 0.5 (the same bytes, 2688 flop per target site);
   5. one 4^4 complex128 Wilson HMC trajectory through the kernel and through the plain path on
      the card (the wrappers' plain versions swapped in for this run only) from the same injected
-     draws, and an MD reversibility check;
+     draws, and an MD reversibility check; then at r = 0.5 (the kernels' r mode) a Wilson
+     trajectory, a clover one (csw 1.0) and a domain-wall one (L5 2), kernel path against
+     plain path (dH 1e-9, links 1e-10);
   6. the Wilson main path: run_lqcd_params at 16^3x32, SU(3), 2-flavour Wilson HMC, complex64,
      2 trajectories, with the Wilson kernels' launch counts set to 0 just before and read just
-     after: wilson_hop_packed must have run, wilson_hop's packed mode never;
+     after: wilson_hop_packed must have run, wilson_hop's packed mode never; then the same
+     action at r = 0.5 from a TOML, 1 trajectory with a Wilson spectrum at r = 0.5: dH finite,
+     every CG verified, both Wilson kernels launched in their r mode and never at r = 1;
   7. staggered_w against its plain version at 4^4, 4x8x2x2, 2x4x2x6, 4x2x6x2 (extent-2 y and
      T), 8x6x10x4 (extents the fused W's tile does not divide), 12^3x8 and 16^3x32 in both
      types at mass 0.5 on hot links, and on phase 16's inputs (the links of pbp56_ckpt.npz
@@ -37,9 +46,12 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      staggered_w_fused must stay at 0);
  11. wilson_window against its plain version at 4^4, 4x8x2x4, 4x8x2x2 (T=2), 3x5x2x6 (odd
      extents), 2x1x9x3 (extent 1), 5x6x9x30 and 16^3x32 in both types, forward and the
-     backward for psi and U, and against wilson_hop's full mode;
+     backward for psi and U, and against wilson_hop's full mode; and its r mode at r = 0.5 at
+     16^3x32 in both types, forward, backward and the halo mode on each 16^3x16 block of a t
+     cut, against the plain versions at r = 0.5;
  12. timing of wilson_window at 16^3x32, as phase 4, and in turns with wilson_hop's full D
-     (window, full, full, window), which it must beat;
+     (window, full, full, window), which it must beat; a row for the r mode at r = 0.5 (the same
+     bytes, 2736 flop per site);
  13. the fermionic measurements at 4^4 complex128 (Wilson pion correlator, Wilson and
      staggered condensates per noise from the same Z4 draws, Wilson low spectrum from the same
      start vector, a CGNE pion correlator on 3x5x2x6), kernel path against plain path;
@@ -108,7 +120,7 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      CPU in complex128 (bar 1e-12) and complex64 (1e-5 relative); the action, the force
      with and without one stout layer, the effective propagator, the condensate from injected
      Z4 draws and the spectrum from an injected start, card against CPU (1e-10 relative,
-     solves to 1e-24); r = 0.7 and NC = 2 raise on the card; one trajectory of 2 MD steps
+     solves to 1e-24); NC = 2 raises on the card at r = 1 and 0.7; one trajectory of 2 MD steps
      kernel path against plain path (dH 1e-9, links 1e-10) and MD reversibility (1e-8);
  23. the domain-wall path: run_lqcd_params at 16^3x32, SU(3), beta = 6.0, two-flavour Shamir
      domain wall at M = -1.8, L5 = 16, m = 0.04 (Pauli-Villars partner at m = 1), QPQ 10 steps
@@ -201,7 +213,7 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      (the same iterations, x to 1e-10 relative); (c) python -m latticeqcd_torch.run with
      --profile, one 8^4 Wilson trajectory in complex64: it must exit 0 and its trace hold
      device events of wilson_hop_packed's kernel; the trace's size printed; (d) python -m
-     latticeqcd_torch.demo 5 must exit 0 with 5 sweep lines.
+     latticeqcd_torch.demo 5 must exit 0 with 5 sweep lines; (c) and (d) run side by side.
  31. the process grid (parallel/mesh.py): (a) in one process, 16^3x32 cut in two along each
      axis in turn, each block's face buffers built from the global field: wilson_hop_packed's
      halo mode (one launch per call) on each block, both parities, complex64 (bar 1e-5) and
@@ -218,15 +230,19 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      finite and bitwise equal on both ranks, every verified CG residual at or below its target,
      plaquette in (0, 1), halo-mode launches on each rank and no hop without it, the saved
      configuration the gathered blocks bit for bit, seconds per trajectory beside phase 6's;
-     (c) the same on nccl when the machine has two or more cards (else it says so).
+     (c) the same on nccl when the machine has two or more cards (else it says so); (d) one
+     group of two ranks (python -c subprocesses of this script under a timeout) started here
+     runs every run of phases 31-34 on the grid, once per backend; this phase's is one
+     16^3x32 complex128 Wilson trajectory at r = 0.5 (the packed hop's r mode in its halo
+     mode), against the same on one card (dH 1e-8, links 1e-10).
  32. the process grid for staggered, clover and the fermionic measurements: (a) in one process,
      16^3x32 cut in two along each axis in turn: staggered_w's halo mode (the hop onto both
      parities, and the grid W's axpy launch on the faces of d1) and wilson_window's halo mode
      (the full D) on each block, complex64 (bar 1e-5) and complex128 (1e-12), one launch per
      call, against the block of the global kernel's output and the plain halo versions,
      whether the match is bitwise; the t cut's block timed in the halo mode beside mask 0 on
-     the same shape, and the bytes of the face messages; (b) one group of two gloo ranks on
-     the one card (as phase 33's, python -c subprocesses of this script) runs through
+     the same shape, and the bytes of the face messages; (b) phase 31's group of two gloo ranks
+     on the one card (python -c subprocesses of this script) runs through
      run_lqcd_params(grid=...) one 16^3x32 complex128 trajectory (2 MD steps of 0.005) each of
      staggered Nf = 4, staggered Nf = 2 RHMC and clover HMC, then this process runs each on one
      card (dH 1e-8, links 1e-10, the ranks' dH, decisions and plaquettes bitwise equal);
@@ -236,9 +252,9 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      run no launch of staggered_w, wilson_window or wilson_hop_packed outside a halo mode,
      each run's halo kernel launched, every solve at or below its target; seconds per
      trajectory on the grid beside one card; (c) the same on nccl with two or more cards.
- 33. the process grid for Hasenbusch, domain wall and the heatbath: (b) one group of two gloo
-     ranks on the one card (python -c subprocesses of this script under a timeout) runs
-     through run_lqcd_params(grid=...), at 16^3x32 from a hot start: one complex128
+ 33. the process grid for Hasenbusch, domain wall and the heatbath: (b) phase 31's group of
+     two gloo ranks on the one card runs through run_lqcd_params(grid=...), at 16^3x32 from a
+     hot start: one complex128
      trajectory (2 MD steps of 0.005) each of domain-wall HMC (phase 23's beta, M and m at
      L5 = 4), clover Hasenbusch + SW at phase 27's point and Hasenbusch at csw = 0; the three
      domain-wall measurements (at L5 = 2) on the final links; one Shat^dag Shat on them; and
@@ -250,8 +266,8 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      mode, each run's halo kernels launched, 4 L5 halo hops per rank per Shat^dag Shat; the
      action parts and seconds per step on the grid beside one card printed; (d) the same on
      nccl with two or more cards.
- 34. the process grid for stout, the self-learning updaters and Fileloading: (a) one group of
-     two gloo ranks on the one card (as phase 33's) runs through run_lqcd_params(grid=...),
+ 34. the process grid for stout, the self-learning updaters and Fileloading: (a) phase 31's
+     group of two gloo ranks on the one card runs through run_lqcd_params(grid=...),
      from a hot start: at 16^3x32 one complex128 trajectory (2 MD steps of 0.005) of
      two-flavour Wilson HMC on 2 stout layers (rho 0.1) and one SLHMC step on a plaquette +
      rectangle basis (a reject is allowed: its MD leaves the fermions out), one quenched SLMC
@@ -302,6 +318,11 @@ STAGGERED_LATTICES = [(4, 4, 4, 4), (4, 8, 2, 2), (2, 4, 2, 6), (4, 2, 6, 2), (8
 MAIN = (16, 16, 16, 32)
 KAPPA = 0.141139
 MASS = 0.5
+# the Wilson r of the kernels' r mode checks (wilson_hop_packed and wilson_window at r != 1)
+R_MODE = 0.5
+# operations per site of the r mode (three lanes a site, each of the 8 neighbours: 4 colour
+# products of 3 complex multiply-adds and the 4 x 4 spin matrix; the window also -kappa)
+R_FLOP_PACKED, R_FLOP_WINDOW = 2688, 2736
 
 # The H100 SXM's published rates (NVIDIA data sheet): HBM3 bandwidth, and the peak outside
 # the tensor cores for the real type of each complex type.
@@ -309,8 +330,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"complex64": 67e12, "complex128": 34e12}
 
 STATE = {"err": {"wilson_hop_packed": 0.0, "wilson_hop": 0.0, "staggered_w": 0.0,
-                 "staggered_w_fused": 0.0,
-                 "wilson_window": 0.0}, "checks": 0,
+                 "staggered_w_fused": 0.0, "wilson_window": 0.0, "wilson_hop_packed_r": 0.0,
+                 "wilson_window_r": 0.0}, "checks": 0,
          "timing": {}, "launches": {}}
 
 
@@ -425,6 +446,111 @@ def phase_kernels(torch):
                 for name, a, b in zip(("u_t", "u_s", "psi"), grads_k, grads_p):
                     check(f"packed backward d{name} p={parity} {tag}", maxdiff(a, b), bar,
                           "wilson_hop_packed")
+    _r_mode_packed(torch)
+
+
+def _counted(torch, fn, counters, label):
+    """fn(), synchronised, failing unless each (module, attribute) of counters rose by one."""
+    before = [getattr(m, a) for m, a in counters]
+    out = fn()
+    torch.cuda.synchronize()
+    if [getattr(m, a) for m, a in counters] != [b + 1 for b in before]:
+        fail(f"{label} did not launch its kernel once ({', '.join(a for _, a in counters)})")
+    return out
+
+
+def _t_cut_blocks(torch, fields, leads):
+    """The two blocks of a t cut of 16^3x32 (grid (1, 1, 1, 2)): for each rank, its grid and
+    each field's block (lattice axes from its lead), contiguous."""
+    from latticeqcd_torch.parallel import mesh
+
+    for rank in (0, 1):
+        grid = mesh.ProcessGrid((1, 1, 1, 2), MAIN, rank=rank, device=torch.device("cuda"))
+        yield grid, [grid.block(f, lead).contiguous() for f, lead in zip(fields, leads)]
+
+
+def _r_mode_packed(torch):
+    """Phase 3 at r = 0.5: wilson_hop_packed's r mode at 16^3x32 in both types and both
+    parities, with a chain axis of 2 (one launch, each chain against its plain hop), its
+    backward on one chain, and its halo mode on each 16^3x16 block of a t cut, the faces cut
+    from the global field, against the block of the global plain hop and the plain halo hop."""
+    from latticeqcd_torch.ops.dirac import eo_pack
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac.wilson import gaussian_spinor
+
+    lat, r = MAIN, R_MODE
+    half = (lat[0] // 2,) + lat[1:]
+    for dtype in (torch.complex64, torch.complex128):
+        name = str(dtype).split(".")[1]
+        bar = BARS[name]
+        tag = f"r = {r} {'x'.join(map(str, lat))} {name}"
+        u, _, g = _fields(torch, lat, dtype, seed=51)
+        packed = [eo_pack.pack_links(v, lat) for v in (u, _fields(torch, lat, dtype, seed=52)[0])]
+        x = gaussian_spinor((2,) + half, 3, dtype=dtype, device=u.device, generator=g)
+        cot = gaussian_spinor(half, 3, dtype=dtype, device=u.device, generator=g)
+        for parity in (0, 1):
+            u_t = torch.stack([p[parity] for p in packed])
+            u_s = torch.stack([p[1 - parity] for p in packed])
+            got = _counted(torch, lambda: wk.wilson_hop_packed(u_t, u_s, x, parity, r),
+                           [(wk, "launches"), (wk, "r_launches")], "the r mode's chain axis")
+            for c in (0, 1):
+                ref = wk.hop_packed_reference(u_t[c], u_s[c], x[c], parity, r)
+                check(f"packed hop chain {c} of 2 p={parity} {tag}", maxdiff(got[c], ref), bar,
+                      "wilson_hop_packed_r")
+            leaves = [t.detach().clone().requires_grad_(True) for t in (u_t[0], u_s[0], x[0])]
+            grads_k = torch.autograd.grad(wk.wilson_hop_packed(*leaves, parity, r), leaves, cot)
+            grads_p = torch.autograd.grad(wk.hop_packed_reference(*leaves, parity, r), leaves, cot)
+            torch.cuda.synchronize()
+            for gname, a, b in zip(("u_t", "u_s", "psi"), grads_k, grads_p):
+                check(f"packed backward d{gname} p={parity} {tag}", maxdiff(a, b), bar,
+                      "wilson_hop_packed_r")
+            ref = wk.hop_packed_reference(u_t[0], u_s[0], x[0], parity, r)
+            for grid, blocks in _t_cut_blocks(torch, (u_t[0], u_s[0], x[0]), (1, 1, 0)):
+                faces, links = _block_faces(grid, x[0], u_s[0])
+                got = _counted(torch, lambda: wk.hop_packed_halo(*blocks, parity, faces, links, r),
+                               [(wk, "halo_launches"), (wk, "r_halo_launches")],
+                               "the r mode's halo mode")
+                btag = f"t cut block {grid.rank} p={parity} {tag}"
+                check(f"halo hop {btag} vs the global plain hop", maxdiff(got, grid.block(ref)),
+                      bar, "wilson_hop_packed_r")
+                plain = wk.hop_packed_halo_reference(*blocks, parity, faces, links, r)
+                check(f"halo hop {btag} vs plain", maxdiff(got, plain), bar, "wilson_hop_packed_r")
+
+
+def _r_mode_window(torch):
+    """Phase 11 at r = 0.5: wilson_window's r mode at 16^3x32 in both types, forward and the
+    backward for psi and U, and its halo mode on each 16^3x16 block of a t cut, the faces
+    cut from the global field, against the block of the global plain D and the plain halo D."""
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
+    lat, r = MAIN, R_MODE
+    for dtype in (torch.complex64, torch.complex128):
+        name = str(dtype).split(".")[1]
+        bar = BARS[name]
+        tag = f"r = {r} {'x'.join(map(str, lat))} {name}"
+        u, psi, g = _fields(torch, lat, dtype, seed=53)
+        got = _counted(torch, lambda: ww.wilson_window(u, psi, KAPPA, r),
+                       [(ww, "launches"), (ww, "r_launches")], "the window's r mode")
+        ref = wk.dslash_reference(u, psi, KAPPA, r)
+        check(f"window D {tag}", maxdiff(got, ref), bar, "wilson_window_r")
+        cot = torch.randn(psi.shape, dtype=dtype, device=psi.device, generator=g)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (u, psi)]
+        grads_k = torch.autograd.grad(ww.wilson_window(*leaves, KAPPA, r), leaves, cot)
+        grads_p = torch.autograd.grad(wk.dslash_reference(*leaves, KAPPA, r), leaves, cot)
+        torch.cuda.synchronize()
+        for gname, a, b in zip(("u", "psi"), grads_k, grads_p):
+            check(f"window backward d{gname} {tag}", maxdiff(a, b), bar, "wilson_window_r")
+        for grid, (u_b, psi_b) in _t_cut_blocks(torch, (u, psi), (1, 0)):
+            faces, links = _block_faces(grid, psi, u)
+            got = _counted(torch, lambda: ww.dslash_halo(u_b, psi_b, KAPPA, faces, links, r),
+                           [(ww, "halo_launches"), (ww, "r_halo_launches")],
+                           "the window's r mode in its halo mode")
+            btag = f"t cut block {grid.rank} {tag}"
+            check(f"halo window D {btag} vs the global plain D", maxdiff(got, grid.block(ref)),
+                  bar, "wilson_window_r")
+            plain = wk.dslash_halo_reference(u_b, psi_b, KAPPA, faces, links, r)
+            check(f"halo window D {btag} vs plain", maxdiff(got, plain), bar, "wilson_window_r")
 
 
 def _events(torch):
@@ -483,9 +609,11 @@ def _time_case(torch, label, dtype_name, kerns, plain, nbytes, flops):
     of the least bytes the function must move over the HBM rate and its operations over the
     peak rate for its type. `kerns` are the kernel's call on three input sets: the cold time
     takes them in turn (113 MB or more, so the inputs come from HBM), the warm time repeats
-    the first (its links may stay in L2). The line's time is the cold one."""
-    t_k, t_w, t_p = _time_device(torch, kerns), _time_device(torch, kerns[0]), _time_device(torch, plain)
-    e_k, e_p = _time_eager(torch, kerns[0]), _time_eager(torch, plain)
+    the first (its links may stay in L2). The line's time is the cold one. The plain version,
+    1-20 ms a call at 16^3x32, is timed over fewer calls (5 replays of 4, 10 eager calls)."""
+    t_k, t_w = _time_device(torch, kerns), _time_device(torch, kerns[0])
+    t_p = _time_device(torch, plain, reps=4, n=5)
+    e_k, e_p = _time_eager(torch, kerns[0]), _time_eager(torch, plain, n=10, warm=2)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOP_PER_S[dtype_name] * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     print(f"  {label:20s} {dtype_name:10s} device: kernel {t_k * 1e3:8.1f} us cold "
@@ -539,6 +667,11 @@ def phase_timing(torch):
                     [lambda s=s: dirac.apply_dhat_ddag(s[2], s[3]) for s in sets],
                     lambda: plain_dhat(wk.gamma5(plain_dhat(wk.gamma5(x)))),
                     (4 * 768 + 6 * 96) * vol // 2, (4 * 1320 + 2 * 48) * vol // 2),
+                # the r mode: the same bytes, the spin matrix on four spins of U psi
+                f"packed hop r={R_MODE}": (
+                    [lambda s=s: wk.wilson_hop_packed(*s[2], s[3], 0, R_MODE) for s in sets],
+                    lambda: wk.hop_packed_reference(u_e, u_o, x, 0, R_MODE),
+                    768 * vol // 2, R_FLOP_PACKED * vol // 2),
             }
             for case, (kern, plain, nbytes, flops) in cases.items():
                 _time_case(torch, case, name, kern, plain, f * nbytes, flops)
@@ -612,6 +745,36 @@ def phase_trajectory_agreement(torch):
     guess["x"] = None
     u2, _ = integrators.leapfrog_qpq(u1, -h1, force_g, 0.1, 10, force_f)
     check("MD reversibility max|dU|", maxdiff(u2, u), 1e-8)
+    _r_mode_trajectories(torch)
+
+
+def _r_mode_trajectories(torch):
+    """Phase 5 at r = 0.5: 4^4 complex128 trajectories through the kernels' r mode against the
+    plain path from the same draws (dH 1e-9, links 1e-10): Wilson and clover at csw 1.0 (4 MD
+    steps of 0.1 each) and two-flavour domain wall at L5 = 2 (2 steps); every Wilson kernel
+    launch of them in the r mode."""
+    from latticeqcd_torch.ops import fields, gauge_action as ga
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import DomainwallFermiAction, WilsonFermiAction
+    from latticeqcd_torch.updates.hmc import HMC
+
+    u = fields.hot_start((4, 4, 4, 4), 3, seed=13, dtype=torch.complex128, device="cuda")
+    act = ga.wilson_gauge_action(3, 6.0)
+    runs = [(f"Wilson r = {R_MODE}", WilsonDirac(kappa=KAPPA, r=R_MODE), 4),
+            (f"clover r = {R_MODE} (csw 1.0)", WilsonDirac(kappa=CLOVER_KAPPA, r=R_MODE, csw=1.0),
+             4),
+            (f"domain wall r = {R_MODE} (L5 2)", DomainwallDirac(0.3, DW_M5, 2, r=R_MODE), 2)]
+    for label, dirac, steps in runs:
+        fa = (DomainwallFermiAction if isinstance(dirac, DomainwallDirac) else WilsonFermiAction)(
+            dirac, eps_cg=1e-19)
+        hmc = HMC(action=act, dtau=0.1, md_steps=steps, fermi_action=fa)
+        at_one = (wk.launches - wk.r_launches, ww.launches - ww.r_launches)
+        launched = _trajectory_pair(torch, label, hmc, u, seed=14)
+        if (wk.launches - wk.r_launches, ww.launches - ww.r_launches) != at_one:
+            fail(f"{label}: a Wilson kernel launched outside its r mode ({launched})")
 
 
 def phase_main_path(torch):
@@ -654,6 +817,105 @@ def phase_main_path(torch):
         fail("the main path launched wilson_hop_packed no time")
     if site["packed"]:
         fail("the main path launched wilson_hop's packed mode")
+    _r_mode_main_path(torch)
+
+
+# phase 6's action at r = 0.5, with a Wilson spectrum at r = 0.5, as a TOML
+R_MODE_TOML = """\
+["Physical setting"]
+L = [16, 16, 16, 32]
+NC = 3
+beta = 6.0
+initial = "hot"
+update_method = "HMC"
+quench = false
+Dirac_operator = "Wilson"
+hop = {kappa}
+r = {r}
+BoundaryCondition = [1, 1, 1, -1]
+QPQ = true
+dtau = 0.02
+MDsteps = 10
+Nsteps = 1
+eps = 1e-12
+MaxCGstep = 3000
+randomseed = 3
+verboselevel = 2
+
+["Measurement set"]
+measurement_basedir = "{d}/meas"
+measurement_dir = "r_mode"
+measurement_methods = [{{ methodname = "Plaquette", measure_every = 1 }}, \
+{{ methodname = "Dirac_spectrum", measure_every = 1, Neig = 4, Nlanczos = 24, \
+fermion_parameters = {{ Dirac_operator = "Wilson", hop = {kappa}, r = {r} }} }}]
+"""
+
+
+def _r_mode_main_path(torch):
+    """Phase 6 at r = 0.5: the Wilson main path from a TOML with r = 0.5 through
+    run_lqcd_params, 16^3x32 complex64, one trajectory and a Wilson spectrum at r = 0.5, the
+    Wilson kernels' counts set to 0 just before and read just after: every launch in the r
+    mode, both kernels' r modes launched, dH finite, every CG verified."""
+    import tempfile
+
+    import numpy as np
+
+    from latticeqcd_torch.measurements import scheduler
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.system.lqcd import run_lqcd_params
+    from latticeqcd_torch.system.params import construct_params_from_toml
+
+    history, spectra = [], []
+    measure = scheduler.DiracSpectrumMeasurement.measure
+
+    def measured(self, u, itrj, additional_string=""):
+        line = measure(self, u, itrj, additional_string)
+        spectra.append([float(v) for v in self.value])
+        return line
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_r_mode_") as tmp:
+        toml = os.path.join(tmp, "r_mode.toml")
+        with open(toml, "w") as f:
+            f.write(R_MODE_TOML.format(kappa=KAPPA, r=R_MODE, d=tmp))
+        p = construct_params_from_toml(toml, make_dirs=True)
+        if p.r != R_MODE:
+            fail(f"the TOML's r = {R_MODE} was read as {p.r}")
+        torch.cuda.synchronize()
+        _zero_all_counts()
+        t0 = time.time()
+        with mock.patch.object(scheduler.DiracSpectrumMeasurement, "measure", measured):
+            plaq = run_lqcd_params(p, make_dirs=False, dtype=torch.complex64, device="cuda",
+                                   history=history)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    counts = _all_counts()
+    STATE["launches"].setdefault("wilson_hop_packed_r", {})[f"Wilson r = {R_MODE} path"] = \
+        counts["wilson_hop_packed_r"]
+    STATE["launches"].setdefault("wilson_window_r", {})[f"Wilson r = {R_MODE} path"] = \
+        counts["wilson_window_r"]
+    for rec in history:
+        worst = max((c["rsq"] / c["target"] for c in rec["cg"]), default=0.0)
+        print(f"  r = {R_MODE} trajectory {rec['itrj']}: {rec['seconds']:.3f} s  CG iterations "
+              f"{sum(c['iterations'] for c in rec['cg'])} in {len(rec['cg'])} solves  dH "
+              f"{rec['dH']:.6f}  accepted {rec['accepted']}  plaquette {rec['plaq']:.8f}  worst "
+              f"verified residual/target {worst:.3g}  [{STATE['smi']}]", flush=True)
+        if not math.isfinite(rec["dH"]):
+            fail(f"r = {R_MODE}: non-finite dH {rec['dH']}")
+        if worst > 1.0:
+            fail(f"r = {R_MODE}: a CG returned a verified residual above its target")
+    print(f"  r = {R_MODE} run_lqcd_params {seconds:.3f} s, final plaquette {plaq:.8f}, the "
+          f"Wilson spectrum at r = {R_MODE} {spectra}; launches {counts}", flush=True)
+    if len(history) != 1 or not (math.isfinite(plaq) and 0.0 < plaq < 1.0):
+        fail(f"r = {R_MODE}: {len(history)} trajectories, plaquette {plaq}")
+    lam = np.asarray(spectra[-1] if spectra else [])
+    if not (lam.size and np.all(lam > 0) and np.all(np.diff(lam) >= 0)):
+        fail(f"r = {R_MODE}: the Wilson spectrum {spectra} is not ascending and positive")
+    for name in ("wilson_hop_packed", "wilson_window"):
+        if counts[f"{name}_r"] == 0:
+            fail(f"the r = {R_MODE} path launched {name}'s r mode no time")
+        if counts[name] != counts[f"{name}_r"]:
+            fail(f"the r = {R_MODE} path launched {name} at r = 1: {counts}")
 
 
 def _packed_links(torch, lat, dtype, seed):
@@ -884,6 +1146,7 @@ def phase_window(torch):
             torch.cuda.synchronize()
             for gname, a, b in zip(("u", "psi"), grads_k, grads_p):
                 check(f"window backward d{gname} {tag}", maxdiff(a, b), bar, "wilson_window")
+    _r_mode_window(torch)
 
 
 def phase_window_timing(torch):
@@ -904,6 +1167,11 @@ def phase_window_timing(torch):
             _time_case(torch, "window D", name,
                        [lambda s=s: ww.wilson_window(s[0], s[1], KAPPA) for s in sets],
                        lambda: wk.dslash_reference(u, psi, KAPPA), f * 480 * vol, 1320 * vol)
+            # the r mode: the same bytes, the spin matrix on four spins of U psi
+            _time_case(torch, f"window D r={R_MODE}", name,
+                       [lambda s=s: ww.wilson_window(s[0], s[1], KAPPA, R_MODE) for s in sets],
+                       lambda: wk.dslash_reference(u, psi, KAPPA, R_MODE), f * 480 * vol,
+                       R_FLOP_WINDOW * vol)
             # the redesigned window D against wilson_hop's full D, cold, in turns
             full = [lambda s=s: wk.wilson_dslash(s[0], s[1], KAPPA) for s in sets]
             window = [lambda s=s: ww.wilson_window(s[0], s[1], KAPPA) for s in sets]
@@ -1984,14 +2252,14 @@ def phase_domainwall_agreement(torch):
             same(f"domain-wall Shat^dag Shat {tag}, card vs CPU", got,
                  d.apply_schur_ddag_d(ueo, phi), "wilson_hop_packed")
 
-    # no fall-back to the plain version on the card: r != 1 and NC != 3 raise
+    # no fall-back to the plain version on the card: NC != 3 raises, in the r mode too
     su2 = fields.hot_start(lat, 2, seed=71, dtype=torch.complex128, device=dev)
     x = torch.zeros((l5,) + lat + (4, 2), dtype=su2.dtype, device=dev)
-    for label, op, err in (("r = 0.7", DomainwallDirac(0.3, DW_M5, l5, r=0.7), NotImplementedError),
-                           ("NC = 2", d, ValueError)):
+    for label, op in (("NC = 2 at r = 0.7", DomainwallDirac(0.3, DW_M5, l5, r=0.7)),
+                      ("NC = 2", d)):
         try:
             op.apply_ddag_d(su2, x)
-        except err as exc:
+        except ValueError as exc:
             print(f"  ok   domain wall with {label} on the card raises: {exc}", flush=True)
         else:
             fail(f"domain wall with {label} ran on the card")
@@ -3468,14 +3736,20 @@ def phase_frontend(torch):
     print("== 30. the front end on the card: .jl input, bicgstab, --profile, the demo", flush=True)
     import tempfile
 
+    def timed(name, part):
+        t0 = time.time()
+        part()
+        print(f"  {name}: {time.time() - t0:.1f} s", flush=True)
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_frontend_") as tmp:
-        for name, part in (("(a) .jl input", lambda: _frontend_jl(torch, tmp)),
-                           ("(b) bicgstab", lambda: _frontend_bicgstab(torch)),
-                           ("(c) --profile", lambda: _frontend_profile(torch, tmp)),
-                           ("(d) demo", lambda: _frontend_demo(torch, tmp))):
-            t0 = time.time()
-            part()
-            print(f"  {name}: {time.time() - t0:.1f} s", flush=True)
+        timed("(a) .jl input", lambda: _frontend_jl(torch, tmp))
+        timed("(b) bicgstab", lambda: _frontend_bicgstab(torch))
+        # (c) and (d) are subprocesses, each mostly its interpreter's start: run side by side
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            parts = [pool.submit(timed, "(c) --profile", lambda: _frontend_profile(torch, tmp)),
+                     pool.submit(timed, "(d) demo", lambda: _frontend_demo(torch, tmp))]
+            for part in parts:
+                part.result()
 
 
 # phase 6's action as a TOML for python -m latticeqcd_torch.multirun, saving every trajectory
@@ -3823,6 +4097,16 @@ def phase_grid(torch):
         else:
             print(f"  (c) nccl: not run, this machine has {torch.cuda.device_count()} card",
                   flush=True)
+    # (d) the group of ranks that phases 31-34 share, started here with every run of theirs;
+    # this phase's is a Wilson trajectory at r = 0.5
+    t0 = time.time()
+    _grid_group_runs(torch, "gloo", GRID_R_RUNS)
+    print(f"  (d) 2 ranks, gloo, one card: {time.time() - t0:.1f} s (the shared group's start "
+          "and every run of phases 31-34 included)", flush=True)
+    if torch.cuda.device_count() >= 2:
+        t0 = time.time()
+        _grid_group_runs(torch, "nccl", GRID_R_RUNS)
+        print(f"  (d) 2 ranks, nccl, 2 cards: {time.time() - t0:.1f} s", flush=True)
 
 
 # ------------------------------------------- 32. staggered, clover and measurements on the grid
@@ -3967,23 +4251,21 @@ def _grid_measured(reps, label):
 def phase_grid_fermions(torch):
     print("== 32. the process grid: staggered, clover and the measurements (halo modes of "
           "staggered_w and wilson_window), 2 ranks on the card", flush=True)
-    import tempfile
 
     t0 = time.time()
     _halo_kernels(torch)
     print(f"  (a) halo modes: {time.time() - t0:.1f} s", flush=True)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid2_") as tmp:
+    t0 = time.time()
+    _grid_group_runs(torch, "gloo", GRID2_RUNS)
+    print(f"  (b) 2 ranks, gloo, one card (the shared group's runs): {time.time() - t0:.1f} s",
+          flush=True)
+    if torch.cuda.device_count() >= 2:
         t0 = time.time()
-        _grid_group_runs(torch, tmp, "gloo", GRID2_RUNS)
-        print(f"  (b) 2 ranks, gloo, one card: {time.time() - t0:.1f} s", flush=True)
-        if torch.cuda.device_count() >= 2:
-            t0 = time.time()
-            with tempfile.TemporaryDirectory(prefix="chip_smoke_grid2_nccl_") as tmp2:
-                _grid_group_runs(torch, tmp2, "nccl", GRID2_RUNS)
-            print(f"  (c) 2 ranks, nccl, 2 cards: {time.time() - t0:.1f} s", flush=True)
-        else:
-            print(f"  (c) nccl: not run, this machine has {torch.cuda.device_count()} card",
-                  flush=True)
+        _grid_group_runs(torch, "nccl", GRID2_RUNS)
+        print(f"  (c) 2 ranks, nccl, 2 cards: {time.time() - t0:.1f} s", flush=True)
+    else:
+        print(f"  (c) nccl: not run, this machine has {torch.cuda.device_count()} card",
+              flush=True)
 
 
 # ------------------------------- 33. Hasenbusch, domain wall and the heatbath on the grid
@@ -4025,23 +4307,35 @@ GRID4_RUNS = {
     "integratedhb": ("IntegratedHB, staggered dense log det at 4^4", "complex128",
                      ("staggered_w",)),
 }
+# phase 31's run on the shared group: Wilson HMC at r = 0.5 (the packed hop's r mode in its
+# halo mode)
+GRID_R_RUNS = {
+    "wilson_r": (f"Wilson HMC at r = {R_MODE}", "complex128",
+                 ("wilson_hop_packed", "wilson_hop_packed_r")),
+}
+# every run of phases 31-34, on one group of ranks started once (_grid_group)
+GRID_RUNS = {**GRID_R_RUNS, **GRID2_RUNS, **GRID3_RUNS, **GRID4_RUNS}
 # the runs held to one card by their links and the generator's state, not by an HMC dH
 GRID_EXACT = ("heatbath", "slmc", "fileloading", "integratedhb")
 GRID4_CONFS = "grid4_confs"
 HALO_KERNELS = ("wilson_hop_packed", "wilson_window", "staggered_w")
+R_KERNELS = ("wilson_hop_packed_r", "wilson_window_r")
 
 
 def _grid_params(tag, tmp=None):
-    """The Params of a run of phase 32, 33 or 34: 16^3x32 from a hot start, one step; an
+    """The Params of a run of phase 31, 32, 33 or 34: 16^3x32 from a hot start, one step; an
     HMC trajectory of 2 MD steps of 0.005 (dH well under 1, so the evolved links are the
-    ones compared): phase 10's staggered actions, phase 27's clover action, phase 33's, and
-    phase 34's (Fileloading reads the NPZ files saved under ``tmp``; IntegratedHB runs at
-    4^4, the dense log det's size)."""
+    ones compared): phase 6's Wilson action at r = 0.5, phase 10's staggered actions, phase
+    27's clover action, phase 33's, and phase 34's (Fileloading reads the NPZ files saved
+    under ``tmp``; IntegratedHB runs at 4^4, the dense log det's size)."""
     from latticeqcd_torch.system.params import Params
 
     base = dict(L=MAIN, NC=3, initial="hot", BoundaryCondition=(1, 1, 1, -1), QPQ=True,
                 Nsteps=1, randomseed=5, verboselevel=0, MaxCGstep=3000)
     hmc = dict(update_method="HMC", quench=False, dtau=0.005, MDsteps=2)
+    if tag == "wilson_r":
+        return Params(**base, **hmc, eps=1e-16, beta=6.0, Dirac_operator="Wilson", hop=KAPPA,
+                      r=R_MODE)
     if tag == "stout":
         return Params(**base, **hmc, eps=1e-16, beta=6.0, Dirac_operator="Wilson", hop=KAPPA,
                       r=1.0, smearing_for_fermion="stout", stout_numlayers=2, stout_rho=[0.1])
@@ -4082,14 +4376,17 @@ def _grid_params(tag, tmp=None):
 
 
 def _all_counts():
-    """Every Wilson and staggered kernel's launches, each halo mode apart."""
+    """Every Wilson and staggered kernel's launches, each halo mode and r mode apart."""
     from latticeqcd_torch.ops.dirac import staggered_kernel as sk
     from latticeqcd_torch.ops.dirac import wilson_kernel as wk
     from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
 
     return {"wilson_hop_packed": wk.launches, "wilson_hop_packed_halo": wk.halo_launches,
             "wilson_window": ww.launches, "wilson_window_halo": ww.halo_launches,
-            "staggered_w": sk.launches, "staggered_w_halo": sk.halo_launches}
+            "staggered_w": sk.launches, "staggered_w_halo": sk.halo_launches,
+            # the r mode's launches, counted in the above as well
+            "wilson_hop_packed_r": wk.r_launches, "wilson_hop_packed_r_halo": wk.r_halo_launches,
+            "wilson_window_r": ww.r_launches, "wilson_window_r_halo": ww.r_halo_launches}
 
 
 def _zero_all_counts():
@@ -4098,12 +4395,13 @@ def _zero_all_counts():
     from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
 
     wk.launches = wk.halo_launches = ww.launches = ww.halo_launches = 0
+    wk.r_launches = wk.r_halo_launches = ww.r_launches = ww.r_halo_launches = 0
     sk.launches = sk.halo_launches = sk.w_launches = sk.fused_launches = 0
     wk.site_launches.update(full=0, packed=0)
 
 
 def _grid_step(torch, tag, device, grid=None, tmp=None):
-    """One run of phase 32, 33 or 34 through run_lqcd_params (on ``grid`` if given, or on
+    """One run of phase 31, 32, 33 or 34 through run_lqcd_params (on ``grid`` if given, or on
     a grid of its processes over the run's own lattice) with the launches counted from 0:
     (its record for the JSON report, the final links gathered on rank 0 as numpy (None
     elsewhere), the final links' block)."""
@@ -4113,7 +4411,7 @@ def _grid_step(torch, tag, device, grid=None, tmp=None):
     from latticeqcd_torch.system.lqcd import run_lqcd_params
     from latticeqcd_torch.updates.hmc import HMC
 
-    _, dtype_name, _ = {**GRID2_RUNS, **GRID3_RUNS, **GRID4_RUNS}[tag]
+    _, dtype_name, _ = GRID_RUNS[tag]
     params = _grid_params(tag, tmp)
     if grid is not None and tuple(grid.lattice) != tuple(params.L):
         grid = mesh.make_process_grid(grid.pes, params.L, device)
@@ -4195,7 +4493,7 @@ def _grid_extra(torch, tag, u, rec):
 
 
 def _grid_rank(argv):
-    """A rank of a group of phase 32, 33 or 34 (started by _grid_group_runs as its own process):
+    """A rank of the group of phases 31-34 (started by _grid_group as its own process):
     each run named in argv on the grid, its report written as <tmp>/rank<r>.json, rank 0 also
     writing each run's gathered links as <tmp>/<tag>_u.npy."""
     import numpy as np
@@ -4225,15 +4523,23 @@ def _grid_rank(argv):
         json.dump(out, f)
 
 
-def _grid_group_runs(torch, tmp, backend, runs, pes=(1, 1, 1, 2)):
-    """One group of ranks (a process each, started together) runs every run of ``runs`` on
-    the grid pes; then this process runs each on one card, and the two are compared."""
+def _grid_group(torch, backend, pes=(1, 1, 1, 2)):
+    """The one group of ranks of phases 31-34 (per backend): started at the first call, a
+    process each, all at once, to run every run of GRID_RUNS on the grid pes; (the ranks'
+    reports, the group's directory, its seconds) kept for the phases that compare them. The
+    directory (phase 34's NPZ files, the gathered links) is removed when the script ends."""
+    import atexit
+    import shutil
     import socket
+    import tempfile
 
-    import numpy as np
-
+    key = ("grid group", backend, pes)
+    if key in STATE:
+        return STATE[key]
     n = math.prod(pes)
-    label = f"{backend}, {n} ranks {pes}"
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_grid_{backend}_")
+    atexit.register(shutil.rmtree, tmp, True)
+    _grid_confs(torch, tmp)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -4242,13 +4548,13 @@ def _grid_group_runs(torch, tmp, backend, runs, pes=(1, 1, 1, 2)):
     env = dict(os.environ, PYTHONPATH=ROOT)
     t0 = time.time()
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(n), str(port), backend, tmp,
-                               ",".join(map(str, pes)), ",".join(runs)], cwd=ROOT, env=env,
+                               ",".join(map(str, pes)), ",".join(GRID_RUNS)], cwd=ROOT, env=env,
                               stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(n)]
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=600))
+            outs.append(p.communicate(timeout=900))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -4264,6 +4570,20 @@ def _grid_group_runs(torch, tmp, backend, runs, pes=(1, 1, 1, 2)):
     for r in range(n):
         with open(os.path.join(tmp, f"rank{r}.json")) as f:
             reps.append(json.load(f))
+    print(f"  ({backend}, {n} ranks {pes}) the group of phases 31-34: {n} processes ran "
+          f"{len(GRID_RUNS)} runs in {t_group:.1f} s", flush=True)
+    STATE[key] = (reps, tmp, t_group)
+    return STATE[key]
+
+
+def _grid_group_runs(torch, backend, runs, pes=(1, 1, 1, 2)):
+    """Each run of ``runs`` from the shared group's reports (_grid_group, started at the
+    first call), held against the same run on one card in this process."""
+    import numpy as np
+
+    reps, tmp, _ = _grid_group(torch, backend, pes)
+    n = math.prod(pes)
+    label = f"{backend}, {n} ranks {pes}"
     for tag, (what, dtype_name, halo) in runs.items():
         got = [rep[tag] for rep in reps]
         for key in ("history", "plaq", "generator", "measured"):
@@ -4283,7 +4603,7 @@ def _grid_group_runs(torch, tmp, backend, runs, pes=(1, 1, 1, 2)):
             for rec in g["history"]:
                 if rec["worst"] > 1.0 or (rec["iterations"] and max(rec["iterations"]) >= 3000):
                     fail(f"{what}: a solve ended above its target or at its limit")
-        for k in HALO_KERNELS:
+        for k in HALO_KERNELS + R_KERNELS:
             total = sum(g["launches"][f"{k}_halo"] for g in got)
             if total:
                 STATE["launches"].setdefault(k, {})[f"grid {what}, {label} (halo)"] = total
@@ -4370,26 +4690,22 @@ def _grid_group_runs(torch, tmp, backend, runs, pes=(1, 1, 1, 2)):
                   f"{ {k: round(v, 3) for k, v in g0['measure_seconds'].items()} } (one card "
                   f"{ {k: round(v, 3) for k, v in one['measure_seconds'].items()} }); launches "
                   f"{g0['measure_launches']} [{STATE['smi']}]", flush=True)
-    print(f"  ({label}) the group's {n} processes ran {t_group:.1f} s", flush=True)
 
 
 def phase_grid_more(torch):
     print("== 33. the process grid: Hasenbusch, domain wall and the heatbath, 2 ranks on the "
           "card", flush=True)
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid3_") as tmp:
+    t0 = time.time()
+    _grid_group_runs(torch, "gloo", GRID3_RUNS)
+    print(f"  (b, c) 2 ranks, gloo, one card (the shared group's runs): {time.time() - t0:.1f} s",
+          flush=True)
+    if torch.cuda.device_count() >= 2:
         t0 = time.time()
-        _grid_group_runs(torch, tmp, "gloo", GRID3_RUNS)
-        print(f"  (b, c) 2 ranks, gloo, one card: {time.time() - t0:.1f} s", flush=True)
-        if torch.cuda.device_count() >= 2:
-            t0 = time.time()
-            with tempfile.TemporaryDirectory(prefix="chip_smoke_grid3_nccl_") as tmp2:
-                _grid_group_runs(torch, tmp2, "nccl", GRID3_RUNS)
-            print(f"  (d) 2 ranks, nccl, 2 cards: {time.time() - t0:.1f} s", flush=True)
-        else:
-            print(f"  (d) nccl: not run, this machine has {torch.cuda.device_count()} card",
-                  flush=True)
+        _grid_group_runs(torch, "nccl", GRID3_RUNS)
+        print(f"  (d) 2 ranks, nccl, 2 cards: {time.time() - t0:.1f} s", flush=True)
+    else:
+        print(f"  (d) nccl: not run, this machine has {torch.cuda.device_count()} card",
+              flush=True)
 
 
 def _numbers_of(value):
@@ -4418,22 +4734,17 @@ def _grid_confs(torch, tmp):
 def phase_grid_selflearning(torch):
     print("== 34. the process grid: stout, the self-learning updaters and Fileloading, 2 ranks "
           "on the card", flush=True)
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid4_") as tmp:
-        _grid_confs(torch, tmp)
+    t0 = time.time()
+    _grid_group_runs(torch, "gloo", GRID4_RUNS)
+    print(f"  (a) 2 ranks, gloo, one card (the shared group's runs): {time.time() - t0:.1f} s",
+          flush=True)
+    if torch.cuda.device_count() >= 2:
         t0 = time.time()
-        _grid_group_runs(torch, tmp, "gloo", GRID4_RUNS)
-        print(f"  (a) 2 ranks, gloo, one card: {time.time() - t0:.1f} s", flush=True)
-        if torch.cuda.device_count() >= 2:
-            t0 = time.time()
-            with tempfile.TemporaryDirectory(prefix="chip_smoke_grid4_nccl_") as tmp2:
-                _grid_confs(torch, tmp2)
-                _grid_group_runs(torch, tmp2, "nccl", GRID4_RUNS)
-            print(f"  (b) 2 ranks, nccl, 2 cards: {time.time() - t0:.1f} s", flush=True)
-        else:
-            print(f"  (b) nccl: not run, this machine has {torch.cuda.device_count()} card",
-                  flush=True)
+        _grid_group_runs(torch, "nccl", GRID4_RUNS)
+        print(f"  (b) 2 ranks, nccl, 2 cards: {time.time() - t0:.1f} s", flush=True)
+    else:
+        print(f"  (b) nccl: not run, this machine has {torch.cuda.device_count()} card",
+              flush=True)
 
 
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
@@ -4455,6 +4766,11 @@ KERNELS = [
      "latticeqcd_tpu/ops/dirac/staggered_pallas.py:274", ("staggered W", "complex64")),
     ("wilson_window", "latticeqcd_torch/csrc/wilson_window.cu",
      "latticeqcd_tpu/ops/dirac/wilson_pallas.py:349", ("window D", "complex64")),
+    # the r modes (the _r entry points, Wilson r != 1) of the two Wilson kernels
+    ("wilson_hop_packed_r", "latticeqcd_torch/csrc/wilson_hop_packed.cu",
+     "latticeqcd_tpu/ops/dirac/wilson_pallas.py:414", (f"packed hop r={R_MODE}", "complex64")),
+    ("wilson_window_r", "latticeqcd_torch/csrc/wilson_window.cu",
+     "latticeqcd_tpu/ops/dirac/wilson_pallas.py:349", (f"window D r={R_MODE}", "complex64")),
 ]
 
 

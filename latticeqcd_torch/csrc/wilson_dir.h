@@ -1,5 +1,6 @@
-// The per-direction Wilson hop at r = 1 in half-spinor form, shared by the wilson_hop and
-// wilson_window kernels so that both use one spin rule (the tables of wilson_spin.h):
+// The per-direction Wilson hop at r = 1 in half-spinor form, shared by the wilson_hop,
+// wilson_hop_packed and wilson_window kernels so that all use one spin rule (the tables of
+// wilson_spin.h), and its form at any r (lane_hop_r, below):
 //
 //   forward:  (1 - g_mu) U psi      = W_- (U (W_-^dag psi)),
 //   backward: (1 + g_mu) U^dag psi  = W_+ (U^dag (W_+^dag psi)),
@@ -162,6 +163,85 @@ __device__ __forceinline__ void lane_hop(V (&acc)[4], const V* __restrict__ nb, 
   project<MU, BWD>(site, half);
   lane_mul<BWD>(ul, half, phi);
   lane_rebuild<MU, BWD>(acc, phi);
+}
+
+// The same hop at any Wilson r, acc[sp] += colour a of (r - g_mu) U psi (forward) or of
+// (r + g_mu) U^dag psi (backward). At r != 1, (r -+ g_mu) is not a projector, so the
+// half-spinor form above does not hold; the tables of wilson_spin.h give -+g_mu instead: with
+// k = w_k(mu, h) (plus 2 for the backward sign) and j = w_j(mu, h),
+//   (-+g_mu phi)_j = i^k phi_h,   (-+g_mu phi)_h = i^(4 - k) phi_j,
+// since (1 -+ g_mu) = W W^dag = 1 + sum_h (i^k e_j e_h^dag + i^-k e_h e_j^dag). A lane forms
+// colour a of phi = U psi (or U^dag psi) for all four spins, 4 colour products where the
+// half-spinor form needs 2, and adds r phi_s plus the two off-diagonal terms per h.
+
+// phi[sp] = colour a of U psi_sp (forward, ul = row a of U) or of U^dag psi_sp (backward,
+// ul = column a of U), for the 12 values of a spinor site.
+template <bool BWD, typename V>
+__device__ __forceinline__ void lane_mul_r(const V (&ul)[3], const V (&site)[12], V (&phi)[4]) {
+#pragma unroll
+  for (int sp = 0; sp < 4; ++sp)
+    if (BWD)
+      phi[sp] = cadd(cadd(cmulc(ul[0], site[3 * sp]), cmulc(ul[1], site[3 * sp + 1])),
+                     cmulc(ul[2], site[3 * sp + 2]));
+    else
+      phi[sp] = cadd(cadd(cmul(ul[0], site[3 * sp]), cmul(ul[1], site[3 * sp + 1])),
+                     cmul(ul[2], site[3 * sp + 2]));
+}
+
+// acc += (r -+ g_mu) phi for one colour.
+template <int MU, bool BWD, typename V, typename R>
+__device__ __forceinline__ void lane_rebuild_r(V (&acc)[4], const V (&phi)[4], R r) {
+#pragma unroll
+  for (int sp = 0; sp < 4; ++sp) acc[sp] = cadd(acc[sp], V{r * phi[sp].x, r * phi[sp].y});
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = w_j(MU, h), k = w_k(MU, h) + (BWD ? 2 : 0);
+    acc[j] = cadd(acc[j], ipow(k, phi[h]));
+    acc[h] = cadd(acc[h], ipow(4 - k, phi[j]));
+  }
+}
+
+// lane_hop at any r, for the neighbour spinor at nb.
+template <int MU, bool BWD, typename V, typename R>
+__device__ __forceinline__ void lane_hop_r(V (&acc)[4], const V* __restrict__ nb, const V (&ul)[3],
+                                           R r) {
+  V site[12], phi[4];
+  load_site(nb, site);
+  lane_mul_r<BWD>(ul, site, phi);
+  lane_rebuild_r<MU, BWD>(acc, phi, r);
+}
+
+// The kernels' switch between the two forms: lane_hop at r = 1 (GENERIC_R false, r unused),
+// lane_hop_r at any r.
+template <int MU, bool BWD, bool GENERIC_R, typename V, typename R>
+__device__ __forceinline__ void lane_hop_any(V (&acc)[4], const V* __restrict__ nb,
+                                             const V (&ul)[3], R r) {
+  if constexpr (GENERIC_R)
+    lane_hop_r<MU, BWD>(acc, nb, ul, r);
+  else
+    lane_hop<MU, BWD>(acc, nb, ul);
+}
+
+// A backward term carried from one x slice to the next (wilson_window): colour a of
+// U^dag psi as the two half-spinor values of (1 + g_MU) at r = 1 (N = 2), or for all four
+// spins at any r (N = 4); lane_rebuild_any adds it to the accumulator in the same form.
+template <int MU, typename V, int N>
+__device__ __forceinline__ void lane_carry(const V (&site)[12], const V (&ul)[3], V (&carry)[N]) {
+  if constexpr (N == 4) {
+    lane_mul_r<true>(ul, site, carry);
+  } else {
+    V half[2][3];
+    project<MU, true>(site, half);
+    lane_mul<true>(ul, half, carry);
+  }
+}
+
+template <int MU, bool BWD, typename V, int N, typename R>
+__device__ __forceinline__ void lane_rebuild_any(V (&acc)[4], const V (&phi)[N], R r) {
+  if constexpr (N == 4)
+    lane_rebuild_r<MU, BWD>(acc, phi, r);
+  else
+    lane_rebuild<MU, BWD>(acc, phi);
 }
 
 // Row a (forward) or column a (backward) of the 3 x 3 link at u.

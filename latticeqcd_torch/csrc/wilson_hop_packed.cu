@@ -1,4 +1,5 @@
-// wilson_hop_packed: the packed even-odd Wilson hop at r = 1, redesigned for Hopper (sm_90a).
+// wilson_hop_packed: the packed even-odd Wilson hop, redesigned for Hopper (sm_90a), at r = 1 and
+// in an r mode at any Wilson r.
 //
 // Replaces, on every packed hop of the HMC, force and measurement paths, the Pallas TPU
 // kernel dslash_planes (latticeqcd_tpu/ops/dirac/wilson_pallas.py) in the form the port
@@ -63,6 +64,14 @@
 // outside the block reads link[mu], the -mu neighbour's last slab of u_s[mu]. A slot that
 // leaves the block along two axes is read only by lanes that write nothing. No chain axis.
 // Mask 0 is the kernel without the halo branches (HALO false), as before the halo mode.
+// r mode (GENERIC_R, the _r entry points): the hop (r - g_mu) U psi + (r + g_mu) U^dag psi at
+// any r, where (r -+ g_mu) is not a projector and the half-spinor form does not hold: each
+// lane takes its colour of U psi for all four spins (4 colour products per neighbour, not 2)
+// and applies the 4 x 4 spin matrix (wilson_dir.h, lane_hop_r), about 2690 flop per target
+// site against 1320. The bytes are the same, so the bound is too: the r mode stays bound by
+// them (at 16^3 x 32 about 2.6 us of FP32 and 5.2 us of FP64 issue against 15.0 and 30.0 us
+// of bytes). Every mode, the chain axis and the halo mode among them, has its r form; the r = 1
+// instantiations (GENERIC_R false) are the kernel as before.
 #include "tma.h"
 #include "wilson_dir.h"
 
@@ -135,14 +144,15 @@ __device__ __forceinline__ const V* halo_row_source(int rx, int ry, int rz, int 
 // One block per brick: (x', BY y rows from y0, BZ z rows from z0, t segment [t0, t0 + ts)).
 // Thread tid is colour a = tid % 3 of brick site tid / 3, t fastest. Thread 0 first copies
 // the brick's source spinor rows into shared memory.
-template <typename R, int BY, int BZ, int TSMAX, int MINB, bool CHAINS, bool HALO>
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool CHAINS, bool HALO,
+          bool GENERIC_R = false>
 __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
     wilson_hop_brick_kernel(const typename Vec<R>::type* __restrict__ u_t,
                             const typename Vec<R>::type* __restrict__ u_s,
                             const typename Vec<R>::type* __restrict__ psi,
                             typename Vec<R>::type* __restrict__ out, int x2, int ly, int lz, int lt,
                             int ts, int parity, long long u_chain, long long psi_chain,
-                            Halo<typename Vec<R>::type> halo) {
+                            Halo<typename Vec<R>::type> halo, R r = R(1)) {
   using V = typename Vec<R>::type;
   using S = Slots<BY, BZ>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -212,18 +222,22 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
   mbar_wait(&bar, 0);
 
   // x: the x' + off (forward) and x' - (1 - off) (backward) rows, same t
-  lane_hop<0, false>(acc, nb(S::xrow(off, iy, iz), it), uf);
-  lane_hop<0, true>(acc, nb(S::xrow(off - 1, iy, iz), it), ub);
+  lane_hop_any<0, false, GENERIC_R>(acc, nb(S::xrow(off, iy, iz), it), uf, r);
+  lane_hop_any<0, true, GENERIC_R>(acc, nb(S::xrow(off - 1, iy, iz), it), ub, r);
   // y: a row of the brick or a halo row
   load_link_line<false>(u_t + 9 * (vol + s), a, uf);
   load_link_line<true>(ubw(1, u_s + 9 * (vol + by), y == 0, (x * lz + z) * lt + t), a, ub);
-  lane_hop<1, false>(acc, nb(iy + 1 < BY ? S::xrow(0, iy + 1, iz) : S::yhalo(1, iz), it), uf);
-  lane_hop<1, true>(acc, nb(iy > 0 ? S::xrow(0, iy - 1, iz) : S::yhalo(0, iz), it), ub);
+  lane_hop_any<1, false, GENERIC_R>(
+      acc, nb(iy + 1 < BY ? S::xrow(0, iy + 1, iz) : S::yhalo(1, iz), it), uf, r);
+  lane_hop_any<1, true, GENERIC_R>(
+      acc, nb(iy > 0 ? S::xrow(0, iy - 1, iz) : S::yhalo(0, iz), it), ub, r);
   // z
   load_link_line<false>(u_t + 9 * (2 * vol + s), a, uf);
   load_link_line<true>(ubw(2, u_s + 9 * (2 * vol + bz), z == 0, (x * ly + y) * lt + t), a, ub);
-  lane_hop<2, false>(acc, nb(iz + 1 < BZ ? S::xrow(0, iy, iz + 1) : S::zhalo(1, iy), it), uf);
-  lane_hop<2, true>(acc, nb(iz > 0 ? S::xrow(0, iy, iz - 1) : S::zhalo(0, iy), it), ub);
+  lane_hop_any<2, false, GENERIC_R>(
+      acc, nb(iz + 1 < BZ ? S::xrow(0, iy, iz + 1) : S::zhalo(1, iy), it), uf, r);
+  lane_hop_any<2, true, GENERIC_R>(
+      acc, nb(iz > 0 ? S::xrow(0, iy, iz - 1) : S::zhalo(0, iy), it), ub, r);
   // t: in the own row's segment (which wraps when it is the whole row), else device memory;
   // in the halo mode a t neighbour outside the block (`out`) is in a t face
   const bool fin = tf - t0 >= 0 && tf - t0 < cnt, bin = tb - t0 >= 0 && tb - t0 < cnt;
@@ -235,8 +249,8 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
   load_link_line<false>(u_t + 9 * (3 * vol + s), a, uf);
   load_link_line<true>(ubw(3, u_s + 9 * (3 * vol + s - t + tb), t == 0, (x * ly + y) * lz + z),
                        a, ub);
-  lane_hop<3, false>(acc, tnb(fin, tf, t + 1 == lt, halo.hi[3]), uf);
-  lane_hop<3, true>(acc, tnb(bin, tb, t == 0, halo.lo[3]), ub);
+  lane_hop_any<3, false, GENERIC_R>(acc, tnb(fin, tf, t + 1 == lt, halo.hi[3]), uf, r);
+  lane_hop_any<3, true, GENERIC_R>(acc, tnb(bin, tb, t == 0, halo.lo[3]), ub, r);
 
   if (valid) {
     V* o = out + 12 * s + a;
@@ -248,11 +262,11 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
 // Launch on a grid of bricks times chains: t is cut into the fewest segments of at most TSMAX
 // sites, of even length (so that a segment of spinors is a whole number of 16-byte units).
 // A non-zero mask launches the halo mode (one chain) with faces[mu], faces[4 + mu] and
-// faces[8 + mu] as lo[mu], hi[mu] and link[mu].
-template <typename R, int BY, int BZ, int TSMAX, int MINB>
+// faces[8 + mu] as lo[mu], hi[mu] and link[mu]. GENERIC_R: the r mode at Wilson parameter r.
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool GENERIC_R = false>
 int launch(const void* u_t, const void* u_s, const void* psi, void* out, int x2, int ly, int lz,
            int lt, int parity, int nchain, long long u_chain, long long psi_chain, int mask,
-           const void* const* faces, void* stream) {
+           const void* const* faces, void* stream, double r = 1.0) {
   using V = typename Vec<R>::type;
   using S = Slots<BY, BZ>;
   static_assert(TSMAX % 2 == 0, "t segments are of even length");
@@ -268,12 +282,14 @@ int launch(const void* u_t, const void* u_s, const void* psi, void* out, int x2,
     halo.hi[mu] = static_cast<const V*>(faces[4 + mu]);
     halo.link[mu] = static_cast<const V*>(faces[8 + mu]);
   }
-  auto kernel = mask ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, true>
-                : nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, false>
-                              : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true, false>;
+  auto kernel =
+      mask ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, true, GENERIC_R>
+      : nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, false, GENERIC_R>
+                    : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true, false, GENERIC_R>;
   kernel<<<dim3(blocks, nchain), 3 * BY * BZ * ts, bytes, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const V*>(u_t), static_cast<const V*>(u_s), static_cast<const V*>(psi),
-          static_cast<V*>(out), x2, ly, lz, lt, ts, parity, u_chain, psi_chain, halo);
+          static_cast<V*>(out), x2, ly, lz, lt, ts, parity, u_chain, psi_chain, halo,
+          static_cast<R>(r));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -282,8 +298,9 @@ int launch(const void* u_t, const void* u_s, const void* psi, void* out, int x2,
 // Plain C entry points (loaded with ctypes): wilson_hop.cu's packed mode followed by the chain
 // count and the chain strides of the links and of the spinors, in elements; the halo mode's
 // (one chain) by the partition mask (bit mu: axis mu is cut) and an array of 12 face pointers
-// (lo[0..3], hi[0..3], link[0..3]; those of uncut axes are not read). Each returns
-// cudaGetLastError() after the launch. psi_s and the spinor faces must be 16-byte aligned.
+// (lo[0..3], hi[0..3], link[0..3]; those of uncut axes are not read). The _r entry points are
+// the r mode: the same arguments followed by the Wilson r. Each returns cudaGetLastError()
+// after the launch. psi_s and the spinor faces must be 16-byte aligned.
 extern "C" {
 
 int wilson_hop_brick_c64(const void* u_t, const void* u_s, const void* psi_s, void* out, int x2,
@@ -312,6 +329,36 @@ int wilson_hop_halo_c128(const void* u_t, const void* u_s, const void* psi_s, vo
                          const void* const* faces, void* stream) {
   return launch<double, WILSON_BRICK_C128>(u_t, u_s, psi_s, out, x2, ly, lz, lt, target_parity,
                                            1, 0, 0, mask, faces, stream);
+}
+
+int wilson_hop_brick_r_c64(const void* u_t, const void* u_s, const void* psi_s, void* out, int x2,
+                           int ly, int lz, int lt, int target_parity, int nchain,
+                           long long u_chain, long long psi_chain, void* stream, double r) {
+  return launch<float, WILSON_BRICK_C64, true>(u_t, u_s, psi_s, out, x2, ly, lz, lt,
+                                               target_parity, nchain, u_chain, psi_chain, 0,
+                                               nullptr, stream, r);
+}
+
+int wilson_hop_brick_r_c128(const void* u_t, const void* u_s, const void* psi_s, void* out, int x2,
+                            int ly, int lz, int lt, int target_parity, int nchain,
+                            long long u_chain, long long psi_chain, void* stream, double r) {
+  return launch<double, WILSON_BRICK_C128, true>(u_t, u_s, psi_s, out, x2, ly, lz, lt,
+                                                 target_parity, nchain, u_chain, psi_chain, 0,
+                                                 nullptr, stream, r);
+}
+
+int wilson_hop_halo_r_c64(const void* u_t, const void* u_s, const void* psi_s, void* out, int x2,
+                          int ly, int lz, int lt, int target_parity, int mask,
+                          const void* const* faces, void* stream, double r) {
+  return launch<float, WILSON_BRICK_C64, true>(u_t, u_s, psi_s, out, x2, ly, lz, lt,
+                                               target_parity, 1, 0, 0, mask, faces, stream, r);
+}
+
+int wilson_hop_halo_r_c128(const void* u_t, const void* u_s, const void* psi_s, void* out, int x2,
+                           int ly, int lz, int lt, int target_parity, int mask,
+                           const void* const* faces, void* stream, double r) {
+  return launch<double, WILSON_BRICK_C128, true>(u_t, u_s, psi_s, out, x2, ly, lz, lt,
+                                                 target_parity, 1, 0, 0, mask, faces, stream, r);
 }
 
 }  // extern "C"

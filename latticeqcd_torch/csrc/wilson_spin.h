@@ -7,6 +7,8 @@
 // c = i^k, a fourth root of unity. For (1 - gamma_mu) k = w_k(mu, h); for
 // (1 + gamma_mu) the coefficient flips sign, k + 2. These are the tables that
 // the Pallas kernel builds as _w_tables (latticeqcd_tpu/ops/dirac/wilson_pallas.py).
+// The same tables give -+gamma_mu itself, which the hop at any r needs (wilson_dir.h,
+// lane_hop_r): (-+gamma_mu phi)_j = i^k phi_h and (-+gamma_mu phi)_h = i^(4-k) phi_j.
 #pragma once
 
 #ifndef __CUDACC__

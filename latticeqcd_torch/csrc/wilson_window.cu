@@ -1,5 +1,5 @@
-// wilson_window: the full Wilson D at r = 1 with each field read from device memory once,
-// redesigned for Hopper (sm_90a).
+// wilson_window: the full Wilson D with each field read from device memory once, redesigned for
+// Hopper (sm_90a), at r = 1 and in an r mode at any Wilson r.
 //
 // Replaces the Pallas TPU kernel dslash_planes_window
 // (latticeqcd_tpu/ops/dirac/wilson_pallas.py, _make_window_kernel), which computes
@@ -75,6 +75,14 @@
 // hi[3] per site, as the out-of-segment t neighbours read psi. A slot that leaves the block
 // along two axes is read only by lanes that write nothing. Mask 0 is the kernel without the
 // halo branches (HALO false), as before the halo mode.
+// r mode (GENERIC_R, the _r entry points): D with (r - g_mu) and (r + g_mu) in place of the
+// projectors, at any r. The half-spinor form does not hold there, so each lane takes its colour
+// of U psi for all four spins and applies the 4 x 4 spin matrix (wilson_dir.h, lane_hop_r), and
+// the -x carry holds four spins, not two. About 2750 flop per site against 1320, the same
+// bytes: at 16^3 x 32 about 5.7 us of FP32 and 11 us of FP64 issue against 18.8 and 37.6 us of
+// bytes, so the r mode stays bound by bytes. Its global and halo modes take the r = 1 tile at
+// complex64 and one block per SM fewer at complex128 (below); the r = 1 instantiations
+// (GENERIC_R false) are the kernel as before.
 #include <atomic>
 
 #include "tma.h"
@@ -82,9 +90,14 @@
 
 // The tiles of the C entry points: BY, BZ (the block's y and z rows), TSMAX (its longest t
 // segment), MINB (blocks per SM for __launch_bounds__), PREFETCH (the link rows of each slice
-// prefetched into L2 a step ahead).
+// prefetched into L2 a step ahead). The r mode at complex128 has its own, one block per SM
+// fewer: at 6 (5 in the halo mode) its halo mode spilled 20 bytes and took 46.4-46.6 us on
+// the x and the t cut's blocks, against 43.1-43.4 at 5 (4), with its global mode unchanged
+// (39.0-40.2 against 39.3-39.9 us; scripts/ab_window_halo.py --r 0.5, warm, NVIDIA H100 80GB
+// HBM3 at 700 W).
 #define WILSON_WINDOW_TILE_C64 1, 2, 32, 3, false
 #define WILSON_WINDOW_TILE_C128 1, 1, 16, 6, true
+#define WILSON_WINDOW_TILE_C128_R 1, 1, 16, 5, true
 
 namespace {
 
@@ -140,12 +153,14 @@ struct Ring {
 // mode took 16.7 us on the x cut's 8x16x16x32 block and 22.1 on the t cut's 16^3x16 against
 // 15.0 and 20.9 at 2 (155 registers, no spill; scripts/ab_window_halo.py, warm, NVIDIA H100
 // 80GB HBM3 at 700 W).
-template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool HALO = false>
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool HALO = false,
+          bool GENERIC_R = false>
 __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, HALO && MINB > 2 ? MINB - 1 : MINB)
     wilson_window_kernel(const typename Vec<R>::type* __restrict__ u,
                          const typename Vec<R>::type* __restrict__ psi,
                          typename Vec<R>::type* __restrict__ out, int lx, int ly, int lz, int lt,
-                         int ts, int chunk, R kappa, Halo<typename Vec<R>::type> halo = {}) {
+                         int ts, int chunk, R kappa, Halo<typename Vec<R>::type> halo = {},
+                         R r = R(1)) {
   using V = typename Vec<R>::type;
   using S = Ring<BY, BZ>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -224,15 +239,15 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, HALO && MINB > 2 ? MINB -
     return cut(mu, out) ? halo.link[mu] + 9 * i : inside;
   };
 
-  // the -x term of the chunk's first slice, colour a of U_0(x-1)^dag (1 + g_0) psi(x-1)
-  V carry[2];
+  // the -x term of the chunk's first slice, colour a of U_0(x-1)^dag (1 + g_0) psi(x-1) (its
+  // two half-spinor values; in the r mode colour a of U_0(x-1)^dag psi(x-1), four spins)
+  V carry[GENERIC_R ? 4 : 2];
   {
     const int xm = xs == 0 ? lx - 1 : xs - 1;
-    V site[12], half[2][3], ul[3];
+    V site[12], ul[3];
     load_link_line<true>(ubw(0, u + 9 * (xm * slice + s3), xs == 0, s3), a, ul);
     load_site(cut(0, xs == 0) ? halo.lo[0] + 12 * s3 : psi + 12 * (xm * slice + s3), site);
-    project<0, true>(site, half);
-    lane_mul<true>(ul, half, carry);
+    lane_carry<0>(site, ul, carry);
   }
 
   for (int i = 0; i < steps; ++i) {
@@ -245,45 +260,46 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, HALO && MINB > 2 ? MINB -
     V acc[4];
 #pragma unroll
     for (int sp = 0; sp < 4; ++sp) acc[sp] = V{R(0), R(0)};
-    lane_rebuild<0, true>(acc, carry);
+    lane_rebuild_any<0, true>(acc, carry, r);
     mbar_wait(&bar[i & 1], (i >> 1) & 1);
 
     const int cur = S::own(i % 3, iy, iz);
     // x: psi(x + 1) from the next slice's own row; the carry for step i + 1 from psi(x)
-    lane_hop<0, false>(acc, nb(S::own((i + 1) % 3, iy, iz), it), uf);
+    lane_hop_any<0, false, GENERIC_R>(acc, nb(S::own((i + 1) % 3, iy, iz), it), uf, r);
     {
-      V site[12], half[2][3];
+      V site[12];
       load_site(nb(cur, it), site);
-      project<0, true>(site, half);
-      lane_mul<true>(ub, half, carry);
+      lane_carry<0>(site, ub, carry);
     }
     // y: a row of the tile or a halo row
     load_link_line<false>(u + 9 * (vol + o), a, uf);
     load_link_line<true>(ubw(1, u + 9 * (vol + x * slice + by), y == 0, (x * lz + z) * lt + t), a,
                          ub);
-    lane_hop<1, false>(acc, nb(iy + 1 < BY ? S::own(i % 3, iy + 1, iz) : S::yhalo(i & 1, 1, iz), it),
-                       uf);
-    lane_hop<1, true>(acc, nb(iy > 0 ? S::own(i % 3, iy - 1, iz) : S::yhalo(i & 1, 0, iz), it), ub);
+    lane_hop_any<1, false, GENERIC_R>(
+        acc, nb(iy + 1 < BY ? S::own(i % 3, iy + 1, iz) : S::yhalo(i & 1, 1, iz), it), uf, r);
+    lane_hop_any<1, true, GENERIC_R>(
+        acc, nb(iy > 0 ? S::own(i % 3, iy - 1, iz) : S::yhalo(i & 1, 0, iz), it), ub, r);
     // z
     load_link_line<false>(u + 9 * (2 * vol + o), a, uf);
     load_link_line<true>(ubw(2, u + 9 * (2 * vol + x * slice + bz), z == 0, (x * ly + y) * lt + t),
                          a, ub);
-    lane_hop<2, false>(acc, nb(iz + 1 < BZ ? S::own(i % 3, iy, iz + 1) : S::zhalo(i & 1, 1, iy), it),
-                       uf);
-    lane_hop<2, true>(acc, nb(iz > 0 ? S::own(i % 3, iy, iz - 1) : S::zhalo(i & 1, 0, iy), it), ub);
+    lane_hop_any<2, false, GENERIC_R>(
+        acc, nb(iz + 1 < BZ ? S::own(i % 3, iy, iz + 1) : S::zhalo(i & 1, 1, iy), it), uf, r);
+    lane_hop_any<2, true, GENERIC_R>(
+        acc, nb(iz > 0 ? S::own(i % 3, iy, iz - 1) : S::zhalo(i & 1, 0, iy), it), ub, r);
     // t: in the own row's segment (which wraps when it is the whole row), else device memory;
     // in the halo mode a t neighbour outside the block is in a t face
     const int ft = (x * ly + y) * lz + z;  // the site's index in a t face
     load_link_line<false>(u + 9 * (3 * vol + o), a, uf);
     load_link_line<true>(ubw(3, u + 9 * (3 * vol + o - t + tb), t == 0, ft), a, ub);
-    lane_hop<3, false>(acc, cut(3, t + 1 == lt) ? halo.hi[3] + 12 * ft
-                            : fin               ? nb(cur, tf - t0)
-                                                : psi + 12 * (o - t + tf),
-                       uf);
-    lane_hop<3, true>(acc, cut(3, t == 0) ? halo.lo[3] + 12 * ft
-                           : bin          ? nb(cur, tb - t0)
-                                          : psi + 12 * (o - t + tb),
-                      ub);
+    lane_hop_any<3, false, GENERIC_R>(acc, cut(3, t + 1 == lt) ? halo.hi[3] + 12 * ft
+                                           : fin               ? nb(cur, tf - t0)
+                                                               : psi + 12 * (o - t + tf),
+                                      uf, r);
+    lane_hop_any<3, true, GENERIC_R>(acc, cut(3, t == 0) ? halo.lo[3] + 12 * ft
+                                          : bin          ? nb(cur, tb - t0)
+                                                         : psi + 12 * (o - t + tb),
+                                     ub, r);
 
     if (valid) {
       const V* p = nb(cur, it) + a;
@@ -299,13 +315,16 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, HALO && MINB > 2 ? MINB -
 
 // Launch one wave: t is cut into the fewest segments of at most TSMAX sites, and x into the
 // fewest chunks that give every block the card holds at once a chunk. HALO: the halo mode, with
-// faces[mu], faces[4 + mu] and faces[8 + mu] as lo[mu], hi[mu] and link[mu].
-template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool HALO = false>
+// faces[mu], faces[4 + mu] and faces[8 + mu] as lo[mu], hi[mu] and link[mu]. GENERIC_R: the r
+// mode at Wilson parameter r.
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool HALO = false,
+          bool GENERIC_R = false>
 int launch(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
-           double kappa, void* stream, int mask = 0, const void* const* faces = nullptr) {
+           double kappa, void* stream, int mask = 0, const void* const* faces = nullptr,
+           double r = 1.0) {
   using V = typename Vec<R>::type;
   constexpr int smem_max = Ring<BY, BZ>::ROWS * 12 * TSMAX * sizeof(V);
-  auto* kernel = wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, HALO>;
+  auto* kernel = wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, HALO, GENERIC_R>;
   Halo<V> halo{mask, {}, {}, {}};
   for (int mu = 0; HALO && mu < 4; ++mu) {
     halo.lo[mu] = static_cast<const V*>(faces[mu]);
@@ -342,7 +361,7 @@ int launch(const void* u, const void* psi, void* out, int lx, int ly, int lz, in
   const int smem = Ring<BY, BZ>::ROWS * 12 * ts * static_cast<int>(sizeof(V));
   kernel<<<tiles * nchunk, 3 * BY * BZ * ts, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const V*>(u), static_cast<const V*>(psi), static_cast<V*>(out), lx, ly, lz, lt,
-      ts, chunk, static_cast<R>(kappa), halo);
+      ts, chunk, static_cast<R>(kappa), halo, static_cast<R>(r));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -352,7 +371,8 @@ int launch(const void* u, const void* psi, void* out, int lx, int ly, int lz, in
 // a CUDA error if the set-up failed, or -1 if no block of the tile fits on the device. psi
 // and the spinor faces must be 16-byte aligned. The halo mode's (one block of a process grid)
 // end in the partition mask (bit mu: axis mu is cut) and an array of 12 face pointers (lo[0..3],
-// hi[0..3], link[0..3]; those of uncut axes are not read).
+// hi[0..3], link[0..3]; those of uncut axes are not read). The _r entry points are the r mode:
+// the Wilson r follows kappa.
 extern "C" {
 
 int wilson_window_c64(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
@@ -377,6 +397,32 @@ int wilson_window_halo_c128(const void* u, const void* psi, void* out, int lx, i
                             void* stream) {
   return launch<double, WILSON_WINDOW_TILE_C128, true>(u, psi, out, lx, ly, lz, lt, kappa,
                                                        stream, mask, faces);
+}
+
+int wilson_window_r_c64(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
+                        double kappa, double r, void* stream) {
+  return launch<float, WILSON_WINDOW_TILE_C64, false, true>(u, psi, out, lx, ly, lz, lt, kappa,
+                                                            stream, 0, nullptr, r);
+}
+
+int wilson_window_r_c128(const void* u, const void* psi, void* out, int lx, int ly, int lz,
+                         int lt, double kappa, double r, void* stream) {
+  return launch<double, WILSON_WINDOW_TILE_C128_R, false, true>(u, psi, out, lx, ly, lz, lt,
+                                                                kappa, stream, 0, nullptr, r);
+}
+
+int wilson_window_halo_r_c64(const void* u, const void* psi, void* out, int lx, int ly, int lz,
+                             int lt, double kappa, double r, int mask, const void* const* faces,
+                             void* stream) {
+  return launch<float, WILSON_WINDOW_TILE_C64, true, true>(u, psi, out, lx, ly, lz, lt, kappa,
+                                                           stream, mask, faces, r);
+}
+
+int wilson_window_halo_r_c128(const void* u, const void* psi, void* out, int lx, int ly, int lz,
+                              int lt, double kappa, double r, int mask, const void* const* faces,
+                              void* stream) {
+  return launch<double, WILSON_WINDOW_TILE_C128_R, true, true>(u, psi, out, lx, ly, lz, lt,
+                                                               kappa, stream, mask, faces, r);
 }
 
 }  // extern "C"

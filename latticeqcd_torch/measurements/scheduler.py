@@ -23,23 +23,20 @@ import torch
 from latticeqcd_torch.measurements import fermionic, observables
 from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
-from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, refuse_r_off_cpu
+from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
 from latticeqcd_torch.parallel import mesh
 
 
-def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1, -1),
-                            device="cuda"):
-    """fermion_parameters dict -> Dirac operator for fields on ``device``, with
-    the JAX package's keys and defaults (Wilson and WilsonClover: hop or kappa
-    0.141139, r 1, and for WilsonClover Clover_coefficient 0.0; staggered:
-    mass 0.5; domain wall: Domainwall_m or mass 1.0, Domainwall_M or M -1.0,
-    Domainwall_L5 or L5 4; boundarycondition (1, 1, 1, -1)). Wilson r != 1
-    raises off the CPU."""
+def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1, -1)):
+    """fermion_parameters dict -> Dirac operator, with the JAX package's keys
+    and defaults (Wilson and WilsonClover: hop or kappa 0.141139, r 1, and for
+    WilsonClover Clover_coefficient 0.0; staggered: mass 0.5; domain wall:
+    Domainwall_m or mass 1.0, Domainwall_M or M -1.0, Domainwall_L5 or L5 4;
+    boundarycondition (1, 1, 1, -1))."""
     kind = params.get("Dirac_operator", "Wilson")
     bc = tuple(params.get("boundarycondition", default_bc))
     if kind in ("Wilson", "WilsonClover"):
         r = float(params.get("r", 1.0))
-        refuse_r_off_cpu(r, device)
         csw = float(params.get("Clover_coefficient", 0.0)) if kind == "WilsonClover" else 0.0
         return WilsonDirac(kappa=float(params.get("hop", params.get("kappa", 0.141139))),
                            r=r, bc=bc, csw=csw)
@@ -53,25 +50,6 @@ def build_dirac_from_params(params: Dict[str, Any], lattice, default_bc=(1, 1, 1
             bc=bc,
         )
     raise ValueError(f"unknown Dirac_operator {kind!r}")
-
-
-FERMIONIC = ("Chiral_condensate", "Pion_correlator", "Dirac_spectrum")
-
-
-def measurement_grid_refusal(method: Dict[str, Any]) -> Optional[str]:
-    """What of a measurement method has no multi-process form yet (ROADMAP A14b), or
-    None: a method that solves with a Dirac operator runs under a process grid on the
-    Wilson (r = 1, clover-improved or not), domain-wall (r = 1) and staggered
-    operators."""
-    name = method.get("methodname")
-    if name not in FERMIONIC and "fermion_parameters" not in method:
-        return None
-    fparams = method.get("fermion_parameters", {
-        "Dirac_operator": _REGISTRY[name].default_operator if name in _REGISTRY else "Wilson"})
-    kind = fparams.get("Dirac_operator", "Wilson")
-    if kind in ("Wilson", "WilsonClover") and float(fparams.get("r", 1.0)) != 1.0:
-        return f"the fermionic measurement {name} with Wilson r = {fparams['r']}"
-    return None
 
 
 @dataclass
@@ -177,11 +155,8 @@ class FermionicMeasurement(Measurement):
     def _dirac(self, u):
         """(fermion_parameters, the operator on the fields of u's lattice: the block's
         under a process grid)."""
-        what = measurement_grid_refusal(self.params)
-        if what is not None:
-            mesh.refuse_under_grid(what)
         fparams = self.params.get("fermion_parameters", {"Dirac_operator": self.default_operator})
-        return fparams, build_dirac_from_params(fparams, u.shape[1:5], device=u.device)
+        return fparams, build_dirac_from_params(fparams, u.shape[1:5])
 
     def _solver_args(self):
         self.solves = []

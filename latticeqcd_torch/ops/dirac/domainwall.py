@@ -12,9 +12,11 @@ mass M and H the Wilson hop. On each fifth-dimension slice the 4D pieces
 are the port's Wilson operator at kappa = 1/2:
 
 * D_w4(M) psi_s = D_W(1/2) psi_s + (4r + M - 1) psi_s, D_W the full
-  Wilson D (the wilson_window kernel at r = 1, 2 L5 launches per D^dag D);
+  Wilson D (the wilson_window kernel at the operator's r, its r mode at
+  r != 1; 2 L5 launches per D^dag D);
 * the packed hop B psi_s = -(1/2) H psi_s on target-parity sites (the
-  wilson_hop_packed kernel at r = 1, 2 L5 launches per Schur operator).
+  wilson_hop_packed kernel at the operator's r, 2 L5 launches per Schur
+  operator).
 
 Each slice of a contiguous 5D field is a contiguous, 16-byte aligned
 view, so it goes to the kernel's autograd Function as it is and the force
@@ -23,9 +25,9 @@ gamma5 H gamma5 with the same links and target parity (the L5 couplings
 commute with gamma5, so whole operators are conjugated at once). The
 4D-site-local block A (the diagonal 4r + M + 1 and the L5 couplings) and
 its inverse are pairs of L5 x L5 matrices, one per chirality, built on the
-host in float64 and applied along s. r != 1 takes the generic projector
-form on the CPU and raises elsewhere (ROADMAP A4b), as the Wilson
-operator does; the kernels hold NC = 3 and raise on other CUDA fields.
+host in float64 and applied along s. On the CPU each slice takes the
+Wilson kernels' plain versions (the projector form at r != 1); the
+kernels hold NC = 3 and raise on other CUDA fields.
 
 Under a process grid (parallel/mesh.py) every field is this rank's block
 and each slice goes through its kernel's halo mode: one exchange of the

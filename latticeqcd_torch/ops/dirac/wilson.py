@@ -8,12 +8,12 @@ even-odd fields with X halved. Hopping form
       - kappa sum_mu [ (r - g_mu) U_mu(x) psi(x+mu)
                      + (r + g_mu) U_mu(x-mu)^dag psi(x-mu) ]
 
-with boundary phases absorbed into the links. At r = 1 the full D goes
-through the wilson_window kernel (wilson_window_kernel.py) and the
-packed hop through the wilson_hop_packed kernel (wilson_kernel.py), each
-with its plain version on the CPU. Other r take the generic projector
-form on the CPU and raise on any other device, since the kernels hold
-r = 1 (ROADMAP A4b).
+with boundary phases absorbed into the links. The full D goes through
+the wilson_window kernel (wilson_window_kernel.py) and the packed hop
+through the wilson_hop_packed kernel (wilson_kernel.py), each with its
+plain version on the CPU, at any r: r = 1 in the half-spinor form,
+other r in each kernel's r mode, which applies (r -+ g_mu) in full (the
+plain version's projector form).
 
 With csw != 0 the clover term T psi = -(csw kappa / 2) sum_{mu != nu}
 sigma_munu F_munu psi joins D, with F_munu the traceless anti-hermitian
@@ -52,13 +52,6 @@ SIGMA = np.stack([(gammas.GAMMA[mu] @ gammas.GAMMA[nu] - gammas.GAMMA[nu] @ gamm
                   for mu, nu in PLANES])
 
 
-def refuse_r_off_cpu(r: float, device) -> None:
-    """Wilson r != 1 has no kernel: raise unless it runs on the CPU."""
-    if r != 1.0 and torch.device(device).type != "cpu":
-        raise NotImplementedError(f"Wilson r = {r} on {device} is not ported yet "
-                                  "(ROADMAP A4b: Wilson r != 1 kernels)")
-
-
 def apply_boundary_phases(u: torch.Tensor, bc=(1, 1, 1, -1)) -> torch.Tensor:
     """Multiply the last slice of each direction's links by its boundary
     phase, so periodic shifts implement the fermion BCs. Differentiable; u
@@ -90,30 +83,10 @@ class WilsonDirac:
         ``clover`` is clover_term(u), built here when not given. Under a process
         grid the full D is the wilson_window kernel's halo mode and the clover term
         is built from sharded rolls; both are this rank's block."""
-        if self.r == 1.0:
-            out = wilson_window_kernel.wilson_window(u, psi, self.kappa)
-        else:
-            refuse_r_off_cpu(self.r, psi.device)
-            out = psi - self.kappa * self._hop_generic(u, psi)
+        out = wilson_window_kernel.wilson_window(u, psi, self.kappa, self.r)
         if self.csw != 0.0:
             out = out + self.site_apply(self.clover(u) if clover is None else clover, psi)
         return out
-
-    def _hop_generic(self, u, psi):
-        return self._hop_projectors(u, u, psi, wilson_kernel.full_plus, wilson_kernel.full_minus)
-
-    def _hop_projectors(self, u_fwd, u_bwd, psi, gplus, gminus):
-        """sum_mu (r - g_mu) U_fwd(x) psi(x+mu) + (r + g_mu) U_bwd(x-mu)^dag psi(x-mu)
-        for any r, with the neighbour gathers given."""
-        pm, pp = (torch.as_tensor(p, dtype=psi.dtype, device=psi.device)
-                  for p in gammas.projectors(self.r))
-        hop = 0.0
-        for mu in range(DIRS):
-            fwd = torch.einsum("...ab,...sb->...sa", u_fwd[mu], gplus(psi, mu))
-            bwd = torch.einsum("...ba,...sb->...sa", gminus(u_bwd[mu], mu).conj(), gminus(psi, mu))
-            hop = hop + torch.einsum("st,...tc->...sc", pm[mu], fwd)
-            hop = hop + torch.einsum("st,...tc->...sc", pp[mu], bwd)
-        return hop
 
     def apply_dagger(self, u: torch.Tensor, psi: torch.Tensor, clover=None) -> torch.Tensor:
         """D^dag psi = g5 D g5 psi (gamma5-hermiticity; sigma_munu commutes
@@ -130,11 +103,7 @@ class WilsonDirac:
     def hop_packed(self, u_t, u_s, psi_s, target_parity: int) -> torch.Tensor:
         """Hopping term H psi on target-parity sites; psi lives on the
         source parity (packed layout)."""
-        if self.r == 1.0:
-            return wilson_kernel.wilson_hop_packed(u_t, u_s, psi_s, target_parity)
-        refuse_r_off_cpu(self.r, psi_s.device)
-        gplus, gminus, _ = wilson_kernel.packed_gathers(psi_s, target_parity)
-        return self._hop_projectors(u_t, u_s, psi_s, gplus, gminus)
+        return wilson_kernel.wilson_hop_packed(u_t, u_s, psi_s, target_parity, self.r)
 
     def apply_dhat(self, u_eo, x_e: torch.Tensor) -> torch.Tensor:
         """Dhat x = x - kappa^2 H_eo H_oe x on packed even fields."""

@@ -1,15 +1,18 @@
 """The hand-written CUDA Wilson hopping kernels and their plain version.
 
 Replace the Pallas kernel dslash_planes of
-latticeqcd_tpu/ops/dirac/wilson_pallas.py. r = 1, csw = 0, boundary
-phases already in the links. Two kernels:
+latticeqcd_tpu/ops/dirac/wilson_pallas.py. csw = 0, boundary phases
+already in the links. Two kernels:
 
 * wilson_hop_packed (csrc/wilson_hop_packed.cu, see there for the
   design and what bounds it): H psi_s on target-parity sites of the
   even-odd packed layout (WilsonDirac.hop_packed), the mat-vec of every
   CG iteration and of the fermion force on the HMC path, and of the
-  Wilson measurement solves. ``launches`` counts its launches;
-* wilson_hop (csrc/wilson_hop.cu), one thread per site, with two modes:
+  Wilson measurement solves. At r = 1 the half-spinor form; at any
+  other Wilson r its r mode (the ``_r`` entry points), which applies
+  (r -+ g_mu) in full. ``launches`` counts its launches at any r,
+  ``r_launches`` those of the r mode;
+* wilson_hop (csrc/wilson_hop.cu, r = 1 only), one thread per site, with two modes:
   full, D psi = psi - kappa H psi on [X,Y,Z,T,4,NC] (``wilson_dslash``;
   WilsonDirac.apply runs the wilson_window kernel instead,
   wilson_window_kernel.py), and packed (``hop_packed_site``), the same
@@ -20,16 +23,19 @@ phases already in the links. Two kernels:
 The public entry points are autograd Functions. A tensor on the CPU
 takes the plain PyTorch version (``dslash_reference``,
 ``hop_packed_reference``: rolls and einsums as in
-latticeqcd_tpu/ops/dirac/wilson.py); a tensor on a CUDA device launches
-the kernel, or the wrapper raises. The packed hop also takes a leading
+latticeqcd_tpu/ops/dirac/wilson.py, the half-spinor form at r = 1 and
+the projector form (r -+ g_mu) at any other r); a tensor on a CUDA
+device launches the kernel, or the wrapper raises. The packed hop also takes a leading
 chain axis of independent lattices (spinor [n, X/2, Y, Z, T, 4, 3],
 links [n, 4, X/2, Y, Z, T, 3, 3], HMC.step_batched): one launch for all
 n chains on the card, and on the CPU the plain version mapped over the
 chains with torch.func.vmap. The backward with respect to the
-spinor is the kernel again (the adjoint hop is gamma5 H gamma5 with the
-link roles swapped); the backward with respect to the links is written
-with tensor ops: outer products of the projected half spinors with the
-incoming gradient, summed over spin.
+spinor is the kernel again at the same r (the adjoint hop is gamma5 H
+gamma5 with the link roles swapped, since gamma5 (r - g_mu) gamma5 =
+r + g_mu); the backward with respect to the links is written with tensor
+ops: outer products of the projected half spinors with the incoming
+gradient, summed over spin (at r != 1, of the spinors with the
+incoming gradient times (r -+ g_mu)).
 
 Under a process grid (parallel/mesh.py) the fields are this rank's
 blocks and the packed hop runs in its halo mode (``hop_packed_halo``):
@@ -42,7 +48,7 @@ tensor and kept while it lives and is not changed in place. The
 backward reuses the forward's faces for the link gradient and exchanges
 one slab more per cut axis to move the gradient of each backward link
 onto the rank that holds it. ``halo_launches`` counts the halo mode's
-launches.
+launches at any r, ``r_halo_launches`` those of its r mode.
 """
 
 from __future__ import annotations
@@ -62,6 +68,8 @@ from latticeqcd_torch.parallel import mesh
 DIRS = 4
 launches = 0
 halo_launches = 0
+r_launches = 0
+r_halo_launches = 0
 site_launches = {"full": 0, "packed": 0}
 
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
@@ -83,12 +91,29 @@ def gamma5(psi: torch.Tensor) -> torch.Tensor:
     return torch.cat([psi[..., :2, :], -psi[..., 2:, :]], dim=-2)
 
 
-def _hop(u_fwd, u_bwd, psi, gplus, gminus, glink=None):
-    """sum_mu 2 Vm[mu] U_fwd(x) (Vm^dag psi)(x+mu)
-            + 2 Vp[mu] U_bwd(x-mu)^dag (Vp^dag psi)(x-mu),
-    with the neighbour gathers given (half-spinor form, r = 1); ``glink`` gathers
-    the backward links (``gminus`` unless given)."""
+@functools.lru_cache(maxsize=None)
+def _projectors(r, dtype, device):
+    pm, pp = gammas.projectors(r)
+    return (torch.as_tensor(pm, dtype=dtype, device=device),
+            torch.as_tensor(pp, dtype=dtype, device=device))
+
+
+def _hop(u_fwd, u_bwd, psi, gplus, gminus, glink=None, r=1.0):
+    """sum_mu (r - g_mu) U_fwd(x) psi(x+mu) + (r + g_mu) U_bwd(x-mu)^dag psi(x-mu),
+    with the neighbour gathers given; ``glink`` gathers the backward links
+    (``gminus`` unless given). At r = 1 the half-spinor form
+    sum_mu 2 Vm[mu] U_fwd(x) (Vm^dag psi)(x+mu) + 2 Vp[mu] U_bwd(x-mu)^dag (Vp^dag psi)(x-mu),
+    else the projector form (the JAX package's generic hop)."""
     glink = gminus if glink is None else glink
+    if r != 1.0:
+        pm, pp = _projectors(float(r), psi.dtype, psi.device)
+        hop = 0.0
+        for mu in range(DIRS):
+            fwd = torch.einsum("...ab,...sb->...sa", u_fwd[mu], gplus(psi, mu))
+            bwd = torch.einsum("...ba,...sb->...sa", glink(u_bwd[mu], mu).conj(), gminus(psi, mu))
+            hop = hop + torch.einsum("st,...tc->...sc", pm[mu], fwd)
+            hop = hop + torch.einsum("st,...tc->...sc", pp[mu], bwd)
+        return hop
     vm, vp = _half_factors(psi.dtype, psi.device)
     hop = 0.0
     for mu in range(DIRS):
@@ -121,24 +146,24 @@ def packed_gathers(psi_s, target_parity):
             lambda g, mu: eo_pack.scatter_minus(g, mu, s_t))
 
 
-def hop_full_reference(u, psi):
-    """Plain full-volume H psi (r = 1)."""
-    return _hop(u, u, psi, full_plus, full_minus)
+def hop_full_reference(u, psi, r=1.0):
+    """Plain full-volume H psi at Wilson r."""
+    return _hop(u, u, psi, full_plus, full_minus, r=r)
 
 
-def dslash_reference(u, psi, kappa):
-    """Plain full-volume D psi = psi - kappa H psi (r = 1)."""
-    return psi - kappa * hop_full_reference(u, psi)
+def dslash_reference(u, psi, kappa, r=1.0):
+    """Plain full-volume D psi = psi - kappa H psi at Wilson r."""
+    return psi - kappa * hop_full_reference(u, psi, r)
 
 
-def hop_packed_reference(u_t, u_s, psi_s, target_parity: int):
-    """Plain H psi_s on target-parity sites (packed layout, r = 1), per chain
+def hop_packed_reference(u_t, u_s, psi_s, target_parity: int, r=1.0):
+    """Plain H psi_s on target-parity sites (packed layout) at Wilson r, per chain
     over a leading chain axis."""
     if psi_s.ndim == 7:
         return torch.func.vmap(
-            lambda a, b, c: hop_packed_reference(a, b, c, target_parity))(u_t, u_s, psi_s)
+            lambda a, b, c: hop_packed_reference(a, b, c, target_parity, r))(u_t, u_s, psi_s)
     gplus, gminus, _ = packed_gathers(psi_s, target_parity)
-    return _hop(u_t, u_s, psi_s, gplus, gminus)
+    return _hop(u_t, u_s, psi_s, gplus, gminus, r=r)
 
 
 def _shift(f, mu, step, face):
@@ -173,14 +198,14 @@ def halo_gathers(psi_s, target_parity, faces, link_faces):
             minus_with(link_faces.get))
 
 
-def hop_packed_halo_reference(u_t, u_s, psi_s, target_parity: int, faces, link_faces):
-    """Plain H psi_s on a block of a process grid (packed layout, r = 1), the
+def hop_packed_halo_reference(u_t, u_s, psi_s, target_parity: int, faces, link_faces, r=1.0):
+    """Plain H psi_s on a block of a process grid (packed layout) at Wilson r, the
     neighbours outside the block from the face buffers."""
-    return _hop(u_t, u_s, psi_s, *halo_gathers(psi_s, target_parity, faces, link_faces))
+    return _hop(u_t, u_s, psi_s, *halo_gathers(psi_s, target_parity, faces, link_faces), r=r)
 
 
-def dslash_halo_reference(u, psi, kappa, faces, link_faces):
-    """Plain full-volume D psi = psi - kappa H psi (r = 1) on a block of a process grid,
+def dslash_halo_reference(u, psi, kappa, faces, link_faces, r=1.0):
+    """Plain full-volume D psi = psi - kappa H psi at Wilson r on a block of a process grid,
     the neighbours outside the block from ``faces`` {mu: (lo, hi)} and the backward
     links' from ``link_faces`` {mu: face}."""
     def plus(f, mu):
@@ -192,15 +217,26 @@ def dslash_halo_reference(u, psi, kappa, faces, link_faces):
     def link(f, mu):
         return _shift(f, mu, 1, link_faces.get(mu))
 
-    return psi - kappa * _hop(u, u, psi, plus, minus, link)
+    return psi - kappa * _hop(u, u, psi, plus, minus, link, r)
 
 
-def _link_grads(g, psi, gplus, gminus):
+def _link_grads(g, psi, gplus, gminus, r=1.0):
     """Gradients of Re<g, H psi> (PyTorch's convention for a real loss of
     complex inputs) w.r.t. the forward links U_fwd(x) and the backward
-    links U_bwd(x - mu), the latter still held at the target site x."""
-    vm, vp = _half_factors(psi.dtype, psi.device)
+    links U_bwd(x - mu), the latter still held at the target site x. At
+    r = 1 from the half spinors (r -+ g_mu = 2 V V^dag), else from the
+    full spinors: sum_s ((r - g_mu)^dag g)_s psi(x+mu)_s^dag forward and
+    sum_s psi(x-mu)_s ((r + g_mu)^dag g)_s^dag backward."""
     fwd, bwd = [], []
+    if r != 1.0:
+        pm, pp = _projectors(float(r), psi.dtype, psi.device)
+        for mu in range(DIRS):
+            gp = torch.einsum("st,...sc->...tc", pm[mu].conj(), g)
+            fwd.append(torch.einsum("...ti,...tj->...ij", gp, gplus(psi, mu).conj()))
+            gp = torch.einsum("st,...sc->...tc", pp[mu].conj(), g)
+            bwd.append(torch.einsum("...ti,...tj->...ij", gminus(psi, mu), gp.conj()))
+        return fwd, bwd
+    vm, vp = _half_factors(psi.dtype, psi.device)
     for mu in range(DIRS):
         gh = torch.einsum("sh,...sc->...hc", vm[mu].conj(), g)
         ph = torch.einsum("sh,...sc->...hc", vm[mu].conj(), gplus(psi, mu))
@@ -211,14 +247,14 @@ def _link_grads(g, psi, gplus, gminus):
     return fwd, bwd
 
 
-def _packed_link_grads(g, psi_s, target_parity):
-    """(d u_t, d u_s) of Re<g, H psi_s> on the packed layout, per chain over a
-    leading chain axis."""
+def _packed_link_grads(g, psi_s, target_parity, r=1.0):
+    """(d u_t, d u_s) of Re<g, H psi_s> at Wilson r on the packed layout, per chain
+    over a leading chain axis."""
     if psi_s.ndim == 7:
         return torch.func.vmap(
-            lambda a, b: _packed_link_grads(a, b, target_parity))(g, psi_s)
+            lambda a, b: _packed_link_grads(a, b, target_parity, r))(g, psi_s)
     gplus, gminus, scatter = packed_gathers(psi_s, target_parity)
-    fwd, bwd = _link_grads(g, psi_s, gplus, gminus)
+    fwd, bwd = _link_grads(g, psi_s, gplus, gminus, r)
     return torch.stack(fwd), torch.stack([scatter(bwd[mu], mu) for mu in range(DIRS)])
 
 
@@ -226,15 +262,20 @@ def _packed_link_grads(g, psi_s, target_parity):
 
 
 _VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_CD = ctypes.c_double
 _PACKED_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _VP]
+_BRICK_ARGS = _PACKED_ARGS[:-1] + [_CI, _LL, _LL, _VP]
+_HALO_ARGS = _PACKED_ARGS[:-1] + [_CI, _VP, _VP]
 # csrc/<name>.cu -> its C entry points (each with a _c64 and a _c128 form) and their arguments
 _ENTRY_POINTS = {
-    "wilson_hop": {"wilson_hop_full": [_VP, _VP, _VP, _CI, _CI, _CI, _CI, ctypes.c_double, _VP],
+    "wilson_hop": {"wilson_hop_full": [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _CD, _VP],
                    "wilson_hop_packed": _PACKED_ARGS},
     # the packed mode's arguments, then the chain count and the links' and spinors' chain
-    # strides; the halo mode's, then the partition mask and the array of 12 face pointers
-    "wilson_hop_packed": {"wilson_hop_brick": _PACKED_ARGS[:-1] + [_CI, _LL, _LL, _VP],
-                          "wilson_hop_halo": _PACKED_ARGS[:-1] + [_CI, _VP, _VP]},
+    # strides; the halo mode's, then the partition mask and the array of 12 face pointers;
+    # the r mode's (_r) those, then the Wilson r
+    "wilson_hop_packed": {"wilson_hop_brick": _BRICK_ARGS, "wilson_hop_halo": _HALO_ARGS,
+                          "wilson_hop_brick_r": _BRICK_ARGS + [_CD],
+                          "wilson_hop_halo_r": _HALO_ARGS + [_CD]},
 }
 
 
@@ -288,9 +329,11 @@ def _raise_on_error(err: int, lib: str, entry: str):
         raise RuntimeError(f"{lib} {entry} launch failed: CUDA error {err}")
 
 
-def _dslash(u, psi, kappa):
+def _dslash(u, psi, kappa, r=1.0):
     if psi.device.type == "cpu":
-        return dslash_reference(u, psi, kappa)
+        return dslash_reference(u, psi, kappa, r)
+    if r != 1.0:
+        raise ValueError(f"wilson_hop's full mode holds r = 1, got r = {r}")
     _check(psi, u)
     out = torch.empty_like(psi)
     fn = _fn("wilson_hop", "wilson_hop_full", psi.dtype)
@@ -302,15 +345,16 @@ def _dslash(u, psi, kappa):
     return out
 
 
-def _packed(lib, entry, u_t, u_s, psi_s, target_parity, chains=()):
+def _packed(lib, entry, u_t, u_s, psi_s, target_parity, chains=(), r_arg=()):
     """Launch the packed-hop entry point `entry` of csrc/<lib>.cu; ``chains`` are
-    the chain arguments of an entry point that takes them."""
+    the chain arguments of an entry point that takes them, ``r_arg`` the r mode's r,
+    after the stream."""
     out = torch.empty_like(psi_s)
     fn = _fn(lib, entry, psi_s.dtype)
     with torch.cuda.device(psi_s.device):
         err = fn(u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(),
                  *psi_s.shape[-6:-2], int(target_parity), *chains,
-                 torch.cuda.current_stream().cuda_stream)
+                 torch.cuda.current_stream().cuda_stream, *r_arg)
     _raise_on_error(err, lib, entry)
     return out
 
@@ -324,20 +368,28 @@ def chain_args(psi, u, site_ndim: int):
     return psi.shape[0], u[0].numel(), psi[0].numel()
 
 
-def _hop_packed(u_t, u_s, psi_s, target_parity):
-    """The packed hop on the paths: the wilson_hop_packed kernel, one launch
-    for all chains of a leading chain axis."""
-    global launches
+def _r_mode(entry, r):
+    """(the entry point, its r argument) at Wilson r: the r mode's ``_r`` entry point
+    and (r,), or at r = 1 the half-spinor one and ()."""
+    return (entry, ()) if r == 1.0 else (f"{entry}_r", (float(r),))
+
+
+def _hop_packed(u_t, u_s, psi_s, target_parity, r=1.0):
+    """The packed hop on the paths: the wilson_hop_packed kernel (its r mode at
+    r != 1), one launch for all chains of a leading chain axis."""
+    global launches, r_launches
     if psi_s.device.type == "cpu":
-        return hop_packed_reference(u_t, u_s, psi_s, target_parity)
+        return hop_packed_reference(u_t, u_s, psi_s, target_parity, r)
     _check(psi_s, u_t, u_s, kernel="wilson_hop_packed", chains=True)
     # the kernel's bulk copies read 16-byte aligned rows; every chain's rows are then aligned
     # too (a chain's spinors are a multiple of 96 bytes)
     if psi_s.data_ptr() % 16:
         psi_s = psi_s.clone()
-    out = _packed("wilson_hop_packed", "wilson_hop_brick", u_t, u_s, psi_s, target_parity,
-                  chain_args(psi_s, u_t, 2))
+    entry, r_arg = _r_mode("wilson_hop_brick", r)
+    out = _packed("wilson_hop_packed", entry, u_t, u_s, psi_s, target_parity,
+                  chain_args(psi_s, u_t, 2), r_arg)
     launches += 1
+    r_launches += r != 1.0
     return out
 
 
@@ -353,27 +405,30 @@ def _check_faces(psi_s, u_s, faces, link_faces):
                 raise ValueError("the halo mode's faces must be contiguous and 16-byte aligned")
 
 
-def hop_packed_halo(u_t, u_s, psi_s, target_parity: int, faces, link_faces):
-    """H psi_s on this rank's block of a process grid: ``faces`` {mu: (lo, hi)} holds,
-    for each cut axis mu, the -mu neighbour's last and the +mu neighbour's first slab
-    of psi_s with axis mu removed, ``link_faces`` {mu: the -mu neighbour's last slab of
-    u_s[mu]}. The kernel's halo mode on CUDA (one launch), the plain version on the CPU."""
-    global halo_launches
+def hop_packed_halo(u_t, u_s, psi_s, target_parity: int, faces, link_faces, r=1.0):
+    """H psi_s at Wilson r on this rank's block of a process grid: ``faces`` {mu: (lo,
+    hi)} holds, for each cut axis mu, the -mu neighbour's last and the +mu neighbour's
+    first slab of psi_s with axis mu removed, ``link_faces`` {mu: the -mu neighbour's last
+    slab of u_s[mu]}. The kernel's halo mode on CUDA (one launch; its r mode at r != 1),
+    the plain version on the CPU."""
+    global halo_launches, r_halo_launches
     if psi_s.device.type == "cpu":
-        return hop_packed_halo_reference(u_t, u_s, psi_s, target_parity, faces, link_faces)
+        return hop_packed_halo_reference(u_t, u_s, psi_s, target_parity, faces, link_faces, r)
     _check(psi_s, u_t, u_s, kernel="wilson_hop_packed")
     _check_faces(psi_s, u_s, faces, link_faces)
     ptrs = [None] * 12
     for mu, (lo, hi) in faces.items():
         ptrs[mu], ptrs[4 + mu], ptrs[8 + mu] = lo.data_ptr(), hi.data_ptr(), link_faces[mu].data_ptr()
     out = torch.empty_like(psi_s)
-    fn = _fn("wilson_hop_packed", "wilson_hop_halo", psi_s.dtype)
+    entry, r_arg = _r_mode("wilson_hop_halo", r)
+    fn = _fn("wilson_hop_packed", entry, psi_s.dtype)
     with torch.cuda.device(psi_s.device):
         err = fn(u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(),
                  *psi_s.shape[:4], int(target_parity), sum(1 << mu for mu in faces),
-                 (ctypes.c_void_p * 12)(*ptrs), torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, "wilson_hop_packed", "wilson_hop_halo")
+                 (ctypes.c_void_p * 12)(*ptrs), torch.cuda.current_stream().cuda_stream, *r_arg)
+    _raise_on_error(err, "wilson_hop_packed", entry)
     halo_launches += 1
+    r_halo_launches += r != 1.0
     return out
 
 
@@ -394,14 +449,15 @@ def link_faces(u_s, grid):
     return faces
 
 
-def _grid_hop(u_t, u_s, psi_s, target_parity, grid):
-    """(H psi_s, the faces of psi_s) on a block of ``grid``: the faces exchanged, then
-    the halo mode."""
+def _grid_hop(u_t, u_s, psi_s, target_parity, grid, r=1.0):
+    """(H psi_s at Wilson r, the faces of psi_s) on a block of ``grid``: the faces
+    exchanged, then the halo mode."""
     if psi_s.ndim != 6:
         raise NotImplementedError("a chain axis under a process grid is not ported yet "
                                   "(ROADMAP A14b)")
     faces = mesh.exchange_faces(psi_s, grid)
-    return hop_packed_halo(u_t, u_s, psi_s, target_parity, faces, link_faces(u_s, grid)), faces
+    return (hop_packed_halo(u_t, u_s, psi_s, target_parity, faces, link_faces(u_s, grid), r),
+            faces)
 
 
 def split_backward(bwd, psi_s, target_parity):
@@ -415,12 +471,12 @@ def split_backward(bwd, psi_s, target_parity):
     return [torch.where(b, zero, bwd[0])] + list(bwd[1:]), torch.where(b, bwd[0], zero)
 
 
-def halo_link_grads(g, psi_s, target_parity, faces):
-    """The link gradients of Re<g, H psi_s> on a block, from the faces of psi_s:
-    (d u_t, moving, staying), the gradients of the backward links split by
+def halo_link_grads(g, psi_s, target_parity, faces, r=1.0):
+    """The link gradients of Re<g, H psi_s> at Wilson r on a block, from the faces of
+    psi_s: (d u_t, moving, staying), the gradients of the backward links split by
     ``split_backward``."""
     gplus, gminus, _ = halo_gathers(psi_s, target_parity, faces, {})
-    fwd, bwd = _link_grads(g, psi_s, gplus, gminus)
+    fwd, bwd = _link_grads(g, psi_s, gplus, gminus, r)
     return (torch.stack(fwd),) + tuple(split_backward(bwd, psi_s, target_parity))
 
 
@@ -440,16 +496,16 @@ def scatter_across_faces(moving, staying, grid):
     return scatter_halo(moving, staying, heads)
 
 
-def _grid_link_grads(g, psi_s, target_parity, faces, grid):
-    """(d u_t, d u_s) of Re<g, H psi_s> on a block, from the forward's faces; the
-    gradients of the backward links move across the block's faces by one more slab
+def _grid_link_grads(g, psi_s, target_parity, faces, grid, r=1.0):
+    """(d u_t, d u_s) of Re<g, H psi_s> at Wilson r on a block, from the forward's faces;
+    the gradients of the backward links move across the block's faces by one more slab
     per cut axis."""
-    d_ut, moving, staying = halo_link_grads(g, psi_s, target_parity, faces)
+    d_ut, moving, staying = halo_link_grads(g, psi_s, target_parity, faces, r)
     return d_ut, scatter_across_faces(moving, staying, grid)
 
 
 def hop_packed_site(u_t, u_s, psi_s, target_parity: int):
-    """The same packed hop through wilson_hop's one-thread-per-site packed
+    """The same packed hop (r = 1) through wilson_hop's one-thread-per-site packed
     mode (forward only), kept as the yardstick of wilson_hop_packed."""
     if psi_s.device.type == "cpu":
         return hop_packed_reference(u_t, u_s, psi_s, target_parity)
@@ -463,17 +519,17 @@ def hop_packed_site(u_t, u_s, psi_s, target_parity: int):
 
 
 class WilsonDslash(torch.autograd.Function):
-    """D psi = psi - kappa H psi (full volume, r = 1) through ``dslash``, the
+    """D psi = psi - kappa H psi (full volume) at Wilson r through ``dslash``, the
     launch of a full-D kernel (this module's full mode, or wilson_window's, which
     under a process grid runs its halo mode); the spinor gradient runs ``dslash``
     again. The link gradient's gathers are rolls.roll, which on a block of a
     process grid exchange the slabs that cross its faces."""
 
     @staticmethod
-    def forward(ctx, u, psi, kappa, dslash):
+    def forward(ctx, u, psi, kappa, dslash, r):
         ctx.save_for_backward(u, psi)
-        ctx.kappa, ctx.dslash = kappa, dslash
-        return dslash(u, psi, kappa)
+        ctx.kappa, ctx.dslash, ctx.r = kappa, dslash, r
+        return dslash(u, psi, kappa, r)
 
     @staticmethod
     @once_differentiable
@@ -482,26 +538,26 @@ class WilsonDslash(torch.autograd.Function):
         g = g.contiguous()
         d_u = d_psi = None
         if ctx.needs_input_grad[1]:
-            d_psi = gamma5(ctx.dslash(u, gamma5(g), ctx.kappa))  # D^dag = g5 D g5
+            d_psi = gamma5(ctx.dslash(u, gamma5(g), ctx.kappa, ctx.r))  # D^dag = g5 D g5
         if ctx.needs_input_grad[0]:
-            fwd, bwd = _link_grads(g, psi, full_plus, full_minus)
+            fwd, bwd = _link_grads(g, psi, full_plus, full_minus, ctx.r)
             d_u = -ctx.kappa * torch.stack(
                 [fwd[mu] + rolls.roll(bwd[mu], -1, mu) for mu in range(DIRS)])
-        return d_u, d_psi, None, None
+        return d_u, d_psi, None, None, None
 
 
 class WilsonHopPacked(torch.autograd.Function):
-    """H psi_s on target-parity sites (packed even-odd layout, r = 1), with or
+    """H psi_s on target-parity sites (packed even-odd layout) at Wilson r, with or
     without a leading chain axis."""
 
     @staticmethod
-    def forward(ctx, u_t, u_s, psi_s, target_parity):
+    def forward(ctx, u_t, u_s, psi_s, target_parity, r):
         ctx.save_for_backward(u_t, u_s, psi_s)
-        ctx.parity = target_parity
+        ctx.parity, ctx.r = target_parity, r
         ctx.grid = mesh.sharded()
         if ctx.grid is None:
-            return _hop_packed(u_t, u_s, psi_s, target_parity)
-        out, ctx.faces = _grid_hop(u_t, u_s, psi_s, target_parity, ctx.grid)
+            return _hop_packed(u_t, u_s, psi_s, target_parity, r)
+        out, ctx.faces = _grid_hop(u_t, u_s, psi_s, target_parity, ctx.grid, r)
         return out
 
     @staticmethod
@@ -512,27 +568,28 @@ class WilsonHopPacked(torch.autograd.Function):
         grid = ctx.grid
         d_ut = d_us = d_psi = None
         if ctx.needs_input_grad[2]:
-            # H_ts^dag = g5 H_st g5: the source parity becomes the target,
+            # H_ts^dag = g5 H_st g5 at the same r: the source parity becomes the target,
             # u_s supplies the forward links and u_t the backward ones
             if grid is None:
-                d_psi = gamma5(_hop_packed(u_s, u_t, gamma5(g), 1 - ctx.parity))
+                d_psi = gamma5(_hop_packed(u_s, u_t, gamma5(g), 1 - ctx.parity, ctx.r))
             else:
-                d_psi = gamma5(_grid_hop(u_s, u_t, gamma5(g), 1 - ctx.parity, grid)[0])
+                d_psi = gamma5(_grid_hop(u_s, u_t, gamma5(g), 1 - ctx.parity, grid, ctx.r)[0])
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
             if grid is None:
-                d_ut, d_us = _packed_link_grads(g, psi_s, ctx.parity)
+                d_ut, d_us = _packed_link_grads(g, psi_s, ctx.parity, ctx.r)
             else:
-                d_ut, d_us = _grid_link_grads(g, psi_s, ctx.parity, ctx.faces, grid)
-        return d_ut, d_us, d_psi, None
+                d_ut, d_us = _grid_link_grads(g, psi_s, ctx.parity, ctx.faces, grid, ctx.r)
+        return d_ut, d_us, d_psi, None, None
 
 
 def wilson_dslash(u, psi, kappa):
     """Full D psi (r = 1) through the kernel on CUDA, the plain version on the CPU.
     wilson_hop's full mode has no halo mode: it raises under a process grid."""
     mesh.refuse_under_grid("wilson_hop's full mode")
-    return WilsonDslash.apply(u, psi, float(kappa), _dslash)
+    return WilsonDslash.apply(u, psi, float(kappa), _dslash, 1.0)
 
 
-def wilson_hop_packed(u_t, u_s, psi_s, target_parity: int):
-    """Packed H psi_s (r = 1) through the kernel on CUDA, the plain version on the CPU."""
-    return WilsonHopPacked.apply(u_t, u_s, psi_s, int(target_parity))
+def wilson_hop_packed(u_t, u_s, psi_s, target_parity: int, r: float = 1.0):
+    """Packed H psi_s at Wilson r through the kernel on CUDA (its r mode at r != 1),
+    the plain version on the CPU."""
+    return WilsonHopPacked.apply(u_t, u_s, psi_s, int(target_parity), float(r))

@@ -15,12 +15,11 @@ measurements. Everything else raises NotImplementedError naming the
 ROADMAP item that will port it. Under a process grid (parallel/mesh.py)
 the links are this rank's block (a file start reads the global file on
 every rank and keeps the block): every update method runs, HMC and
-SLHMC quenched, with two-flavour Wilson fermions at r = 1
+SLHMC quenched, with two-flavour Wilson fermions at any r
 (clover-improved or not, with or without Hasenbusch), with domain-wall
 fermions or with staggered fermions, each with or without stout
 smearing, and the gauge measurements and the fermionic ones on the
-Wilson, clover, domain-wall and staggered operators run beside them;
-Wilson r != 1 raises naming ROADMAP A14b before any work.
+Wilson, clover, domain-wall and staggered operators run beside them.
 """
 
 from __future__ import annotations
@@ -33,13 +32,12 @@ from typing import Any, Optional
 import torch
 
 from latticeqcd_torch.io import load_config
-from latticeqcd_torch.measurements.scheduler import (build_dirac_from_params,
-                                                     measurement_grid_refusal)
+from latticeqcd_torch.measurements.scheduler import build_dirac_from_params
 from latticeqcd_torch.ops import fields, gauge_action as ga
 from latticeqcd_torch.ops.dirac import eo_pack
 from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
 from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
-from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, refuse_r_off_cpu
+from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
 from latticeqcd_torch.ops.fermion_action import (DomainwallFermiAction,
                                                  HasenbuschWilsonFermiAction,
                                                  StaggeredFermiAction, WilsonFermiAction)
@@ -69,17 +67,11 @@ GRID_OPERATORS = ("Wilson", "WilsonClover", "Domainwall", "Staggered")
 
 def params_grid_refusal(p: Params) -> Optional[str]:
     """What of p has no multi-process form yet (ROADMAP A14b), or None: every update
-    method, HMC and SLHMC quenched or with Wilson (clover-improved or not, with or
-    without Hasenbusch) or domain-wall fermions at r = 1 or staggered fermions, with or
-    without stout smearing, and the fermionic measurements on those operators."""
+    method, HMC and SLHMC quenched or with Wilson (at any r, clover-improved or not,
+    with or without Hasenbusch), domain-wall or staggered fermions, with or without
+    stout smearing, and the fermionic measurements on those operators."""
     if not p.quench and p.Dirac_operator not in GRID_OPERATORS:
         return f"Dirac_operator {p.Dirac_operator!r}"
-    if not p.quench and p.Dirac_operator != "Staggered" and p.r != 1.0:
-        return f"Wilson fermions at r = {p.r}"
-    for method in list(p.measurement_methods or ()) + list(p.measurements_for_flow or ()):
-        what = measurement_grid_refusal(method)
-        if what is not None:
-            return what
     return None
 
 
@@ -93,11 +85,9 @@ def check_supported(p: Params, device="cuda") -> None:
             and torch.device(device).type != "cpu" and not eo_pack.packable(p.L)):
         _not_ported(f"staggered fermions on {device} with an odd lattice extent {tuple(p.L)} "
                     "(a full-volume mode of the staggered_w kernel)", "A11")
-    if not p.quench and p.Dirac_operator in ("Wilson", "WilsonClover"):
-        refuse_r_off_cpu(p.r, device)
-    for method in p.measurement_methods or ():  # refused here, before any trajectory
+    for method in p.measurement_methods or ():  # an unknown operator raises before any trajectory
         if "fermion_parameters" in method:
-            build_dirac_from_params(method["fermion_parameters"], p.L, device=device)
+            build_dirac_from_params(method["fermion_parameters"], p.L)
 
 
 def build_gauge_action(p: Params) -> ga.GaugeAction:

@@ -46,9 +46,9 @@ JAX package's own draws. The JAX package's staged multi-program path
 exists for its TPU runtime and has no counterpart here.
 
 Under a process grid (parallel/mesh.py) ``step`` takes this rank's block
-of the links. Quenched HMC, two-flavour Wilson HMC (r = 1, with or
+of the links. Quenched HMC, two-flavour Wilson HMC (at any r, with or
 without the clover term, with or without Hasenbusch and its
-Sexton-Weingarten split), two-flavour domain-wall HMC (r = 1) and
+Sexton-Weingarten split), two-flavour domain-wall HMC and
 staggered HMC/RHMC, each with or without stout smearing (its staples
 through the sharded rolls, whose backward carries the force's chain
 rule across the faces), run there; every other action raises before any
@@ -132,17 +132,14 @@ def noise_lead(fermi_action) -> int:
 
 def grid_refusal(fermi_action) -> Optional[str]:
     """What of an HMC has no multi-process form yet (ROADMAP A14b), or None: the slice
-    that runs on a process grid is quenched HMC, two-flavour Wilson HMC at r = 1
+    that runs on a process grid is quenched HMC, two-flavour Wilson HMC at any r
     (clover-improved or not, with or without Hasenbusch), two-flavour domain-wall HMC
-    at r = 1 and staggered HMC/RHMC, each with or without stout smearing."""
-    if fermi_action is None or type(fermi_action) is StaggeredFermiAction:
+    and staggered HMC/RHMC, each with or without stout smearing."""
+    if fermi_action is None or type(fermi_action) in (
+            StaggeredFermiAction, WilsonFermiAction, HasenbuschWilsonFermiAction,
+            DomainwallFermiAction):
         return None
-    if type(fermi_action) not in (WilsonFermiAction, HasenbuschWilsonFermiAction,
-                                  DomainwallFermiAction):
-        return f"the fermion action {type(fermi_action).__name__}"
-    if fermi_action.dirac.r != 1.0:
-        return f"Wilson fermions at r = {fermi_action.dirac.r}"
-    return None
+    return f"the fermion action {type(fermi_action).__name__}"
 
 
 @dataclass(frozen=True)

@@ -382,11 +382,12 @@ def dense_logdet_fermi_action(dirac, psi_shape, weight: float):
     weight: Nf/8 for staggered det(D)^(Nf/4) = det(D^dag D)^(Nf/8); 1 for
     two-flavour Wilson (det(D)^2 = det(D^dag D) by gamma5-hermiticity).
     Wilson: D^dag D from D's columns (``dirac.apply``, the wilson_window
-    kernel at r = 1, with a clover term built once per log det). Staggered with every extent even: D^dag D = m^2 -
-    Dslash^2 is block-diagonal over the parities and both blocks have the
-    determinant of W_e = m^2 - D_eo D_oe (Sylvester), so S_f = -weight 2 log
-    det W_e, W_e from the columns of ``apply_w_packed`` (the staggered_w
-    kernel) at half the dimension. Staggered with an odd extent: the
+    kernel at the operator's r, with a clover term built once per log det).
+    Staggered with every extent even: D^dag D = m^2 - Dslash^2 is
+    block-diagonal over the parities and both blocks have the determinant of
+    W_e = m^2 - D_eo D_oe (Sylvester), so S_f = -weight 2 log det W_e, W_e
+    from the columns of ``apply_w_packed`` (the staggered_w kernel) at half
+    the dimension. Staggered with an odd extent: the
     full-volume D, which runs on the CPU only (ROADMAP A11).
 
     psi_shape is the global field's. Under a process grid the links are this
@@ -398,8 +399,6 @@ def dense_logdet_fermi_action(dirac, psi_shape, weight: float):
 
     @torch.no_grad()
     def s_f(u):
-        if isinstance(dirac, WilsonDirac) and dirac.r != 1.0:
-            mesh.refuse_under_grid(f"the dense log det of Wilson fermions at r = {dirac.r}")
         u = u.to(torch.complex128)
         if packed_w:
             ueo = dirac.packed_links(u)

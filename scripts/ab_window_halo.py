@@ -1,6 +1,6 @@
 """Time wilson_window's halo mode against its mask-0 kernel, from one or more source trees, on one card.
 
-    python3 scripts/ab_window_halo.py TREE [TREE ...] [--turns N]
+    python3 scripts/ab_window_halo.py TREE [TREE ...] [--turns N] [--r R]
 
 Builds each TREE's latticeqcd_torch/csrc/wilson_window.cu with the port's nvcc flags into its
 own library and times, at complex64 and complex128, its halo entry point
@@ -8,7 +8,8 @@ own library and times, at complex64 and complex128, its halo entry point
 its mask-0 entry point (wilson_window_c64/_c128) on a block of the same shape: warm medians
 of chip_smoke._time_device (12 calls in a CUDA graph, 20 replays), the trees in turns, N
 turns (default 3). Prints every time, the medians and each tree's halo/mask-0 ratio, with the
-card's name and power limit.
+card's name and power limit. With --r R the same for the r mode's entry points
+(wilson_window_halo_r_* and wilson_window_r_*) at Wilson r = R.
 """
 
 import ctypes
@@ -42,10 +43,14 @@ def build(tree, out_dir, tag):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    turns = 3
+    turns, r = 3, None
     if "--turns" in argv:
         i = argv.index("--turns")
         turns = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
+    if "--r" in argv:
+        i = argv.index("--r")
+        r = float(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
     if not argv:
         print(__doc__)
@@ -60,7 +65,9 @@ def main(argv=None):
         return 1
     smi = chip_smoke.nvidia_smi()
     lat = chip_smoke.MAIN
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    # the r mode's entry points take r after kappa
+    mode, r_args, r_type = ("_r", (r,), [cd]) if r is not None else ("", (), [])
     with tempfile.TemporaryDirectory() as tmp:
         libs = {}
         for i, tree in enumerate(argv):
@@ -84,16 +91,16 @@ def main(argv=None):
                 outs = {}
                 calls = {}
                 for tag, lib in libs.items():
-                    halo = getattr(lib, f"wilson_window_halo_{suffix}")
-                    halo.argtypes = [vp, vp, vp, ci, ci, ci, ci, ctypes.c_double, ci, vp, vp]
-                    plain = getattr(lib, f"wilson_window_{suffix}")
-                    plain.argtypes = [vp, vp, vp, ci, ci, ci, ci, ctypes.c_double, vp]
+                    halo = getattr(lib, f"wilson_window_halo{mode}_{suffix}")
+                    halo.argtypes = [vp, vp, vp, ci, ci, ci, ci, cd] + r_type + [ci, vp, vp]
+                    plain = getattr(lib, f"wilson_window{mode}_{suffix}")
+                    plain.argtypes = [vp, vp, vp, ci, ci, ci, ci, cd] + r_type + [vp]
                     calls[(tag, "halo")] = lambda h=halo: h(
                         u_b.data_ptr(), psi_b.data_ptr(), out.data_ptr(), *psi_b.shape[:4], KAPPA,
-                        1 << mu, ptr_array, stream())
+                        *r_args, 1 << mu, ptr_array, stream())
                     calls[(tag, "mask 0")] = lambda p=plain: p(
                         u_b.data_ptr(), psi_b.data_ptr(), out.data_ptr(), *psi_b.shape[:4], KAPPA,
-                        stream())
+                        *r_args, stream())
                     calls[(tag, "halo")]()
                     torch.cuda.synchronize()
                     outs[tag] = out.clone()
@@ -105,8 +112,8 @@ def main(argv=None):
                 for tag in libs:
                     h = statistics.median(times[(tag, "halo")])
                     p = statistics.median(times[(tag, "mask 0")])
-                    print(f"{suffix} cut {cut} block {tuple(psi_b.shape[:4])} tree {tag}: halo "
-                          f"{[round(t * 1e3, 2) for t in times[(tag, 'halo')]]} us (median "
+                    print(f"{suffix}{mode} cut {cut} block {tuple(psi_b.shape[:4])} tree {tag}: "
+                          f"halo {[round(t * 1e3, 2) for t in times[(tag, 'halo')]]} us (median "
                           f"{h * 1e3:.2f}), mask 0 {[round(t * 1e3, 2) for t in times[(tag, 'mask 0')]]}"
                           f" us (median {p * 1e3:.2f}), halo/mask 0 {h / p:.3f} [{smi}]",
                           flush=True)

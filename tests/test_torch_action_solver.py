@@ -113,6 +113,18 @@ def test_action_and_force_match_jax(links):
     assert float((ta.force(ut, to_torch(phi)) - f_t).abs().max()) < 1e-12
 
 
+def test_force_matches_jax_at_r_half(links):
+    """The Wilson fermion force at r = 0.5 (the even-odd path through the packed hop's
+    plain version at r = 0.5 and its r-generic link gradients) against the JAX
+    package's jitted force on the same pseudofermion, complex128."""
+    ja = JFA(jw.WilsonDirac(kappa=KAPPA, r=0.5), eps_cg=1e-20)
+    ta = TFA(tw.WilsonDirac(kappa=KAPPA, r=0.5), eps_cg=1e-20)
+    phi = _rhs(6)
+    f_j = np.asarray(ja.force(links, jnp.asarray(phi)))
+    f_t = ta.force(to_torch(np.asarray(links)), to_torch(phi))
+    assert np.abs(f_j - to_numpy(f_t)).max() < 1e-12
+
+
 def test_force_full_volume_path_matches_jax():
     """Odd x extent: no even-odd packing, CG on D D^dag (WilsonDslash backward)."""
     lat = (3, 2, 2, 2)

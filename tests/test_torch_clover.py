@@ -144,18 +144,36 @@ def test_clover_operators_are_gamma5_hermitian():
 def test_clover_apply_off_cpu_goes_to_the_kernel():
     """A field off the CPU takes the wilson_window kernel (meta tensors: the
     dispatch, no data), never the plain version, with the clover term as with
-    csw = 0; r != 1 raises."""
+    csw = 0, at r = 1 and at r != 1 (the kernel's r mode)."""
     meta_u = torch.empty((4,) + LAT + (3, 3), dtype=torch.complex64, device="meta")
     meta_psi = torch.empty(LAT + (4, 3), dtype=torch.complex64, device="meta")
     before = (wk.launches, ww.launches)
     with pytest.raises(ValueError, match="CUDA"):
         TW(kappa=KAPPA, csw=CSW).apply(meta_u, meta_psi)
-    with pytest.raises(NotImplementedError, match="A4b"):
+    with pytest.raises(ValueError, match="CUDA"):
         TW(kappa=KAPPA, csw=CSW, r=0.7).apply(meta_u, meta_psi)
     assert (wk.launches, ww.launches) == before
 
 
 # -------------------------------------------------------------------- force
+
+
+def test_clover_operator_matches_jax_at_r_half():
+    """The clover operator at r = 0.5 in both packages, complex128: D and D^dag with
+    the clover term (the full D's plain version at r = 0.5) and the clover Schur
+    complement with and without dag (the packed hop's)."""
+    u, ut = _links(LAT, seed=83)
+    jd, td = JW(kappa=KAPPA, csw=CSW, r=0.5), TW(kappa=KAPPA, csw=CSW, r=0.5)
+    jpsi, tpsi = _spinor(LAT + (4, 3), 4)
+    assert _rel(jd.apply(u, jpsi), td.apply(ut, tpsi)) < BARS["c128"]
+    assert _rel(jd.apply_dagger(u, jpsi), td.apply_dagger(ut, tpsi)) < BARS["c128"]
+    (ja, jinv), (ta, tinv) = jd.clover_packed_blocks(u), td.clover_packed_blocks(ut)
+    jeo, teo = jd.packed_links(u), td.packed_links(ut)
+    jx, tx = _spinor((LAT[0] // 2,) + LAT[1:] + (4, 3), 5)
+    assert _rel(jd.apply_dhat_clover(jeo, ja, jinv, jx),
+                td.apply_dhat_clover(teo, ta, tinv, tx)) < BARS["c128"]
+    assert _rel(jd.apply_dhat_clover_dagger(jeo, ja, jinv, jx),
+                td.apply_dhat_clover_dagger(teo, ta, tinv, tx)) < BARS["c128"]
 
 
 def test_clover_action_runs_on_the_full_volume():
@@ -252,3 +270,12 @@ def test_clover_kernel_path_on_gpu():
     f_c = fa.force(ut, psi)
     f_g = fa.force(ug, psi.to(dev))
     assert float((f_g.cpu() - f_c).abs().max()) < 1e-10 * float(f_c.abs().max())
+    # r = 0.5: the same through the kernels' r mode
+    tr = TW(kappa=KAPPA, csw=CSW, r=0.5)
+    before = (ww.r_launches, wk.r_launches)
+    got = tr.apply(ug, psi.to(dev))
+    assert float((got.cpu() - tr.apply(ut, psi)).abs().max()) < 1e-12
+    got = tr.apply_dhat_clover(geo, *tr.clover_packed_blocks(ug), psi[:2].to(dev))
+    ref = tr.apply_dhat_clover(td.packed_links(ut), *tr.clover_packed_blocks(ut), psi[:2])
+    assert float((got.cpu() - ref).abs().max()) < 1e-12
+    assert (ww.r_launches, wk.r_launches) == (before[0] + 1, before[1] + 2)

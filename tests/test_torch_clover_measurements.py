@@ -150,7 +150,7 @@ def test_measurement_set_writes_the_jax_lines(tmp_path, monkeypatch):
     tms = tsched.MeasurementSet.from_methods(methods, measuredir=str(tdir))
     assert len(tms.calc_measurement_values(itrj, ut)) == 3
     tms.close()
-    assert tsched.build_dirac_from_params(CLOVER, LAT, device="cpu").csw == CSW
+    assert tsched.build_dirac_from_params(CLOVER, LAT).csw == CSW
     for name in ("Pion_correlator", "Chiral_condensate", "Dirac_spectrum"):
         _same_lines(_lines(jdir / f"{name}.txt"), _lines(tdir / f"{name}.txt"), itrj, 1e-7)
 

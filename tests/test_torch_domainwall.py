@@ -127,9 +127,9 @@ def test_adjoints_are_adjoint():
 
 
 def test_generic_r_matches_jax_on_cpu_and_raises_elsewhere():
-    """r != 1 has no kernel: the generic projector form on the CPU, a refusal on
-    any other device; at r = 1 a field off the CPU goes to the kernel, never to
-    the plain version (meta tensors: no data, only the dispatch)."""
+    """r != 1: the projector form on the CPU, the kernels' r mode on any other
+    device; at any r a field off the CPU goes to the kernel, never to the plain
+    version (meta tensors: no data, only the dispatch, so the wrappers raise)."""
     u, ut = _links(LAT)
     up, upt = japply_bc(u), tapply_bc(ut)
     psi = _spinor((L5,) + LAT + (4, 3), 9)
@@ -142,16 +142,33 @@ def test_generic_r_matches_jax_on_cpu_and_raises_elsewhere():
                      td.apply_schur(teo, to_torch(phi), dag=dag)) < BAR
     meta_u = torch.empty(ut.shape, dtype=ut.dtype, device="meta")
     meta_psi = torch.empty((L5,) + LAT + (4, 3), dtype=ut.dtype, device="meta")
-    with pytest.raises(NotImplementedError, match="A4b"):
-        td.apply(meta_u, meta_psi)
-    with pytest.raises(NotImplementedError, match="A4b"):
-        td.apply_schur(td.packed_links(meta_u), meta_psi[:, :2])
     before = (wk.launches, ww.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        td.apply(meta_u, meta_psi)
+    with pytest.raises(ValueError, match="CUDA"):
+        td.apply_schur(td.packed_links(meta_u), meta_psi[:, :2].contiguous())
     with pytest.raises(ValueError, match="CUDA"):
         TD(0.3, -1.8, L5).apply(meta_u, meta_psi)
     with pytest.raises(ValueError, match="CUDA"):
         TD(0.3, -1.8, L5).apply_schur(td.packed_links(meta_u), meta_psi[:, :2].contiguous())
     assert (wk.launches, ww.launches) == before
+
+
+def test_schur_operator_matches_jax_at_r_half():
+    """DomainwallDirac(r = 0.5) in both packages: the Schur operator with and without
+    dag, its normal operator and the packed hop (the Wilson kernels' plain versions
+    at r = 0.5), complex128."""
+    u, ut = _links(LAT, seed=43)
+    up, upt = japply_bc(u), tapply_bc(ut)
+    jd, td = JD(0.3, -1.8, L5, r=0.5), TD(0.3, -1.8, L5, r=0.5)
+    jeo, teo = jd.packed_links(up), td.packed_links(upt)
+    phi = _spinor((L5, LAT[0] // 2) + LAT[1:] + (4, 3), 13)
+    jphi, tphi = jnp.asarray(phi), to_torch(phi)
+    for dag in (False, True):
+        assert _diff(jd.apply_schur(jeo, jphi, dag=dag), td.apply_schur(teo, tphi, dag=dag)) < BAR
+        assert _diff(jd._packed_hop(*jeo, jphi, 0, dag=dag),
+                     td._packed_hop(*teo, tphi, 0, dag=dag)) < BAR
+    assert _diff(jd.apply_schur_ddag_d(jeo, jphi), td.apply_schur_ddag_d(teo, tphi)) < BAR
 
 
 # -------------------------------------------------------------------- action
@@ -287,11 +304,19 @@ def test_domainwall_kernel_path_on_gpu():
         got = td.apply_schur(geo, phi.to(dev), dag=dag)
         assert wk.launches == before + 2 * L5
         assert float((got.cpu() - td.apply_schur(teo, phi, dag=dag)).abs().max()) < BAR
-    # no fall-back to the plain version on the card: r != 1 and NC != 3 raise
+    # r != 1 runs the kernels' r mode, against the CPU's projector form
+    tr = TD(0.3, -1.8, L5, r=0.7)
+    before = (ww.r_launches, wk.r_launches)
+    got = tr.apply_ddag_d(tapply_bc(ut).to(dev), psi.to(dev))
+    assert float((got.cpu() - tr.apply_ddag_d(tapply_bc(ut), psi)).abs().max()) < BAR
+    got = tr.apply_schur(geo, phi.to(dev))
+    assert float((got.cpu() - tr.apply_schur(teo, phi)).abs().max()) < BAR
+    assert (ww.r_launches, wk.r_launches) == (before[0] + 2 * L5, before[1] + 2 * L5)
+    # no fall-back to the plain version on the card: NC != 3 raises at any r
     su2 = torch.from_numpy(np.array(jfields.hot_start(LAT, 2, seed=13))).to(dev)
     x = torch.zeros((L5,) + LAT + (4, 2), dtype=su2.dtype, device=dev)
-    with pytest.raises(NotImplementedError, match="A4b"):
-        TD(0.3, -1.8, L5, r=0.7).apply(su2, x)
+    with pytest.raises(ValueError):
+        tr.apply(su2, x)
     with pytest.raises(ValueError):
         td.apply(su2, x)
     fa = TFA(td, eps_cg=1e-24)

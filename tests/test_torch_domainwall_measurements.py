@@ -129,7 +129,7 @@ def test_spectrum_matches_jax_from_the_same_start(monkeypatch):
 ], ids=["long-keys", "defaults", "short-keys"])
 def test_build_dirac_from_params_matches_jax(fparams):
     j = jsched.build_dirac_from_params(fparams, LAT)
-    t = tsched.build_dirac_from_params(fparams, LAT, device="cpu")
+    t = tsched.build_dirac_from_params(fparams, LAT)
     assert isinstance(t, TD)
     assert (t.mass, t.m5, t.l5, t.r, tuple(t.bc)) == (j.mass, j.m5, j.l5, j.r, tuple(j.bc))
 

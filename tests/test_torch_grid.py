@@ -179,7 +179,51 @@ def _case_fields(grid):
     total = mesh.global_sum(partial)
     out["sum"] = total.numpy()
     out["sum_complex"] = mesh.global_sum(torch.sum(grid.block(f))).numpy()
-    return {k: np.asarray(v) for k, v in out.items()}
+    out.update(_wilson_r_half_trajectory())
+    out.update(_hop_messages(u))
+    return {k: np.asarray(v) for k, v in out.items() if v is not None}
+
+
+def _wilson_r_half_trajectory():
+    """One complex128 Wilson HMC trajectory at r = 0.5 from the run's generator (the
+    global draws): dH, the accept decision and the links (gathered on rank 0 under a
+    grid, None elsewhere)."""
+    from latticeqcd_torch.ops import fields, gauge_action as ga
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import WilsonFermiAction
+    from latticeqcd_torch.updates.hmc import HMC
+
+    hmc = HMC(action=ga.wilson_gauge_action(3, 6.0), dtau=0.05, md_steps=2,
+              fermi_action=WilsonFermiAction(WilsonDirac(kappa=0.12, r=0.5), eps_cg=1e-20))
+    u_new, st = hmc.step(fields.hot_start(LAT, 3, seed=13, device="cpu"),
+                         torch.Generator().manual_seed(14))
+    return {"r_half_dh": np.asarray(st["dH"]), "r_half_accepted": np.asarray(st["accepted"]),
+            "r_half_u": mesh.to_host_global(u_new, lead=1)}
+
+
+def _hop_messages(u):
+    """The point-to-point messages (their sizes, sorted) of one packed hop at r = 0.5 and
+    at r = 1, each on packed links whose faces were exchanged by a first hop."""
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, apply_boundary_phases
+
+    real, sizes = torch.distributed.batch_isend_irecv, []
+
+    def counted(ops):
+        sizes.extend(op.tensor.numel() for op in ops)
+        return real(ops)
+
+    out = {}
+    local = mesh.sharded().local
+    x = torch.ones((local[0] // 2,) + tuple(local[1:]) + (4, 3), dtype=torch.complex128)
+    for r, tag in ((0.5, "r_half"), (1.0, "r_one")):
+        d = WilsonDirac(kappa=0.12, r=r)
+        ueo = d.packed_links(apply_boundary_phases(u))
+        d.hop_packed(*ueo, x, 0)
+        sizes.clear()
+        with mock.patch.object(torch.distributed, "batch_isend_irecv", counted):
+            d.hop_packed(*ueo, x, 0)
+        out[f"{tag}_messages"] = np.array(sorted(sizes))
+    return out
 
 
 CASES = {"fields": _case_fields}
@@ -243,6 +287,35 @@ def test_global_sum_is_bitwise_the_same_on_every_rank(fields_group):
         assert res["sum_complex"].tobytes() == ranks[0]["sum_complex"].tobytes()
 
 
+@pytest.fixture(scope="module")
+def r_half_one_process():
+    """The groups' Wilson r = 0.5 trajectory in this process, without a grid."""
+    return _wilson_r_half_trajectory()
+
+
+def test_wilson_r_half_trajectory_matches_one_process(fields_group, r_half_one_process):
+    """A complex128 Wilson trajectory at r = 0.5 (the packed hop's halo form at r = 0.5,
+    its r-generic link gradients moved across the faces) against one process from the
+    same seed: dH 1e-8, links 1e-10, the same decision, every rank's dH bitwise."""
+    pes, ranks = fields_group
+    one = r_half_one_process
+    assert abs(float(ranks[0]["r_half_dh"]) - float(one["r_half_dh"])) < 1e-8, pes
+    assert bool(ranks[0]["r_half_accepted"]) == bool(one["r_half_accepted"]), pes
+    assert np.abs(ranks[0]["r_half_u"] - one["r_half_u"]).max() < 1e-10, pes
+    for res in ranks[1:]:
+        assert res["r_half_dh"].tobytes() == ranks[0]["r_half_dh"].tobytes(), pes
+
+
+def test_hop_at_r_half_sends_what_it_sends_at_r_one(fields_group):
+    """The gloo audit's count for a packed hop on exchanged links at r = 0.5: two spinor
+    face messages per cut axis, each way, the same sizes as at r = 1."""
+    pes, ranks = fields_group
+    cut = sum(p > 1 for p in pes)
+    for res in ranks:
+        assert np.array_equal(res["r_half_messages"], res["r_one_messages"]), pes
+        assert len(res["r_half_messages"]) == 4 * cut, pes
+
+
 @pytest.mark.parametrize("n", range(1, 9))
 def test_default_pes_matches_jax(n):
     from latticeqcd_tpu.parallel.mesh import default_pes as jax_default_pes
@@ -280,17 +353,12 @@ def test_odd_or_ragged_local_extents_refused(pes, lattice):
 
 def _refusal_cases():
     """name -> a callable that must raise NotImplementedError naming A14b under a grid."""
-    from latticeqcd_torch.measurements.scheduler import MeasurementSet
     from latticeqcd_torch.ops import fields, gauge_action as ga
     from latticeqcd_torch.ops.dirac import staggered_kernel, wilson_kernel, wilson_window_kernel
     from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
     from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
-    from latticeqcd_torch.ops.fermion_action import (HasenbuschWilsonFermiAction,
-                                                     StaggeredFermiAction, WilsonFermiAction)
-    from latticeqcd_torch.system.params import Params
-    from latticeqcd_torch.system.universe import check_supported
+    from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
     from latticeqcd_torch.updates.hmc import HMC
-    from latticeqcd_torch.updates.slhmc import SLHMC, dense_logdet_fermi_action
 
     act = ga.wilson_gauge_action(3, 6.0)
     local = (4, 4, 4, 4)
@@ -298,16 +366,7 @@ def _refusal_cases():
     u = lambda: fields.cold_start(local, 3, device="cpu")  # noqa: E731
     hmc = lambda fa=None, **kw: HMC(action=act, dtau=0.1, md_steps=2, fermi_action=fa, **kw)  # noqa: E731
     wilson = WilsonDirac(kappa=0.12)
-    r_half = WilsonDirac(kappa=0.12, r=0.5)
     packed = torch.zeros((1, 2, 4, 4, 4, 4, 3), dtype=torch.complex128)
-    r_half_method = {"methodname": "Chiral_condensate", "Nr": 1,
-                     "fermion_parameters": {"Dirac_operator": "Wilson", "hop": 0.12, "r": 0.5}}
-
-    def toml(**kw):
-        base = dict(L=(4, 4, 4, 8), NC=3, beta=6.0, update_method="HMC", quench=False,
-                    Dirac_operator="Wilson")
-        base.update(kw)
-        return lambda: check_supported(Params(**base), "cpu")
 
     return {
         "step_batched": lambda: hmc().step_batched(u()[None], [gen]),
@@ -323,33 +382,27 @@ def _refusal_cases():
             u()[None], torch.zeros((1,) + local + (4, 3), dtype=torch.complex128), 0.12),
         "wilson_hop full mode": lambda: wilson_kernel.wilson_dslash(
             u(), torch.zeros(local + (4, 3), dtype=torch.complex128), 0.12),
-        "Wilson r = 0.5 HMC": lambda: hmc(WilsonFermiAction(r_half)).step(u(), gen),
-        "clover r = 0.5 HMC": lambda: hmc(WilsonFermiAction(
-            WilsonDirac(kappa=0.12, r=0.5, csw=1.0))).step(u(), gen),
-        "Hasenbusch r = 0.5 HMC": lambda: hmc(HasenbuschWilsonFermiAction(r_half, mu=0.5)).step(
-            u(), gen),
-        "SLHMC Wilson r = 0.5": lambda: SLHMC(act, 0.1, 2, fermi_action=WilsonFermiAction(
-            r_half)).step(u(), gen),
-        "dense log det r = 0.5": lambda: dense_logdet_fermi_action(r_half, (4, 4, 4, 8, 4, 3),
-                                                                   1.0)(u()),
-        "Wilson r = 0.5 measurement": lambda: MeasurementSet.from_methods(
-            [r_half_method]).measurements[0].measure(u(), 1),
-        "TOML Wilson r = 0.5": toml(r=0.5),
-        "TOML clover r = 0.5": toml(Dirac_operator="WilsonClover", r=0.5),
-        "TOML SLHMC r = 0.5": toml(update_method="SLHMC", r=0.5),
-        "TOML IntegratedHB r = 0.5": toml(update_method="IntegratedHB", L=(4, 4, 2, 4), r=0.5),
-        "TOML measurement r = 0.5": toml(quench=True, measurement_methods=[r_half_method]),
     }
 
 
 REFUSALS = [
     "step_batched", "step_batched Wilson", "step_batched staggered",
     "staggered_w with a chain axis", "wilson_hop_packed with a chain axis",
-    "wilson_window with a chain axis", "wilson_hop full mode", "Wilson r = 0.5 HMC",
-    "clover r = 0.5 HMC", "Hasenbusch r = 0.5 HMC", "SLHMC Wilson r = 0.5",
-    "dense log det r = 0.5", "Wilson r = 0.5 measurement", "TOML Wilson r = 0.5",
-    "TOML clover r = 0.5", "TOML SLHMC r = 0.5", "TOML IntegratedHB r = 0.5",
-    "TOML measurement r = 0.5"]
+    "wilson_window with a chain axis", "wilson_hop full mode"]
+
+
+def _no_messages_or_draws(grid):
+    """The mock grid (no rank group): every torch.distributed call and every draw fails."""
+    from contextlib import ExitStack
+
+    forbidden = mock.Mock(side_effect=AssertionError("a message"))
+    stack = ExitStack()
+    stack.enter_context(mesh.use_grid(grid))
+    stack.enter_context(mock.patch.multiple(torch.distributed, batch_isend_irecv=forbidden,
+                                            all_reduce=forbidden, all_gather=forbidden))
+    stack.enter_context(mock.patch.object(torch, "randn", side_effect=AssertionError("a draw")))
+    stack.enter_context(mock.patch.object(torch, "rand", side_effect=AssertionError("a draw")))
+    return stack
 
 
 @pytest.mark.parametrize("what", REFUSALS)
@@ -359,12 +412,129 @@ def test_outside_the_slice_refused_under_a_grid(what):
     (each one raises here) and the generator has drawn nothing."""
     cases = _refusal_cases()
     grid = mesh.ProcessGrid((1, 1, 1, 2), (4, 4, 4, 8), rank=0)
-    forbidden = mock.Mock(side_effect=AssertionError("a message before the refusal"))
-    with mesh.use_grid(grid), \
-            mock.patch.multiple(torch.distributed, batch_isend_irecv=forbidden,
-                                all_reduce=forbidden, all_gather=forbidden), \
-            mock.patch.object(torch, "randn", side_effect=AssertionError("a draw")), \
-            mock.patch.object(torch, "rand", side_effect=AssertionError("a draw")):
+    with _no_messages_or_draws(grid):
         with pytest.raises(NotImplementedError, match="A14b"):
             cases[what]()
     assert set(REFUSALS) == set(cases)
+
+
+def _r_half_cases():
+    """name -> (its entry's check under the grid, which must pass: a refusal function
+    returning None or a builder that no longer raises; the Wilson operator at r = 0.5
+    its path applies; that operator's first call: "packed", "full" or "clover")."""
+    from latticeqcd_torch.measurements.scheduler import MeasurementSet
+    from latticeqcd_torch.ops import gauge_action as ga
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import HasenbuschWilsonFermiAction, WilsonFermiAction
+    from latticeqcd_torch.system.params import Params
+    from latticeqcd_torch.system.universe import (build_fermi_action, check_supported,
+                                                  params_grid_refusal)
+    from latticeqcd_torch.updates.hmc import HMC, grid_refusal
+    from latticeqcd_torch.updates.slhmc import SLHMC, dense_logdet_fermi_action
+
+    act = ga.wilson_gauge_action(3, 6.0)
+    r_half = WilsonDirac(kappa=0.12, r=0.5)
+    clover = WilsonDirac(kappa=0.12, r=0.5, csw=1.0)
+    r_half_method = {"methodname": "Chiral_condensate", "Nr": 1,
+                     "fermion_parameters": {"Dirac_operator": "Wilson", "hop": 0.12, "r": 0.5}}
+
+    def action(fa, kind, updater=HMC):
+        def check():
+            assert grid_refusal(fa) is None
+            updater(act, 0.1, 2, fermi_action=fa)  # its own check, in its constructor
+            return fa.dirac
+        return check, kind
+
+    def toml(kind, **kw):
+        base = dict(L=(4, 4, 4, 8), NC=3, beta=6.0, update_method="HMC", quench=False,
+                    Dirac_operator="Wilson", hop=0.12, r=0.5)
+        base.update(kw)
+
+        def check():
+            p = Params(**base)
+            assert params_grid_refusal(p) is None
+            check_supported(p, "cpu")
+            if p.quench:
+                return MeasurementSet.from_methods(p.measurement_methods).measurements[0]._dirac(
+                    torch.zeros((4, 4, 4, 4, 4, 3, 3)))[1]
+            return build_fermi_action(p).dirac
+        return check, kind
+
+    def dense():
+        dense_logdet_fermi_action(r_half, (4, 4, 4, 8, 4, 3), 1.0)
+        return r_half
+
+    def measurement():
+        m = MeasurementSet.from_methods([r_half_method]).measurements[0]
+        return m._dirac(torch.zeros((4, 4, 4, 4, 4, 3, 3)))[1]
+
+    return {
+        "Wilson r = 0.5 HMC": action(WilsonFermiAction(r_half), "packed"),
+        "clover r = 0.5 HMC": action(WilsonFermiAction(clover), "clover"),
+        "Hasenbusch r = 0.5 HMC": action(HasenbuschWilsonFermiAction(r_half, mu=0.5), "packed"),
+        "SLHMC Wilson r = 0.5": action(WilsonFermiAction(r_half), "packed", SLHMC),
+        "dense log det r = 0.5": (dense, "full"),
+        "Wilson r = 0.5 measurement": (measurement, "packed"),
+        "TOML Wilson r = 0.5": toml("packed"),
+        "TOML clover r = 0.5": toml("clover", Dirac_operator="WilsonClover",
+                                    Clover_coefficient=1.0),
+        "TOML SLHMC r = 0.5": toml("packed", update_method="SLHMC"),
+        "TOML IntegratedHB r = 0.5": toml("full", update_method="IntegratedHB"),
+        "TOML measurement r = 0.5": toml("packed", quench=True,
+                                         measurement_methods=[r_half_method]),
+    }
+
+
+R_HALF = [
+    "Wilson r = 0.5 HMC", "clover r = 0.5 HMC", "Hasenbusch r = 0.5 HMC",
+    "SLHMC Wilson r = 0.5", "dense log det r = 0.5", "Wilson r = 0.5 measurement",
+    "TOML Wilson r = 0.5", "TOML clover r = 0.5", "TOML SLHMC r = 0.5",
+    "TOML IntegratedHB r = 0.5", "TOML measurement r = 0.5"]
+
+
+@pytest.mark.parametrize("what", R_HALF)
+def test_wilson_r_half_runs_under_a_grid(what):
+    """Wilson r = 0.5 under the same two-process mock grid (no rank group: every message
+    and draw fails): each path's check passes, and the first operator its path applies
+    to this rank's block, through the plain halo form at r = 0.5 with the face
+    exchanges cut from the global fields, matches the block of the global plain
+    operator (1e-12)."""
+    from latticeqcd_torch.ops import fields
+    from latticeqcd_torch.ops.dirac import eo_pack
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac.wilson import apply_boundary_phases
+    from test_torch_hop_packed import block_faces
+
+    cases = _r_half_cases()
+    assert set(R_HALF) == set(cases)
+    check, kind = cases[what]
+    lat = (4, 4, 4, 8)
+    grid = mesh.ProcessGrid((1, 1, 1, 2), lat, rank=0)
+    with _no_messages_or_draws(grid):
+        dirac = check()
+    assert dirac.r == 0.5
+    u = apply_boundary_phases(fields.hot_start(lat, 3, seed=11, device="cpu"))
+    g = np.random.default_rng(12)
+    psi = torch.from_numpy(g.standard_normal(lat + (4, 3)) + 1j * g.standard_normal(lat + (4, 3)))
+    if kind == "packed":
+        u_t, u_s = eo_pack.pack_links(u, lat)
+        psi = psi[:lat[0] // 2].contiguous()
+        ref = dirac.hop_packed(u_t, u_s, psi, 0)
+        blocks = [grid.block(u_t, 1), grid.block(u_s, 1), grid.block(psi)]
+        run = lambda: dirac.hop_packed(*blocks, 0)  # noqa: E731
+        plain = "hop_packed_halo_reference"
+    else:
+        u_t = u_s = u
+        term = dirac.clover(u)
+        ref = dirac.apply(u, psi, term)
+        blocks = [grid.block(u, 1), grid.block(psi)]
+        run = lambda: dirac.apply(*blocks, None if term is None else grid.block(term))  # noqa: E731
+        plain = "dslash_halo_reference"
+    faces, links = block_faces(grid, psi, u_s)
+    spy = mock.Mock(wraps=getattr(wk, plain))
+    with _no_messages_or_draws(grid), mock.patch.object(wk, plain, spy), \
+            mock.patch.object(mesh, "exchange_faces", lambda f, grid: faces), \
+            mock.patch.object(wk, "link_faces", lambda u, grid: links):
+        got = run()
+    assert spy.call_count == 1 and spy.call_args.args[-1] == 0.5
+    assert float((got - grid.block(ref)).abs().max()) < 1e-12

@@ -77,7 +77,7 @@ def _injected(u, z, block, ops):
     out = {}
     for op in ops:
         fparams = OPERATORS[op]
-        d = build_dirac_from_params(fparams, tuple(u.shape[1:5]), device="cpu")
+        d = build_dirac_from_params(fparams, tuple(u.shape[1:5]))
         nf = 0.25 * fparams["Nf"] if op == "staggered" else 1.0
         pbp, vals = fermionic.chiral_condensate(u, d, nr=NR, nf_factor=nf, eps=EPS,
                                                 draws=block(z[f"z4_{op}"], 1))

@@ -15,7 +15,7 @@ halo version, at 1e-12 (complex128) and 1e-5 (complex64):
   4x8x12x4 cut along x gives the packed local extent X/2 = 1;
 * wilson_window: the full D at the tiles of the C entry points and at a
   ragged 2 x 2-row tile over t segments of at most 4 sites, x cut into
-  chunks.
+  chunks; at r = 1 and in the r mode at r = 0.5.
 """
 
 import os
@@ -184,8 +184,8 @@ _WINDOW_HARNESS = """
 #include <vector>
 #include "body.inc"
 namespace { alignas(16) unsigned char smem[1 << 20]; }
-template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH>
-int run(int lx, int ly, int lz, int lt, int chunk, double kappa, int mask) {
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool GENERIC_R>
+int run(int lx, int ly, int lz, int lt, int chunk, double kappa, int mask, double r) {
   using V = typename Vec<R>::type;
   const long vol = (long)lx * ly * lz * lt;
   std::vector<V> u(36 * vol), psi(12 * vol), out(12 * vol);
@@ -218,25 +218,35 @@ int run(int lx, int ly, int lz, int lt, int chunk, double kappa, int mask) {
       th.emplace_back([&, tid] {
         threadIdx = dim3{(unsigned)tid, 1, 1};
         blockIdx = dim3{(unsigned)b, 1, 1};
-        wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, true>(
-            u.data(), psi.data(), out.data(), lx, ly, lz, lt, ts, chunk, (R)kappa, halo);
+        wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, true, GENERIC_R>(
+            u.data(), psi.data(), out.data(), lx, ly, lz, lt, ts, chunk, (R)kappa, halo, (R)r);
       });
     for (auto& t : th) t.join();
   }
   fwrite(out.data(), sizeof(V), out.size(), stdout);
   return 0;
 }
+// at r != 1 the r mode
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH>
+int run_at(const int (&l)[5], double kappa, int mask, double r) {
+  return r == 1.0
+             ? run<R, BY, BZ, TSMAX, MINB, PREFETCH, false>(l[0], l[1], l[2], l[3], l[4], kappa,
+                                                            mask, r)
+             : run<R, BY, BZ, TSMAX, MINB, PREFETCH, true>(l[0], l[1], l[2], l[3], l[4], kappa,
+                                                           mask, r);
+}
 int main(int argc, char** argv) {
   int l[5];
   for (int i = 0; i < 5; ++i) l[i] = atoi(argv[i + 1]);
   const double kappa = atof(argv[6]);
   const int c128 = atoi(argv[7]), tile = atoi(argv[8]), mask = atoi(argv[9]);
+  const double r = argc > 10 ? atof(argv[10]) : 1.0;
   if (tile == 0)  // the tiles of the C entry points
-    return c128 ? run<double, WILSON_WINDOW_TILE_C128>(l[0], l[1], l[2], l[3], l[4], kappa, mask)
-                : run<float, WILSON_WINDOW_TILE_C64>(l[0], l[1], l[2], l[3], l[4], kappa, mask);
+    return c128 ? run_at<double, WILSON_WINDOW_TILE_C128>(l, kappa, mask, r)
+                : run_at<float, WILSON_WINDOW_TILE_C64>(l, kappa, mask, r);
   // 2 x 2 rows over t segments of at most 4 sites
-  return c128 ? run<double, 2, 2, 4, 1, true>(l[0], l[1], l[2], l[3], l[4], kappa, mask)
-              : run<float, 2, 2, 4, 1, true>(l[0], l[1], l[2], l[3], l[4], kappa, mask);
+  return c128 ? run_at<double, 2, 2, 4, 1, true>(l, kappa, mask, r)
+              : run_at<float, 2, 2, 4, 1, true>(l, kappa, mask, r);
 }
 """
 
@@ -254,25 +264,39 @@ def test_window_halo_body_on_the_cpu(window_halo_exe, lat, dtype, cut, tile):
     """wilson_window.cu's halo mode on every block, x cut into chunks of 3 (the carry of
     a chunk at x = 0 from the x face, an uneven last chunk), against the block of the
     plain global D and against the plain halo D."""
+    _window_halo_body(window_halo_exe, lat, dtype, cut, tile, 1.0)
+
+
+@pytest.mark.parametrize("tile", ["entry", "ragged"])
+@pytest.mark.parametrize("cut", list(HALO_CUTS))
+@pytest.mark.parametrize("lat", HALO_LATTICES, ids=LAT_IDS)
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_window_halo_body_r_mode(window_halo_exe, lat, dtype, cut, tile):
+    """The halo mode's r form at r = 0.5 (the four-spin carry across chunks and faces)
+    on the same blocks, against the plain D's projector form at r = 0.5."""
+    _window_halo_body(window_halo_exe, lat, dtype, cut, tile, 0.5)
+
+
+def _window_halo_body(exe, lat, dtype, cut, tile, r):
     tdt = getattr(torch, dtype)
     bar = 1e-12 if dtype == "complex128" else 1e-5
     u = _links(lat, tdt)
     psi = torch.randn(lat + (4, 3), dtype=tdt, generator=torch.Generator().manual_seed(3))
-    ref = wk.dslash_reference(u, psi, KAPPA)
+    ref = wk.dslash_reference(u, psi, KAPPA, r)
     pes = HALO_CUTS[cut]
     for rank in range(int(np.prod(pes))):
         grid = mesh.ProcessGrid(pes, lat, rank=rank)
         faces, links = block_faces(grid, psi, u)
         u_b, psi_b = grid.block(u, lead=1).contiguous(), grid.block(psi).contiguous()
         out = subprocess.run(
-            [window_halo_exe, *map(str, psi_b.shape[:4]), "3", repr(KAPPA),
+            [exe, *map(str, psi_b.shape[:4]), "3", repr(KAPPA),
              str(int(dtype == "complex128")), str(["entry", "ragged"].index(tile)),
-             str(sum(1 << mu for mu in faces))],
+             str(sum(1 << mu for mu in faces)), repr(r)],
             input=b"".join([to_numpy(u_b).tobytes(), to_numpy(psi_b).tobytes()]
                            + _face_bytes(faces, links)), capture_output=True, check=True)
         got = np.frombuffer(out.stdout, dtype=np.dtype(dtype)).reshape(psi_b.shape)
         assert float(np.abs(got - to_numpy(grid.block(ref))).max()) < bar, (cut, rank)
-        plain = wk.dslash_halo_reference(u_b, psi_b, KAPPA, faces, links)
+        plain = wk.dslash_halo_reference(u_b, psi_b, KAPPA, faces, links, r)
         assert float(np.abs(got - to_numpy(plain)).max()) < bar, (cut, rank)
 
 

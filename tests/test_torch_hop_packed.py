@@ -69,9 +69,10 @@ inline void bulk_copy_g2s(void* d, const void* s, unsigned n, uint64_t*) { std::
 inline void mbar_wait(uint64_t*, unsigned) { block_barrier->arrive_and_wait(); }
 inline void prefetch_l2(const void*, unsigned) {}
 """
-# run<R, BY, BZ, TSMAX, MINB>: the launch function's grid and block for nchain chains, one
-# block at a time; with a partition mask, the halo mode of one lattice block, its face
-# buffers read after the fields (lo, hi and link of each cut axis in turn)
+# run<R, BY, BZ, TSMAX, MINB, GENERIC_R>: the launch function's grid and block for nchain
+# chains, one block at a time; with a partition mask, the halo mode of one lattice block, its
+# face buffers read after the fields (lo, hi and link of each cut axis in turn); at r != 1 the
+# r mode
 _HARNESS = """
 #include <cstdio>
 #include <cstdlib>
@@ -79,8 +80,8 @@ _HARNESS = """
 #include <vector>
 #include "body.inc"
 namespace { alignas(16) unsigned char smem[1 << 20]; }
-template <typename R, int BY, int BZ, int TSMAX, int MINB>
-int run(int x2, int ly, int lz, int lt, int parity, int nchain, int mask) {
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool GENERIC_R>
+int run(int x2, int ly, int lz, int lt, int parity, int nchain, int mask, double r) {
   using V = typename Vec<R>::type;
   const long vol = (long)x2 * ly * lz * lt;
   std::vector<V> ut(36 * vol * nchain), us(36 * vol * nchain), psi(12 * vol * nchain),
@@ -117,27 +118,34 @@ int run(int x2, int ly, int lz, int lt, int parity, int nchain, int mask) {
         blockIdx = dim3{(unsigned)b, (unsigned)c, 0};
         // the launch function's choice: the halo mode for a mask, else the kernel without the
         // chain offsets for one chain
-        auto kernel = mask ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, true>
-                      : nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, false>
-                                    : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true, false>;
+        auto kernel =
+            mask ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, true, GENERIC_R>
+            : nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, false, GENERIC_R>
+                          : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true, false, GENERIC_R>;
         kernel(ut.data(), us.data(), psi.data(), out.data(), x2, ly, lz, lt, ts, parity, 36 * vol,
-               12 * vol, halo);
+               12 * vol, halo, (R)r);
       });
     for (auto& t : th) t.join();
   }
   fwrite(out.data(), sizeof(V), out.size(), stdout);
   return 0;
 }
+template <typename R, int BY, int BZ, int TSMAX, int MINB>
+int run_at(int x2, int ly, int lz, int lt, int parity, int nchain, int mask, double r) {
+  return r == 1.0 ? run<R, BY, BZ, TSMAX, MINB, false>(x2, ly, lz, lt, parity, nchain, mask, r)
+                  : run<R, BY, BZ, TSMAX, MINB, true>(x2, ly, lz, lt, parity, nchain, mask, r);
+}
 int main(int argc, char** argv) {
   const int x2 = atoi(argv[1]), ly = atoi(argv[2]), lz = atoi(argv[3]), lt = atoi(argv[4]);
   const int parity = atoi(argv[5]), c128 = atoi(argv[6]), brick = atoi(argv[7]);
   const int nchain = atoi(argv[8]), mask = argc > 9 ? atoi(argv[9]) : 0;
+  const double r = argc > 10 ? atof(argv[10]) : 1.0;
   if (brick == 0)  // the bricks of the C entry points
-    return c128 ? run<double, WILSON_BRICK_C128>(x2, ly, lz, lt, parity, nchain, mask)
-                : run<float, WILSON_BRICK_C64>(x2, ly, lz, lt, parity, nchain, mask);
+    return c128 ? run_at<double, WILSON_BRICK_C128>(x2, ly, lz, lt, parity, nchain, mask, r)
+                : run_at<float, WILSON_BRICK_C64>(x2, ly, lz, lt, parity, nchain, mask, r);
   // 4 x 4 bricks and t segments of at most 4 sites
-  return c128 ? run<double, 4, 4, 4, 1>(x2, ly, lz, lt, parity, nchain, mask)
-              : run<float, 4, 4, 4, 1>(x2, ly, lz, lt, parity, nchain, mask);
+  return c128 ? run_at<double, 4, 4, 4, 1>(x2, ly, lz, lt, parity, nchain, mask, r)
+              : run_at<float, 4, 4, 4, 1>(x2, ly, lz, lt, parity, nchain, mask, r);
 }
 """
 BRICKS = ["entry", "ragged"]
@@ -162,15 +170,17 @@ def brick_body_exe(tmp_path_factory):
     return str(exe)
 
 
-@pytest.mark.parametrize("brick", BRICKS)
-@pytest.mark.parametrize("lat", [(2, 4, 2, 6), (4, 2, 6, 2), (8, 6, 10, 4), (2, 2, 2, 2)],
-                         ids=["x2is1", "y2T2", "y6z10", "all2"])
-@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
-def test_brick_kernel_body_on_the_cpu(brick_body_exe, lat, dtype, brick):
-    """The CUDA kernel's own body, thread by thread, against the plain packed
-    hop, both target parities: with the bricks of the C entry points, and
-    with 4 x 4 bricks over t segments of at most 4 sites, which exceed or do
-    not divide y and z and cut t into ragged segments."""
+BODY_LATTICES = pytest.mark.parametrize(
+    "lat", [(2, 4, 2, 6), (4, 2, 6, 2), (8, 6, 10, 4), (2, 2, 2, 2)],
+    ids=["x2is1", "y2T2", "y6z10", "all2"])
+CHAIN_LATTICES = pytest.mark.parametrize("lat", [(2, 4, 2, 6), (8, 6, 10, 4)],
+                                         ids=["x2is1", "y6z10"])
+# the r mode's r, and the bars of tests/test_pallas.py
+R_MODE = 0.5
+BODY_BARS = {"complex128": 1e-12, "complex64": 1e-5}
+
+
+def _brick_body(exe, lat, dtype, brick, r):
     tdt = getattr(torch, dtype)
     u = tw.apply_boundary_phases(to_torch(np.asarray(jfields.hot_start(lat, 3, seed=sum(lat)))))
     u_e, u_o = (f.to(tdt) for f in eo_pack.pack_links(u, lat))
@@ -178,22 +188,36 @@ def test_brick_kernel_body_on_the_cpu(brick_body_exe, lat, dtype, brick):
     x = torch.randn(half + (4, 3), dtype=tdt, generator=torch.Generator().manual_seed(len(half)))
     for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
         out = subprocess.run(
-            [brick_body_exe, *map(str, half), str(parity), str(int(dtype == "complex128")),
-             str(BRICKS.index(brick)), "1"],
+            [exe, *map(str, half), str(parity), str(int(dtype == "complex128")),
+             str(BRICKS.index(brick)), "1", "0", repr(r)],
             input=b"".join(to_numpy(f).tobytes() for f in (u_t, u_s, x)),
             capture_output=True, check=True)
         got = np.frombuffer(out.stdout, dtype=np.dtype(dtype)).reshape(x.shape)
-        ref = to_numpy(wk.hop_packed_reference(u_t, u_s, x, parity))
-        assert float(np.abs(got - ref).max()) < (1e-12 if dtype == "complex128" else 1e-5)
+        ref = to_numpy(wk.hop_packed_reference(u_t, u_s, x, parity, r))
+        assert float(np.abs(got - ref).max()) < BODY_BARS[dtype]
 
 
 @pytest.mark.parametrize("brick", BRICKS)
-@pytest.mark.parametrize("lat", [(2, 4, 2, 6), (8, 6, 10, 4)], ids=["x2is1", "y6z10"])
+@BODY_LATTICES
 @pytest.mark.parametrize("dtype", ["complex64", "complex128"])
-def test_brick_kernel_body_with_a_chain_axis(brick_body_exe, lat, dtype, brick):
-    """Two chains with different links and spinors in one launch (the chain on the
-    grid's y axis, offset by the links' and the spinors' chain strides), each
-    chain against its own plain hop, both target parities."""
+def test_brick_kernel_body_on_the_cpu(brick_body_exe, lat, dtype, brick):
+    """The CUDA kernel's own body, thread by thread, against the plain packed
+    hop, both target parities: with the bricks of the C entry points, and
+    with 4 x 4 bricks over t segments of at most 4 sites, which exceed or do
+    not divide y and z and cut t into ragged segments."""
+    _brick_body(brick_body_exe, lat, dtype, brick, 1.0)
+
+
+@pytest.mark.parametrize("brick", BRICKS)
+@BODY_LATTICES
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_brick_kernel_body_r_mode(brick_body_exe, lat, dtype, brick):
+    """The same in the r mode at r = 0.5 (GENERIC_R: (r -+ g_mu) applied to the four
+    spins of U psi) against the plain packed hop's projector form at r = 0.5."""
+    _brick_body(brick_body_exe, lat, dtype, brick, R_MODE)
+
+
+def _chain_body(exe, lat, dtype, brick, r):
     tdt = getattr(torch, dtype)
     half = (lat[0] // 2,) + lat[1:]
     packed = [[f.to(tdt) for f in eo_pack.pack_links(tw.apply_boundary_phases(to_torch(
@@ -203,17 +227,35 @@ def test_brick_kernel_body_with_a_chain_axis(brick_body_exe, lat, dtype, brick):
         u_t = torch.stack([p[parity] for p in packed])
         u_s = torch.stack([p[1 - parity] for p in packed])
         out = subprocess.run(
-            [brick_body_exe, *map(str, half), str(parity), str(int(dtype == "complex128")),
-             str(BRICKS.index(brick)), "2"],
+            [exe, *map(str, half), str(parity), str(int(dtype == "complex128")),
+             str(BRICKS.index(brick)), "2", "0", repr(r)],
             input=b"".join(to_numpy(f).tobytes() for f in (u_t, u_s, x)),
             capture_output=True, check=True)
         got = np.frombuffer(out.stdout, dtype=np.dtype(dtype)).reshape(x.shape)
         for c in range(2):
-            ref = to_numpy(wk.hop_packed_reference(u_t[c], u_s[c], x[c], parity))
-            assert float(np.abs(got[c] - ref).max()) < (1e-12 if dtype == "complex128" else 1e-5)
+            ref = to_numpy(wk.hop_packed_reference(u_t[c], u_s[c], x[c], parity, r))
+            assert float(np.abs(got[c] - ref).max()) < BODY_BARS[dtype]
         # the chain-axis plain version is the per-chain one
-        assert np.array_equal(to_numpy(wk.hop_packed_reference(u_t, u_s, x, parity))[1],
-                              to_numpy(wk.hop_packed_reference(u_t[1], u_s[1], x[1], parity)))
+        assert np.array_equal(to_numpy(wk.hop_packed_reference(u_t, u_s, x, parity, r))[1],
+                              to_numpy(wk.hop_packed_reference(u_t[1], u_s[1], x[1], parity, r)))
+
+
+@pytest.mark.parametrize("brick", BRICKS)
+@CHAIN_LATTICES
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_brick_kernel_body_with_a_chain_axis(brick_body_exe, lat, dtype, brick):
+    """Two chains with different links and spinors in one launch (the chain on the
+    grid's y axis, offset by the links' and the spinors' chain strides), each
+    chain against its own plain hop, both target parities."""
+    _chain_body(brick_body_exe, lat, dtype, brick, 1.0)
+
+
+@pytest.mark.parametrize("brick", BRICKS)
+@CHAIN_LATTICES
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_brick_kernel_body_with_a_chain_axis_r_mode(brick_body_exe, lat, dtype, brick):
+    """The same in the r mode at r = 0.5."""
+    _chain_body(brick_body_exe, lat, dtype, brick, R_MODE)
 
 
 # global lattices cut in two along each axis: every local extent even; (4, 8, 12, 4) gives X/2 = 1
@@ -251,17 +293,31 @@ def test_brick_kernel_body_halo_mode(brick_body_exe, lat, dtype, cut, brick):
     """The kernel's halo mode, thread by thread, on every block of a global lattice cut
     along one axis (or x and t), both target parities: each block's output against the
     block of the plain hop of the global field and against the plain halo hop."""
+    _halo_body(brick_body_exe, lat, dtype, cut, brick, 1.0)
+
+
+@pytest.mark.parametrize("brick", BRICKS)
+@pytest.mark.parametrize("cut", list(HALO_CUTS))
+@pytest.mark.parametrize("lat", HALO_LATTICES, ids=["8x4x4x8", "4x8x12x4"])
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_brick_kernel_body_halo_mode_r_mode(brick_body_exe, lat, dtype, cut, brick):
+    """The halo mode's r form at r = 0.5 on the same blocks, against the plain hops'
+    projector form at r = 0.5."""
+    _halo_body(brick_body_exe, lat, dtype, cut, brick, R_MODE)
+
+
+def _halo_body(exe, lat, dtype, cut, brick, r):
     from latticeqcd_torch.parallel import mesh
 
     tdt = getattr(torch, dtype)
-    bar = 1e-12 if dtype == "complex128" else 1e-5
+    bar = BODY_BARS[dtype]
     u = tw.apply_boundary_phases(to_torch(np.asarray(jfields.hot_start(lat, 3, seed=sum(lat)))))
     u_e, u_o = (f.to(tdt) for f in eo_pack.pack_links(u, lat))
     half = (lat[0] // 2,) + lat[1:]
     x = torch.randn(half + (4, 3), dtype=tdt, generator=torch.Generator().manual_seed(7))
     pes = HALO_CUTS[cut]
     for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
-        ref = wk.hop_packed_reference(u_t, u_s, x, parity)
+        ref = wk.hop_packed_reference(u_t, u_s, x, parity, r)
         for rank in range(int(np.prod(pes))):
             grid = mesh.ProcessGrid(pes, lat, rank=rank)
             faces, links = block_faces(grid, x, u_s)
@@ -272,13 +328,14 @@ def test_brick_kernel_body_halo_mode(brick_body_exe, lat, dtype, cut, brick):
             for mu in sorted(faces):
                 data += [to_numpy(f).tobytes() for f in (*faces[mu], links[mu])]
             out = subprocess.run(
-                [brick_body_exe, *map(str, blocks[2].shape[:4]), str(parity),
-                 str(int(dtype == "complex128")), str(BRICKS.index(brick)), "1", str(mask)],
+                [exe, *map(str, blocks[2].shape[:4]), str(parity),
+                 str(int(dtype == "complex128")), str(BRICKS.index(brick)), "1", str(mask),
+                 repr(r)],
                 input=b"".join(data), capture_output=True, check=True)
             got = np.frombuffer(out.stdout, dtype=np.dtype(dtype)).reshape(blocks[2].shape)
             want = to_numpy(grid.block(ref))
             assert float(np.abs(got - want).max()) < bar, (cut, rank, parity)
-            plain = wk.hop_packed_halo_reference(*blocks, parity, faces, links)
+            plain = wk.hop_packed_halo_reference(*blocks, parity, faces, links, r)
             assert float(np.abs(got - to_numpy(plain)).max()) < bar, (cut, rank, parity)
 
 

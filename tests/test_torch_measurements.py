@@ -337,7 +337,7 @@ def test_clover_and_domainwall_raise_naming_a12(fparams):
 
     ms = tsched.MeasurementSet.from_methods(
         [{"methodname": "Pion_correlator", "fermion_parameters": fparams, "eps": 1e-14}])
-    dirac = tsched.build_dirac_from_params(fparams, LAT, device="cpu")
+    dirac = tsched.build_dirac_from_params(fparams, LAT)
     if fparams["Dirac_operator"] == "Domainwall":
         assert isinstance(dirac, DomainwallDirac)
     else:
@@ -451,8 +451,8 @@ _HARNESS = """
 #include <vector>
 #include "body.inc"
 namespace { alignas(16) unsigned char smem[1 << 20]; }
-template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH>
-int run(int lx, int ly, int lz, int lt, int chunk, double kappa) {
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool GENERIC_R>
+int run(int lx, int ly, int lz, int lt, int chunk, double kappa, double r) {
   using V = typename Vec<R>::type;
   const long vol = (long)lx * ly * lz * lt;
   std::vector<V> u(36 * vol), psi(12 * vol), out(12 * vol);
@@ -471,25 +471,34 @@ int run(int lx, int ly, int lz, int lt, int chunk, double kappa) {
       th.emplace_back([&, tid] {
         threadIdx = dim3{(unsigned)tid, 1, 1};
         blockIdx = dim3{(unsigned)b, 1, 1};
-        wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH>(u.data(), psi.data(), out.data(),
-                                                               lx, ly, lz, lt, ts, chunk, (R)kappa);
+        wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, false, GENERIC_R>(
+            u.data(), psi.data(), out.data(), lx, ly, lz, lt, ts, chunk, (R)kappa, {}, (R)r);
       });
     for (auto& t : th) t.join();
   }
   fwrite(out.data(), sizeof(V), out.size(), stdout);
   return 0;
 }
+// at r != 1 the r mode
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH>
+int run_at(const int (&l)[5], double kappa, double r) {
+  return r == 1.0 ? run<R, BY, BZ, TSMAX, MINB, PREFETCH, false>(l[0], l[1], l[2], l[3], l[4],
+                                                                 kappa, r)
+                  : run<R, BY, BZ, TSMAX, MINB, PREFETCH, true>(l[0], l[1], l[2], l[3], l[4],
+                                                                kappa, r);
+}
 int main(int argc, char** argv) {
   int l[5];
   for (int i = 0; i < 5; ++i) l[i] = atoi(argv[i + 1]);
   const double kappa = atof(argv[6]);
   const int c128 = atoi(argv[7]), tile = atoi(argv[8]);
+  const double r = argc > 9 ? atof(argv[9]) : 1.0;
   if (tile == 0)  // the tiles of the C entry points
-    return c128 ? run<double, WILSON_WINDOW_TILE_C128>(l[0], l[1], l[2], l[3], l[4], kappa)
-                : run<float, WILSON_WINDOW_TILE_C64>(l[0], l[1], l[2], l[3], l[4], kappa);
+    return c128 ? run_at<double, WILSON_WINDOW_TILE_C128>(l, kappa, r)
+                : run_at<float, WILSON_WINDOW_TILE_C64>(l, kappa, r);
   // 2 x 2 rows over t segments of at most 4 sites
-  return c128 ? run<double, 2, 2, 4, 1, true>(l[0], l[1], l[2], l[3], l[4], kappa)
-              : run<float, 2, 2, 4, 1, true>(l[0], l[1], l[2], l[3], l[4], kappa);
+  return c128 ? run_at<double, 2, 2, 4, 1, true>(l, kappa, r)
+              : run_at<float, 2, 2, 4, 1, true>(l, kappa, r);
 }
 """
 
@@ -515,16 +524,17 @@ def window_body_exe(tmp_path_factory):
     return str(exe)
 
 
-def _window_body(exe, lat, chunk, dtype, tile):
-    """The kernel body's D on a seeded field against the plain D."""
+def _window_body(exe, lat, chunk, dtype, tile, r=1.0):
+    """The kernel body's D at Wilson r on a seeded field against the plain D."""
     tdt = getattr(torch, dtype)
     u = tw.apply_boundary_phases(_links(lat, seed=sum(lat))[1]).to(tdt)
     psi = torch.randn(lat + (4, 3), dtype=tdt, generator=torch.Generator().manual_seed(3))
     out = subprocess.run(
-        [exe, *map(str, lat), str(chunk), "0.13", str(int(dtype == "complex128")), str(tile)],
+        [exe, *map(str, lat), str(chunk), "0.13", str(int(dtype == "complex128")), str(tile),
+         repr(r)],
         input=to_numpy(u).tobytes() + to_numpy(psi).tobytes(), capture_output=True, check=True)
     got = np.frombuffer(out.stdout, dtype=np.dtype(dtype)).reshape(psi.shape)
-    ref = to_numpy(wk.dslash_reference(u, psi, 0.13))
+    ref = to_numpy(wk.dslash_reference(u, psi, 0.13, r))
     assert float(np.abs(got - ref).max()) < (1e-12 if dtype == "complex128" else 1e-5)
 
 
@@ -551,6 +561,15 @@ def test_window_kernel_body_at_a_ragged_tile(window_body_exe, lat, chunk, dtype)
     """The same at 2 x 2 rows over t segments of at most 4 sites, which cut
     every T above 4 into segments, the odd T = 19 unevenly."""
     _window_body(window_body_exe, lat, chunk, dtype, tile=1)
+
+
+@WINDOW_BODY_SHAPES
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+@pytest.mark.parametrize("tile", [0, 1], ids=["entry", "ragged"])
+def test_window_kernel_body_r_mode(window_body_exe, lat, chunk, dtype, tile):
+    """The r mode at r = 0.5 (the four-spin -x carry, (r -+ g_mu) on U psi) at both
+    tiles on the same shapes, against the plain D's projector form at r = 0.5."""
+    _window_body(window_body_exe, lat, chunk, dtype, tile, r=0.5)
 
 
 @pytest.mark.gpu

@@ -13,6 +13,7 @@ import functools
 import os
 import shutil
 import subprocess
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -80,9 +81,13 @@ def test_half_spinor_hop_and_boundary_phases():
     for bc in ((1, 1, 1, -1), (-1, 1, -1, 1), (1, 1, 1, 1)):
         assert _err(jw.apply_boundary_phases(u, bc), tw.apply_boundary_phases(to_torch(u), bc)) == 0
     u, psi, _ = _setup(lat, "complex128", seed=4)
-    jd, td = jw.WilsonDirac(kappa=KAPPA), tw.WilsonDirac(kappa=KAPPA)
+    jd = jw.WilsonDirac(kappa=KAPPA)
     assert _err(jd._hop_half_spinor(u, psi), wk.hop_full_reference(to_torch(u), to_torch(psi))) < 1e-12
-    assert _err(jd._hop_generic(u, psi), td._hop_generic(to_torch(u), to_torch(psi))) < 1e-12
+    assert _err(jd._hop_generic(u, psi), wk.hop_full_reference(to_torch(u), to_torch(psi))) < 1e-12
+    # the one plain r-generic hop (the projector form) against the JAX package's
+    jd = jw.WilsonDirac(kappa=KAPPA, r=0.5)
+    assert _err(jd._hop_generic(u, psi), wk.hop_full_reference(to_torch(u), to_torch(psi),
+                                                               r=0.5)) < 1e-12
 
 
 def test_full_d_matches_pallas_b1_b2_interpret():
@@ -163,6 +168,50 @@ def test_hop_packed_backward_matches_autograd_of_plain():
             assert float((ga_ - gb_).abs().max()) < 1e-12
 
 
+@pytest.mark.parametrize("r", [0.5, 1.5])
+def test_r_mode_backward_matches_autograd_of_plain(r):
+    """At r != 1 the hand-written backward of WilsonHopPacked (psi by the adjoint hop
+    at the same r, the links by the r-generic outer products), of WilsonDslash (the
+    full D) and of the halo form's link gradients on a block cut along t against
+    autograd of the plain projector form."""
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.parallel import mesh
+    from test_torch_hop_packed import block_faces
+
+    lat = (4, 4, 2, 4)
+    u = tw.apply_boundary_phases(to_torch(jfields.hot_start(lat, 3, seed=17)))
+    u_e, u_o = eo_pack.pack_links(u, lat)
+    g = torch.Generator().manual_seed(4)
+    x, cot = (torch.randn((2, 4, 2, 4, 4, 3), dtype=torch.complex128, generator=g)
+              for _ in range(2))
+    for parity, (u_t, u_s) in ((0, (u_e, u_o)), (1, (u_o, u_e))):
+        leaves = [t.clone().requires_grad_(True) for t in (u_t, u_s, x)]
+        a = torch.autograd.grad(wk.wilson_hop_packed(*leaves, parity, r), leaves, cot)
+        b = torch.autograd.grad(wk.hop_packed_reference(*leaves, parity, r), leaves, cot)
+        for ga_, gb_ in zip(a, b):
+            assert float((ga_ - gb_).abs().max()) < 1e-12
+        # the halo form's link gradients on each block of a t cut, from faces cut from the
+        # global field, against the blocks of the global ones
+        d_ut, moving, _ = wk.halo_link_grads(cot, x, parity, {}, r)
+        assert float((d_ut - b[0]).abs().max()) < 1e-12
+        for rank in (0, 1):
+            grid = mesh.ProcessGrid((1, 1, 1, 2), lat, rank=rank)
+            faces, _ = block_faces(grid, x, u_s)
+            d_ut_b, moving_b, staying_b = wk.halo_link_grads(grid.block(cot), grid.block(x),
+                                                             parity, faces, r)
+            heads = {3: block_faces(grid, moving[3], u_s)[0][3][1]}  # the +t neighbour's
+            d_us_b = wk.scatter_halo(moving_b, staying_b, heads)
+            assert float((d_ut_b - grid.block(b[0], 1)).abs().max()) < 1e-12
+            assert float((d_us_b - grid.block(b[1], 1)).abs().max()) < 1e-12
+    psi = torch.randn(lat + (4, 3), dtype=torch.complex128, generator=g)
+    cot = torch.randn(lat + (4, 3), dtype=torch.complex128, generator=g)
+    leaves = [t.clone().requires_grad_(True) for t in (u, psi)]
+    a = torch.autograd.grad(ww.wilson_window(*leaves, KAPPA, r), leaves, cot)
+    b = torch.autograd.grad(wk.dslash_reference(*leaves, KAPPA, r), leaves, cot)
+    for ga_, gb_ in zip(a, b):
+        assert float((ga_ - gb_).abs().max()) < 1e-12
+
+
 def test_wrapper_never_falls_back_off_cpu():
     """A tensor that is not on the CPU launches the kernel or raises; here
     (meta tensors, no card) it must raise, not take the plain version."""
@@ -176,62 +225,113 @@ def test_wrapper_never_falls_back_off_cpu():
         wk.hop_packed_site(u[:, :1], u[:, :1], psi[:1], 0)
 
 
+class _Launches:
+    """Stands in for the kernels' C entry points: records each launch's entry point and
+    arguments, and returns 0 (no error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def entry(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+    def __getattr__(self, name):  # as a ctypes library: one entry point per attribute
+        return self.entry(name)
+
+
 def test_wilson_r_not_one_refused_off_cpu():
-    """r != 1 has no kernel (the half-spinor form holds at r = 1 only): off the
-    CPU, apply and hop_packed raise naming ROADMAP A4b, never the plain path."""
+    """r != 1 off the CPU: apply and hop_packed go to the kernels' wrappers, never the
+    plain path (meta tensors, no card: the wrappers raise), and with the launch
+    stubbed each wrapper calls its r mode's entry point (``_r``) with r, counted in
+    launches and in r_launches; at r = 1 the entry points without the suffix."""
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
     d = tw.WilsonDirac(kappa=KAPPA, r=0.5)
     u = torch.empty((4, 2, 2, 2, 2, 3, 3), dtype=torch.complex64, device="meta")
     psi = torch.empty((2, 2, 2, 2, 4, 3), dtype=torch.complex64, device="meta")
-    with pytest.raises(NotImplementedError, match="A4b"):
+    before = (wk.launches, ww.launches)
+    with pytest.raises(ValueError, match="CUDA"):
         d.apply(u, psi)
-    with pytest.raises(NotImplementedError, match="A4b"):
+    with pytest.raises(ValueError, match="CUDA"):
         d.hop_packed(u[:, :1], u[:, :1], psi[:1], 0)
+    assert (wk.launches, ww.launches) == before
+
+    stub = _Launches()
+    stream = mock.Mock(cuda_stream=0)
+    with mock.patch.object(wk, "_check"), mock.patch.object(torch.cuda, "device"), \
+            mock.patch.object(torch.cuda, "current_stream", return_value=stream), \
+            mock.patch.object(wk, "_fn", lambda lib, entry, dtype: stub.entry(entry)), \
+            mock.patch.object(ww, "_lib", lambda: stub):
+        for dirac, suffix in ((d, "_r"), (tw.WilsonDirac(kappa=KAPPA), "")):
+            n = (wk.launches, wk.r_launches, ww.launches, ww.r_launches)
+            with torch.no_grad():
+                dirac.apply(u, psi)
+                dirac.hop_packed(u[:, :1], u[:, :1], psi[:1], 0)
+            r_mode = int(suffix == "_r")
+            assert (wk.launches, wk.r_launches, ww.launches, ww.r_launches) == (
+                n[0] + 1, n[1] + r_mode, n[2] + 1, n[3] + r_mode)
+            (window, wargs), (brick, bargs) = stub.calls[-2:]
+            assert window == f"wilson_window{suffix}_c64" and brick == f"wilson_hop_brick{suffix}"
+            if r_mode:  # r follows kappa in the window's arguments, the stream in the brick's
+                assert wargs[7:9] == (KAPPA, 0.5) and bargs[-1] == 0.5
 
 
-@pytest.mark.parametrize("device,refused", [("cuda", True), ("cpu", False)])
-def test_check_supported_refuses_r_not_one_off_cpu(device, refused):
-    p = Params(L=(4, 4, 4, 4), NC=3, quench=False, Dirac_operator="Wilson", hop=KAPPA, r=0.5,
-               update_method="HMC")
-    if refused:
-        with pytest.raises(NotImplementedError, match="A4b"):
-            check_supported(p, device=device)
-    else:
-        check_supported(p, device=device)
-    check_supported(Params(L=(4, 4, 4, 4), NC=3, quench=False, Dirac_operator="Wilson",
-                           hop=KAPPA, r=1.0, update_method="HMC"), device=device)
+@pytest.mark.parametrize("device,card", [("cuda", True), ("cpu", False)])
+def test_check_supported_refuses_r_not_one_off_cpu(device, card):
+    """Wilson and clover r != 1 pass check_supported on the card as on the CPU (the
+    kernels' r mode); an unknown measurement operator is still refused there."""
+    for kind in ("Wilson", "WilsonClover"):
+        for r in (0.5, 1.0):
+            check_supported(Params(L=(4, 4, 4, 4), NC=3, quench=False, Dirac_operator=kind,
+                                   hop=KAPPA, r=r, update_method="HMC"), device=device)
+    bad = {"methodname": "Pion_correlator", "fermion_parameters": {"Dirac_operator": "Overlap"}}
+    with pytest.raises(ValueError, match="Overlap"):
+        check_supported(Params(L=(4, 4, 4, 4), NC=3, quench=True, update_method="HMC",
+                               measurement_methods=[bad]), device=device)
+    assert torch.device(device).type == ("cuda" if card else "cpu")
 
 
 def test_build_dirac_from_params_defaults_to_the_card():
-    """With no device given, a measurement's operator is built for the card
-    (the port's default device), so Wilson r != 1 is refused, naming A4b."""
-    with pytest.raises(NotImplementedError, match="A4b"):
-        build_dirac_from_params({"Dirac_operator": "Wilson", "hop": KAPPA, "r": 0.5}, (4, 4, 4, 4))
+    """A measurement's operator holds no device: built from its parameters alone (r =
+    0.5 too), it launches the kernels on whatever fields it is given, the card's by
+    default, and takes the plain versions only on the CPU (meta tensors: the dispatch)."""
+    d = build_dirac_from_params({"Dirac_operator": "Wilson", "hop": KAPPA, "r": 0.5}, (4, 4, 4, 4))
+    assert d == tw.WilsonDirac(kappa=KAPPA, r=0.5)
     assert build_dirac_from_params({"Dirac_operator": "Wilson", "hop": KAPPA}, (4, 4, 4, 4)).r == 1.0
+    u = torch.empty((4, 2, 2, 2, 2, 3, 3), dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        d.apply(u, torch.empty((2, 2, 2, 2, 4, 3), dtype=torch.complex64, device="meta"))
 
 
 @pytest.mark.parametrize("device,refused", [("meta", True), ("cpu", False)])
 def test_wilson_r_not_one_measurement_refused_before_any_trajectory(device, refused):
-    """A measurement's own Wilson r != 1 is refused off the CPU when its
-    operator is built, and by check_supported, which runs before the first
-    trajectory; on the CPU it builds the generic-r operator."""
+    """A measurement's own Wilson r != 1 is built as such and passes check_supported,
+    which runs before the first trajectory, off the CPU as on it; its operator applied
+    off the CPU goes to the kernel (meta tensors: the wrapper raises) and on the CPU
+    to the plain version, which matches the JAX package's operator at r = 0.5."""
     fparams = {"Dirac_operator": "Wilson", "hop": KAPPA, "r": 0.5}
     p = Params(L=(4, 4, 4, 4), NC=3, quench=True, update_method="HMC",
                measurement_methods=[{"methodname": "Pion_correlator", "fermion_parameters": fparams}])
+    d = build_dirac_from_params(fparams, p.L)
+    assert d.r == 0.5
+    check_supported(p, device=device)
     if refused:
-        with pytest.raises(NotImplementedError, match="A4b"):
-            build_dirac_from_params(fparams, p.L, device=device)
-        with pytest.raises(NotImplementedError, match="A4b"):
-            check_supported(p, device=device)
+        u = torch.empty((4, 4, 4, 4, 4, 3, 3), dtype=torch.complex64, device=device)
+        with pytest.raises(ValueError, match="CUDA"):
+            d.apply(u, torch.empty((4, 4, 4, 4, 4, 3), dtype=torch.complex64, device=device))
     else:
-        assert build_dirac_from_params(fparams, p.L, device=device).r == 0.5
-        check_supported(p, device=device)
+        u, psi, _ = _setup(p.L, "complex128", seed=12)
+        assert _err(jw.WilsonDirac(kappa=KAPPA, r=0.5).apply(u, psi),
+                    d.apply(to_torch(u), to_torch(psi))) < 1e-12
     fparams["r"] = 1.0
     check_supported(p, device=device)
 
 
 def test_kernel_spin_tables_match_gammas(tmp_path):
     """The compile-time W tables of csrc/wilson_spin.h (compiled here with
-    the host C++ compiler) factor (1 -+ gamma_mu) exactly."""
+    the host C++ compiler) factor (1 -+ gamma_mu) exactly, and give -+gamma_mu
+    itself as the r mode reads them (wilson_dir.h, lane_rebuild_r):
+    (-+g_mu phi)_j = i^k phi_h and (-+g_mu phi)_h = i^(4-k) phi_j."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -253,6 +353,12 @@ def test_kernel_spin_tables_match_gammas(tmp_path):
                 w[j, h] = 1j ** (k + (2 if sign == 1 else 0))
             np.testing.assert_allclose(w @ w.conj().T, np.eye(4) + sign * jgammas.GAMMA[mu],
                                        atol=1e-15)
+            g = np.zeros((4, 4), dtype=complex)
+            for h in range(2):
+                j, k = rows[2 * mu + h]
+                k += 2 if sign == 1 else 0
+                g[j, h], g[h, j] = 1j ** k, 1j ** (4 - k)
+            np.testing.assert_allclose(g, sign * jgammas.GAMMA[mu], atol=1e-15)
 
 
 @pytest.mark.gpu
