@@ -182,7 +182,13 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
  28. the chain axis: wilson_hop_packed and staggered_w (hop and W) with 1, 3 and 8 chains (no
      two chains' links equal) on phase 3's and phase 7's lattices, in complex64 (bar 1e-5) and
      complex128 (1e-12), both target parities, forward (one launch for all chains) and the
-     backward for the links and the field, against the plain per-chain versions; step_batched
+     backward for the links and the field, against the plain per-chain versions; wilson_window
+     (its chains entry points) with 1, 3 and 8 chains on 4^4, 3x5x2x6, 8x6x10x4 and 16^3x32 at
+     r = 1 and r = 0.5, forward (one launch, counted in chain_launches) and the backward for
+     the links and the field; each kernel also at the chain counts of phase 29's paths; the
+     window's chain form timed: at 16^3x32 a chain axis of one (the chains entry point)
+     beside none (the one-chain entry point) in turns, and 16 chains at 8^4 in one launch
+     beside the same lattices as 16 one-chain launches, against the bound; step_batched
      of 4 chains against 4 single-chain steps from the same draws at 4^4 complex128, quenched,
      Wilson and staggered Nf = 4 and Nf = 2 (dH 1e-10, links 1e-12, the same accept); mixed MD in
      complex128 against plain complex128 (dH 1e-9, links 1e-12), and a mixed complex64 Wilson
@@ -198,7 +204,13 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      trajectories each, every kernel's launch count set to 0 just before and read just after,
      beside 4 single-chain steps: seconds per trajectory, configurations per second, launches
      per trajectory, CG iterations and peak memory printed; it fails on a non-finite dH, a solve
-     at its limit or a kernel of the path not launched.
+     at its limit or a kernel of the path not launched. Then the Wilson family: (a) step_batched
+     of 2 chains against 2 single-chain steps at 4^4 complex128 (solves at eps 1e-24; dH 1e-10,
+     links 1e-12, the same accept) for clover, Hasenbusch + SW at csw 0 and at phase 27's
+     clover point, domain wall (L5 4), stout Wilson, Wilson at r = 0.5 and on 3x4x4x4, each
+     failing if its kernel (the window's chain form or the packed hop) did not launch; (b)
+     phase 27's clover Hasenbusch + SW at 8^4 and phase 23's domain wall at 4^4 as 16
+     complex64 chains, 2 batched trajectories each beside 4 single-chain steps, as above.
  30. the front end on the card: (a) phase 6's action written as a legacy .jl file and run
      through latticeqcd_torch.run_LQCD with no device argument (complex64): its TOML's
      Params must equal phase 6's in every field but the log and measurement paths, its final
@@ -331,7 +343,7 @@ PEAK_FLOP_PER_S = {"complex64": 67e12, "complex128": 34e12}
 
 STATE = {"err": {"wilson_hop_packed": 0.0, "wilson_hop": 0.0, "staggered_w": 0.0,
                  "staggered_w_fused": 0.0, "wilson_window": 0.0, "wilson_hop_packed_r": 0.0,
-                 "wilson_window_r": 0.0}, "checks": 0,
+                 "wilson_window_r": 0.0, "wilson_window_chains": 0.0}, "checks": 0,
          "timing": {}, "launches": {}}
 
 
@@ -3141,8 +3153,14 @@ def phase_clover_path(torch):
 # ------------------------------------------------------------------ mixed MD and batched chains
 
 CHAIN_COUNTS = (1, 3, 8)
-# the chain-axis launches of phase 29's batched paths, checked at their own shapes in phase 28
-PATH_CHAINS = [((4, 4, 4, 4), "wilson", 64), ((8, 8, 8, 8), "staggered", 16)]
+# the chain-axis launches of phase 29's batched paths, checked at their own shapes in phase 28:
+# the tier2 Wilson chains, staggered Nf = 4, clover Hasenbusch + SW (the full D) and domain
+# wall (the Schur operator's packed hops)
+PATH_CHAINS = [((4, 4, 4, 4), "wilson", 64), ((8, 8, 8, 8), "staggered", 16),
+               ((8, 8, 8, 8), "window", 16), ((4, 4, 4, 4), "wilson", 16)]
+# wilson_window's chain axis: phase 3's lattices with an odd one, and the timed shapes
+WINDOW_CHAIN_LATTICES = [(4, 4, 4, 4), (3, 5, 2, 6), (8, 6, 10, 4), MAIN]
+WINDOW_CHAINS_TIMED = ((8, 8, 8, 8), 16)
 
 
 def _zero_counts():
@@ -3151,7 +3169,7 @@ def _zero_counts():
     from latticeqcd_torch.ops.dirac import wilson_kernel as wk
     from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
 
-    wk.launches = ww.launches = wk.halo_launches = 0
+    wk.launches = ww.launches = wk.halo_launches = ww.chain_launches = 0
     wk.site_launches.update(full=0, packed=0)
     sk.launches = sk.w_launches = sk.fused_launches = 0
 
@@ -3176,6 +3194,99 @@ def _chain_links(torch, u, dtype, n):
         (torch.roll(u, c, 4) * complex(math.cos(0.1 * c), math.sin(0.1 * c))).to(dtype)),
         tuple(u.shape[1:5])) for c in range(n)]
     return torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+
+
+def _window_chain_links(torch, u, dtype, n):
+    """n chains of full links with the boundary phases, chain c as in _chain_links."""
+    from latticeqcd_torch.ops.dirac.wilson import apply_boundary_phases
+
+    return torch.stack([apply_boundary_phases(
+        (torch.roll(u, c, 4) * complex(math.cos(0.1 * c), math.sin(0.1 * c))).to(dtype))
+        for c in range(n)])
+
+
+def _window_chain_checks(torch, u, r, tag, bar):
+    """wilson_window with a chain axis at Wilson r: forward (one launch for all chains,
+    counted in chain_launches and at r != 1 in r_launches) and the backward for the links
+    and the field, against the plain per-chain D and its autograd."""
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
+    n = u.shape[0]
+    g = torch.Generator(device=u.device).manual_seed(n + 7)
+    shape = (n,) + tuple(u.shape[2:6]) + (4, 3)
+    x, cot = (torch.randn(shape, dtype=u.dtype, device=u.device, generator=g) for _ in range(2))
+    counts = lambda: (ww.launches, ww.chain_launches, ww.r_launches)  # noqa: E731
+    before = counts()
+    got = ww.wilson_window(u, x, KAPPA, r)
+    torch.cuda.synchronize()
+    if counts() != (before[0] + 1, before[1] + 1, before[2] + (r != 1.0)):
+        fail(f"wilson_window with {n} chains at r = {r}: launches {counts()} from {before}, "
+             "not one chain launch")
+    want = torch.stack([wk.dslash_reference(u[c], x[c], KAPPA, r) for c in range(n)])
+    check(f"window D n={n} r={r} {tag}", maxdiff(got, want), bar, "wilson_window_chains")
+    leaves = [t.detach().clone().requires_grad_(True) for t in (u, x)]
+    grads = torch.autograd.grad(ww.wilson_window(*leaves, KAPPA, r), leaves, cot)
+    err = 0.0
+    for c in range(n):
+        one = [t[c].detach().clone().requires_grad_(True) for t in (u, x)]
+        plain = torch.autograd.grad(wk.dslash_reference(*one, KAPPA, r), one, cot[c])
+        for a, b in zip(grads, plain):
+            err = max(err, maxdiff(a[c], b))
+    torch.cuda.synchronize()
+    check(f"window D n={n} r={r} backward (u, psi) {tag}", err, bar, "wilson_window_chains")
+
+
+def _window_chain_timing(torch):
+    """wilson_window's chain axis timed (CUDA graphs between CUDA events, cold: three input
+    sets in turn): at 16^3x32 a chain axis of one (the chains entry point) beside the lattice
+    without a chain axis (the one-chain entry point), in turns (without, with, with, without);
+    16 chains at 8^4 in one launch beside the same 16 lattices as 16 one-chain launches, each
+    beside the bound (480 B a site at complex64, 960 at complex128)."""
+    from latticeqcd_torch.ops import fields
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
+    vol = MAIN[0] * MAIN[1] * MAIN[2] * MAIN[3]
+    lat, n = WINDOW_CHAINS_TIMED
+    cvol = n * lat[0] * lat[1] * lat[2] * lat[3]
+    with torch.no_grad():
+        for dtype in (torch.complex64, torch.complex128):
+            name = str(dtype).split(".")[1]
+            f = 2 if dtype == torch.complex128 else 1
+            sets = [_fields(torch, MAIN, dtype, seed=seed)[:2] for seed in (7, 8, 9)]
+            single = [lambda s=s: ww.wilson_window(s[0], s[1], KAPPA) for s in sets]
+            one = [(s[0][None], s[1][None]) for s in sets]
+            chain = [lambda s=s: ww.wilson_window(s[0], s[1], KAPPA) for s in one]
+            turns = {"without": [], "with": []}
+            for label in ("without", "with", "with", "without"):
+                turns[label].append(_time_device(torch, single if label == "without" else chain))
+            bound = f * 480 * vol / HBM_BYTES_PER_S * 1e3
+            print(f"  window D {name} 16^3x32 one lattice, cold, in turns (without, with, with, "
+                  f"without a chain axis): without "
+                  f"{' '.join(f'{t * 1e3:.1f}' for t in turns['without'])} us, a chain axis of "
+                  f"one {' '.join(f'{t * 1e3:.1f}' for t in turns['with'])} us, bound "
+                  f"{bound * 1e3:.1f} us  [{STATE['smi']}]", flush=True)
+            del sets, one
+            csets = []
+            for seed in (10, 11, 12):
+                u = fields.hot_start(lat, 3, seed=seed, device="cuda")
+                g = torch.Generator(device=u.device).manual_seed(seed)
+                csets.append((_window_chain_links(torch, u, dtype, n),
+                              torch.randn((n,) + lat + (4, 3), dtype=dtype, device=u.device,
+                                          generator=g)))
+            us, xs = csets[0]
+            label = f"window D {n} chains {lat[0]}^4"
+            _time_case(torch, label, name,
+                       [lambda s=s: ww.wilson_window(s[0], s[1], KAPPA) for s in csets],
+                       lambda: wk.dslash_reference(us, xs, KAPPA), f * 480 * cvol, 1320 * cvol)
+            apart = _time_device(torch, [lambda s=s: [ww.wilson_window(s[0][c], s[1][c], KAPPA)
+                                                      for c in range(n)] for s in csets])
+            t_one = STATE["timing"][(label, name)]["ms"]
+            bound = STATE["timing"][(label, name)]["bound_ms"]
+            print(f"  {label} {name}: one launch {t_one * 1e3:.1f} us ({100 * bound / t_one:.1f}% "
+                  f"of the {bound * 1e3:.1f} us bound), {n} one-chain launches {apart * 1e3:.1f} us "
+                  f"({100 * bound / apart:.1f}%), cold  [{STATE['smi']}]", flush=True)
 
 
 def _chain_hop_checks(torch, mod, name, hop, plain, site, u_e, u_o, tag, bar):
@@ -3205,9 +3316,11 @@ def _chain_hop_checks(torch, mod, name, hop, plain, site, u_e, u_o, tag, bar):
         check(f"{name} n={n} backward (u_t, u_s, psi) p={parity} {tag}", err, bar, name)
 
 
-def _batched_against_single(torch, label, hmc, us, seed):
+def _batched_against_single(torch, label, hmc, us, seed, expect=()):
     """step_batched of the chains us against one step per chain from the same draws
-    (even chains accepted whatever dH, so their evolved links are compared)."""
+    (even chains accepted whatever dH, so their evolved links are compared); the kernels
+    named in ``expect`` must have launched in the batched step ("wilson_window chain": the
+    full D with a chain axis)."""
     from latticeqcd_torch.updates.hmc import Draws
 
     n = us.shape[0]
@@ -3215,9 +3328,9 @@ def _batched_against_single(torch, label, hmc, us, seed):
     for i in range(n):
         d = Draws.sample(hmc, us[i], torch.Generator(device=us.device).manual_seed(seed + i))
         draws.append(Draws(d.mom, d.xi, 0.0 if i % 2 == 0 else d.uniform))
-    before = _launch_counts()
+    before = _batched_counts()
     u_b, st_b = hmc.step_batched(us, draws=draws)
-    mid = _launch_counts()
+    mid = _batched_counts()
     worst_dh = worst_u = 0.0
     for i in range(n):
         u_i, st_i = hmc.step(us[i], draws=draws[i])
@@ -3225,7 +3338,7 @@ def _batched_against_single(torch, label, hmc, us, seed):
         worst_u = max(worst_u, maxdiff(u_b[i], u_i))
         if bool(st_b["accepted"][i]) != st_i["accepted"]:
             fail(f"{label}: chain {i} batched and alone disagree on accept")
-    after = _launch_counts()
+    after = _batched_counts()
     batched = {k: mid[k] - before[k] for k in mid if mid[k] != before[k]}
     single = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
     print(f"  {label}: {n} chains, dH {[round(float(d), 6) for d in st_b['dH']]}; launches "
@@ -3233,6 +3346,9 @@ def _batched_against_single(torch, label, hmc, us, seed):
           f"{sum(c['iterations'] for c in st_b['cg'])} in {len(st_b['cg'])} solves", flush=True)
     if not hmc.quench and not batched:
         fail(f"{label}: step_batched launched no kernel")
+    for name in expect:
+        if not batched.get(name):
+            fail(f"{label}: step_batched launched no {name}")
     check(f"{label} batched against single |ddH|", worst_dh, 1e-10)
     check(f"{label} batched against single max|dU|", worst_u, 1e-12)
 
@@ -3256,6 +3372,8 @@ def phase_batched_agreement(torch):
                 for n in CHAIN_COUNTS]
              + [(lat, kind, torch.complex64, n) for lat, kind, n in PATH_CHAINS])
     links = {}
+    cases += [(lat, "window", d, n) for lat in WINDOW_CHAIN_LATTICES for d in dtypes
+              for n in CHAIN_COUNTS]
     for lat, kind, dtype, n in cases:
         if (lat, kind) not in links:
             links[lat, kind] = fields.hot_start(lat, 3, seed=sum(lat) + (kind == "staggered"),
@@ -3263,6 +3381,11 @@ def phase_batched_agreement(torch):
         u = links[lat, kind]
         name = str(dtype).split(".")[1]
         tag = f"{'x'.join(map(str, lat))} {name}"
+        if kind == "window":  # the full D, at r = 1 and in the r mode
+            uc = _window_chain_links(torch, u, dtype, n)
+            for r in (1.0, R_MODE):
+                _window_chain_checks(torch, uc, r, tag, BARS[name])
+            continue
         u_e, u_o = _chain_links(torch, u, dtype, n)
         if kind == "wilson":
             _chain_hop_checks(torch, wk, "wilson_hop_packed", wk.wilson_hop_packed,
@@ -3283,6 +3406,7 @@ def phase_batched_agreement(torch):
                                 for c in range(n)])
             check(f"staggered_w n={n} W {tag}", maxdiff(got, want), BARS[name], "staggered_w")
     print(f"  chain-axis kernels checked in {time.time() - t0:.1f} s", flush=True)
+    _window_chain_timing(torch)
 
     lat = (4, 4, 4, 4)
     us = torch.stack([fields.hot_start(lat, 3, seed=280 + i, device=dev) for i in range(4)])
@@ -3347,6 +3471,13 @@ def _wilson_path_params(**kw):
     return Params(**base)
 
 
+def _batched_counts():
+    """_launch_counts with wilson_window's launches with a chain axis."""
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
+    return {**_launch_counts(), "wilson_window chain": ww.chain_launches}
+
+
 def _batched_run(torch, label, hmc, us, nsteps, seed):
     """nsteps step_batched of the chains us, then 4 single-chain steps of chain 0 in the same
     process; prints and returns the seconds and launches."""
@@ -3359,12 +3490,12 @@ def _batched_run(torch, label, hmc, us, nsteps, seed):
     launches = {}
     secs = []
     for k in range(nsteps):
-        before = _launch_counts()
+        before = _batched_counts()
         t0 = time.time()
         us, st = hmc.step_batched(us, generators=gens)
         torch.cuda.synchronize()
         secs.append(time.time() - t0)
-        diff = {kk: v - before[kk] for kk, v in _launch_counts().items() if v != before[kk]}
+        diff = {kk: v - before[kk] for kk, v in _batched_counts().items() if v != before[kk]}
         for kk, v in diff.items():
             launches[kk] = launches.get(kk, 0) + v
         iters = [c["iterations"] for c in st["cg"]]
@@ -3514,6 +3645,82 @@ def phase_batched_path(torch):
         "staggered_w", 0)
     if not launched.get("staggered_w"):
         fail("the batched staggered chains launched staggered_w no time")
+    _batched_family(torch)
+
+
+# The solves of phase 29(a): two roundings of a CG (the batched one's per-chain sums and a single
+# chain's) stop within its target of each other, and at eps 1e-19 the clover action's solves
+# alone moved dH by 3.2e-9 between the batched and the single-chain trajectory on the card
+# (bitwise equal on the CPU, where both sum in one order); at 1e-24 the solves sit far below
+# the 1e-10 bar on dH
+EPS_FAMILY = 1e-24
+
+
+def _batched_family(torch):
+    """Phase 29 for the Wilson family: (a) step_batched of 2 chains against 2 single-chain steps
+    at 4^4 complex128 for each action that has its batched form since wilson_window's chain axis;
+    (b) phase 27's clover Hasenbusch + SW at 8^4 and phase 23's domain wall at 4^4, each as 16
+    complex64 chains, timed against one chain."""
+    from latticeqcd_torch.ops import fields, gauge_action as ga
+    from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import (DomainwallFermiAction,
+                                                     HasenbuschWilsonFermiAction,
+                                                     WilsonFermiAction)
+    from latticeqcd_torch.smearing.stout import stout_stack
+    from latticeqcd_torch.updates.hmc import HMC
+
+    dev = torch.device("cuda")
+    chains = {lat: torch.stack([fields.hot_start(lat, 3, seed=800 + sum(lat) + i, device=dev)
+                                for i in range(2)]) for lat in ((4, 4, 4, 4), (3, 4, 4, 4))}
+    clover = WilsonDirac(kappa=CLOVER_KAPPA, csw=CLOVER_CSW)
+    window, packed = ("wilson_window chain",), ("wilson_hop_packed",)
+    eps = EPS_FAMILY
+    four, three = (4, 4, 4, 4), (3, 4, 4, 4)
+    runs = [  # label, fermion action, lattice, smearing, Sexton-Weingarten, kernels launched
+        ("clover", WilsonFermiAction(clover, eps_cg=eps), four, None, False, window),
+        ("Hasenbusch + SW", HasenbuschWilsonFermiAction(WilsonDirac(kappa=KAPPA), mu=0.5,
+                                                        eps_cg=eps), four, None, True, packed),
+        ("clover Hasenbusch + SW", HasenbuschWilsonFermiAction(clover, mu=0.5, eps_cg=eps), four,
+         None, True, window),
+        ("domain wall L5 4", DomainwallFermiAction(DomainwallDirac(0.3, DW_M5, 4), eps_cg=eps),
+         four, None, False, packed),
+        ("stout Wilson", WilsonFermiAction(WilsonDirac(kappa=KAPPA), eps_cg=eps), four,
+         stout_stack([0.1]), False, packed),
+        (f"Wilson r = {R_MODE}", WilsonFermiAction(WilsonDirac(kappa=KAPPA, r=R_MODE), eps_cg=eps),
+         four, None, False, packed),
+        ("Wilson 3x4x4x4", WilsonFermiAction(WilsonDirac(kappa=KAPPA), eps_cg=eps), three, None,
+         False, window),
+    ]
+    for i, (label, fa, lat, smearing, sw, expect) in enumerate(runs):
+        hmc = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=3, fermi_action=fa,
+                  smearing=smearing, sexton_weingarten=sw, nsw=2)
+        _batched_against_single(torch, f"{'x'.join(map(str, lat))} c128 {label}", hmc,
+                                chains[lat], 820 + 10 * i, expect)
+
+    c64 = torch.complex64
+    fa = HasenbuschWilsonFermiAction(clover, mu=0.5, eps_cg=1e-12, max_cg=3000)
+    hmc = HMC(action=ga.wilson_gauge_action(3, CLOVER_BETA), dtau=0.02, md_steps=10,
+              fermi_action=fa, sexton_weingarten=True, nsw=2)
+    lat = (8, 8, 8, 8)
+    us = torch.stack([fields.hot_start(lat, 3, seed=900 + i, dtype=c64, device=dev)
+                      for i in range(16)])
+    launched = _batched_run(torch, "8^4 clover Hasenbusch + SW c64", hmc, us, 2, seed=950)
+    STATE["launches"].setdefault("wilson_window_chains", {})[
+        "batched clover Hasenbusch + SW path"] = launched.get("wilson_window chain", 0)
+    if not launched.get("wilson_window chain"):
+        fail("the batched clover Hasenbusch chains launched wilson_window's chain form no time")
+
+    fa = DomainwallFermiAction(DomainwallDirac(DW_MASS, DW_M5, DW_L5), eps_cg=1e-12, max_cg=3000)
+    hmc = HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.02, md_steps=10, fermi_action=fa)
+    lat = (4, 4, 4, 4)
+    us = torch.stack([fields.hot_start(lat, 3, seed=960 + i, dtype=c64, device=dev)
+                      for i in range(16)])
+    launched = _batched_run(torch, f"4^4 domain wall L5 {DW_L5} c64", hmc, us, 2, seed=980)
+    STATE["launches"].setdefault("wilson_hop_packed", {})["batched domain-wall path"] = (
+        launched.get("wilson_hop_packed", 0))
+    if not launched.get("wilson_hop_packed"):
+        fail("the batched domain-wall chains launched wilson_hop_packed no time")
 
 
 # phase 6's action as a legacy .jl input (the four-dict Julia format of
@@ -4771,6 +4978,10 @@ KERNELS = [
      "latticeqcd_tpu/ops/dirac/wilson_pallas.py:414", (f"packed hop r={R_MODE}", "complex64")),
     ("wilson_window_r", "latticeqcd_torch/csrc/wilson_window.cu",
      "latticeqcd_tpu/ops/dirac/wilson_pallas.py:349", (f"window D r={R_MODE}", "complex64")),
+    # wilson_window's chain axis (the chains entry points), 16 chains at 8^4 in one launch
+    ("wilson_window_chains", "latticeqcd_torch/csrc/wilson_window.cu",
+     "latticeqcd_tpu/ops/dirac/wilson_pallas.py:349",
+     (f"window D {WINDOW_CHAINS_TIMED[1]} chains {WINDOW_CHAINS_TIMED[0][0]}^4", "complex64")),
 ]
 
 

@@ -83,6 +83,13 @@
 // bytes, so the r mode stays bound by bytes. Its global and halo modes take the r = 1 tile at
 // complex64 and one block per SM fewer at complex128 (below); the r = 1 instantiations
 // (GENERIC_R false) are the kernel as before.
+// Chains (CHAINS, the chains entry points): a leading chain axis of independent lattices
+// (HMC.step_batched), as jax.vmap adds a leading grid axis to the Pallas call, at r = 1 and in
+// the r mode. The chain is the grid's y axis; each block offsets its links and spinors by
+// chain * u_chain and chain * psi_chain elements before its copies, and the wave is sized over
+// the tiles of all chains, so that many chains cut x into fewer chunks (fewer carry prologues
+// per march). At complex64 the chain form runs one block per SM fewer (below). One chain
+// launches the kernel without the offsets (CHAINS false). No halo mode.
 #include <atomic>
 
 #include "tma.h"
@@ -153,19 +160,34 @@ struct Ring {
 // mode took 16.7 us on the x cut's 8x16x16x32 block and 22.1 on the t cut's 16^3x16 against
 // 15.0 and 20.9 at 2 (155 registers, no spill; scripts/ab_window_halo.py, warm, NVIDIA H100
 // 80GB HBM3 at 700 W).
+// CHAINS: chain blockIdx.y of a leading chain axis, its links and spinors u_chain and psi_chain
+// elements after the previous chain's (no halo mode); at complex64 one block per SM fewer as
+// well: at 3 the r = 1 form spilled 36 bytes (96 registers), and 16 chains at 8^4 took 25.0
+// us, 2 at 16^3x32 62.0 us, against 22.1 and 55.0 at 2 (the r mode 24.9 and 59.6 against 23.8
+// and 56.9; scripts/ab_window_chains.py, cold, NVIDIA H100 80GB HBM3 at 700 W). complex128
+// spills nothing there and keeps its bound.
 template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool HALO = false,
-          bool GENERIC_R = false>
-__global__ void __launch_bounds__(3 * BY * BZ * TSMAX, HALO && MINB > 2 ? MINB - 1 : MINB)
+          bool GENERIC_R = false, bool CHAINS = false>
+__global__ void __launch_bounds__(3 * BY * BZ * TSMAX,
+                                  (HALO && MINB > 2) || (CHAINS && sizeof(R) == 4) ? MINB - 1
+                                                                                   : MINB)
     wilson_window_kernel(const typename Vec<R>::type* __restrict__ u,
                          const typename Vec<R>::type* __restrict__ psi,
                          typename Vec<R>::type* __restrict__ out, int lx, int ly, int lz, int lt,
                          int ts, int chunk, R kappa, Halo<typename Vec<R>::type> halo = {},
-                         R r = R(1)) {
+                         R r = R(1), long long u_chain = 0, long long psi_chain = 0) {
   using V = typename Vec<R>::type;
   using S = Ring<BY, BZ>;
+  static_assert(!(CHAINS && HALO), "the halo mode holds one chain");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t bar[2];
   const V* rows = reinterpret_cast<const V*>(smem);
+  if (CHAINS) {
+    const long long chain = blockIdx.y;
+    u += chain * u_chain;
+    psi += chain * psi_chain;
+    out += chain * psi_chain;
+  }
 
   const int nts = (lt + ts - 1) / ts, nzb = (lz + BZ - 1) / BZ, nyb = (ly + BY - 1) / BY;
   int b = blockIdx.x;
@@ -314,17 +336,19 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, HALO && MINB > 2 ? MINB -
 }
 
 // Launch one wave: t is cut into the fewest segments of at most TSMAX sites, and x into the
-// fewest chunks that give every block the card holds at once a chunk. HALO: the halo mode, with
-// faces[mu], faces[4 + mu] and faces[8 + mu] as lo[mu], hi[mu] and link[mu]. GENERIC_R: the r
-// mode at Wilson parameter r.
+// fewest chunks that give every block the card holds at once a chunk, over the tiles of all
+// nchain chains (the grid's y axis). HALO: the halo mode (one chain), with faces[mu],
+// faces[4 + mu] and faces[8 + mu] as lo[mu], hi[mu] and link[mu]. GENERIC_R: the r mode at
+// Wilson parameter r. CHAINS: the kernel with the chain offsets, for nchain > 1; each
+// instantiation reads its own occupancy.
 template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool HALO = false,
-          bool GENERIC_R = false>
+          bool GENERIC_R = false, bool CHAINS = false>
 int launch(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
            double kappa, void* stream, int mask = 0, const void* const* faces = nullptr,
-           double r = 1.0) {
+           double r = 1.0, int nchain = 1, long long u_chain = 0, long long psi_chain = 0) {
   using V = typename Vec<R>::type;
   constexpr int smem_max = Ring<BY, BZ>::ROWS * 12 * TSMAX * sizeof(V);
-  auto* kernel = wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, HALO, GENERIC_R>;
+  auto* kernel = wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, HALO, GENERIC_R, CHAINS>;
   Halo<V> halo{mask, {}, {}, {}};
   for (int mu = 0; HALO && mu < 4; ++mu) {
     halo.lo[mu] = static_cast<const V*>(faces[mu]);
@@ -354,15 +378,29 @@ int launch(const void* u, const void* psi, void* out, int lx, int ly, int lz, in
   }
   const int nts = (lt + TSMAX - 1) / TSMAX, ts = (lt + nts - 1) / nts;
   const int tiles = ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * nts;
-  int nchunk = held / tiles;
+  int nchunk = held / (tiles * nchain);
   nchunk = nchunk < 1 ? 1 : nchunk > lx ? lx : nchunk;
   const int chunk = (lx + nchunk - 1) / nchunk;
   nchunk = (lx + chunk - 1) / chunk;
   const int smem = Ring<BY, BZ>::ROWS * 12 * ts * static_cast<int>(sizeof(V));
-  kernel<<<tiles * nchunk, 3 * BY * BZ * ts, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(tiles * nchunk, nchain), 3 * BY * BZ * ts, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const V*>(u), static_cast<const V*>(psi), static_cast<V*>(out), lx, ly, lz, lt,
-      ts, chunk, static_cast<R>(kappa), halo, static_cast<R>(r));
+      ts, chunk, static_cast<R>(kappa), halo, static_cast<R>(r), u_chain, psi_chain);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The global mode over nchain chains: one chain launches the kernel without the offsets.
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool GENERIC_R>
+int launch_chains(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
+                  int nchain, long long u_chain, long long psi_chain, double kappa, double r,
+                  void* stream) {
+  return nchain == 1
+             ? launch<R, BY, BZ, TSMAX, MINB, PREFETCH, false, GENERIC_R, false>(
+                   u, psi, out, lx, ly, lz, lt, kappa, stream, 0, nullptr, r)
+             : launch<R, BY, BZ, TSMAX, MINB, PREFETCH, false, GENERIC_R, true>(
+                   u, psi, out, lx, ly, lz, lt, kappa, stream, 0, nullptr, r, nchain, u_chain,
+                   psi_chain);
 }
 
 }  // namespace
@@ -371,9 +409,40 @@ int launch(const void* u, const void* psi, void* out, int lx, int ly, int lz, in
 // a CUDA error if the set-up failed, or -1 if no block of the tile fits on the device. psi
 // and the spinor faces must be 16-byte aligned. The halo mode's (one block of a process grid)
 // end in the partition mask (bit mu: axis mu is cut) and an array of 12 face pointers (lo[0..3],
-// hi[0..3], link[0..3]; those of uncut axes are not read). The _r entry points are the r mode:
-// the Wilson r follows kappa.
+// hi[0..3], link[0..3]; those of uncut axes are not read). The chains entry points take, after
+// the lattice extents, the chain count and the chain strides of the links and of the spinors
+// in elements (a chain of spinors is X Y Z T 96 bytes at complex64, so every chain's rows keep
+// the bulk copies' 16-byte alignment). The _r entry points are the r mode: the Wilson r
+// follows kappa.
 extern "C" {
+
+int wilson_window_chains_c64(const void* u, const void* psi, void* out, int lx, int ly, int lz,
+                             int lt, int nchain, long long u_chain, long long psi_chain,
+                             double kappa, void* stream) {
+  return launch_chains<float, WILSON_WINDOW_TILE_C64, false>(u, psi, out, lx, ly, lz, lt, nchain,
+                                                            u_chain, psi_chain, kappa, 1.0, stream);
+}
+
+int wilson_window_chains_c128(const void* u, const void* psi, void* out, int lx, int ly, int lz,
+                              int lt, int nchain, long long u_chain, long long psi_chain,
+                              double kappa, void* stream) {
+  return launch_chains<double, WILSON_WINDOW_TILE_C128, false>(
+      u, psi, out, lx, ly, lz, lt, nchain, u_chain, psi_chain, kappa, 1.0, stream);
+}
+
+int wilson_window_chains_r_c64(const void* u, const void* psi, void* out, int lx, int ly, int lz,
+                               int lt, int nchain, long long u_chain, long long psi_chain,
+                               double kappa, double r, void* stream) {
+  return launch_chains<float, WILSON_WINDOW_TILE_C64, true>(u, psi, out, lx, ly, lz, lt, nchain,
+                                                           u_chain, psi_chain, kappa, r, stream);
+}
+
+int wilson_window_chains_r_c128(const void* u, const void* psi, void* out, int lx, int ly, int lz,
+                                int lt, int nchain, long long u_chain, long long psi_chain,
+                                double kappa, double r, void* stream) {
+  return launch_chains<double, WILSON_WINDOW_TILE_C128_R, true>(
+      u, psi, out, lx, ly, lz, lt, nchain, u_chain, psi_chain, kappa, r, stream);
+}
 
 int wilson_window_c64(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
                       double kappa, void* stream) {

@@ -29,6 +29,12 @@ host in float64 and applied along s. On the CPU each slice takes the
 Wilson kernels' plain versions (the projector form at r != 1); the
 kernels hold NC = 3 and raise on other CUDA fields.
 
+Fields may lead with a chain axis of independent lattices (links [n, 4,
+X, Y, Z, T, 3, 3], fields [n, L5, ...], HMC.step_batched): each s slice
+of all chains is one launch (a contiguous copy of the slice), so a D_w4
+takes L5 launches for any n; the L5 couplings and blocks act along the
+axis after the chains.
+
 Under a process grid (parallel/mesh.py) every field is this rank's block
 and each slice goes through its kernel's halo mode: one exchange of the
 slice's faces per hop (2 L5 per Shat, 4 L5 per Shat^dag Shat), the
@@ -82,10 +88,16 @@ class DomainwallDirac:
         """The 4D Wilson operator at kappa = 1/2 that runs each slice."""
         return WilsonDirac(kappa=0.5, r=self.r, bc=self.bc)
 
+    @staticmethod
+    def _s_axis(psi) -> int:
+        """The fifth axis: 0, or 1 after a leading chain axis."""
+        return psi.ndim - 7
+
     def _slices(self, fn, psi: torch.Tensor, dag: bool) -> torch.Tensor:
-        """fn on every s slice, or gamma5 fn gamma5 with dag."""
+        """fn on every s slice (all chains at once), or gamma5 fn gamma5 with dag."""
         src = gamma5(psi) if dag else psi
-        out = torch.stack([fn(p) for p in src])
+        ax = self._s_axis(psi)
+        out = torch.stack([fn(p.contiguous()) for p in src.unbind(ax)], dim=ax)
         return gamma5(out) if dag else out
 
     def _wilson4(self, u, psi, dag: bool = False):
@@ -97,8 +109,10 @@ class DomainwallDirac:
     def _couplings(self, psi, dag: bool):
         """P- psi_{s+1} + P+ psi_{s-1} with the -m boundaries (dag: the
         chiralities swap shifts, since S+m^T = S-m)."""
-        up = torch.cat([psi[1:], -self.mass * psi[:1]])
-        dn = torch.cat([-self.mass * psi[-1:], psi[:-1]])
+        ax, l5 = self._s_axis(psi), self.l5
+        up = torch.cat([psi.narrow(ax, 1, l5 - 1), -self.mass * psi.narrow(ax, 0, 1)], dim=ax)
+        dn = torch.cat([-self.mass * psi.narrow(ax, l5 - 1, 1), psi.narrow(ax, 0, l5 - 1)],
+                       dim=ax)
         return chiral_join(up, dn) if dag else chiral_join(dn, up)
 
     def apply(self, u: torch.Tensor, psi: torch.Tensor, dag: bool = False) -> torch.Tensor:
@@ -132,8 +146,9 @@ class DomainwallDirac:
     def _apply_l5(self, psi, inverse: bool, dag: bool):
         """P+ (M+ along s) psi + P- (M- along s) psi, M = A or A^-1 (dag: A^dag)."""
         m_plus, m_minus = _l5_matrices(self, inverse, dag, psi.dtype, psi.device)
-        return torch.cat([torch.einsum("lk,k...->l...", m_plus, psi[..., :2, :]),
-                          torch.einsum("lk,k...->l...", m_minus, psi[..., 2:, :])], dim=-2)
+        eq = "lk,nk...->nl..." if self._s_axis(psi) else "lk,k...->l..."
+        return torch.cat([torch.einsum(eq, m_plus, psi[..., :2, :]),
+                          torch.einsum(eq, m_minus, psi[..., 2:, :])], dim=-2)
 
     def apply_a(self, psi, dag: bool = False):
         """The 4D-site-local block A of D (any packing); A^dag swaps the chiral
@@ -145,7 +160,10 @@ class DomainwallDirac:
         return self._apply_l5(psi, inverse=True, dag=dag)
 
     def packed_links(self, up):
-        """(U_even, U_odd) of links that carry the boundary phases."""
+        """(U_even, U_odd) of links that carry the boundary phases, each chain's over a
+        leading chain axis."""
+        if up.ndim == 8:
+            return torch.func.vmap(self.packed_links)(up)
         return eo_pack.pack_links(up, tuple(up.shape[1:5]))
 
     @staticmethod

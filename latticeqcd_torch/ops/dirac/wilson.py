@@ -80,9 +80,11 @@ class WilsonDirac:
 
     def apply(self, u: torch.Tensor, psi: torch.Tensor, clover=None) -> torch.Tensor:
         """D psi; u must already carry the boundary phases. With csw != 0,
-        ``clover`` is clover_term(u), built here when not given. Under a process
-        grid the full D is the wilson_window kernel's halo mode and the clover term
-        is built from sharded rolls; both are this rank's block."""
+        ``clover`` is clover_term(u), built here when not given. Fields may lead
+        with a chain axis (u [n, 4, X, Y, Z, T, NC, NC], psi [n, X, Y, Z, T, 4, NC]):
+        one launch for all chains. Under a process grid the full D is the
+        wilson_window kernel's halo mode and the clover term is built from sharded
+        rolls; both are this rank's block."""
         out = wilson_window_kernel.wilson_window(u, psi, self.kappa, self.r)
         if self.csw != 0.0:
             out = out + self.site_apply(self.clover(u) if clover is None else clover, psi)
@@ -98,6 +100,9 @@ class WilsonDirac:
     # Schur complement Dhat = 1 - kappa^2 H_eo H_oe on packed even sites.
 
     def packed_links(self, u: torch.Tensor):
+        """(u_e, u_o), each chain's over a leading chain axis."""
+        if u.ndim == 8:
+            return torch.func.vmap(self.packed_links)(u)
         return eo_pack.pack_links(u, tuple(u.shape[1:5]))
 
     def hop_packed(self, u_t, u_s, psi_s, target_parity: int) -> torch.Tensor:
@@ -133,7 +138,10 @@ class WilsonDirac:
     def clover_term(self, u: torch.Tensor) -> torch.Tensor:
         """T[X,Y,Z,T, s,a, t,b] = -(csw kappa / 2) sum_{mu != nu} sigma_munu
         F_munu with F_munu = traceless_antihermitian(sum of the four leaves) / 4,
-        in u's dtype; each plane built once and counted twice."""
+        in u's dtype; each plane built once and counted twice. Each chain's over a
+        leading chain axis."""
+        if u.ndim == 8:
+            return torch.func.vmap(self.clover_term)(u)
         sigma = torch.as_tensor(SIGMA, dtype=u.dtype, device=u.device)
         t = 0.0
         for i, (mu, nu) in enumerate(PLANES):

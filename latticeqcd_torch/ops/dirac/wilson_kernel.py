@@ -152,7 +152,10 @@ def hop_full_reference(u, psi, r=1.0):
 
 
 def dslash_reference(u, psi, kappa, r=1.0):
-    """Plain full-volume D psi = psi - kappa H psi at Wilson r."""
+    """Plain full-volume D psi = psi - kappa H psi at Wilson r, per chain over a leading
+    chain axis."""
+    if psi.ndim == 7:
+        return torch.func.vmap(lambda a, b: dslash_reference(a, b, kappa, r))(u, psi)
     return psi - kappa * hop_full_reference(u, psi, r)
 
 
@@ -245,6 +248,16 @@ def _link_grads(g, psi, gplus, gminus, r=1.0):
         ph = torch.einsum("sh,...sc->...hc", vp[mu].conj(), gminus(psi, mu))
         bwd.append(2.0 * torch.einsum("...hi,...hj->...ij", ph, gh.conj()))
     return fwd, bwd
+
+
+def _full_link_grads(g, psi, r=1.0):
+    """d u of Re<g, H psi> at Wilson r on the full lattice, per chain over a leading chain
+    axis. The gathers are rolls.roll, which on a block of a process grid exchange the slabs
+    that cross its faces."""
+    if psi.ndim == 7:
+        return torch.func.vmap(lambda a, b: _full_link_grads(a, b, r))(g, psi)
+    fwd, bwd = _link_grads(g, psi, full_plus, full_minus, r)
+    return torch.stack([fwd[mu] + rolls.roll(bwd[mu], -1, mu) for mu in range(DIRS)])
 
 
 def _packed_link_grads(g, psi_s, target_parity, r=1.0):
@@ -521,9 +534,9 @@ def hop_packed_site(u_t, u_s, psi_s, target_parity: int):
 class WilsonDslash(torch.autograd.Function):
     """D psi = psi - kappa H psi (full volume) at Wilson r through ``dslash``, the
     launch of a full-D kernel (this module's full mode, or wilson_window's, which
-    under a process grid runs its halo mode); the spinor gradient runs ``dslash``
-    again. The link gradient's gathers are rolls.roll, which on a block of a
-    process grid exchange the slabs that cross its faces."""
+    under a process grid runs its halo mode and takes a leading chain axis
+    otherwise); the spinor gradient runs ``dslash`` again, the link gradient is
+    ``_full_link_grads``."""
 
     @staticmethod
     def forward(ctx, u, psi, kappa, dslash, r):
@@ -540,9 +553,7 @@ class WilsonDslash(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             d_psi = gamma5(ctx.dslash(u, gamma5(g), ctx.kappa, ctx.r))  # D^dag = g5 D g5
         if ctx.needs_input_grad[0]:
-            fwd, bwd = _link_grads(g, psi, full_plus, full_minus, ctx.r)
-            d_u = -ctx.kappa * torch.stack(
-                [fwd[mu] + rolls.roll(bwd[mu], -1, mu) for mu in range(DIRS)])
+            d_u = -ctx.kappa * _full_link_grads(g, psi, ctx.r)
         return d_u, d_psi, None, None, None
 
 

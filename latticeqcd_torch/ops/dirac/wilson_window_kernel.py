@@ -19,6 +19,13 @@ outer products of ``wilson_kernel._link_grads``, at the same r. A tensor
 on the CPU takes the plain version (``wilson_kernel.dslash_reference``);
 a tensor on a CUDA device launches the kernel, or the wrapper raises.
 
+A leading chain axis of independent lattices (spinor [n, X, Y, Z, T, 4,
+3], links [n, 4, X, Y, Z, T, 3, 3], HMC.step_batched) is one launch of
+the kernel's chains entry points for all n chains, forward and spinor
+backward alike (one chain: the kernel without the chain offsets); the
+link gradient and the plain version are mapped over the chains with
+torch.func.vmap.
+
 Under a process grid (parallel/mesh.py) the fields are this rank's
 blocks and every D runs the kernel's halo mode (``dslash_halo``): the
 spinor's boundary slabs are exchanged with the neighbours first (two
@@ -28,9 +35,9 @@ version ``wilson_kernel.dslash_halo_reference``, reads the neighbours
 outside the block from these face buffers.
 
 ``launches`` counts kernel launches outside the halo mode (forward and
-backward alike, at any r), ``halo_launches`` those of the halo mode;
-``r_launches`` and ``r_halo_launches`` count those of the r mode among
-them.
+backward alike, at any r, with or without a chain axis), ``halo_launches``
+those of the halo mode; ``r_launches`` and ``r_halo_launches`` count those
+of the r mode among them, ``chain_launches`` those with a chain axis.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ launches = 0
 halo_launches = 0
 r_launches = 0
 r_halo_launches = 0
+chain_launches = 0
 
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
 _LIB = None
@@ -56,14 +64,18 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = _nvcc.load("wilson_window")
-        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        # the r mode's entry points (_r) take the Wilson r after kappa
+        vp, ci, ll, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+        chains = [vp, vp, vp, ci, ci, ci, ci, ci, ll, ll, cd]
+        # the r mode's entry points (_r) take the Wilson r after kappa; the chains entry points
+        # the chain count and the links' and spinors' chain strides after the extents
         for suffix in _SUFFIX.values():
             for entry, argtypes in (
                     ("wilson_window", [vp, vp, vp, ci, ci, ci, ci, cd, vp]),
                     ("wilson_window_halo", [vp, vp, vp, ci, ci, ci, ci, cd, ci, vp, vp]),
+                    ("wilson_window_chains", chains + [vp]),
                     ("wilson_window_r", [vp, vp, vp, ci, ci, ci, ci, cd, cd, vp]),
-                    ("wilson_window_halo_r", [vp, vp, vp, ci, ci, ci, ci, cd, cd, ci, vp, vp])):
+                    ("wilson_window_halo_r", [vp, vp, vp, ci, ci, ci, ci, cd, cd, ci, vp, vp]),
+                    ("wilson_window_chains_r", chains + [cd, vp])):
                 fn = getattr(lib, f"{entry}_{suffix}")
                 fn.argtypes, fn.restype = argtypes, ci
         _LIB = lib
@@ -99,7 +111,7 @@ def dslash_halo(u, psi, kappa, faces, link_faces, r=1.0):
 
 
 def _dslash(u, psi, kappa, r=1.0):
-    global launches, r_launches
+    global launches, r_launches, chain_launches
     grid = mesh.sharded()
     if grid is not None:
         if psi.ndim != 6:
@@ -109,21 +121,25 @@ def _dslash(u, psi, kappa, r=1.0):
                            wilson_kernel.link_faces(u, grid), r)
     if psi.device.type == "cpu":
         return wilson_kernel.dslash_reference(u, psi, kappa, r)
-    wilson_kernel._check(psi, u, kernel="wilson_window")
+    wilson_kernel._check(psi, u, kernel="wilson_window", chains=True)
     out = torch.empty_like(psi)
-    entry, r_arg = wilson_kernel._r_mode("wilson_window", r)
+    # a leading chain axis: the chains entry point, one launch for all chains
+    chains = () if psi.ndim == 6 else wilson_kernel.chain_args(psi, u, 2)
+    entry, r_arg = wilson_kernel._r_mode("wilson_window_chains" if chains else "wilson_window", r)
     fn = getattr(_lib(), f"{entry}_{_SUFFIX[psi.dtype]}")
     with torch.cuda.device(psi.device):
-        err = fn(u.data_ptr(), psi.data_ptr(), out.data_ptr(), *psi.shape[:4], float(kappa),
-                 *r_arg, torch.cuda.current_stream().cuda_stream)
+        err = fn(u.data_ptr(), psi.data_ptr(), out.data_ptr(), *psi.shape[-6:-2], *chains,
+                 float(kappa), *r_arg, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     launches += 1
     r_launches += r != 1.0
+    chain_launches += psi.ndim == 7
     return out
 
 
 def wilson_window(u, psi, kappa, r=1.0):
     """Full D psi at Wilson r through the kernel on CUDA (its r mode at r != 1), the
-    plain version on the CPU; under a process grid the halo mode on this rank's block."""
+    plain version on the CPU, with or without a leading chain axis (one launch for all
+    chains); under a process grid the halo mode on this rank's block."""
     return wilson_kernel.WilsonDslash.apply(u, psi, float(kappa), _dslash, float(r))

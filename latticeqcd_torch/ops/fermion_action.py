@@ -23,15 +23,20 @@ Counterpart of latticeqcd_tpu/ops/fermion_action.py (``_project_force``,
   Nf in 5..8, rational powers by Gauss-Jacobi partial fractions and the
   multi-shift CG.
 
-The Wilson action (csw = 0, r = 1, all-even lattices) and the staggered
-action (all-even lattices) also have batched forms for the independent
-chains of HMC.step_batched (``*_batched``): links [n, 4, X, Y, Z, T, NC,
-NC], one kernel launch per hop for all chains, the solves per chain in
-one masked batched CG (solvers.cg_multi) or multi-shift CG
-(solvers.multishift_cg_multi), per-chain chronological guesses, and the
-force the gradient of the sum over chains of each chain's quadratic
-form, which is per chain by construction; the packing of the links and
-the force's projection are mapped over the chains with torch.func.vmap.
+Every action but staggered on a lattice with an odd extent also has
+batched forms for the independent chains of HMC.step_batched
+(``*_batched``): links [n, 4, X, Y, Z, T, NC, NC], one kernel launch per
+hop or full D for all chains (per fifth-dimension slice for domain wall),
+the solves per chain in one masked batched CG (solvers.cg_multi) or
+multi-shift CG (solvers.multishift_cg_multi), per-chain chronological
+guesses, and the force the gradient of the sum over chains of each
+chain's quadratic form, which is per chain by construction. The packing
+of the links, the clover term and the force's projection are mapped over
+the chains with torch.func.vmap, and ``smear_fn`` (the smearing mapped
+over the chains) is differentiated outside any vmap. The Wilson, Hasenbusch
+and domain-wall actions run their single-chain code on stacked links:
+what differs is the solver and the per-chain sums, chosen by the links'
+chain axis.
 
 Each force solves once (detached, as jax.lax.stop_gradient does) and
 differentiates the operator's quadratic form in the solutions with
@@ -121,14 +126,38 @@ def _chain_noise(normals, dtype):
     return (torch.complex(*normals) / math.sqrt(2.0)).to(dtype)
 
 
-def _chain_force(us, quadratic):
-    """_project_force of each chain for the gradient of quadratic(leaf), a real
+def _chain_force(us, quadratic, smear_fn=None):
+    """_project_force of each chain for the gradient of quadratic(links), a real
     scalar summed over the chains (the solves held fixed), with respect to the
-    stacked links."""
-    uu = us.detach().requires_grad_(True)
+    stacked bare links (through smear_fn if given)."""
+    uu, ul = _smeared_leaf(us, smear_fn)
     with torch.enable_grad():
-        (g,) = torch.autograd.grad(quadratic(uu), uu)
+        (g,) = torch.autograd.grad(quadratic(ul), uu)
     return torch.func.vmap(_project_force)(us, g)
+
+
+def _chained(u) -> bool:
+    """Whether the links lead with a chain axis ([n, 4, X, Y, Z, T, NC, NC])."""
+    return u.ndim == 8
+
+
+def _lattice(u):
+    return tuple(u.shape[-6:-2])
+
+
+def _cg(u):
+    """The CG of solves on the links u: one masked batched CG over a chain axis."""
+    return solvers.cg_multi if _chained(u) else solvers.cg
+
+
+def _re_inner(u, a, b):
+    """Re<a, b>, of each chain over a chain axis of the links u."""
+    return _chain_inner(a, b) if _chained(u) else torch.real(inner(a, b))
+
+
+def _project(u, g):
+    """_project_force, of each chain over a chain axis of the links u."""
+    return torch.func.vmap(_project_force)(u, g) if _chained(u) else _project_force(u, g)
 
 
 @dataclass(frozen=True)
@@ -160,18 +189,23 @@ class WilsonFermiAction:
         """(S_old, phi): phi = A xi with unit Gaussian xi (from the
         Generator, or the injected normals (re, im)); S_old = |xi|^2. Under a
         process grid the Generator's normals are the global lattice's, this
-        rank's block kept (gaussian_spinor)."""
+        rank's block kept (gaussian_spinor). Links with a chain axis take
+        stacked normals and give S_old per chain."""
         up = self._phased(u)
-        xi = gaussian_spinor(self.noise_shape(u)[:4], u.shape[-1], nspin=4, dtype=u.dtype,
-                             device=u.device, generator=generator, normals=normals)
-        if self._eo(tuple(u.shape[1:5])):
+        if _chained(u):
+            xi = _chain_noise(normals, u.dtype)
+        else:
+            xi = gaussian_spinor(self.noise_shape(u)[:4], u.shape[-1], nspin=4, dtype=u.dtype,
+                                 device=u.device, generator=generator, normals=normals)
+        if self._eo(_lattice(u)):
             phi = self.dirac.apply_dhat(self.dirac.packed_links(up), xi)
         else:
             phi = self.dirac.apply(up, xi)
-        return torch.real(inner(xi, xi)), phi
+        return _re_inner(u, xi, xi), phi
 
     def _packed(self, up, phi) -> bool:
-        return phi.ndim == 6 and 2 * phi.shape[0] == up.shape[1]
+        lead = up.ndim - 7
+        return phi.ndim == 6 + lead and 2 * phi.shape[lead] == up.shape[lead + 1]
 
     def _d_ddag(self, up, packed: bool, clover=None):
         """A A^dag on the links ``up``: Dhat Dhat^dag, or D D^dag with the
@@ -185,14 +219,14 @@ class WilsonFermiAction:
 
     def _solve_normal(self, up, phi, x0=None, log=None, clover=None):
         """x = (A A^dag)^-1 phi with A = Dhat (packed phi) or D."""
-        x, _, _ = solvers.cg(self._d_ddag(up, self._packed(up, phi), clover), phi, x0=x0,
-                             eps=self.eps_cg, maxiter=self.max_cg, log=log)
+        x, _, _ = _cg(up)(self._d_ddag(up, self._packed(up, phi), clover), phi, x0=x0,
+                          eps=self.eps_cg, maxiter=self.max_cg, log=log)
         return x
 
     @torch.no_grad()
     def action(self, u, phi, log=None):
         x = self._solve_normal(self._phased(u), phi, log=log)
-        return torch.real(inner(phi, x))
+        return _re_inner(u, phi, x)
 
     def force(self, u, phi, log=None, smear_fn=None):
         return self.force_with_guess(u, phi, None, log=log, smear_fn=smear_fn)[0]
@@ -210,48 +244,15 @@ class WilsonFermiAction:
         with torch.enable_grad():
             c = torch.real(inner(x, self._d_ddag(uup, packed, clover)(x)))
             (g,) = torch.autograd.grad(c, uu)
-        return _project_force(u, g), x
+        return _project(u, g), x
 
-    # HMC.step_batched: csw = 0, r = 1 and an all-even lattice (the packed Dhat)
-    def batched_refusal(self, lattice) -> Optional[str]:
-        """Why the batched forms do not apply on ``lattice`` (ROADMAP A12.7b), or None."""
-        if self.dirac.csw != 0.0:
-            return "clover-improved Wilson fermions"
-        if self.dirac.r != 1.0:
-            return f"Wilson fermions at r = {self.dirac.r}"
-        if not eo_pack.packable(lattice):
-            return f"Wilson fermions on the lattice {lattice}, which cannot be packed"
-        return None
-
-    def _ddag_chains(self, up):
-        ueo = _chain_packed_links(self.dirac, up)
-        return lambda v: self.dirac.apply_dhat_ddag(ueo, v)
-
-    @torch.no_grad()
+    # HMC.step_batched: the same forms on links [n, 4, X, Y, Z, T, NC, NC], phi with the
+    # chain axis in front, normals stacked per chain; S and the solves per chain
     def sample_pseudofermion_batched(self, us, normals):
-        """(S_old per chain, phi [n, X/2, Y, Z, T, 4, NC]) for the chains' links
-        ``us`` [n, 4, X, Y, Z, T, NC, NC] from their stacked normals (re, im)."""
-        xi = _chain_noise(normals, us.dtype)
-        phi = self.dirac.apply_dhat(_chain_packed_links(self.dirac, self._phased(us)), xi)
-        return _chain_inner(xi, xi), phi
+        return self.sample_pseudofermion(us, normals=normals)
 
-    @torch.no_grad()
-    def action_batched(self, us, phi, log=None):
-        """S of each chain: one batched CG over the chains."""
-        x, _, _ = solvers.cg_multi(self._ddag_chains(self._phased(us)), phi, eps=self.eps_cg,
-                                   maxiter=self.max_cg, log=log)
-        return _chain_inner(phi, x)
-
-    def force_batched_with_guess(self, us, phi, x0, log=None):
-        """The force of each chain with its CG warm-started from x0 (one batched
-        CG over the chains); returns (force, x)."""
-        with torch.no_grad():
-            x, _, _ = solvers.cg_multi(self._ddag_chains(self._phased(us)), phi, x0=x0,
-                                       eps=self.eps_cg, maxiter=self.max_cg, log=log)
-        def quadratic(uu):
-            return torch.real(inner(x, self._ddag_chains(self._phased(uu))(x)))
-
-        return _chain_force(us, quadratic), x
+    action_batched = action
+    force_batched_with_guess = force_with_guess
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +312,8 @@ class HasenbuschWilsonFermiAction:
 
     @staticmethod
     def _packed(up, phi) -> bool:
-        return 2 * phi[0].shape[0] == up.shape[1]
+        lead = up.ndim - 7
+        return 2 * phi[0].shape[lead] == up.shape[lead + 1]
 
     @torch.no_grad()
     def sample_pseudofermion(self, u, generator: Optional[torch.Generator] = None, normals=None,
@@ -319,40 +321,41 @@ class HasenbuschWilsonFermiAction:
         """(S_old, (phi1, phi2)) from unit Gaussian xi1, xi2 (from the Generator, or
         the injected normals (re, im) of noise_shape(u), xi_i = normals[.][i]). Under
         a process grid the Generator's normals are the global lattice's, this rank's
-        block kept."""
-        shape = self.noise_shape(u)
+        block kept. Links with a chain axis take normals stacked per chain (xi_i =
+        normals[.][:, i]) and give S_old per chain."""
         if normals is None:
-            normals = tuple(mesh.randn_block(shape, self.noise_lead, generator, u.real.dtype,
-                                             u.device) for _ in range(2))
-        xi1, xi2 = (torch.complex(*normals) / math.sqrt(2.0)).to(u.dtype)
-        a, a_dag = self._ops(self._phased(u), self._eo(tuple(u.shape[1:5])))
+            normals = tuple(mesh.randn_block(self.noise_shape(u), self.noise_lead, generator,
+                                             u.real.dtype, u.device) for _ in range(2))
+        xi = (torch.complex(*normals) / math.sqrt(2.0)).to(u.dtype)
+        xi1, xi2 = (xi[:, 0].contiguous(), xi[:, 1].contiguous()) if _chained(u) else xi
+        a, a_dag = self._ops(self._phased(u), self._eo(_lattice(u)))
         phi1 = self._amu(a, xi1)
         # phi2 = A_mu (A^dag A + mu^2)^-1 A xi2: one well-conditioned heavy solve
-        z, _, _ = solvers.cg(lambda v: a_dag(a(v)) + self.mu ** 2 * v, a(xi2), eps=self.eps_cg,
-                             maxiter=self.max_cg, log=log)
-        s_old = torch.real(inner(xi1, xi1)) + torch.real(inner(xi2, xi2))
+        z, _, _ = _cg(u)(lambda v: a_dag(a(v)) + self.mu ** 2 * v, a(xi2), eps=self.eps_cg,
+                         maxiter=self.max_cg, log=log)
+        s_old = _re_inner(u, xi1, xi1) + _re_inner(u, xi2, xi2)
         return s_old, (phi1, self._amu(a, z))
 
-    def _heavy_solve(self, a, a_dag, phi1, x0=None, log=None):
-        """x1 = (A A^dag + mu^2)^-1 phi1."""
-        x1, _, _ = solvers.cg(lambda v: a(a_dag(v)) + self.mu ** 2 * v, phi1, x0=x0,
-                              eps=self.eps_cg, maxiter=self.max_cg, log=log)
+    def _heavy_solve(self, cg, a, a_dag, phi1, x0=None, log=None):
+        """x1 = (A A^dag + mu^2)^-1 phi1 by ``cg``."""
+        x1, _, _ = cg(lambda v: a(a_dag(v)) + self.mu ** 2 * v, phi1, x0=x0,
+                      eps=self.eps_cg, maxiter=self.max_cg, log=log)
         return x1
 
-    def _light_solve(self, a, a_dag, phi2, x0=None, log=None):
-        """(w, x2): w = A_mu^dag phi2, x2 = (A A^dag)^-1 w."""
+    def _light_solve(self, cg, a, a_dag, phi2, x0=None, log=None):
+        """(w, x2): w = A_mu^dag phi2, x2 = (A A^dag)^-1 w by ``cg``."""
         w = self._amu_dag(a_dag, phi2)
-        x2, _, _ = solvers.cg(lambda v: a(a_dag(v)), w, x0=x0, eps=self.eps_cg,
-                              maxiter=self.max_cg, log=log)
+        x2, _, _ = cg(lambda v: a(a_dag(v)), w, x0=x0, eps=self.eps_cg,
+                      maxiter=self.max_cg, log=log)
         return w, x2
 
     @torch.no_grad()
     def action(self, u, phi, log=None):
         up = self._phased(u)
         a, a_dag = self._ops(up, self._packed(up, phi))
-        x1 = self._heavy_solve(a, a_dag, phi[0], log=log)
-        w, x2 = self._light_solve(a, a_dag, phi[1], log=log)
-        return torch.real(inner(phi[0], x1)) + torch.real(inner(w, x2))
+        x1 = self._heavy_solve(_cg(u), a, a_dag, phi[0], log=log)
+        w, x2 = self._light_solve(_cg(u), a, a_dag, phi[1], log=log)
+        return _re_inner(u, phi[0], x1) + _re_inner(u, w, x2)
 
     def _force(self, u, phi, heavy: bool, light: bool, x0, log, smear_fn):
         """The force of S1 (heavy), S2 (light) or both, with the solves held fixed:
@@ -364,8 +367,8 @@ class HasenbuschWilsonFermiAction:
         packed = self._packed(uup, phi)
         with torch.no_grad():
             a, a_dag = self._ops(uup.detach(), packed, _detached(clover))
-            x1 = self._heavy_solve(a, a_dag, phi[0], x0, log) if heavy else None
-            x2 = self._light_solve(a, a_dag, phi[1], x0, log)[1] if light else None
+            x1 = self._heavy_solve(_cg(u), a, a_dag, phi[0], x0, log) if heavy else None
+            x2 = self._light_solve(_cg(u), a, a_dag, phi[1], x0, log)[1] if light else None
         with torch.enable_grad():
             a, a_dag = self._ops(uup, packed, clover)
             c = 0.0
@@ -376,7 +379,7 @@ class HasenbuschWilsonFermiAction:
                      - 2.0 * torch.real(inner(x2, self._amu_dag(a_dag, phi[1]))))
             (g,) = torch.autograd.grad(c, uu)
         solution = None if heavy and light else (x1 if heavy else x2)
-        return _project_force(u, g), solution
+        return _project(u, g), solution
 
     def force(self, u, phi, log=None, smear_fn=None):
         """The total force (both solves from zero: the JAX package threads no
@@ -398,6 +401,20 @@ class HasenbuschWilsonFermiAction:
     def force_light_with_guess(self, u, phi, x0, log=None, smear_fn=None):
         """The light force with its CG warm-started from x0; returns (force, x2)."""
         return self._force(u, phi, False, True, x0, log, smear_fn)
+
+    # HMC.step_batched: the same forms on links [n, 4, X, Y, Z, T, NC, NC], phi1 and phi2
+    # with the chain axis in front, normals [n, 2, ...]; S and the solves per chain
+    def sample_pseudofermion_batched(self, us, normals):
+        return self.sample_pseudofermion(us, normals=normals)
+
+    action_batched = action
+
+    def force_batched_with_guess(self, us, phi, x0, log=None, smear_fn=None):
+        """The total force of each chain (both solves from zero, as ``force``)."""
+        return self._force(us, phi, True, True, None, log, smear_fn)
+
+    force_heavy_batched_with_guess = force_heavy_with_guess
+    force_light_batched_with_guess = force_light_with_guess
 
 
 # ---------------------------------------------------------------------------
@@ -435,7 +452,8 @@ class DomainwallFermiAction:
 
     @staticmethod
     def _packed(up, phi) -> bool:
-        return 2 * phi.shape[1] == up.shape[1]
+        lead = up.ndim - 7
+        return 2 * phi.shape[lead + 1] == up.shape[lead + 1]
 
     def _ops(self, up, packed: bool, dirac: DomainwallDirac):
         """(A, A^dag) of ``dirac`` on the links ``up``."""
@@ -448,8 +466,8 @@ class DomainwallFermiAction:
     def _solve_normal(self, up, b, x0=None, log=None):
         """x = (A^dag A)^-1 b with A = Shat (packed b) or D."""
         a, a_dag = self._ops(up, self._packed(up, b), self.dirac)
-        x, _, _ = solvers.cg(lambda v: a_dag(a(v)), b, x0=x0, eps=self.eps_cg,
-                             maxiter=self.max_cg, log=log)
+        x, _, _ = _cg(up)(lambda v: a_dag(a(v)), b, x0=x0, eps=self.eps_cg,
+                          maxiter=self.max_cg, log=log)
         return x
 
     @torch.no_grad()
@@ -458,26 +476,26 @@ class DomainwallFermiAction:
         """(S_old, phi): phi = A_PV (A_PV^dag A_PV)^-1 A^dag xi with unit Gaussian
         xi (from the Generator, or the injected normals (re, im) of
         noise_shape(u)), so that S(phi) = |xi|^2 = S_old. Under a process grid the
-        Generator's normals are the global lattice's, this rank's block kept."""
-        shape = self.noise_shape(u)
+        Generator's normals are the global lattice's, this rank's block kept. Links
+        with a chain axis take normals stacked per chain and give S_old per chain."""
         if normals is None:
-            normals = tuple(mesh.randn_block(shape, self.noise_lead, generator, u.real.dtype,
-                                             u.device) for _ in range(2))
+            normals = tuple(mesh.randn_block(self.noise_shape(u), self.noise_lead, generator,
+                                             u.real.dtype, u.device) for _ in range(2))
         xi = (torch.complex(*normals) / math.sqrt(2.0)).to(u.dtype)
         up = self._phased(u)
-        packed = eo_pack.packable(tuple(u.shape[1:5]))
+        packed = eo_pack.packable(_lattice(u))
         _, a_dag = self._ops(up, packed, self.dirac)
         pv, pv_dag = self._ops(up, packed, self._pv())
-        w, _, _ = solvers.cg(lambda v: pv_dag(pv(v)), a_dag(xi), eps=self.eps_cg,
-                             maxiter=self.max_cg, log=log)
-        return torch.real(inner(xi, xi)), pv(w)
+        w, _, _ = _cg(u)(lambda v: pv_dag(pv(v)), a_dag(xi), eps=self.eps_cg,
+                         maxiter=self.max_cg, log=log)
+        return _re_inner(u, xi, xi), pv(w)
 
     @torch.no_grad()
     def action(self, u, phi, log=None):
         up = self._phased(u)
         _, pv_dag = self._ops(up, self._packed(up, phi), self._pv())
         b = pv_dag(phi)
-        return torch.real(inner(b, self._solve_normal(up, b, log=log)))
+        return _re_inner(u, b, self._solve_normal(up, b, log=log))
 
     def force(self, u, phi, log=None, smear_fn=None):
         return self.force_with_guess(u, phi, None, log=log, smear_fn=smear_fn)[0]
@@ -501,7 +519,15 @@ class DomainwallFermiAction:
             dx = a(x)
             c = 2.0 * torch.real(inner(phi, pv(x))) - torch.real(inner(dx, dx))
             (g,) = torch.autograd.grad(c, uu)
-        return -_project_force(u, g), x
+        return -_project(u, g), x
+
+    # HMC.step_batched: the same forms on links [n, 4, X, Y, Z, T, NC, NC], phi [n, L5, ...],
+    # normals stacked per chain; S and the solves per chain
+    def sample_pseudofermion_batched(self, us, normals):
+        return self.sample_pseudofermion(us, normals=normals)
+
+    action_batched = action
+    force_batched_with_guess = force_with_guess
 
 
 # ---------------------------------------------------------------------------
@@ -726,9 +752,11 @@ class StaggeredFermiAction:
 
     # HMC.step_batched: an all-even lattice (the packed W); the pseudofermions stay packed
     def batched_refusal(self, lattice) -> Optional[str]:
-        """Why the batched forms do not apply on ``lattice`` (ROADMAP A12.7b), or None."""
+        """Why the batched forms do not apply on ``lattice``, or None: the full-volume W
+        of an odd extent has no chain axis on the card yet (ROADMAP B3c)."""
         if not eo_pack.packable(lattice):
-            return f"staggered fermions on the lattice {lattice}, which cannot be packed"
+            return (f"staggered fermions on the lattice {lattice}, which cannot be packed "
+                    "(ROADMAP B3c)")
         return None
 
     def _w_chains(self, up):
@@ -776,15 +804,16 @@ class StaggeredFermiAction:
             total = total + s
         return total
 
-    def force_batched_with_guess(self, us, phi, x0, log=None):
+    def force_batched_with_guess(self, us, phi, x0, log=None, smear_fn=None):
         """The force of each chain: for the single-pole rational a batched CG per
         pseudofermion warm-started from x0 [n_pf, n, ...], else the batched
-        multi-shift CG from zero. Returns (force, solutions or None)."""
+        multi-shift CG from zero; with smear_fn the solves run on the smeared links.
+        Returns (force, solutions or None)."""
         pf = self._pf_action()
         single = self._is_single_pole(pf)
         xs_all = []
         with torch.no_grad():
-            w = self._w_chains(self._phased(us))
+            w = self._w_chains(self._phased(us if smear_fn is None else smear_fn(us)))
             for k in range(phi.shape[1]):
                 b = phi[:, k].contiguous()
                 if single:
@@ -804,7 +833,7 @@ class StaggeredFermiAction:
                     c = c + float(a) * torch.real(inner(xs[j], w_d(xs[j])))
             return c
 
-        force = _chain_force(us, quadratic)
+        force = _chain_force(us, quadratic, smear_fn)
         return force, (torch.stack([xs[0] for xs in xs_all]) if single else None)
 
     @staticmethod

@@ -32,11 +32,14 @@ dtype.
 package's vmap of its fused trajectory): links with a leading chain axis,
 each chain with its own momenta, pseudofermion, solves and Metropolis
 decision, so that chain i evolves as ``step`` would evolve it alone. The
-gauge side (forces, action values, kinetic energies, plaquettes) is
-mapped over the chains with torch.func.vmap; the Wilson and staggered
-fermion actions take the chain axis themselves (``*_batched``), each hop
-one kernel launch for all chains. What has no batched form yet raises
-before any work (ROADMAP A12.7b).
+gauge side (forces, action values, kinetic energies, plaquettes) and the
+smearing are mapped over the chains with torch.func.vmap (the force's
+autograd through the smearing runs outside it); the fermion actions take
+the chain axis themselves (``*_batched``), each hop or full D one kernel
+launch for all chains, and a Hasenbusch action's Sexton-Weingarten split
+runs as in ``step``. What has no batched form yet (staggered on a lattice
+with an odd extent, an action without ``*_batched`` forms) raises before
+any work (ROADMAP B3c, A12.7b).
 
 The random numbers of one trajectory are a ``Draws``: the momentum
 normals, the pseudofermion normals and the Metropolis uniform, in the
@@ -270,16 +273,16 @@ class HMC:
 
     # ------------------------------------------------ independent chains
     def _unbatched(self, lattice) -> Optional[str]:
-        """What step_batched has no batched form of yet (ROADMAP A12.7b), or None.
-        A fermion action with batched forms says itself, through batched_refusal,
-        on which lattices and with which options it has them."""
-        if self.smearing is not None:
-            return "stout smearing"
+        """What step_batched has no batched form of yet, or None: a fermion action
+        without batched forms (ROADMAP A12.7b), or one whose batched_refusal names
+        the lattice (staggered with an odd extent, ROADMAP B3c)."""
         fa = self.fermi_action
         if fa is None:
             return None
+        if not hasattr(fa, "sample_pseudofermion_batched"):
+            return f"the fermion action {type(fa).__name__} (ROADMAP A12.7b)"
         refusal = getattr(fa, "batched_refusal", None)
-        return f"the fermion action {type(fa).__name__}" if refusal is None else refusal(lattice)
+        return None if refusal is None else refusal(lattice)
 
     @torch.no_grad()
     def step_batched(self, us: torch.Tensor, generators=None, draws=None):
@@ -299,8 +302,8 @@ class HMC:
                              f"{tuple(us.shape)}")
         what = self._unbatched(tuple(us.shape[2:6]))
         if what is not None:
-            raise NotImplementedError(f"step_batched: {what} has no batched form yet "
-                                      "(ROADMAP A12.7b); run step per chain")
+            raise NotImplementedError(f"step_batched: {what} has no batched form yet; "
+                                      "run step per chain")
         n = us.shape[0]
         if draws is None:
             if generators is None or len(generators) != n:
@@ -314,17 +317,33 @@ class HMC:
         cg_log: list = []
         view = lambda uu: uu.to(us.dtype)  # noqa: E731
         chains = torch.func.vmap
+        smear_fn = None if self.smearing is None else chains(self.smearing.smear)
+        smeared = (lambda uu: uu) if smear_fn is None else smear_fn  # noqa: E731
 
-        force_fermion = None
+        force_fermion = force_fine = None
         s_f_old = torch.zeros((n,), dtype=us.real.dtype, device=us.device)
         if not self.quench:
             fa = self.fermi_action
-            s_f_old, eta = fa.sample_pseudofermion_batched(us, stack(d.xi for d in draws))
-            guess = {"x": None}
+            s_f_old, eta = fa.sample_pseudofermion_batched(smeared(us),
+                                                           stack(d.xi for d in draws))
 
-            def force_fermion(uu):
-                f, guess["x"] = fa.force_batched_with_guess(view(uu), eta, guess["x"], log=cg_log)
-                return f
+            def chained(force_with_guess):
+                """A batched force whose CG starts from its previous solutions."""
+                guess = {"x": None}
+
+                def force(uu):
+                    f, guess["x"] = force_with_guess(view(uu), eta, guess["x"], log=cg_log,
+                                                     smear_fn=smear_fn)
+                    return f
+
+                return force
+
+            if self.sexton_weingarten and hasattr(fa, "force_heavy"):
+                # the Hasenbusch split, as in step
+                force_fermion = chained(fa.force_light_batched_with_guess)
+                force_fine = chained(fa.force_heavy_batched_with_guess)
+            else:
+                force_fermion = chained(fa.force_batched_with_guess)
 
         gauge_force = chains(lambda u: ga.force(self.action, u))
         action_value = chains(lambda u: ga.action_value(self.action, u))
@@ -338,7 +357,7 @@ class HMC:
         u_new, h_new = integrators.run_md(
             u_md, h_md, force_gauge, self.dtau, self.md_steps, force_fermion=force_fermion,
             scheme=self.scheme, sexton_weingarten=self.sexton_weingarten, nsw=self.nsw,
-            omelyan_lambda=self.omelyan_lambda,
+            omelyan_lambda=self.omelyan_lambda, force_fine=force_fine,
         )
 
         sp_new = kinetic(h_new)
@@ -346,7 +365,7 @@ class HMC:
         sg_new = action_value(u_new)
         s_f_new = torch.zeros_like(s_f_old)
         if not self.quench:
-            s_f_new = self.fermi_action.action_batched(u_new, eta, log=cg_log)
+            s_f_new = self.fermi_action.action_batched(smeared(u_new), eta, log=cg_log)
         d_h = sp_new + sg_new + s_f_new - s_old
         uniform = torch.tensor([d.uniform for d in draws], dtype=d_h.dtype, device=d_h.device)
         accept = torch.exp(-d_h) >= uniform

@@ -4,12 +4,15 @@ n chains in one call, with a leading chain axis on the links: chain i must
 evolve as HMC.step(us[i]) would alone, from the same draws. Held here, at
 4^4 in complex128: step_batched against per-chain steps within the port
 (dH 1e-10, links 1e-12, the same accept decision), quenched, two-flavour
-Wilson and staggered Nf = 4 and Nf = 2 (RHMC); against the JAX package's
-own step_batched on quenched chains, and against its single-chain step per
-chain for the fermion actions (its vmapped dynamical graph compiles
-slowly); mixed MD together with batched chains; the shape error and the
-refusals of what has no batched form yet (ROADMAP A12.7b), raised before
-any work. Below the trajectory: the batched multi-shift CG against the
+Wilson, staggered Nf = 4 and Nf = 2 (RHMC), and every Wilson-family action
+on two chains: clover, Hasenbusch with the Sexton-Weingarten split (packed
+and clover), domain wall, stout-smeared Wilson, Wilson at r = 0.7 and on
+the unpackable 3x4x4x4, and stout-smeared staggered Nf = 4; against the JAX package's own step_batched on
+quenched and on clover chains, and against its single-chain step per chain
+for Wilson and staggered Nf = 2; mixed MD together with batched chains
+(Wilson, and clover in complex64); the shape error and the refusals of
+what has no batched form yet (staggered on an unpackable lattice, ROADMAP
+B3c; an action without batched forms, A12.7b), raised before any work. Below the trajectory: the batched multi-shift CG against the
 per-chain one, the chain axis of the hop wrappers and their autograd
 Functions on the CPU, and the body of csrc/staggered_w.cu (both launches
 of the W, and the hop) compiled with g++ against mock headers, one and two
@@ -33,6 +36,7 @@ torch.set_num_threads(1)
 from latticeqcd_tpu.ops import fields as jfields  # noqa: E402
 from latticeqcd_tpu.ops import gauge_action as jga  # noqa: E402
 from latticeqcd_tpu.ops.dirac import staggered as js  # noqa: E402
+from latticeqcd_tpu.ops.dirac import wilson as jwilson  # noqa: E402
 from latticeqcd_tpu.ops.dirac.wilson import WilsonDirac as JW  # noqa: E402
 from latticeqcd_tpu.ops.fermion_action import StaggeredFermiAction as JSFA  # noqa: E402
 from latticeqcd_tpu.ops.fermion_action import WilsonFermiAction as JFA  # noqa: E402
@@ -57,6 +61,7 @@ from latticeqcd_torch.ops.fermion_action import (  # noqa: E402
 )
 from latticeqcd_torch.smearing.stout import stout_stack  # noqa: E402
 from latticeqcd_torch.updates import hmc as thmc  # noqa: E402
+from latticeqcd_torch.updates.slhmc import _LogdetAsFermiAction  # noqa: E402
 from latticeqcd_torch.updates.hmc import HMC as THMC, Draws  # noqa: E402
 from test_torch_hmc import jax_draws as wilson_jax_draws  # noqa: E402
 from test_torch_hop_packed import _MOCK_RUNTIME  # noqa: E402
@@ -76,12 +81,43 @@ def _chains(seeds, dtype=torch.complex128):
                         for s in seeds])
 
 
+CLOVER = dict(kappa=0.13625, csw=1.90952)
+# the Wilson-family actions of two-chain cases: (fermion action, lattice, smearing, SW)
+FAMILY = {
+    "clover": lambda: (TFA(TW(**CLOVER)), LAT, None, False),
+    "hasenbusch-packed-sw": lambda: (HasenbuschWilsonFermiAction(TW(kappa=KAPPA)), LAT, None,
+                                     True),
+    "hasenbusch-clover-sw": lambda: (HasenbuschWilsonFermiAction(TW(**CLOVER)), LAT, None, True),
+    "domainwall": lambda: (DomainwallFermiAction(DomainwallDirac(mass=0.3, m5=-1.8, l5=2)), LAT,
+                           None, False),
+    "stout": lambda: (TFA(TW(kappa=KAPPA)), LAT, stout_stack([0.1]), False),
+    "wilson-r0.7": lambda: (TFA(TW(kappa=0.12, r=0.7)), LAT, None, False),
+    "wilson-unpackable": lambda: (TFA(TW(kappa=KAPPA)), (3, 4, 4, 4), None, False),
+    # the smearing reaches the staggered batched forms too
+    "staggered-stout": lambda: (TSFA(TS(mass=MASS, lattice=LAT), nf=4), LAT, stout_stack([0.1]),
+                                False),
+}
+
+
 def _action(kind):
     if kind == "quenched":
         return None
     if kind == "wilson":
         return TFA(TW(kappa=KAPPA))
     return TSFA(TS(mass=MASS, lattice=LAT), nf={"staggered-nf4": 4, "staggered-nf2": 2}[kind])
+
+
+def _case(kind):
+    """(HMC, chains' links, chain count): three chains over four MD steps for the
+    original cases, two over two for each Wilson-family action."""
+    if kind not in FAMILY:
+        us = _chains((31, 32, 33))
+        return THMC(action=tga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=4,
+                    fermi_action=_action(kind)), us, 3
+    fa, lat, smearing, sw = FAMILY[kind]()
+    us = torch.stack([tfields.hot_start(lat, 3, seed=s, device="cpu") for s in (31, 32)])
+    return THMC(action=tga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=2, fermi_action=fa,
+                smearing=smearing, sexton_weingarten=sw, nsw=2), us, 2
 
 
 def _compare_chain(st_b, u_b, i, st, u, dh_bar=1e-10, u_bar=1e-12):
@@ -92,27 +128,32 @@ def _compare_chain(st_b, u_b, i, st, u, dh_bar=1e-10, u_bar=1e-12):
         assert abs(float(st_b[k][i]) - st[k]) < dh_bar * max(1.0, abs(st[k])), k
 
 
-@pytest.mark.parametrize("kind", ["quenched", "wilson", "staggered-nf4", "staggered-nf2"])
+@pytest.mark.parametrize("kind", ["quenched", "wilson", "staggered-nf4", "staggered-nf2"]
+                         + list(FAMILY))
 def test_step_batched_equals_per_chain_steps(kind):
-    """Three chains, each from its own generator's draws; chains 0 and 2 are
-    accepted whatever dH (uniform 0), so their evolved links are compared."""
-    us = _chains((31, 32, 33))
-    hmc = THMC(action=tga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=4,
-               fermi_action=_action(kind))
-    draws = [Draws.sample(hmc, us[i], torch.Generator().manual_seed(40 + i)) for i in range(3)]
+    """Each chain from its own generator's draws; every chain but chain 1 is
+    accepted whatever dH (uniform 0), so their evolved links are compared. A
+    Hasenbusch action with the Sexton-Weingarten split runs its light force on
+    the coarse scale and its heavy force on the fine one, as step does."""
+    hmc, us, n = _case(kind)
+    draws = [Draws.sample(hmc, us[i], torch.Generator().manual_seed(40 + i)) for i in range(n)]
     draws = [Draws(d.mom, d.xi, 0.0 if i != 1 else d.uniform) for i, d in enumerate(draws)]
     u_b, st_b = hmc.step_batched(us, draws=draws)
-    assert st_b["dH"].shape == (3,) and st_b["accepted"].dtype == torch.bool
-    for i in range(3):
+    assert st_b["dH"].shape == (n,) and st_b["accepted"].dtype == torch.bool
+    for i in range(n):
         u_i, st_i = hmc.step(us[i], draws=draws[i])
         _compare_chain(st_b, u_b, i, st_i, u_i)
-    assert bool(st_b["accepted"][0]) and bool(st_b["accepted"][2])
+        # one batched solve over the n chains for each solve of step
+        assert len(st_b["cg"]) == len(st_i["cg"])
+    assert all(bool(st_b["accepted"][i]) for i in range(n) if i != 1)
     if kind != "quenched":
-        # one batched solve per force and one for the final action, each over the 3 chains
-        assert len(st_b["cg"]) == 5 and all(c["rhs"] == 3 for c in st_b["cg"])
+        assert all(c["rhs"] == n for c in st_b["cg"])
         assert all(c["rsq"] <= c["target"] for c in st_b["cg"])
+    if kind in ("wilson", "staggered-nf4", "staggered-nf2"):
+        # one batched solve per force and one for the final action
+        assert len(st_b["cg"]) == 5
     # generators give the same draws as step would take
-    gens = [torch.Generator().manual_seed(50 + i) for i in range(3)]
+    gens = [torch.Generator().manual_seed(50 + i) for i in range(n)]
     u_g, st_g = hmc.step_batched(us, generators=gens)
     u_1, st_1 = hmc.step(us[1], torch.Generator().manual_seed(51))
     _compare_chain(st_g, u_g, 1, st_1, u_1)
@@ -134,6 +175,32 @@ def test_step_batched_matches_jax_step_batched_quenched():
         assert abs(float(st_j["dH"][i]) - float(st_t["dH"][i])) < 1e-9
         assert bool(st_j["accepted"][i]) == bool(st_t["accepted"][i])
     assert np.abs(np.asarray(u_j) - to_numpy(u_t)).max() < 1e-12
+
+
+def test_step_batched_matches_jax_step_batched_clover():
+    """The JAX package's step_batched on two clover chains (one MD step), from its own
+    keys: the clover D of each chain at 1e-12, dH at 1e-9 and the links at 1e-10 (the
+    JAX suite's fused-against-staged bars)."""
+    uj = jnp.stack([jfields.hot_start(LAT, 3, seed=s) for s in (65, 66)])
+    keys = jnp.stack([jax.random.PRNGKey(67), jax.random.PRNGKey(68)])
+    kw = dict(dtau=0.1, md_steps=1)
+    us = to_torch(np.asarray(uj))
+    fa_t = TFA(TW(**CLOVER))
+    psi = np.random.default_rng(69).standard_normal((2,) + LAT + (4, 3, 2)) @ [1, 1j]
+    d_t = fa_t.dirac.apply(apply_boundary_phases(us), to_torch(psi))
+    for i in range(2):
+        d_j = JW(**CLOVER).apply(jwilson.apply_boundary_phases(uj[i]), jnp.asarray(psi[i]))
+        assert np.abs(np.asarray(d_j) - to_numpy(d_t[i])).max() < 1e-12
+    u_j, _, st_j = JHMC(action=jga.wilson_gauge_action(3, 5.7), fermi_action=JFA(JW(**CLOVER)),
+                        staged=False, **kw).step_batched(uj, keys)
+    draws = [wilson_jax_draws(keys[i], uj[i], pf_shape=fa_t.noise_shape(us[0]))
+             for i in range(2)]
+    u_t, st_t = THMC(action=tga.wilson_gauge_action(3, 5.7), fermi_action=fa_t,
+                     **kw).step_batched(us, draws=draws)
+    for i in range(2):
+        assert abs(float(st_j["dH"][i]) - float(st_t["dH"][i])) < 1e-9
+        assert bool(st_j["accepted"][i]) == bool(st_t["accepted"][i])
+        assert np.abs(np.asarray(u_j[i]) - to_numpy(u_t[i])).max() < 1e-10
 
 
 @pytest.mark.parametrize("kind", ["wilson", "staggered-nf2"])
@@ -191,27 +258,38 @@ def test_mixed_step_batched():
     assert np.abs(np.asarray(u_j) - to_numpy(u_t)).max() < 1e-6
 
 
+def test_mixed_step_batched_clover():
+    """Mixed MD with batched complex64 clover chains against per-chain mixed steps (dH at
+    the complex64 mixed bar of 5e-4, links 1e-6)."""
+    us = _chains((87, 88), dtype=torch.complex64)
+    hmc = THMC(action=tga.wilson_gauge_action(3, 5.7), dtau=0.05, md_steps=2,
+               fermi_action=TFA(TW(**CLOVER)), md_precision="mixed")
+    draws = [Draws.sample(hmc, us[i], torch.Generator().manual_seed(89 + i)) for i in range(2)]
+    draws = [Draws(d.mom, d.xi, 0.0) for d in draws]
+    u_b, st_b = hmc.step_batched(us, draws=draws)
+    assert u_b.dtype == torch.complex64
+    for i in range(2):
+        u_i, st_i = hmc.step(us[i], draws=draws[i])
+        _compare_chain(st_b, u_b, i, st_i, u_i, dh_bar=5e-4, u_bar=1e-6)
+
+
 def test_step_batched_shape_error():
     hmc = THMC(action=tga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=2)
     with pytest.raises(ValueError, match="nchain"):
         hmc.step_batched(_chains((1,))[0], generators=[torch.Generator()])
 
 
-@pytest.mark.parametrize("what", ["clover", "hasenbusch", "domainwall", "stout",
-                                  "wilson-unpackable", "staggered-unpackable", "wilson-r"])
+@pytest.mark.parametrize("what", ["staggered-unpackable", "logdet"])
 def test_step_batched_refuses_what_has_no_batched_form(what, monkeypatch):
-    """NotImplementedError naming A12.7b, raised before any draw or kernel."""
+    """NotImplementedError naming the ROADMAP item, raised before any draw or kernel:
+    staggered on a lattice with an odd extent (B3c) and an action without batched
+    forms, the self-learning log-det action (A12.7b)."""
     lat = (3, 4, 4, 4) if what.endswith("unpackable") else LAT
-    fa = {"clover": TFA(TW(kappa=0.13625, csw=1.90952)),
-          "hasenbusch": HasenbuschWilsonFermiAction(TW(kappa=KAPPA)),
-          "domainwall": DomainwallFermiAction(DomainwallDirac(mass=0.3, m5=-1.8, l5=4)),
-          "stout": TFA(TW(kappa=KAPPA)),
-          "wilson-unpackable": TFA(TW(kappa=KAPPA)),
-          "staggered-unpackable": TSFA(TS(mass=MASS, lattice=lat), nf=4),
-          "wilson-r": TFA(TW(kappa=KAPPA, r=0.7))}[what]
-    smearing = stout_stack([0.1]) if what == "stout" else None
-    hmc = THMC(action=tga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=2, fermi_action=fa,
-               smearing=smearing)
+    if what == "logdet":
+        fa, item = _LogdetAsFermiAction(None), "A12.7b"
+    else:
+        fa, item = TSFA(TS(mass=MASS, lattice=lat), nf=4), "B3c"
+    hmc = THMC(action=tga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=2, fermi_action=fa)
     us = torch.stack([tfields.hot_start(lat, 3, seed=s, device="cpu") for s in (1, 2)])
 
     def no_work(*args, **kwargs):
@@ -219,7 +297,7 @@ def test_step_batched_refuses_what_has_no_batched_form(what, monkeypatch):
 
     monkeypatch.setattr(thmc.Draws, "sample", no_work)
     monkeypatch.setattr(thmc.integrators, "run_md", no_work)
-    with pytest.raises(NotImplementedError, match="A12.7b"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         hmc.step_batched(us, generators=[torch.Generator(), torch.Generator()])
 
 

@@ -2,7 +2,7 @@
 
 Each kernel body compiles with g++ against test_torch_hop_packed.py's mock
 headers (bulk copies a memcpy, the mbarrier wait and __syncthreads a
-std::barrier, one std::thread per CUDA thread of wilson_window's block;
+barrier, wilson_window's block run as cooperative contexts on one thread;
 staggered_w's threads one at a time) and runs the halo mode on every block
 of a global lattice cut in two along x, y, z or t, or along x and t, its
 face buffers built from the global fields as the exchange builds them
@@ -180,7 +180,6 @@ def test_staggered_halo_body_on_the_cpu(staggered_halo_exe, lat, dtype, cut):
 _WINDOW_HARNESS = """
 #include <cstdio>
 #include <cstdlib>
-#include <thread>
 #include <vector>
 #include "body.inc"
 namespace { alignas(16) unsigned char smem[1 << 20]; }
@@ -210,18 +209,15 @@ int run(int lx, int ly, int lz, int lt, int chunk, double kappa, int mask, doubl
   const int blocks = ((lx + chunk - 1) / chunk) * ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * nts;
   const int threads = 3 * BY * BZ * ts;
   for (int b = 0; b < blocks; ++b) {
-    std::barrier<> bar(threads);
+    MockBarrier bar(threads);
     block_barrier = &bar;
     std::memset(smem, 0xff, sizeof smem);  // a slot read before it is copied shows as NaN
-    std::vector<std::thread> th;
-    for (int tid = 0; tid < threads; ++tid)
-      th.emplace_back([&, tid] {
-        threadIdx = dim3{(unsigned)tid, 1, 1};
-        blockIdx = dim3{(unsigned)b, 1, 1};
-        wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, true, GENERIC_R>(
-            u.data(), psi.data(), out.data(), lx, ly, lz, lt, ts, chunk, (R)kappa, halo, (R)r);
-      });
-    for (auto& t : th) t.join();
+    run_block(threads, [&](int tid) {
+      threadIdx = dim3{(unsigned)tid, 1, 1};
+      blockIdx = dim3{(unsigned)b, 1, 1};
+      wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, true, GENERIC_R>(
+          u.data(), psi.data(), out.data(), lx, ly, lz, lt, ts, chunk, (R)kappa, halo, (R)r);
+    });
   }
   fwrite(out.data(), sizeof(V), out.size(), stdout);
   return 0;

@@ -1,9 +1,11 @@
 """The wilson_hop_packed kernel body (csrc/wilson_hop_packed.cu), run on the CPU.
 
 The CUDA kernel cannot run here, so its body is compiled with the host
-C++ compiler against mock headers: one std::thread per CUDA thread, the
-bulk copies a memcpy, the mbarrier wait and __syncthreads a
-std::barrier over the block's threads. Blocks run one after another.
+C++ compiler against mock headers: the block's CUDA threads as
+cooperative contexts on one OS thread (ucontext; each runs until it
+waits at a barrier), the bulk copies a memcpy, the mbarrier wait and
+__syncthreads a barrier over the block's threads. Blocks run one after
+another.
 The result is held against the plain packed hop (hop_packed_reference)
 at shapes where the brick wraps onto itself or does not divide the
 lattice: X/2 = 1, extent-2 y and T (and every extent 2 at once),
@@ -57,9 +59,77 @@ struct float4 { float x, y, z, w; };
 struct double2 { double x, y; };
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
 inline thread_local dim3 threadIdx, blockIdx;
-inline std::barrier<>* block_barrier = nullptr;
-inline void __syncthreads() { block_barrier->arrive_and_wait(); }
 using std::min;
+#include <ucontext.h>
+#include <functional>
+#include <memory>
+#include <vector>
+// A block's CUDA threads as cooperative contexts on one OS thread (run_block): each runs until
+// it waits at a barrier, then the next one resumes; a barrier opens once every thread it counts
+// has arrived. Each context keeps its own threadIdx and blockIdx.
+namespace mock {
+struct Ctx {
+  ucontext_t uc;
+  dim3 tid, bid;
+  bool done = false;
+};
+inline ucontext_t sched;
+inline std::vector<Ctx>* ctxs = nullptr;
+inline int cur = -1;
+inline const std::function<void(int)>* body = nullptr;
+inline void yield() {
+  Ctx& c = (*ctxs)[cur];
+  c.tid = threadIdx;
+  c.bid = blockIdx;
+  swapcontext(&c.uc, &sched);
+}
+inline void entry() {
+  (*body)(cur);
+  (*ctxs)[cur].done = true;
+}
+}  // namespace mock
+struct MockBarrier {
+  int expected, count = 0;
+  unsigned phase = 0;
+  explicit MockBarrier(int n) : expected(n) {}
+  void arrive_and_wait() {
+    const unsigned ph = phase;
+    if (++count == expected) {
+      count = 0;
+      ++phase;
+      return;
+    }
+    while (phase == ph) mock::yield();
+  }
+};
+inline MockBarrier* block_barrier = nullptr;
+inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+// body(tid) for tid in [0, n), as the n threads of one block
+inline void run_block(int n, const std::function<void(int)>& body) {
+  constexpr size_t STACK = 1 << 16;
+  std::vector<mock::Ctx> ctxs(n);
+  std::unique_ptr<char[]> stacks(new char[STACK * n]);
+  mock::ctxs = &ctxs;
+  mock::body = &body;
+  for (int i = 0; i < n; ++i) {
+    getcontext(&ctxs[i].uc);
+    ctxs[i].uc.uc_stack.ss_sp = stacks.get() + STACK * i;
+    ctxs[i].uc.uc_stack.ss_size = STACK;
+    ctxs[i].uc.uc_link = &mock::sched;
+    makecontext(&ctxs[i].uc, mock::entry, 0);
+    ctxs[i].tid = dim3{(unsigned)i, 1, 1};
+    ctxs[i].bid = blockIdx;
+  }
+  for (int left = n; left > 0;)
+    for (int i = 0; i < n; ++i) {
+      if (ctxs[i].done) continue;
+      mock::cur = i;
+      threadIdx = ctxs[i].tid;
+      blockIdx = ctxs[i].bid;
+      swapcontext(&mock::sched, &ctxs[i].uc);
+      left -= ctxs[i].done;
+    }
+}
 """
 _MOCK_TMA = """#pragma once
 #include <cuda_runtime.h>
@@ -76,7 +146,6 @@ inline void prefetch_l2(const void*, unsigned) {}
 _HARNESS = """
 #include <cstdio>
 #include <cstdlib>
-#include <thread>
 #include <vector>
 #include "body.inc"
 namespace { alignas(16) unsigned char smem[1 << 20]; }
@@ -108,24 +177,21 @@ int run(int x2, int ly, int lz, int lt, int parity, int nchain, int mask, double
   const int threads = 3 * BY * BZ * ts;
   for (int c = 0; c < nchain; ++c)
   for (int b = 0; b < blocks; ++b) {
-    std::barrier<> bar(threads);
+    MockBarrier bar(threads);
     block_barrier = &bar;
     std::memset(smem, 0xff, sizeof smem);  // a slot read before it is copied shows as NaN
-    std::vector<std::thread> th;
-    for (int tid = 0; tid < threads; ++tid)
-      th.emplace_back([&, tid] {
-        threadIdx = dim3{(unsigned)tid, 1, 1};
-        blockIdx = dim3{(unsigned)b, (unsigned)c, 0};
-        // the launch function's choice: the halo mode for a mask, else the kernel without the
-        // chain offsets for one chain
-        auto kernel =
-            mask ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, true, GENERIC_R>
-            : nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, false, GENERIC_R>
-                          : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true, false, GENERIC_R>;
-        kernel(ut.data(), us.data(), psi.data(), out.data(), x2, ly, lz, lt, ts, parity, 36 * vol,
-               12 * vol, halo, (R)r);
-      });
-    for (auto& t : th) t.join();
+    run_block(threads, [&](int tid) {
+      threadIdx = dim3{(unsigned)tid, 1, 1};
+      blockIdx = dim3{(unsigned)b, (unsigned)c, 0};
+      // the launch function's choice: the halo mode for a mask, else the kernel without the
+      // chain offsets for one chain
+      auto kernel =
+          mask ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, true, GENERIC_R>
+          : nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, false, GENERIC_R>
+                        : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true, false, GENERIC_R>;
+      kernel(ut.data(), us.data(), psi.data(), out.data(), x2, ly, lz, lt, ts, parity, 36 * vol,
+             12 * vol, halo, (R)r);
+    });
   }
   fwrite(out.data(), sizeof(V), out.size(), stdout);
   return 0;

@@ -440,14 +440,14 @@ def test_window_never_falls_back_off_cpu():
 
 
 # The kernel body of csrc/wilson_window.cu compiles with g++ against test_torch_hop_packed.py's
-# mock headers: one std::thread per CUDA thread, the bulk copies a memcpy, the mbarrier wait
-# and __syncthreads a std::barrier over the block's threads. Blocks run one after another.
+# mock headers: the block's CUDA threads as cooperative contexts on one OS thread, the bulk
+# copies a memcpy, the mbarrier wait and __syncthreads a barrier over the block's threads.
+# Blocks run one after another.
 # run<R, BY, BZ, TSMAX, MINB, PREFETCH>: the launch function's t segments and block, x cut
 # into chunks of the given length.
 _HARNESS = """
 #include <cstdio>
 #include <cstdlib>
-#include <thread>
 #include <vector>
 #include "body.inc"
 namespace { alignas(16) unsigned char smem[1 << 20]; }
@@ -463,18 +463,15 @@ int run(int lx, int ly, int lz, int lt, int chunk, double kappa, double r) {
   const int blocks = ((lx + chunk - 1) / chunk) * ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * nts;
   const int threads = 3 * BY * BZ * ts;
   for (int b = 0; b < blocks; ++b) {
-    std::barrier<> bar(threads);
+    MockBarrier bar(threads);
     block_barrier = &bar;
     std::memset(smem, 0xff, sizeof smem);  // a slot read before it is copied shows as NaN
-    std::vector<std::thread> th;
-    for (int tid = 0; tid < threads; ++tid)
-      th.emplace_back([&, tid] {
-        threadIdx = dim3{(unsigned)tid, 1, 1};
-        blockIdx = dim3{(unsigned)b, 1, 1};
-        wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, false, GENERIC_R>(
-            u.data(), psi.data(), out.data(), lx, ly, lz, lt, ts, chunk, (R)kappa, {}, (R)r);
-      });
-    for (auto& t : th) t.join();
+    run_block(threads, [&](int tid) {
+      threadIdx = dim3{(unsigned)tid, 1, 1};
+      blockIdx = dim3{(unsigned)b, 1, 1};
+      wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, false, GENERIC_R>(
+          u.data(), psi.data(), out.data(), lx, ly, lz, lt, ts, chunk, (R)kappa, {}, (R)r);
+    });
   }
   fwrite(out.data(), sizeof(V), out.size(), stdout);
   return 0;
