@@ -3,7 +3,8 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Phases, in order; the first failure ends the run with a non-zero exit code:
+Phases, in order (but for 20-27, as the note after 19 says); the first failure ends the run with
+a non-zero exit code:
   1. environment: torch, CUDA, the card and its power limit (no CUDA device: exit 1);
   2. build: compile every kernel source under latticeqcd_torch/csrc with nvcc, in parallel;
   3. kernels against their plain PyTorch versions on the card, at 4^4, 4x8x2x4, 2x4x2x6
@@ -94,6 +95,10 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
  19. the 12^4 plaquette anchor, short: validation_plaq's chain at beta = 6.0 (complex64, cold
      start, heatbath without overrelaxation) for 60 sweeps; the mean plaquette of sweeps 31-60
      must lie within 0.593745 +- 0.0025 (the JAX chain's 12^4 value); seconds per sweep printed.
+     Then the shared group of phases 31-35 (two gloo ranks on the card, python -c
+     subprocesses of this script) starts and runs every run of theirs beside phases 20, 22,
+     24 and 26, whose checks are agreements, not times; phases 21, 23, 25 and 27 run after
+     those four, and phase 31 waits for the group.
  20. the improved-action pieces at 4^4 complex128: the generic staples and force of the Iwasaki,
      chair, polyakov_t and a coupling_loops action, a 2-layer stout smear, card against CPU (bar
      1e-12); the generic plaquette staple against the fused one; the stout-smeared Wilson and
@@ -292,6 +297,33 @@ Phases, in order; the first failure ends the run with a non-zero exit code:
      launch of wilson_hop_packed, wilson_window or staggered_w outside a halo mode, each run's
      halo kernel launched; seconds per step on the grid beside one card and the launches
      printed; (b) the same on nccl with two or more cards.
+ 35. batched chains on the process grid (HMC.step_batched): (a) in one process, 16^3x32 cut
+     in two along each axis in turn, 4 chains (no two chains' links equal), complex64 (bar
+     1e-5) and complex128 (1e-12): the chain-halo modes of wilson_hop_packed (both parities,
+     and its backward: d psi through the chain-halo mode, d u_t and d u_s against the global
+     autograd's block), staggered_w (both parities and the grid W's axpy launch) and
+     wilson_window, one launch per call, against the plain halo versions per chain and bit
+     for bit against the one-chain halo launch of each chain; each timed on the t cut's
+     16^3x16 block for 1, 4 and 16 chains in one launch against as many one-chain halo
+     launches (cold, three input sets), beside n times the one-chain halo mode's bytes;
+     then phase 31's group of two gloo ranks on the one card (its runs added to the
+     group's) runs (b) bench.py tier2's 4^4 action (beta 6.0, kappa 0.141139, dtau 0.1, 10
+     MD steps) as 64 complex64 chains split over the ranks, 32 each, two trajectories (the
+     first from draws with the uniform 0, every chain accepted; the second from the
+     generators): per chain dH 5e-4 and links 1e-5 against one process's step_batched over
+     the 64 (whether bitwise is printed), no message and no collective in either rank's
+     steps, configurations/s beside one process's and phase 29's; (c) 4 complex64 chains of
+     phase 6's Wilson action on 16^3x32 cut along t, one trajectory of 2 MD steps: dH finite
+     and bit for bit on both ranks, every verified solve at its target, every packed hop
+     in the chain-halo mode, a hop on the final links one launch and one batch of one
+     chain's 4 messages holding 4 chains' faces; seconds per trajectory; (d) the same grid
+     over 8^4, 2 complex128 chains of 2 MD steps of 0.005, each of Wilson at r = 1 and r =
+     0.5, clover Hasenbusch + SW (phase 27's point), domain wall (L5 4), stout Wilson,
+     staggered Nf = 4 and mixed-MD Wilson against one card's step_batched (dH 1e-8, links
+     1e-10, the same decisions, the ranks' dH bitwise equal), each launching its
+     chain-halo kernel and no kernel outside a halo mode; (e) 4 Wilson chains on 2 chain
+     groups x (1, 1, 1, 2) over 8^4 on nccl when the machine has four or more cards (else it
+     says so), against one process.
 Then it prints one JSON line describing each kernel (its launches summed over the main paths
 that run it), the card's name and power limit as nvidia-smi gives them, and, as its last
 line, {"ok": true, "device": {...}}.
@@ -299,6 +331,7 @@ line, {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -343,7 +376,9 @@ PEAK_FLOP_PER_S = {"complex64": 67e12, "complex128": 34e12}
 
 STATE = {"err": {"wilson_hop_packed": 0.0, "wilson_hop": 0.0, "staggered_w": 0.0,
                  "staggered_w_fused": 0.0, "wilson_window": 0.0, "wilson_hop_packed_r": 0.0,
-                 "wilson_window_r": 0.0, "wilson_window_chains": 0.0}, "checks": 0,
+                 "wilson_window_r": 0.0, "wilson_window_chains": 0.0,
+                 "wilson_hop_packed_chain_halo": 0.0, "staggered_w_chain_halo": 0.0,
+                 "wilson_window_chain_halo": 0.0}, "checks": 0,
          "timing": {}, "launches": {}}
 
 
@@ -3521,6 +3556,7 @@ def _batched_run(torch, label, hmc, us, nsteps, seed):
         single.append(time.time() - t0)
         single_launches.append(sum(_launch_counts().values()) - sum(before.values()))
     s_b, s_1 = statistics.median(secs), statistics.median(single)
+    STATE.setdefault("batched_cps", {})[label] = n / s_b
     print(f"  {label}: batched {s_b:.3f} s per trajectory of {n} chains ({n / s_b:.2f} "
           f"configurations/s), single chain {s_1:.3f} s ({1 / s_1:.2f} configurations/s, "
           f"{' '.join(f'{s:.3f}' for s in single)} s): {n * s_1 / s_b:.1f}x the configurations "
@@ -4304,12 +4340,12 @@ def phase_grid(torch):
         else:
             print(f"  (c) nccl: not run, this machine has {torch.cuda.device_count()} card",
                   flush=True)
-    # (d) the group of ranks that phases 31-34 share, started here with every run of theirs;
-    # this phase's is a Wilson trajectory at r = 0.5
+    # (d) the group of ranks that phases 31-35 share, started beside phases 20-26 with every
+    # run of theirs; this phase's is a Wilson trajectory at r = 0.5
     t0 = time.time()
     _grid_group_runs(torch, "gloo", GRID_R_RUNS)
-    print(f"  (d) 2 ranks, gloo, one card: {time.time() - t0:.1f} s (the shared group's start "
-          "and every run of phases 31-34 included)", flush=True)
+    print(f"  (d) 2 ranks, gloo, one card: {time.time() - t0:.1f} s (the wait for the shared "
+          "group included)", flush=True)
     if torch.cuda.device_count() >= 2:
         t0 = time.time()
         _grid_group_runs(torch, "nccl", GRID_R_RUNS)
@@ -4604,6 +4640,8 @@ def _zero_all_counts():
     wk.launches = wk.halo_launches = ww.launches = ww.halo_launches = 0
     wk.r_launches = wk.r_halo_launches = ww.r_launches = ww.r_halo_launches = 0
     sk.launches = sk.halo_launches = sk.w_launches = sk.fused_launches = 0
+    wk.chain_halo_launches = sk.chain_halo_launches = ww.chain_halo_launches = 0
+    ww.chain_launches = 0
     wk.site_launches.update(full=0, packed=0)
 
 
@@ -4700,9 +4738,10 @@ def _grid_extra(torch, tag, u, rec):
 
 
 def _grid_rank(argv):
-    """A rank of the group of phases 31-34 (started by _grid_group as its own process):
-    each run named in argv on the grid, its report written as <tmp>/rank<r>.json, rank 0 also
-    writing each run's gathered links as <tmp>/<tag>_u.npy."""
+    """A rank of the group of phases 31-35 (started by _grid_group as its own process):
+    each run named in argv on the grid, then phase 35's batched runs (_grid5_rank), its
+    report written as <tmp>/rank<r>.json, rank 0 also writing each run's gathered links as
+    <tmp>/<tag>_u.npy."""
     import numpy as np
     import torch
 
@@ -4711,7 +4750,7 @@ def _grid_rank(argv):
 
     rank, nprocs, port, backend, tmp = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
     pes = tuple(int(p) for p in argv[5].split(","))
-    tags = argv[6].split(",")
+    tags = [t for t in argv[6].split(",") if t]
     mesh.init_process_grid(backend, f"127.0.0.1:{port}", nprocs, rank, timeout_s=600)
     device = torch.device(f"cuda:{rank if backend == 'nccl' else 0}")
     out = {}
@@ -4724,25 +4763,27 @@ def _grid_rank(argv):
             with mesh.use_grid(grid):
                 _grid_extra(torch, tag, u, rec)
             out[tag] = rec
+        if pes == (1, 1, 1, 2):  # phase 35's batched runs
+            out["batched"] = _grid5_rank(torch, device, tmp, rank, nprocs)
     finally:
         mesh.close_process_grid()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def _grid_group(torch, backend, pes=(1, 1, 1, 2)):
-    """The one group of ranks of phases 31-34 (per backend): started at the first call, a
-    process each, all at once, to run every run of GRID_RUNS on the grid pes; (the ranks'
-    reports, the group's directory, its seconds) kept for the phases that compare them. The
-    directory (phase 34's NPZ files, the gathered links) is removed when the script ends."""
+def _start_grid_group(torch, backend, pes=(1, 1, 1, 2)):
+    """Start the one group of ranks of phases 31-35 (per backend) and return at once: a
+    process each, all at once, to run every run of GRID_RUNS and phase 35's batched runs on
+    the grid pes, each writing its output to a log file in the group's directory (removed
+    when the script ends). _grid_group joins it."""
     import atexit
     import shutil
     import socket
     import tempfile
 
-    key = ("grid group", backend, pes)
+    key = ("grid group started", backend, pes)
     if key in STATE:
-        return STATE[key]
+        return
     n = math.prod(pes)
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_grid_{backend}_")
     atexit.register(shutil.rmtree, tmp, True)
@@ -4753,34 +4794,63 @@ def _grid_group(torch, backend, pes=(1, 1, 1, 2)):
     code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as c; "
             "c._grid_rank(sys.argv[1:])")
     env = dict(os.environ, PYTHONPATH=ROOT)
-    t0 = time.time()
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(n)]
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(n), str(port), backend, tmp,
                                ",".join(map(str, pes)), ",".join(GRID_RUNS)], cwd=ROOT, env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for r in range(n)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=900))
-    finally:
+                              stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    for log in logs:
+        log.close()
+
+    def stop():
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+
+    atexit.register(stop)
+    STATE[key] = (procs, tmp, time.time(), stop)
+
+
+def _grid_group(torch, backend, pes=(1, 1, 1, 2)):
+    """The one group of ranks of phases 31-35 (per backend), joined: started here unless
+    _start_grid_group started it beside earlier phases; (the ranks' reports, the group's
+    directory, its seconds) kept for the phases that compare them."""
+    key = ("grid group", backend, pes)
+    if key in STATE:
+        return STATE[key]
+    _start_grid_group(torch, backend, pes)
+    procs, tmp, t0, stop = STATE[("grid group started", backend, pes)]
+    n = len(procs)
+    t_join = time.time()
+    try:
+        for p in procs:
+            p.wait(timeout=max(60.0, 1000.0 - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        stop()
+        fail("the grid group did not finish within 1000 s of its start")
+    for r, p in enumerate(procs):
         if p.returncode != 0:
-            print(out[-3000:])
-            print(err[-3000:])
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                print(f.read()[-6000:])
             fail(f"the grid group's rank {r} exited {p.returncode}")
-    t_group = time.time() - t0
+    ends = [os.path.getmtime(os.path.join(tmp, f"rank{r}.json")) for r in range(n)]
+    t_group = max(ends) - t0
     reps = []
     for r in range(n):
         with open(os.path.join(tmp, f"rank{r}.json")) as f:
             reps.append(json.load(f))
-    print(f"  ({backend}, {n} ranks {pes}) the group of phases 31-34: {n} processes ran "
-          f"{len(GRID_RUNS)} runs in {t_group:.1f} s", flush=True)
+    print(f"  ({backend}, {n} ranks {pes}) the group of phases 31-35: {n} processes ran "
+          f"{len(GRID_RUNS)} runs and phase 35's in {t_group:.1f} s; this process waited "
+          f"{time.time() - t_join:.1f} s for it", flush=True)
     STATE[key] = (reps, tmp, t_group)
     return STATE[key]
+
+
+def phase_grid_start(torch):
+    print("== the shared group of phases 31-35: two gloo ranks start on the card beside phases "
+          "20, 22, 24 and 26", flush=True)
+    _start_grid_group(torch, "gloo")
 
 
 def _grid_group_runs(torch, backend, runs, pes=(1, 1, 1, 2)):
@@ -4954,16 +5024,662 @@ def phase_grid_selflearning(torch):
               flush=True)
 
 
+# ------------------------------------------- 35. batched chains on the process grid
+
+GRID_CHAINS = 4  # the chain axis of phase 35 (a) and (c)
+CHAIN_HALO_TIMED = (1, 4, 16)
+# the chain-halo modes' rows of the kernels line: (kernel, the timing row's label)
+CHAIN_HALO_ROWS = {"wilson_hop_packed_chain_halo": "chain-halo hop 4 chains",
+                   "staggered_w_chain_halo": "chain-halo staggered hop 4 chains",
+                   "wilson_window_chain_halo": "chain-halo window D 4 chains"}
+
+
+def _chain_halo_counts():
+    """The chain-halo modes' launches (also counted in each kernel's halo_launches)."""
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+
+    return {"wilson_hop_packed_chain_halo": wk.chain_halo_launches,
+            "staggered_w_chain_halo": sk.chain_halo_launches,
+            "wilson_window_chain_halo": ww.chain_halo_launches}
+
+
+def _stacked_faces(torch, grid, fields, links):
+    """_block_faces of each chain (fields[c], links[c]) stacked chain after chain, as the
+    exchange of a field with a chain axis delivers them, and each chain's own."""
+    per = [_block_faces(grid, f, u) for f, u in zip(fields, links)]
+    faces = {mu: tuple(torch.stack([p[0][mu][k] for p in per]) for k in (0, 1))
+             for mu in per[0][0]}
+    return faces, {mu: torch.stack([p[1][mu] for p in per]) for mu in per[0][1]}, per
+
+
+@functools.lru_cache(maxsize=None)
+def _hot_start(lat, seed):
+    """A hot start on the card, made once per lattice and seed (the host draws it)."""
+    from latticeqcd_torch.ops import fields as tf
+
+    return tf.hot_start(lat, 3, seed=seed, device="cuda")
+
+
+def _chain_halo_case(torch, kind, dtype, lat, n, seed):
+    """The global fields (u_e, u_o, x) of the chain-halo mode ``kind`` ("hop", "staggered" or
+    "window", whose links are u_e = u_o, full) for n chains: the links of chain c the hot start
+    shifted c sites along t times exp(0.1 i c) (_chain_links), the fields Gaussian."""
+    u = _hot_start(lat, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "window":
+        uu = _window_chain_links(torch, u, dtype, n)
+        x = torch.randn((n,) + lat + (4, 3), dtype=dtype, device="cuda", generator=g)
+        return uu, uu, x
+    u_e, u_o = _chain_links(torch, u, dtype, n)
+    site = (3,) if kind == "staggered" else (4, 3)
+    x = torch.randn((n, lat[0] // 2) + lat[1:] + site, dtype=dtype, device="cuda", generator=g)
+    return u_e, u_o, x
+
+
+def _chain_halo_checks(torch):
+    """(a): the three chain-halo modes on every block of 16^3x32 cut in two along each axis in
+    turn, GRID_CHAINS chains: each chain against the plain halo version and bit for bit
+    against the one-chain halo launch on it, one launch per call; the packed hop's backward
+    against the global autograd's block."""
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.parallel import mesh
+
+    n, lat = GRID_CHAINS, MAIN
+    bitwise = {}
+    for dtype in (torch.complex64, torch.complex128):
+        name = str(dtype).split(".")[1]
+        bar = BARS[name]
+        for kind, kernel in (("hop", "wilson_hop_packed"), ("staggered", "staggered_w"),
+                             ("window", "wilson_window")):
+            u_e, u_o, x = _chain_halo_case(torch, kind, dtype, lat, n, seed=351)
+            if kind == "window":
+                runs = [(0, u_e, u_o, x, None)]
+            else:
+                runs = [(0, u_e, u_o, x, None), (1, u_o, u_e, x, None)]
+            if kind == "staggered":  # the grid W's axpy launch on the faces of d1
+                d1 = sk.staggered_hop_packed(u_o, u_e, x, 1)
+                runs.append((0, u_e, u_o, d1, x))
+            if kind == "hop":
+                cot = torch.randn(x.shape, dtype=dtype, device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(352))
+            same = True
+            for parity, u_t, u_s, src, phi in runs:
+                def call(blocks, faces, links, phi_b=None):
+                    if kind == "hop":
+                        return wk.hop_packed_halo(*blocks, parity, faces, links)
+                    if kind == "staggered":
+                        return sk.hop_packed_halo(*blocks, parity, faces, links, phi=phi_b,
+                                                  mass=MASS)
+                    return ww.dslash_halo(blocks[0], blocks[2], KAPPA, faces, links)
+
+                def plain(blocks, faces, links, phi_b=None):
+                    if kind == "hop":
+                        return wk.hop_packed_halo_reference(*blocks, parity, faces, links)
+                    if kind == "staggered":
+                        out = sk.hop_packed_halo_reference(*blocks, parity, faces, links)
+                        return out if phi_b is None else MASS ** 2 * phi_b - out
+                    return wk.dslash_halo_reference(blocks[0], blocks[2], KAPPA, faces, links)
+
+                if kind == "hop":
+                    leaves = [t.detach().clone().requires_grad_(True) for t in (u_t, u_s, src)]
+                    grads = torch.autograd.grad(wk.wilson_hop_packed(*leaves, parity), leaves, cot)
+                    _, moving, _ = wk.halo_link_grads(cot, src, parity, {})
+                    g5 = wk.gamma5(cot)
+                for mu in range(4):
+                    pes = tuple(2 if d == mu else 1 for d in range(4))
+                    for rank in (0, 1):
+                        grid = mesh.ProcessGrid(pes, lat, rank=rank, device="cuda")
+                        tag = f"{kind} cut {'xyzt'[mu]} block {rank} p={parity} {name}"
+                        if phi is not None:
+                            tag += " W axpy"
+                        blocks = [grid.block(t, 2).contiguous() for t in (u_t, u_s)] + [
+                            grid.block(src, 1).contiguous()]
+                        phi_b = None if phi is None else grid.block(phi, 1).contiguous()
+                        faces, links, per = _stacked_faces(torch, grid, src, u_s)
+                        before = _chain_halo_counts()[f"{kernel}_chain_halo"]
+                        got = call(blocks, faces, links, phi_b)
+                        torch.cuda.synchronize()
+                        if _chain_halo_counts()[f"{kernel}_chain_halo"] != before + 1:
+                            fail(f"the chain-halo mode of {kernel} did not launch once")
+                        check(f"chain-halo {tag} vs plain", maxdiff(got, plain(
+                            blocks, faces, links, phi_b)), bar, f"{kernel}_chain_halo")
+                        for c in range(n):
+                            one = call([b[c] for b in blocks], *per[c],
+                                       None if phi_b is None else phi_b[c])
+                            same &= bool(torch.equal(got[c], one))
+                        if kind == "hop":
+                            gfaces, tlinks, _ = _stacked_faces(torch, grid, g5, u_t)
+                            d_psi = wk.gamma5(wk.hop_packed_halo(
+                                blocks[1], blocks[0], grid.block(g5, 1).contiguous(), 1 - parity,
+                                gfaces, tlinks))
+                            check(f"chain-halo backward d psi {tag}",
+                                  maxdiff(d_psi, grid.block(grads[2], 1)), bar, f"{kernel}_chain_halo")
+                            d_ut, moving_b, staying = wk.halo_link_grads(
+                                grid.block(cot, 1), blocks[2], parity, faces)
+                            m = src.shape[1 + mu] // 2
+                            heads = {mu: _face_slab(grid, moving[mu], mu,
+                                                    ((rank + 1) * m) % src.shape[1 + mu], lead=1)}
+                            d_us = wk.scatter_halo(moving_b, staying, heads, lead=1)
+                            check(f"chain-halo backward d u_t {tag}",
+                                  maxdiff(d_ut, grid.block(grads[0], 2)), bar, f"{kernel}_chain_halo")
+                            check(f"chain-halo backward d u_s {tag}",
+                                  maxdiff(d_us, grid.block(grads[1], 2)), bar, f"{kernel}_chain_halo")
+            bitwise[(kind, name)] = same
+            if not same:
+                fail(f"a chain of {kernel}'s chain-halo mode ({name}) is not bit for bit the "
+                     "one-chain halo mode's")
+            STATE["checks"] += 1
+    print(f"  chain-halo modes: every chain bit for bit the one-chain halo launch's: {bitwise}",
+          flush=True)
+
+
+def _chain_halo_timing(torch):
+    """(a): the chain-halo modes timed on the t cut's 16^3x16 block (CUDA graphs between CUDA
+    events, cold: three input sets in turn), n = 1, 4 and 16 chains in one launch against n
+    one-chain halo launches, beside the bound: n times the one-chain halo mode's least bytes
+    (the block's links, source and target fields once, and the two spinor faces and the
+    link face of the cut axis) over the HBM rate."""
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.parallel import mesh
+
+    grid = mesh.ProcessGrid((1, 1, 1, 2), MAIN, rank=0, device="cuda")
+    block = grid.local
+    for dtype in (torch.complex64, torch.complex128):
+        name = str(dtype).split(".")[1]
+        f = 2 if dtype == torch.complex128 else 1
+        for kind, kernel, label in (("hop", "wilson_hop_packed", "chain-halo hop"),
+                                    ("staggered", "staggered_w", "chain-halo staggered hop"),
+                                    ("window", "wilson_window", "chain-halo window D")):
+            packed = kind != "window"
+            sites = math.prod(block) // (2 if packed else 1)
+            face_sites = sites // block[3]
+            spinor = 24 if kind == "staggered" else 96
+            links = 576 if packed else 288
+            one_bytes = f * (sites * (links + 2 * spinor) + face_sites * (2 * spinor + 72))
+            flop_site = {"hop": 1320, "staggered": 570, "window": 1320}[kind]
+            line = []
+            for n in CHAIN_HALO_TIMED:
+                sets = []
+                for seed in (361, 362, 363):
+                    u_e, u_o, x = _chain_halo_case(torch, kind, dtype, MAIN, n, seed)
+                    blocks = [grid.block(t, 2).contiguous() for t in (u_e, u_o)] + [
+                        grid.block(x, 1).contiguous()]
+                    faces, links_, per = _stacked_faces(torch, grid, x, u_o)
+                    sets.append((blocks, faces, links_, per))
+                    del u_e, u_o, x
+
+                def call(b, fc, lk):
+                    if kind == "hop":
+                        return wk.hop_packed_halo(*b, 0, fc, lk)
+                    if kind == "staggered":
+                        return sk.hop_packed_halo(*b, 0, fc, lk)
+                    return ww.dslash_halo(b[0], b[2], KAPPA, fc, lk)
+
+                together = [lambda s=s: call(*s[:3]) for s in sets]
+                apart = [lambda s=s: [call([b[c] for b in s[0]], *s[3][c]) for c in range(n)]
+                         for s in sets]
+                t_apart = _time_device(torch, apart)
+                t_one = _time_device(torch, together)
+                nbytes = n * one_bytes
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = n * sites * flop_site / PEAK_FLOP_PER_S[name] * 1e3
+                bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+                if n == GRID_CHAINS:
+                    plain = [lambda s=sets[0]: (wk.hop_packed_halo_reference(*s[0], 0, s[1], s[2])
+                                                if kind == "hop" else
+                                                sk.hop_packed_halo_reference(*s[0], 0, s[1], s[2])
+                                                if kind == "staggered" else
+                                                wk.dslash_halo_reference(s[0][0], s[0][2], KAPPA,
+                                                                         s[1], s[2]))]
+                    STATE["timing"][(f"{label} {n} chains", name)] = {
+                        "ms": t_one, "plain_ms": _time_device(torch, plain, reps=4, n=5),
+                        "bound_ms": bound, "bound_by": by}
+                line.append(f"{n} chains: one launch {t_one * 1e3:.1f} us, {n} one-chain halo "
+                            f"launches {t_apart * 1e3:.1f} us, bound {bound * 1e3:.1f} us "
+                            f"({by}; {100 * bound / t_one:.1f}% of it in one launch)")
+                del sets, together, apart
+            print(f"  {label} {name} on the 16^3x16 block of a t cut, cold: " + "; ".join(line)
+                  + f"  [{STATE['smi']}]", flush=True)
+
+
+# (b) the chain split: bench.py tier2's action at 4^4 as 64 complex64 chains (phase 29's)
+TIER2_CHAINS, TIER2_LAT = 64, (4, 4, 4, 4)
+# (c) the lattice grid at full width: phase 6's Wilson action, GRID_CHAINS complex64 chains
+GRID5_MD = 2
+# (d) the same grid at 8^4, 2 complex128 chains of 2 MD steps of 0.005, against one process
+GRID5_LAT, GRID5_NCHAIN = (8, 8, 8, 8), 2
+GRID5_FAMILY = ("wilson", "wilson_r", "clover_hasenbusch", "domainwall", "stout", "staggered",
+                "mixed")
+
+
+class _Messages:
+    """torch.distributed's point-to-point messages and collectives, counted while active."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.counts, self.sizes = dist, {}, []
+        self.real = {k: getattr(dist, k) for k in ("batch_isend_irecv", "all_reduce",
+                                                   "all_gather", "gather", "broadcast")}
+
+    def __enter__(self):
+        def wrap(name, real):
+            def counted(*a, **k):
+                self.counts[name] = self.counts.get(name, 0) + 1
+                if name == "batch_isend_irecv":
+                    self.sizes.extend(op.tensor.numel() for op in a[0])
+                return real(*a, **k)
+            return counted
+
+        for name, real in self.real.items():
+            setattr(self.dist, name, wrap(name, real))
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.dist, name, real)
+
+
+def _tier2_hmc():
+    """bench.py tier2's action: beta 6.0, kappa 0.141139, dtau 0.1, 10 MD steps (phase 29)."""
+    from latticeqcd_torch.ops import gauge_action as ga
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import WilsonFermiAction
+    from latticeqcd_torch.updates.hmc import HMC
+
+    return HMC(action=ga.wilson_gauge_action(3, 6.0), dtau=0.1, md_steps=10,
+               fermi_action=WilsonFermiAction(WilsonDirac(kappa=KAPPA), eps_cg=1e-12, max_cg=3000))
+
+
+def _grid5_hmc(tag, lattice):
+    """An HMC of phase 35 (d) (``lattice``: what the staggered operator acts on), or (c)'s
+    Wilson action ("main")."""
+    from latticeqcd_torch.ops import gauge_action as ga
+    from latticeqcd_torch.ops.dirac.domainwall import DomainwallDirac
+    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import (DomainwallFermiAction,
+                                                     HasenbuschWilsonFermiAction,
+                                                     StaggeredFermiAction, WilsonFermiAction)
+    from latticeqcd_torch.smearing.stout import stout_stack
+    from latticeqcd_torch.updates.hmc import HMC
+
+    if tag == "main":
+        return HMC(action=ga.wilson_gauge_action(3, 6.0), dtau=0.02, md_steps=GRID5_MD,
+                   fermi_action=WilsonFermiAction(WilsonDirac(kappa=KAPPA), eps_cg=1e-12,
+                                                  max_cg=3000))
+    eps = dict(eps_cg=1e-20, max_cg=3000)
+    kw, beta = {}, 6.0
+    if tag in ("wilson", "stout", "mixed", "wilson_r"):
+        fa = WilsonFermiAction(WilsonDirac(kappa=KAPPA, r=R_MODE if tag == "wilson_r" else 1.0),
+                               **eps)
+        if tag == "stout":
+            kw["smearing"] = stout_stack((0.1,))
+        if tag == "mixed":
+            kw["md_precision"] = "mixed"
+    elif tag == "clover_hasenbusch":
+        fa = HasenbuschWilsonFermiAction(WilsonDirac(kappa=CLOVER_KAPPA, csw=CLOVER_CSW), mu=0.5,
+                                         **eps)
+        kw.update(sexton_weingarten=True, nsw=2)
+        beta = CLOVER_BETA
+    elif tag == "domainwall":
+        fa = DomainwallFermiAction(DomainwallDirac(DW_MASS, DW_M5, 4), **eps)
+    else:
+        fa = StaggeredFermiAction(StaggeredDirac(MASS, tuple(lattice)), nf=4, **eps)
+        beta = 5.7
+    return HMC(action=ga.wilson_gauge_action(3, beta), dtau=0.005, md_steps=2, fermi_action=fa,
+               **kw)
+
+
+def _tier2_feeds(torch, device):
+    """(b)'s TIER2_CHAINS hot starts and the feeds of its two trajectories: the first from
+    each chain's draws with the Metropolis uniform 0 (every chain accepted, so that evolved
+    links are compared), the second from the chains' generators, which drew the first."""
+    from latticeqcd_torch.updates.hmc import Draws
+
+    us, gens = _grid5_chains(torch, TIER2_LAT, TIER2_CHAINS, 400, torch.complex64, device)
+    draws = [Draws(d.mom, d.xi, 0.0) for d in (Draws.sample(_tier2_hmc(), us[i], gens[i])
+                                              for i in range(TIER2_CHAINS))]
+    return us, [{"draws": draws}, {"generators": gens}]
+
+
+def _grid5_chains(torch, lat, n, seed, dtype, device):
+    """n hot starts of ``lat`` (this rank's blocks under a grid) and their generators."""
+    from latticeqcd_torch.ops import fields
+
+    us = torch.stack([fields.hot_start(lat, 3, seed=seed + i, dtype=dtype, device=device)
+                      for i in range(n)])
+    return us, [torch.Generator(device=device).manual_seed(seed + 100 + i) for i in range(n)]
+
+
+def _grid5_rank(torch, device, tmp, rank, nprocs):
+    """Phase 35's runs on a rank of the shared group (its grid (1, 1, 1, 2)): (b) the tier2
+    chains split over the ranks, (c) GRID_CHAINS Wilson chains on 16^3x32 cut along t, (d)
+    the Wilson family and staggered at 8^4 cut along t; the report (dH, decisions,
+    seconds, launches, messages) returned, each run's links saved under tmp."""
+    import numpy as np
+
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, apply_boundary_phases
+    from latticeqcd_torch.parallel import mesh
+
+    rep = {}
+    c64, c128 = torch.complex64, torch.complex128
+    # (b) the chain split: each rank its share of the 64 chains, from the generators of all 64
+    split = mesh.make_process_grid((1, 1, 1, 1), TIER2_LAT, device, chain_groups=nprocs)
+    with mesh.use_grid(split):
+        share = mesh.chain_share(list(range(TIER2_CHAINS)))
+        us, feeds = _tier2_feeds(torch, device)
+        us = us[share[0]:share[-1] + 1].contiguous()
+        hmc, traj = _tier2_hmc(), []
+        for k, feed in enumerate(feeds):
+            torch.cuda.synchronize(device)
+            t0 = time.time()
+            with _Messages() as msgs:
+                us, st = hmc.step_batched(us, **feed)
+            torch.cuda.synchronize(device)
+            traj.append({"seconds": time.time() - t0, "dH": st["dH"].tolist(),
+                         "accepted": st["accepted"].tolist(), "messages": msgs.counts})
+        np.save(os.path.join(tmp, f"split_u_rank{rank}.npy"), us.cpu().numpy())
+        rep["split"] = {"chains": share, "trajectories": traj}
+    # (c) the lattice grid at full width, GRID_CHAINS chains
+    grid = mesh.make_process_grid((1, 1, 1, 2), MAIN, device)
+    with mesh.use_grid(grid):
+        us, gens = _grid5_chains(torch, MAIN, GRID_CHAINS, 800, c64, device)
+        hmc = _grid5_hmc("main", MAIN)
+        _zero_all_counts()
+        torch.cuda.synchronize(device)
+        t0 = time.time()
+        us, st = hmc.step_batched(us, gens)
+        torch.cuda.synchronize(device)
+        rec = {"seconds": time.time() - t0, "dH": st["dH"].tolist(),
+               "accepted": st["accepted"].tolist(), "launches": _all_counts(),
+               "chain_halo": _chain_halo_counts(),
+               "cg": [{"rsq": c["rsq"], "target": c["target"], "iterations": c["iterations"]}
+                      for c in st["cg"]]}
+        # one batched hop on the final links, their faces exchanged by a first one
+        d = WilsonDirac(kappa=KAPPA)
+        ueo = d.packed_links(apply_boundary_phases(us))
+        x = torch.ones((GRID_CHAINS, grid.local[0] // 2) + grid.local[1:] + (4, 3), dtype=c64,
+                       device=device)
+        d.hop_packed(*ueo, x, 0)
+        before = _chain_halo_counts()["wilson_hop_packed_chain_halo"]
+        with _Messages() as msgs:
+            d.hop_packed(*ueo, x, 0)
+        torch.cuda.synchronize(device)
+        rec["hop"] = {"launches": _chain_halo_counts()["wilson_hop_packed_chain_halo"] - before,
+                      "messages": msgs.counts, "sizes": sorted(msgs.sizes)}
+        rep["main"] = rec
+    # (d) the family at 8^4, against one process in the parent
+    grid = mesh.make_process_grid((1, 1, 1, 2), GRID5_LAT, device)
+    with mesh.use_grid(grid):
+        for i, tag in enumerate(GRID5_FAMILY):
+            us, gens = _grid5_chains(torch, GRID5_LAT, GRID5_NCHAIN, 1000 + 10 * i, c128, device)
+            _zero_all_counts()
+            torch.cuda.synchronize(device)
+            t0 = time.time()
+            us, st = _grid5_hmc(tag, grid.local).step_batched(us, gens)
+            torch.cuda.synchronize(device)
+            host = mesh.to_host_global(us, lead=2)
+            if host is not None:
+                np.save(os.path.join(tmp, f"family_{tag}_u.npy"), host)
+            rep[tag] = {"seconds": time.time() - t0, "dH": st["dH"].tolist(),
+                        "accepted": st["accepted"].tolist(), "launches": _all_counts(),
+                        "chain_halo": _chain_halo_counts()}
+    return rep
+
+
+def _grid5_split(torch, reps, tmp):
+    """(b): the ranks' shares of the tier2 chains against one process's step_batched over all
+    64 from the same generators; no message and no collective in the ranks' steps."""
+    import numpy as np
+
+    us, feeds = _tier2_feeds(torch, torch.device("cuda"))
+    hmc, ref = _tier2_hmc(), []
+    for feed in feeds:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        us, st = hmc.step_batched(us, **feed)
+        torch.cuda.synchronize()
+        ref.append((time.time() - t0, st["dH"].numpy(), st["accepted"].numpy()))
+    u_ref = us.cpu().numpy()
+    bitwise, ddh, du = True, 0.0, 0.0
+    for r, rep in enumerate(reps):
+        got = rep["batched"]["split"]
+        sl = slice(got["chains"][0], got["chains"][-1] + 1)
+        for k, tr in enumerate(got["trajectories"]):
+            if tr["messages"]:
+                fail(f"the chain split's rank {r} communicated in its step: {tr['messages']}")
+            dh = np.asarray(tr["dH"])
+            ddh = max(ddh, float(np.abs(dh - ref[k][1][sl]).max()))
+            bitwise &= bool(np.array_equal(dh, ref[k][1][sl]))
+            if tr["accepted"] != ref[k][2][sl].tolist():
+                fail(f"the chain split's decisions on rank {r} are not one process's")
+        u = np.load(os.path.join(tmp, f"split_u_rank{r}.npy"))
+        du = max(du, float(np.abs(u - u_ref[sl]).max()))
+        bitwise &= bool(np.array_equal(u, u_ref[sl]))
+    STATE["checks"] += 1
+    check("(b) the chain split's dH against one process's step_batched (complex64)", ddh, 5e-4)
+    check("(b) the chain split's links against one process's step_batched (complex64)", du, 1e-5)
+    t_split = max(rep["batched"]["split"]["trajectories"][1]["seconds"] for rep in reps)
+    cps = STATE.get("batched_cps", {}).get("tier2 4^4 Wilson c64")
+    print(f"  (b) {TIER2_CHAINS} tier2 chains split over {len(reps)} gloo ranks on one card, "
+          f"{TIER2_CHAINS // len(reps)} each: bit for bit one process's step_batched: {bitwise}; "
+          f"no message and no collective in either rank's steps; second trajectory "
+          f"{t_split:.3f} s on the slower rank, {TIER2_CHAINS / t_split:.2f} configurations/s "
+          f"(one process of {TIER2_CHAINS} chains here {ref[1][0]:.3f} s, "
+          f"{TIER2_CHAINS / ref[1][0]:.2f}; phase 29's {cps if cps is None else round(cps, 2)})"
+          f"  [{STATE['smi']}]", flush=True)
+
+
+def _grid5_main(torch, reps):
+    """(c): GRID_CHAINS complex64 Wilson chains on 16^3x32 cut along t."""
+    recs = [rep["batched"]["main"] for rep in reps]
+    if len({json.dumps(r["dH"]) for r in recs}) != 1 or any(
+            r["accepted"] != recs[0]["accepted"] for r in recs):
+        fail(f"(c) the ranks' dH or decisions differ: {[r['dH'] for r in recs]}")
+    if not all(math.isfinite(x) for x in recs[0]["dH"]):
+        fail(f"(c) a non-finite dH: {recs[0]['dH']}")
+    local_face = GRID_CHAINS * (MAIN[0] // 2) * MAIN[1] * MAIN[2] * 12
+    for r, rec in enumerate(recs):
+        if any(c["rsq"] > c["target"] for c in rec["cg"]):
+            fail(f"(c) a verified solve on rank {r} ended above its target")
+        outside = {k: rec["launches"][k] for k in HALO_KERNELS if rec["launches"][k]}
+        if outside or rec["chain_halo"]["wilson_hop_packed_chain_halo"] == 0 or \
+                rec["chain_halo"]["wilson_hop_packed_chain_halo"] != rec["launches"][
+                    "wilson_hop_packed_halo"]:
+            fail(f"(c) rank {r} launched {rec['launches']}, chain-halo {rec['chain_halo']}")
+        hop = rec["hop"]
+        if hop["launches"] != 1 or hop["messages"] != {"batch_isend_irecv": 1} or \
+                hop["sizes"] != [local_face] * 4:
+            fail(f"(c) a batched hop on rank {r} made {hop}, not one chain-halo launch and one "
+                 f"chain's 4 messages (2 sends, 2 receives) of {local_face} elements")
+    STATE["checks"] += 1
+    total = sum(r["chain_halo"]["wilson_hop_packed_chain_halo"] for r in recs)
+    STATE["launches"].setdefault("wilson_hop_packed_chain_halo", {})[
+        f"grid batched Wilson 16^3x32 x{GRID_CHAINS}, gloo, 2 ranks"] = total
+    its = [c["iterations"] for c in recs[0]["cg"]]
+    print(f"  (c) {GRID_CHAINS} complex64 Wilson chains at 16^3x32 on the grid (1, 1, 1, 2), gloo, "
+          f"one card: {recs[0]['seconds']:.3f} s per trajectory of {GRID5_MD} MD steps "
+          f"({GRID_CHAINS / recs[0]['seconds']:.3f} configurations/s); dH {recs[0]['dH']} bit for "
+          f"bit on both ranks; CG iterations {its}; chain-halo hops {total} over both ranks; a "
+          f"hop: 1 launch, messages {recs[0]['hop']['sizes']} elements  [{STATE['smi']}]",
+          flush=True)
+
+
+def _grid5_family(torch, reps, tmp):
+    """(d): each run of the family on the grid against one process's step_batched of the
+    same chains on the whole 8^4 lattice (dH 1e-8, links 1e-10)."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    want_kernel = {"staggered": "staggered_w_chain_halo",
+                   "clover_hasenbusch": "wilson_window_chain_halo"}
+    for i, tag in enumerate(GRID5_FAMILY):
+        recs = [rep["batched"][tag] for rep in reps]
+        if len({json.dumps(r["dH"]) for r in recs}) != 1:
+            fail(f"(d) {tag}: the ranks' dH differ")
+        kernel = want_kernel.get(tag, "wilson_hop_packed_chain_halo")
+        for r, rec in enumerate(recs):
+            outside = {k: rec["launches"][k] for k in HALO_KERNELS if rec["launches"][k]}
+            if outside or rec["chain_halo"][kernel] == 0:
+                fail(f"(d) {tag} on rank {r} launched {rec['launches']}, chain-halo "
+                     f"{rec['chain_halo']}")
+        for k in CHAIN_HALO_ROWS:
+            total = sum(r["chain_halo"][k] for r in recs)
+            if total:
+                STATE["launches"].setdefault(k, {})[f"grid batched {tag} 8^4 x2, gloo"] = total
+        us, gens = _grid5_chains(torch, GRID5_LAT, GRID5_NCHAIN, 1000 + 10 * i, torch.complex128,
+                                 dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        u1, st = _grid5_hmc(tag, GRID5_LAT).step_batched(us, gens)
+        torch.cuda.synchronize()
+        t_one = time.time() - t0
+        if st["accepted"].tolist() != recs[0]["accepted"]:
+            fail(f"(d) {tag}: the grid's decisions {recs[0]['accepted']} are not one process's")
+        if not st["accepted"].all():
+            fail(f"(d) {tag}: a rejected chain leaves the start's links to compare")
+        check(f"(d) {tag} 8^4 complex128 x{GRID5_NCHAIN}: |ddH| on the grid against one process",
+              float(np.abs(np.asarray(recs[0]["dH"]) - st["dH"].numpy()).max()), 1e-8)
+        u_grid = np.load(os.path.join(tmp, f"family_{tag}_u.npy"))
+        check(f"(d) {tag}: max|dU| on the grid against one process",
+              float(np.abs(u_grid - u1.cpu().numpy()).max()), 1e-10)
+        print(f"  (d) {tag}: {recs[0]['seconds']:.3f} s per batched trajectory on the grid against "
+              f"{t_one:.3f} s on one card; dH {recs[0]['dH']}; chain-halo launches per rank "
+              f"{recs[0]['chain_halo']}  [{STATE['smi']}]", flush=True)
+
+
+def _grid5_both_rank(argv):
+    """A rank of (e): 2 chain groups of the grid (1, 1, 1, 2) over 8^4 on nccl, each running
+    its 2 of 4 complex128 Wilson chains; writes <tmp>/both_rank<r>.json and, on each group's
+    first rank, the group's gathered links."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from latticeqcd_torch.parallel import mesh
+
+    rank, port, tmp = int(argv[0]), argv[1], argv[2]
+    mesh.init_process_grid("nccl", f"127.0.0.1:{port}", 4, rank, timeout_s=600)
+    device = torch.device(f"cuda:{rank}")
+    try:
+        grid = mesh.make_process_grid((1, 1, 1, 2), GRID5_LAT, device, chain_groups=2)
+        with mesh.use_grid(grid):
+            us, gens = _grid5_chains(torch, GRID5_LAT, 4, 1000, torch.complex128, device)
+            share = mesh.chain_share(list(range(4)))
+            with _Messages() as msgs:
+                u, st = _grid5_hmc("wilson", grid.local).step_batched(
+                    us[share[0]:share[-1] + 1].contiguous(), gens)
+            host = mesh.to_host_global(u, lead=2)
+            if host is not None:
+                np.save(os.path.join(tmp, f"both_u_group{grid.chains.index}.npy"), host)
+            rec = {"chains": share, "dH": st["dH"].tolist(), "accepted": st["accepted"].tolist(),
+                   "messages": msgs.counts}
+    finally:
+        mesh.close_process_grid()
+    with open(os.path.join(tmp, f"both_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _grid5_both(torch):
+    """(e): 4 Wilson chains on 2 chain groups x (1, 1, 1, 2) over 8^4, nccl on 4 cards, against
+    one process's step_batched over the 4 (dH 1e-8, links 1e-10)."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_both_")
+    try:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as c; "
+                "c._grid5_both_rank(sys.argv[1:])")
+        procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(port), tmp], cwd=ROOT,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(4)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                print(out[-3000:])
+                print(err[-3000:])
+                fail(f"(e) rank {r} exited {p.returncode}")
+        recs = []
+        for r in range(4):
+            with open(os.path.join(tmp, f"both_rank{r}.json")) as f:
+                recs.append(json.load(f))
+        dev = torch.device("cuda")
+        us, gens = _grid5_chains(torch, GRID5_LAT, 4, 1000, torch.complex128, dev)
+        u1, st = _grid5_hmc("wilson", GRID5_LAT).step_batched(us, gens)
+        for g in (0, 1):
+            rec, mate = recs[2 * g], recs[2 * g + 1]
+            sl = slice(2 * g, 2 * g + 2)
+            if rec["dH"] != mate["dH"] or rec["accepted"] != st["accepted"][sl].tolist():
+                fail(f"(e) group {g}: the ranks' dH or decisions differ from each other or from "
+                     "one process's")
+            check(f"(e) group {g} |ddH| against one process",
+                  float(np.abs(np.asarray(rec["dH"]) - st["dH"][sl].numpy()).max()), 1e-8)
+            u = np.load(os.path.join(tmp, f"both_u_group{g}.npy"))
+            check(f"(e) group {g} max|dU| against one process",
+                  float(np.abs(u - u1[sl].cpu().numpy()).max()), 1e-10)
+        print(f"  (e) 2 chain groups x (1, 1, 1, 2) on nccl: messages per rank "
+              f"{[r['messages'] for r in recs]}  [{STATE['smi']}]", flush=True)
+    finally:
+        shutil.rmtree(tmp, True)
+
+
+def phase_grid_batched(torch):
+    print("== 35. batched chains on the process grid", flush=True)
+    t0 = time.time()
+    _chain_halo_checks(torch)
+    t1 = time.time()
+    _chain_halo_timing(torch)
+    _hot_start.cache_clear()
+    print(f"  (a) the chain-halo modes in one process: {time.time() - t0:.1f} s (checks "
+          f"{t1 - t0:.1f} s)", flush=True)
+    reps, tmp, _ = _grid_group(torch, "gloo")
+    t0 = time.time()
+    _grid5_split(torch, reps, tmp)
+    _grid5_main(torch, reps)
+    _grid5_family(torch, reps, tmp)
+    print(f"  (b-d) the shared group's batched runs against one card: {time.time() - t0:.1f} s "
+          f"(the group's own time is in phase 31's line)", flush=True)
+    if torch.cuda.device_count() >= 4:
+        t0 = time.time()
+        _grid5_both(torch)
+        print(f"  (e) 2 chain groups x (1, 1, 1, 2), nccl, 4 cards: {time.time() - t0:.1f} s",
+              flush=True)
+    else:
+        print(f"  (e) nccl with 2 chain groups: not run, this machine has "
+              f"{torch.cuda.device_count()} card", flush=True)
+
+
 PHASES = [phase_env, phase_build, phase_kernels, phase_timing,
           phase_trajectory_agreement, phase_main_path, phase_staggered_kernels,
           phase_staggered_timing, phase_staggered_trajectory_agreement, phase_staggered_main_path,
           phase_window, phase_window_timing, phase_measurement_agreement, phase_measurement_path,
           phase_disk, phase_anchor, phase_quenched_agreement, phase_quenched_path,
-          phase_plaquette_anchor, phase_improved_agreement, phase_improved_path,
-          phase_domainwall_agreement, phase_domainwall_path, phase_selflearning_agreement,
-          phase_selflearning_path, phase_clover_agreement, phase_clover_path,
+          phase_plaquette_anchor, phase_grid_start, phase_improved_agreement,
+          phase_domainwall_agreement, phase_selflearning_agreement, phase_clover_agreement,
+          phase_improved_path, phase_domainwall_path, phase_selflearning_path, phase_clover_path,
           phase_batched_agreement, phase_batched_path, phase_frontend, phase_grid,
-          phase_grid_fermions, phase_grid_more, phase_grid_selflearning]
+          phase_grid_fermions, phase_grid_more, phase_grid_selflearning, phase_grid_batched]
 
 KERNELS = [
     # name, source, the TPU kernel it replaces, the timing row of its line
@@ -4982,6 +5698,17 @@ KERNELS = [
     ("wilson_window_chains", "latticeqcd_torch/csrc/wilson_window.cu",
      "latticeqcd_tpu/ops/dirac/wilson_pallas.py:349",
      (f"window D {WINDOW_CHAINS_TIMED[1]} chains {WINDOW_CHAINS_TIMED[0][0]}^4", "complex64")),
+    # the chain-halo modes (a chain axis on a block of a process grid), GRID_CHAINS chains on
+    # the t cut's 16^3x16 block
+    ("wilson_hop_packed_chain_halo", "latticeqcd_torch/csrc/wilson_hop_packed.cu",
+     "latticeqcd_tpu/ops/dirac/wilson_pallas.py:414",
+     (CHAIN_HALO_ROWS["wilson_hop_packed_chain_halo"], "complex64")),
+    ("staggered_w_chain_halo", "latticeqcd_torch/csrc/staggered_w.cu",
+     "latticeqcd_tpu/ops/dirac/staggered_pallas.py:274",
+     (CHAIN_HALO_ROWS["staggered_w_chain_halo"], "complex64")),
+    ("wilson_window_chain_halo", "latticeqcd_torch/csrc/wilson_window.cu",
+     "latticeqcd_tpu/ops/dirac/wilson_pallas.py:349",
+     (CHAIN_HALO_ROWS["wilson_window_chain_halo"], "complex64")),
 ]
 
 

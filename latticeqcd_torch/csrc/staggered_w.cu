@@ -47,11 +47,17 @@
 // with off = 1 has its x + 1 neighbour at x' = 0 of the +x block, one at x' = 0 with off = 0
 // its x - 1 neighbour at x' = X/2 - 1 of the -x block. Every local extent of a grid is even, so
 // every block's origin is even: the row offset off and the KS signs computed from the block's
-// own coordinates are the global ones, and the kernel takes no origin. No chain axis. The
-// site's work is one function (hop_site): mask 0 launches it without the halo branch (HALO
-// false, staggered_hop_kernel, as before the halo mode), the halo mode with it
+// own coordinates are the global ones, and the kernel takes no origin. The site's work is one
+// function (hop_site): mask 0 launches it without the halo branch (HALO false,
+// staggered_hop_kernel, as before the halo mode), the halo mode with it
 // (staggered_hop_halo_kernel). Under a grid W is two halo launches with the faces of d1
 // exchanged between them (staggered_kernel.py).
+// Chain-halo mode (staggered_hop_halo_kernel with CHAINS, the halo_chains entry points): a
+// leading chain axis on a block of a process grid (HMC.step_batched on a grid), in both of the
+// grid W's launches. Chain c = blockIdx.y offsets its links and fields as the chain form does
+// and each face pointer by c times that face's chain stride (the exchange sends every chain's
+// faces in one message, chain after chain); chain c then computes what the one-chain halo mode
+// computes on its fields and faces. One chain launches the one-chain halo mode.
 #include "lattice_site.h"
 
 namespace {
@@ -65,8 +71,14 @@ struct Halo {
   const V* link[4];
 };
 
+// The chain strides of the face buffers, in elements (the chain-halo mode).
+struct FaceChains {
+  long long lo[4], hi[4], link[4];
+};
+
 // One thread per target site of the packed layout (lx = X/2) of chain blockIdx.y. AXPY:
-// out = m2 phi - D psi, else out = D psi. HALO: the halo mode of one block (no chains).
+// out = m2 phi - D psi, else out = D psi. HALO: the halo mode of one block, its faces in
+// `halo` (already offset to the chain's).
 template <typename R, bool AXPY, bool CHAINS, bool HALO>
 __device__ __forceinline__ void hop_site(const typename Vec<R>::type* __restrict__ u_fwd,
                                          const typename Vec<R>::type* __restrict__ u_bwd,
@@ -161,17 +173,30 @@ __global__ void __launch_bounds__(128)
                                    u_chain, psi_chain, Halo<typename Vec<R>::type>{});
 }
 
-// The halo mode: one block of a process grid, its faces in `halo`.
-template <typename R, bool AXPY>
+// The halo mode: one block of a process grid, its faces in `halo`; with CHAINS chain
+// blockIdx.y of a leading chain axis, its faces face_chain strides after the previous chain's.
+template <typename R, bool AXPY, bool CHAINS = false>
 __global__ void __launch_bounds__(128)
     staggered_hop_halo_kernel(const typename Vec<R>::type* __restrict__ u_fwd,
                               const typename Vec<R>::type* __restrict__ u_bwd,
                               const typename Vec<R>::type* __restrict__ psi,
                               const typename Vec<R>::type* __restrict__ phi,
                               typename Vec<R>::type* __restrict__ out, int lx, int ly, int lz,
-                              int lt, int parity, R m2, Halo<typename Vec<R>::type> halo) {
-  hop_site<R, AXPY, false, true>(u_fwd, u_bwd, psi, phi, out, lx, ly, lz, lt, parity, m2, 0, 0,
-                                 halo);
+                              int lt, int parity, R m2, Halo<typename Vec<R>::type> halo,
+                              long long u_chain = 0, long long psi_chain = 0,
+                              FaceChains face_chain = {}) {
+  if (CHAINS) {
+    const long long chain = blockIdx.y;
+#pragma unroll
+    for (int mu = 0; mu < 4; ++mu)
+      if (halo.mask >> mu & 1) {
+        halo.lo[mu] += chain * face_chain.lo[mu];
+        halo.hi[mu] += chain * face_chain.hi[mu];
+        halo.link[mu] += chain * face_chain.link[mu];
+      }
+  }
+  hop_site<R, AXPY, CHAINS, true>(u_fwd, u_bwd, psi, phi, out, lx, ly, lz, lt, parity, m2,
+                                  u_chain, psi_chain, halo);
 }
 
 // The chain strides of a launch: nchain lattices, their links u_chain and their fields
@@ -198,26 +223,38 @@ int launch(const void* u_fwd, const void* u_bwd, const void* psi, const void* ph
 }
 
 // The halo mode of one block: faces[mu], faces[4 + mu] and faces[8 + mu] are lo[mu], hi[mu]
-// and link[mu]; with phi the m^2 axpy of W's second launch.
+// and link[mu]; with phi the m^2 axpy of W's second launch. More than one chain launches the
+// chain-halo mode, face_chain[mu], face_chain[4 + mu] and face_chain[8 + mu] the faces' chain
+// strides.
 template <typename R>
 int launch_halo(const void* u_fwd, const void* u_bwd, const void* psi, const void* phi, void* out,
                 int x2, int ly, int lz, int lt, int parity, double m2, int mask,
-                const void* const* faces, void* stream) {
+                const void* const* faces, void* stream, Chains ch = Chains{1, 0, 0},
+                const long long* face_chain = nullptr) {
   using V = typename Vec<R>::type;
   const int vol = x2 * ly * lz * lt;
   const int threads = 128;
   const int blocks = (vol + threads - 1) / threads;
   Halo<V> halo{mask, {}, {}, {}};
+  FaceChains fc{};
   for (int mu = 0; mu < 4; ++mu) {
     halo.lo[mu] = static_cast<const V*>(faces[mu]);
     halo.hi[mu] = static_cast<const V*>(faces[4 + mu]);
     halo.link[mu] = static_cast<const V*>(faces[8 + mu]);
+    if (face_chain) {
+      fc.lo[mu] = face_chain[mu];
+      fc.hi[mu] = face_chain[4 + mu];
+      fc.link[mu] = face_chain[8 + mu];
+    }
   }
-  auto kernel = phi ? staggered_hop_halo_kernel<R, true> : staggered_hop_halo_kernel<R, false>;
-  kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = ch.n == 1 ? (phi ? staggered_hop_halo_kernel<R, true, false>
+                                 : staggered_hop_halo_kernel<R, false, false>)
+                          : (phi ? staggered_hop_halo_kernel<R, true, true>
+                                 : staggered_hop_halo_kernel<R, false, true>);
+  kernel<<<dim3(blocks, ch.n), threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const V*>(u_fwd), static_cast<const V*>(u_bwd), static_cast<const V*>(psi),
       static_cast<const V*>(phi), static_cast<V*>(out), x2, ly, lz, lt, parity, static_cast<R>(m2),
-      halo);
+      halo, ch.u, ch.psi, fc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -282,6 +319,27 @@ int staggered_hop_halo_c128(const void* u_t, const void* u_s, const void* psi_s,
                             double m2, int mask, const void* const* faces, void* stream) {
   return launch_halo<double>(u_t, u_s, psi_s, phi, out, x2, ly, lz, lt, target_parity, m2, mask,
                              faces, stream);
+}
+
+// The chain-halo mode: the halo mode's arguments with, after the extents and the parity, the
+// chain count, the chain strides of the links and of the fields, and an array of the 12 faces'
+// chain strides (in elements, in the order of the face pointers).
+int staggered_hop_halo_chains_c64(const void* u_t, const void* u_s, const void* psi_s,
+                                  const void* phi, void* out, int x2, int ly, int lz, int lt,
+                                  int target_parity, int nchain, long long u_chain,
+                                  long long psi_chain, const long long* face_chain, double m2,
+                                  int mask, const void* const* faces, void* stream) {
+  return launch_halo<float>(u_t, u_s, psi_s, phi, out, x2, ly, lz, lt, target_parity, m2, mask,
+                            faces, stream, Chains{nchain, u_chain, psi_chain}, face_chain);
+}
+
+int staggered_hop_halo_chains_c128(const void* u_t, const void* u_s, const void* psi_s,
+                                   const void* phi, void* out, int x2, int ly, int lz, int lt,
+                                   int target_parity, int nchain, long long u_chain,
+                                   long long psi_chain, const long long* face_chain, double m2,
+                                   int mask, const void* const* faces, void* stream) {
+  return launch_halo<double>(u_t, u_s, psi_s, phi, out, x2, ly, lz, lt, target_parity, m2, mask,
+                             faces, stream, Chains{nchain, u_chain, psi_chain}, face_chain);
 }
 
 }  // extern "C"

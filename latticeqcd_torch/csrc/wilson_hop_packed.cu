@@ -62,8 +62,14 @@
 // contiguous and 16-byte aligned like psi's; a t neighbour outside the block reads lo[3] or
 // hi[3] per site, as the out-of-segment t neighbours read psi; a backward link at x - mu
 // outside the block reads link[mu], the -mu neighbour's last slab of u_s[mu]. A slot that
-// leaves the block along two axes is read only by lanes that write nothing. No chain axis.
-// Mask 0 is the kernel without the halo branches (HALO false), as before the halo mode.
+// leaves the block along two axes is read only by lanes that write nothing. Mask 0 is the
+// kernel without the halo branches (HALO false), as before the halo mode.
+// Chain-halo mode (CHAINS and HALO, the halo_chains entry points): a leading chain axis on a
+// block of a process grid (HMC.step_batched on a grid). Block (b, c) offsets its links and
+// spinors as the chain form does, and each face pointer by c times that face's chain stride
+// (the exchange sends the faces of all chains in one message, chain after chain); nothing else
+// changes, so chain c computes what the one-chain halo mode computes on chain c's fields and
+// faces, and one launch serves every chain. One chain launches the one-chain halo mode.
 // r mode (GENERIC_R, the _r entry points): the hop (r - g_mu) U psi + (r + g_mu) U^dag psi at
 // any r, where (r -+ g_mu) is not a projector and the half-spinor form does not hold: each
 // lane takes its colour of U psi for all four spins (4 colour products per neighbour, not 2)
@@ -89,6 +95,12 @@ struct Halo {
   const V* lo[4];
   const V* hi[4];
   const V* link[4];
+};
+
+// The chain strides of the face buffers, in elements (the chain-halo mode): chain c of lo[mu]
+// starts c * lo[mu] elements after chain 0's, and so on.
+struct FaceChains {
+  long long lo[4], hi[4], link[4];
 };
 
 // Row slots of a BY x BZ brick in shared memory, each holding one t segment of a source row:
@@ -152,7 +164,8 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
                             const typename Vec<R>::type* __restrict__ psi,
                             typename Vec<R>::type* __restrict__ out, int x2, int ly, int lz, int lt,
                             int ts, int parity, long long u_chain, long long psi_chain,
-                            Halo<typename Vec<R>::type> halo, R r = R(1)) {
+                            Halo<typename Vec<R>::type> halo, R r = R(1),
+                            FaceChains face_chain = {}) {
   using V = typename Vec<R>::type;
   using S = Slots<BY, BZ>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -164,6 +177,15 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
     u_s += chain * u_chain;
     psi += chain * psi_chain;
     out += chain * psi_chain;
+    if (HALO) {
+#pragma unroll
+      for (int mu = 0; mu < 4; ++mu)
+        if (halo.mask >> mu & 1) {
+          halo.lo[mu] += chain * face_chain.lo[mu];
+          halo.hi[mu] += chain * face_chain.hi[mu];
+          halo.link[mu] += chain * face_chain.link[mu];
+        }
+    }
   }
 
   const int nts = (lt + ts - 1) / ts, nzb = (lz + BZ - 1) / BZ, nyb = (ly + BY - 1) / BY;
@@ -261,12 +283,15 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX, MINB)
 
 // Launch on a grid of bricks times chains: t is cut into the fewest segments of at most TSMAX
 // sites, of even length (so that a segment of spinors is a whole number of 16-byte units).
-// A non-zero mask launches the halo mode (one chain) with faces[mu], faces[4 + mu] and
-// faces[8 + mu] as lo[mu], hi[mu] and link[mu]. GENERIC_R: the r mode at Wilson parameter r.
+// A non-zero mask launches the halo mode with faces[mu], faces[4 + mu] and faces[8 + mu] as
+// lo[mu], hi[mu] and link[mu], and for more than one chain its chain-halo form with
+// face_chain[mu], face_chain[4 + mu] and face_chain[8 + mu] as their chain strides. GENERIC_R:
+// the r mode at Wilson parameter r.
 template <typename R, int BY, int BZ, int TSMAX, int MINB, bool GENERIC_R = false>
 int launch(const void* u_t, const void* u_s, const void* psi, void* out, int x2, int ly, int lz,
            int lt, int parity, int nchain, long long u_chain, long long psi_chain, int mask,
-           const void* const* faces, void* stream, double r = 1.0) {
+           const void* const* faces, void* stream, double r = 1.0,
+           const long long* face_chain = nullptr) {
   using V = typename Vec<R>::type;
   using S = Slots<BY, BZ>;
   static_assert(TSMAX % 2 == 0, "t segments are of even length");
@@ -277,19 +302,27 @@ int launch(const void* u_t, const void* u_s, const void* psi, void* out, int x2,
   const int bytes = S::ROWS * 12 * ts * static_cast<int>(sizeof(V));
   const int blocks = x2 * ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * ((lt + ts - 1) / ts);
   Halo<V> halo{mask, {}, {}, {}};
+  FaceChains fc{};
   for (int mu = 0; mask && mu < 4; ++mu) {
     halo.lo[mu] = static_cast<const V*>(faces[mu]);
     halo.hi[mu] = static_cast<const V*>(faces[4 + mu]);
     halo.link[mu] = static_cast<const V*>(faces[8 + mu]);
+    if (face_chain) {
+      fc.lo[mu] = face_chain[mu];
+      fc.hi[mu] = face_chain[4 + mu];
+      fc.link[mu] = face_chain[8 + mu];
+    }
   }
   auto kernel =
-      mask ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, true, GENERIC_R>
+      mask ? (nchain == 1
+                  ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, true, GENERIC_R>
+                  : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true, true, GENERIC_R>)
       : nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, false, GENERIC_R>
                     : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true, false, GENERIC_R>;
   kernel<<<dim3(blocks, nchain), 3 * BY * BZ * ts, bytes, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const V*>(u_t), static_cast<const V*>(u_s), static_cast<const V*>(psi),
           static_cast<V*>(out), x2, ly, lz, lt, ts, parity, u_chain, psi_chain, halo,
-          static_cast<R>(r));
+          static_cast<R>(r), fc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,9 +331,13 @@ int launch(const void* u_t, const void* u_s, const void* psi, void* out, int x2,
 // Plain C entry points (loaded with ctypes): wilson_hop.cu's packed mode followed by the chain
 // count and the chain strides of the links and of the spinors, in elements; the halo mode's
 // (one chain) by the partition mask (bit mu: axis mu is cut) and an array of 12 face pointers
-// (lo[0..3], hi[0..3], link[0..3]; those of uncut axes are not read). The _r entry points are
-// the r mode: the same arguments followed by the Wilson r. Each returns cudaGetLastError()
-// after the launch. psi_s and the spinor faces must be 16-byte aligned.
+// (lo[0..3], hi[0..3], link[0..3]; those of uncut axes are not read); the chain-halo mode's
+// (halo_chains) by the chain count, the chain strides of the links and of the spinors, an array
+// of the 12 faces' chain strides (in elements, in the order of the face pointers), the mask
+// and the 12 face pointers. The _r entry points are the r mode: the same arguments followed by
+// the Wilson r. Each returns cudaGetLastError() after the launch. psi_s and the spinor faces
+// must be 16-byte aligned (a chain of a spinor face is a multiple of 96 bytes, so every
+// chain's rows are).
 extern "C" {
 
 int wilson_hop_brick_c64(const void* u_t, const void* u_s, const void* psi_s, void* out, int x2,
@@ -359,6 +396,46 @@ int wilson_hop_halo_r_c128(const void* u_t, const void* u_s, const void* psi_s, 
                            const void* const* faces, void* stream, double r) {
   return launch<double, WILSON_BRICK_C128, true>(u_t, u_s, psi_s, out, x2, ly, lz, lt,
                                                  target_parity, 1, 0, 0, mask, faces, stream, r);
+}
+
+int wilson_hop_halo_chains_c64(const void* u_t, const void* u_s, const void* psi_s, void* out,
+                               int x2, int ly, int lz, int lt, int target_parity, int nchain,
+                               long long u_chain, long long psi_chain,
+                               const long long* face_chain, int mask, const void* const* faces,
+                               void* stream) {
+  return launch<float, WILSON_BRICK_C64>(u_t, u_s, psi_s, out, x2, ly, lz, lt, target_parity,
+                                         nchain, u_chain, psi_chain, mask, faces, stream, 1.0,
+                                         face_chain);
+}
+
+int wilson_hop_halo_chains_c128(const void* u_t, const void* u_s, const void* psi_s, void* out,
+                                int x2, int ly, int lz, int lt, int target_parity, int nchain,
+                                long long u_chain, long long psi_chain,
+                                const long long* face_chain, int mask, const void* const* faces,
+                                void* stream) {
+  return launch<double, WILSON_BRICK_C128>(u_t, u_s, psi_s, out, x2, ly, lz, lt, target_parity,
+                                           nchain, u_chain, psi_chain, mask, faces, stream, 1.0,
+                                           face_chain);
+}
+
+int wilson_hop_halo_chains_r_c64(const void* u_t, const void* u_s, const void* psi_s, void* out,
+                                 int x2, int ly, int lz, int lt, int target_parity, int nchain,
+                                 long long u_chain, long long psi_chain,
+                                 const long long* face_chain, int mask, const void* const* faces,
+                                 void* stream, double r) {
+  return launch<float, WILSON_BRICK_C64, true>(u_t, u_s, psi_s, out, x2, ly, lz, lt,
+                                               target_parity, nchain, u_chain, psi_chain, mask,
+                                               faces, stream, r, face_chain);
+}
+
+int wilson_hop_halo_chains_r_c128(const void* u_t, const void* u_s, const void* psi_s, void* out,
+                                  int x2, int ly, int lz, int lt, int target_parity, int nchain,
+                                  long long u_chain, long long psi_chain,
+                                  const long long* face_chain, int mask, const void* const* faces,
+                                  void* stream, double r) {
+  return launch<double, WILSON_BRICK_C128, true>(u_t, u_s, psi_s, out, x2, ly, lz, lt,
+                                                 target_parity, nchain, u_chain, psi_chain, mask,
+                                                 faces, stream, r, face_chain);
 }
 
 }  // extern "C"

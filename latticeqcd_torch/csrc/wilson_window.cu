@@ -89,7 +89,14 @@
 // chain * u_chain and chain * psi_chain elements before its copies, and the wave is sized over
 // the tiles of all chains, so that many chains cut x into fewer chunks (fewer carry prologues
 // per march). At complex64 the chain form runs one block per SM fewer (below). One chain
-// launches the kernel without the offsets (CHAINS false). No halo mode.
+// launches the kernel without the offsets (CHAINS false).
+// Chain-halo mode (CHAINS and HALO, the halo_chains entry points): the chain axis on a block of
+// a process grid (HMC.step_batched on a grid). Each block offsets its links and spinors as the
+// chain form does and each face pointer by its chain times that face's chain stride (the
+// exchange sends every chain's faces in one message, chain after chain); the march, the tile
+// and the wave's sizing over the tiles of all chains are the chain form's, so chain c computes
+// what the one-chain halo mode computes on its fields and faces. One chain launches the
+// one-chain halo mode.
 #include <atomic>
 
 #include "tma.h"
@@ -115,6 +122,11 @@ struct Halo {
   const V* lo[4];
   const V* hi[4];
   const V* link[4];
+};
+
+// The chain strides of the face buffers, in elements (the chain-halo mode).
+struct FaceChains {
+  long long lo[4], hi[4], link[4];
 };
 
 // The halo mode's source of the t segment [t0, ...) of the unwrapped row (rx, ry, rz): a face
@@ -161,7 +173,8 @@ struct Ring {
 // 15.0 and 20.9 at 2 (155 registers, no spill; scripts/ab_window_halo.py, warm, NVIDIA H100
 // 80GB HBM3 at 700 W).
 // CHAINS: chain blockIdx.y of a leading chain axis, its links and spinors u_chain and psi_chain
-// elements after the previous chain's (no halo mode); at complex64 one block per SM fewer as
+// elements after the previous chain's (with HALO, its faces face_chain strides after the
+// previous chain's: the chain-halo mode); at complex64 one block per SM fewer as
 // well: at 3 the r = 1 form spilled 36 bytes (96 registers), and 16 chains at 8^4 took 25.0
 // us, 2 at 16^3x32 62.0 us, against 22.1 and 55.0 at 2 (the r mode 24.9 and 59.6 against 23.8
 // and 56.9; scripts/ab_window_chains.py, cold, NVIDIA H100 80GB HBM3 at 700 W). complex128
@@ -175,10 +188,10 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX,
                          const typename Vec<R>::type* __restrict__ psi,
                          typename Vec<R>::type* __restrict__ out, int lx, int ly, int lz, int lt,
                          int ts, int chunk, R kappa, Halo<typename Vec<R>::type> halo = {},
-                         R r = R(1), long long u_chain = 0, long long psi_chain = 0) {
+                         R r = R(1), long long u_chain = 0, long long psi_chain = 0,
+                         FaceChains face_chain = {}) {
   using V = typename Vec<R>::type;
   using S = Ring<BY, BZ>;
-  static_assert(!(CHAINS && HALO), "the halo mode holds one chain");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t bar[2];
   const V* rows = reinterpret_cast<const V*>(smem);
@@ -187,6 +200,15 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX,
     u += chain * u_chain;
     psi += chain * psi_chain;
     out += chain * psi_chain;
+    if (HALO) {
+#pragma unroll
+      for (int mu = 0; mu < 4; ++mu)
+        if (halo.mask >> mu & 1) {
+          halo.lo[mu] += chain * face_chain.lo[mu];
+          halo.hi[mu] += chain * face_chain.hi[mu];
+          halo.link[mu] += chain * face_chain.link[mu];
+        }
+    }
   }
 
   const int nts = (lt + ts - 1) / ts, nzb = (lz + BZ - 1) / BZ, nyb = (ly + BY - 1) / BY;
@@ -337,23 +359,31 @@ __global__ void __launch_bounds__(3 * BY * BZ * TSMAX,
 
 // Launch one wave: t is cut into the fewest segments of at most TSMAX sites, and x into the
 // fewest chunks that give every block the card holds at once a chunk, over the tiles of all
-// nchain chains (the grid's y axis). HALO: the halo mode (one chain), with faces[mu],
-// faces[4 + mu] and faces[8 + mu] as lo[mu], hi[mu] and link[mu]. GENERIC_R: the r mode at
-// Wilson parameter r. CHAINS: the kernel with the chain offsets, for nchain > 1; each
-// instantiation reads its own occupancy.
+// nchain chains (the grid's y axis). HALO: the halo mode, with faces[mu], faces[4 + mu] and
+// faces[8 + mu] as lo[mu], hi[mu] and link[mu] (and with CHAINS face_chain[mu], face_chain[4 +
+// mu] and face_chain[8 + mu] as their chain strides). GENERIC_R: the r mode at Wilson parameter
+// r. CHAINS: the kernel with the chain offsets, for nchain > 1; each instantiation reads its
+// own occupancy.
 template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool HALO = false,
           bool GENERIC_R = false, bool CHAINS = false>
 int launch(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
            double kappa, void* stream, int mask = 0, const void* const* faces = nullptr,
-           double r = 1.0, int nchain = 1, long long u_chain = 0, long long psi_chain = 0) {
+           double r = 1.0, int nchain = 1, long long u_chain = 0, long long psi_chain = 0,
+           const long long* face_chain = nullptr) {
   using V = typename Vec<R>::type;
   constexpr int smem_max = Ring<BY, BZ>::ROWS * 12 * TSMAX * sizeof(V);
   auto* kernel = wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, HALO, GENERIC_R, CHAINS>;
   Halo<V> halo{mask, {}, {}, {}};
+  FaceChains fc{};
   for (int mu = 0; HALO && mu < 4; ++mu) {
     halo.lo[mu] = static_cast<const V*>(faces[mu]);
     halo.hi[mu] = static_cast<const V*>(faces[4 + mu]);
     halo.link[mu] = static_cast<const V*>(faces[8 + mu]);
+    if (CHAINS && face_chain) {
+      fc.lo[mu] = face_chain[mu];
+      fc.hi[mu] = face_chain[4 + mu];
+      fc.link[mu] = face_chain[8 + mu];
+    }
   }
   // once per device: opt in to the shared memory and read how many blocks the card holds at
   // once (threads that race here set and read the same values twice, which is harmless)
@@ -386,7 +416,7 @@ int launch(const void* u, const void* psi, void* out, int lx, int ly, int lz, in
   kernel<<<dim3(tiles * nchunk, nchain), 3 * BY * BZ * ts, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const V*>(u), static_cast<const V*>(psi), static_cast<V*>(out), lx, ly, lz, lt,
-      ts, chunk, static_cast<R>(kappa), halo, static_cast<R>(r), u_chain, psi_chain);
+      ts, chunk, static_cast<R>(kappa), halo, static_cast<R>(r), u_chain, psi_chain, fc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -403,6 +433,20 @@ int launch_chains(const void* u, const void* psi, void* out, int lx, int ly, int
                    psi_chain);
 }
 
+// The halo mode over nchain chains: one chain launches the one-chain halo mode.
+template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool GENERIC_R>
+int launch_halo_chains(const void* u, const void* psi, void* out, int lx, int ly, int lz, int lt,
+                       int nchain, long long u_chain, long long psi_chain,
+                       const long long* face_chain, double kappa, double r, int mask,
+                       const void* const* faces, void* stream) {
+  return nchain == 1
+             ? launch<R, BY, BZ, TSMAX, MINB, PREFETCH, true, GENERIC_R, false>(
+                   u, psi, out, lx, ly, lz, lt, kappa, stream, mask, faces, r)
+             : launch<R, BY, BZ, TSMAX, MINB, PREFETCH, true, GENERIC_R, true>(
+                   u, psi, out, lx, ly, lz, lt, kappa, stream, mask, faces, r, nchain, u_chain,
+                   psi_chain, face_chain);
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each returns cudaGetLastError() after the launch,
@@ -412,9 +456,49 @@ int launch_chains(const void* u, const void* psi, void* out, int lx, int ly, int
 // hi[0..3], link[0..3]; those of uncut axes are not read). The chains entry points take, after
 // the lattice extents, the chain count and the chain strides of the links and of the spinors
 // in elements (a chain of spinors is X Y Z T 96 bytes at complex64, so every chain's rows keep
-// the bulk copies' 16-byte alignment). The _r entry points are the r mode: the Wilson r
-// follows kappa.
+// the bulk copies' 16-byte alignment). The chain-halo mode's (halo_chains) take, after the
+// extents, the chain count, the chain strides of the links and of the spinors and an array of
+// the 12 faces' chain strides (in elements, in the order of the face pointers), then kappa, the
+// mask and the face pointers. The _r entry points are the r mode: the Wilson r follows kappa.
 extern "C" {
+
+int wilson_window_halo_chains_c64(const void* u, const void* psi, void* out, int lx, int ly,
+                                  int lz, int lt, int nchain, long long u_chain,
+                                  long long psi_chain, const long long* face_chain, double kappa,
+                                  int mask, const void* const* faces, void* stream) {
+  return launch_halo_chains<float, WILSON_WINDOW_TILE_C64, false>(
+      u, psi, out, lx, ly, lz, lt, nchain, u_chain, psi_chain, face_chain, kappa, 1.0, mask,
+      faces, stream);
+}
+
+int wilson_window_halo_chains_c128(const void* u, const void* psi, void* out, int lx, int ly,
+                                   int lz, int lt, int nchain, long long u_chain,
+                                   long long psi_chain, const long long* face_chain, double kappa,
+                                   int mask, const void* const* faces, void* stream) {
+  return launch_halo_chains<double, WILSON_WINDOW_TILE_C128, false>(
+      u, psi, out, lx, ly, lz, lt, nchain, u_chain, psi_chain, face_chain, kappa, 1.0, mask,
+      faces, stream);
+}
+
+int wilson_window_halo_chains_r_c64(const void* u, const void* psi, void* out, int lx, int ly,
+                                    int lz, int lt, int nchain, long long u_chain,
+                                    long long psi_chain, const long long* face_chain,
+                                    double kappa, double r, int mask, const void* const* faces,
+                                    void* stream) {
+  return launch_halo_chains<float, WILSON_WINDOW_TILE_C64, true>(
+      u, psi, out, lx, ly, lz, lt, nchain, u_chain, psi_chain, face_chain, kappa, r, mask, faces,
+      stream);
+}
+
+int wilson_window_halo_chains_r_c128(const void* u, const void* psi, void* out, int lx, int ly,
+                                     int lz, int lt, int nchain, long long u_chain,
+                                     long long psi_chain, const long long* face_chain,
+                                     double kappa, double r, int mask, const void* const* faces,
+                                     void* stream) {
+  return launch_halo_chains<double, WILSON_WINDOW_TILE_C128_R, true>(
+      u, psi, out, lx, ly, lz, lt, nchain, u_chain, psi_chain, face_chain, kappa, r, mask, faces,
+      stream);
+}
 
 int wilson_window_chains_c64(const void* u, const void* psi, void* out, int lx, int ly, int lz,
                              int lt, int nchain, long long u_chain, long long psi_chain,

@@ -41,6 +41,9 @@ slice's faces per hop (2 L5 per Shat, 4 L5 per Shat^dag Shat), the
 backward links' faces once per link tensor, and each slice's link
 gradient moved across the faces by its own backward; autograd sums the
 slices. The L5 x L5 site blocks act along s only and need no exchange.
+With a chain axis there, each slice of all chains is one exchange (every
+chain's faces in one message) and one launch of the kernel's chain-halo
+mode.
 """
 
 from __future__ import annotations

@@ -45,15 +45,20 @@ tensor (wilson_kernel.link_faces). W under a grid is two halo launches
 with the faces of d1 exchanged between them, the m^2 axpy fused into the
 second. The backward reuses the forward's faces for the link gradient
 and moves the gradient of each backward link onto the rank that holds it
-with one slab more per cut axis. A chain axis has no form under a grid
-(ROADMAP A14b).
+with one slab more per cut axis. With a leading chain axis under a grid
+(HMC.step_batched on a grid) both of the grid W's launches and the hop
+run the kernel's chain-halo mode (``staggered_hop_halo_chains``): every
+chain's faces in one message per direction and cut axis, one launch for
+all chains; on the CPU the plain halo version and the link gradients are
+mapped over the chains with torch.func.vmap.
 
 ``launches`` counts calls of csrc/staggered_w.cu's entry points outside
 the halo mode, the kernels of the paths on one process (hop, forward and
 backward alike, and W); ``w_launches`` counts those of its W alone (each
 two CUDA launches of the hop kernel). ``halo_launches`` counts the halo
-mode's launches (a grid W is two). ``fused_launches`` counts launches of
-the one-launch W.
+mode's launches (a grid W is two), ``chain_halo_launches`` those of its
+chain-halo mode among them. ``fused_launches`` counts launches of the
+one-launch W.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ DIRS = 4
 launches = 0
 w_launches = 0
 halo_launches = 0
+chain_halo_launches = 0
 fused_launches = 0
 
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
@@ -91,6 +97,10 @@ _ENTRY_POINTS = {
     # mask and the array of 12 face pointers
     "staggered_hop_halo": ("staggered_w", [_VP] * 5 + [_CI] * 5 + [ctypes.c_double, _CI, _VP,
                                                                    _VP]),
+    # the chain-halo mode: after the extents and the parity the chain arguments and the array
+    # of the faces' 12 chain strides, then m^2, the mask, the face pointers and the stream
+    "staggered_hop_halo_chains": ("staggered_w", [_VP] * 5 + [_CI] * 5 + _CHAIN_ARGS
+                                  + [_VP, ctypes.c_double, _CI, _VP, _VP]),
 }
 
 
@@ -149,7 +159,10 @@ def staggered_hop_packed_reference(u_t, u_s, psi_s, target_parity: int):
 def hop_packed_halo_reference(u_t, u_s, psi_s, target_parity: int, faces, link_faces):
     """Plain D psi_s on a block of a process grid (packed layout), the neighbours
     outside the block from the face buffers ``faces`` {mu: (lo, hi)} and the backward
-    links' from ``link_faces`` {mu: face}."""
+    links' from ``link_faces`` {mu: face}; per chain over a leading chain axis."""
+    if psi_s.ndim == 6:
+        return torch.func.vmap(lambda a, b, c, f, l: hop_packed_halo_reference(
+            a, b, c, target_parity, f, l))(u_t, u_s, psi_s, faces, link_faces)
     return _hop(u_t, u_s, psi_s, target_parity,
                 *wilson_kernel.halo_gathers(psi_s, target_parity, faces, link_faces))
 
@@ -184,14 +197,23 @@ def _link_grads(g, psi_s, target_parity):
     return torch.stack(d_ut), torch.stack([scatter(bwd[mu], mu) for mu in range(DIRS)])
 
 
+def _halo_link_grads(g, psi_s, target_parity, faces):
+    """(d u_t, moving, staying) of Re<g, D psi_s> on a block from the faces of psi_s (as
+    wilson_kernel.halo_link_grads), per chain over a leading chain axis."""
+    if psi_s.ndim == 6:
+        return torch.func.vmap(lambda a, b, f: _halo_link_grads(a, b, target_parity, f))(
+            g, psi_s, faces)
+    gplus, gminus, _ = wilson_kernel.halo_gathers(psi_s, target_parity, faces, {})
+    d_ut, bwd = _outer_grads(g, psi_s, target_parity, gplus, gminus)
+    return (torch.stack(d_ut),) + tuple(wilson_kernel.split_backward(bwd, psi_s, target_parity))
+
+
 def _grid_link_grads(g, psi_s, target_parity, faces, grid):
     """(d u_t, d u_s) of Re<g, D psi_s> on a block, from the forward's faces; the
     gradients of the backward links move across the block's faces by one more slab
-    per cut axis (wilson_kernel.scatter_across_faces)."""
-    gplus, gminus, _ = wilson_kernel.halo_gathers(psi_s, target_parity, faces, {})
-    d_ut, bwd = _outer_grads(g, psi_s, target_parity, gplus, gminus)
-    moving, staying = wilson_kernel.split_backward(bwd, psi_s, target_parity)
-    return torch.stack(d_ut), wilson_kernel.scatter_across_faces(moving, staying, grid)
+    per cut axis (wilson_kernel.scatter_across_faces, every chain's in it)."""
+    d_ut, moving, staying = _halo_link_grads(g, psi_s, target_parity, faces)
+    return d_ut, wilson_kernel.scatter_across_faces(moving, staying, grid, psi_s.ndim - 5)
 
 
 # ----------------------------------------------------------------- the kernel
@@ -286,41 +308,38 @@ def hop_packed_halo(u_t, u_s, psi_s, target_parity: int, faces, link_faces, phi=
     W's second half): ``faces`` {mu: (lo, hi)} holds, for each cut axis mu, the -mu
     neighbour's last and the +mu neighbour's first slab of psi_s with axis mu removed,
     ``link_faces`` {mu: the -mu neighbour's last slab of u_s[mu]}. The kernel's halo mode
-    on CUDA (one launch), the plain version on the CPU."""
-    global halo_launches
+    on CUDA (one launch; with a leading chain axis, on fields and faces alike, its
+    chain-halo mode, one launch for all chains), the plain version on the CPU."""
+    global halo_launches, chain_halo_launches
     if psi_s.device.type == "cpu":
         out = hop_packed_halo_reference(u_t, u_s, psi_s, target_parity, faces, link_faces)
         return out if phi is None else mass ** 2 * phi - out
-    _check(psi_s, u_t, u_s)
+    chained = psi_s.ndim == 6
+    _check(psi_s, u_t, u_s, chains=chained)
     if phi is not None and (phi.shape != psi_s.shape or phi.dtype != psi_s.dtype
                             or phi.device != psi_s.device or not phi.is_contiguous()):
         raise ValueError("the axpy field must be contiguous and match the spinor")
     wilson_kernel._check_faces(psi_s, u_s, faces, link_faces)
-    ptrs = [None] * 12
-    for mu, (lo, hi) in faces.items():
-        ptrs[mu], ptrs[4 + mu], ptrs[8 + mu] = lo.data_ptr(), hi.data_ptr(), link_faces[mu].data_ptr()
+    mask, ptrs, strides = wilson_kernel.face_args(faces, link_faces, chained)
+    entry = "staggered_hop_halo_chains" if chained else "staggered_hop_halo"
+    chains = (*chain_args(psi_s, u_t, 1), strides) if chained else ()
     out = torch.empty_like(psi_s)
     with torch.cuda.device(psi_s.device):
-        err = _entry("staggered_hop_halo", psi_s.dtype)(
+        err = _entry(entry, psi_s.dtype)(
             u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(),
-            None if phi is None else phi.data_ptr(), out.data_ptr(), *psi_s.shape[:4],
-            int(target_parity), float(mass) ** 2, sum(1 << mu for mu in faces),
-            (ctypes.c_void_p * 12)(*ptrs), torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, "staggered_hop_halo")
+            None if phi is None else phi.data_ptr(), out.data_ptr(), *psi_s.shape[-5:-1],
+            int(target_parity), *chains, float(mass) ** 2, mask, ptrs,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(err, entry)
     halo_launches += 1
+    chain_halo_launches += chained
     return out
 
 
-def _refuse_chains(psi, what):
-    if psi.ndim != 5:
-        raise NotImplementedError(f"{what} with a chain axis under a process grid is not "
-                                  "ported yet (ROADMAP A14b)")
-
-
 def _grid_hop(u_t, u_s, psi_s, target_parity, grid):
-    """(D psi_s, the faces of psi_s) on a block of ``grid``: the faces exchanged, then
-    the halo mode."""
-    faces = mesh.exchange_faces(psi_s, grid)
+    """(D psi_s, the faces of psi_s) on a block of ``grid``: the faces exchanged (every
+    chain's in one message per direction and cut axis), then the halo mode."""
+    faces = mesh.exchange_faces(psi_s, grid, lead=psi_s.ndim - 5)
     return hop_packed_halo(u_t, u_s, psi_s, target_parity, faces,
                            wilson_kernel.link_faces(u_s, grid)), faces
 
@@ -329,7 +348,7 @@ def _grid_w(u_e, u_o, phi_e, mass, grid):
     """W phi_e on a block of ``grid``: d1 = D_oe phi_e by the halo mode, the faces of d1
     exchanged, then m^2 phi_e - D_eo d1 by the halo mode with the axpy."""
     d1, _ = _grid_hop(u_o, u_e, phi_e, 1, grid)
-    return hop_packed_halo(u_e, u_o, d1, 0, mesh.exchange_faces(d1, grid),
+    return hop_packed_halo(u_e, u_o, d1, 0, mesh.exchange_faces(d1, grid, lead=d1.ndim - 5),
                            wilson_kernel.link_faces(u_o, grid), phi=phi_e, mass=mass)
 
 
@@ -393,8 +412,6 @@ class StaggeredHopPacked(torch.autograd.Function):
 def staggered_hop_packed(u_t, u_s, psi_s, target_parity: int):
     """Packed D psi_s through the kernel on CUDA, the plain version on the CPU;
     under a process grid the halo mode on this rank's block."""
-    if mesh.sharded() is not None:
-        _refuse_chains(psi_s, "the staggered_w kernel")
     return StaggeredHopPacked.apply(u_t, u_s, psi_s, int(target_parity))
 
 
@@ -405,6 +422,5 @@ def staggered_w(u_e, u_o, phi_e, mass: float):
     ``staggered_hop_packed`` (StaggeredDirac.apply_w_packed does)."""
     grid = mesh.sharded()
     if grid is not None:
-        _refuse_chains(phi_e, "the staggered_w kernel")
         return _grid_w(u_e, u_o, phi_e, float(mass), grid)
     return _w(u_e, u_o, phi_e, float(mass))

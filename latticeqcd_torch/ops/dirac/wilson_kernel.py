@@ -49,6 +49,15 @@ backward reuses the forward's faces for the link gradient and exchanges
 one slab more per cut axis to move the gradient of each backward link
 onto the rank that holds it. ``halo_launches`` counts the halo mode's
 launches at any r, ``r_halo_launches`` those of its r mode.
+
+With a leading chain axis under a grid (HMC.step_batched on a grid) the
+hop runs the kernel's chain-halo mode (the ``wilson_hop_halo_chains``
+entry points): the faces of all chains travel in one message per
+direction and cut axis (chain after chain), the links' faces once per
+link tensor for all chains, and one launch serves every chain; on the
+CPU the plain halo version and the halo link gradients are mapped over
+the chains with torch.func.vmap. ``chain_halo_launches`` counts the
+chain-halo mode's launches (counted in ``halo_launches`` as well).
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ launches = 0
 halo_launches = 0
 r_launches = 0
 r_halo_launches = 0
+chain_halo_launches = 0
 site_launches = {"full": 0, "packed": 0}
 
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
@@ -203,14 +213,22 @@ def halo_gathers(psi_s, target_parity, faces, link_faces):
 
 def hop_packed_halo_reference(u_t, u_s, psi_s, target_parity: int, faces, link_faces, r=1.0):
     """Plain H psi_s on a block of a process grid (packed layout) at Wilson r, the
-    neighbours outside the block from the face buffers."""
+    neighbours outside the block from the face buffers; per chain over a leading chain
+    axis (the faces with theirs)."""
+    if psi_s.ndim == 7:
+        return torch.func.vmap(lambda a, b, c, f, l: hop_packed_halo_reference(
+            a, b, c, target_parity, f, l, r))(u_t, u_s, psi_s, faces, link_faces)
     return _hop(u_t, u_s, psi_s, *halo_gathers(psi_s, target_parity, faces, link_faces), r=r)
 
 
 def dslash_halo_reference(u, psi, kappa, faces, link_faces, r=1.0):
     """Plain full-volume D psi = psi - kappa H psi at Wilson r on a block of a process grid,
     the neighbours outside the block from ``faces`` {mu: (lo, hi)} and the backward
-    links' from ``link_faces`` {mu: face}."""
+    links' from ``link_faces`` {mu: face}; per chain over a leading chain axis."""
+    if psi.ndim == 7:
+        return torch.func.vmap(lambda a, b, f, l: dslash_halo_reference(a, b, kappa, f, l, r))(
+            u, psi, faces, link_faces)
+
     def plus(f, mu):
         return _shift(f, mu, -1, faces[mu][1] if mu in faces else None)
 
@@ -279,16 +297,20 @@ _CD = ctypes.c_double
 _PACKED_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _VP]
 _BRICK_ARGS = _PACKED_ARGS[:-1] + [_CI, _LL, _LL, _VP]
 _HALO_ARGS = _PACKED_ARGS[:-1] + [_CI, _VP, _VP]
+_HALO_CHAINS_ARGS = _PACKED_ARGS[:-1] + [_CI, _LL, _LL, _VP, _CI, _VP, _VP]
 # csrc/<name>.cu -> its C entry points (each with a _c64 and a _c128 form) and their arguments
 _ENTRY_POINTS = {
     "wilson_hop": {"wilson_hop_full": [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _CD, _VP],
                    "wilson_hop_packed": _PACKED_ARGS},
     # the packed mode's arguments, then the chain count and the links' and spinors' chain
     # strides; the halo mode's, then the partition mask and the array of 12 face pointers;
-    # the r mode's (_r) those, then the Wilson r
+    # the chain-halo mode's, the chain arguments, the array of the faces' 12 chain strides,
+    # the mask and the face pointers; the r mode's (_r) those, then the Wilson r
     "wilson_hop_packed": {"wilson_hop_brick": _BRICK_ARGS, "wilson_hop_halo": _HALO_ARGS,
+                          "wilson_hop_halo_chains": _HALO_CHAINS_ARGS,
                           "wilson_hop_brick_r": _BRICK_ARGS + [_CD],
-                          "wilson_hop_halo_r": _HALO_ARGS + [_CD]},
+                          "wilson_hop_halo_r": _HALO_ARGS + [_CD],
+                          "wilson_hop_halo_chains_r": _HALO_CHAINS_ARGS + [_CD]},
 }
 
 
@@ -407,9 +429,14 @@ def _hop_packed(u_t, u_s, psi_s, target_parity, r=1.0):
 
 
 def _check_faces(psi_s, u_s, faces, link_faces):
+    """Raise unless each face is a slab of psi_s (and each link face of u_s[mu]) with axis mu
+    removed, contiguous and 16-byte aligned; with a chain axis every chain's, chain after
+    chain."""
+    lead = u_s.ndim - 7
     for mu, (lo, hi) in faces.items():
-        want = tuple(psi_s.shape[:mu]) + tuple(psi_s.shape[mu + 1:])
-        lwant = tuple(u_s.shape[1:1 + mu]) + tuple(u_s.shape[2 + mu:])
+        want = tuple(psi_s.shape[:lead + mu]) + tuple(psi_s.shape[lead + mu + 1:])
+        lwant = (tuple(u_s.shape[:lead]) + tuple(u_s.shape[lead + 1:lead + 1 + mu])
+                 + tuple(u_s.shape[lead + 2 + mu:]))
         for face, shape in ((lo, want), (hi, want), (link_faces[mu], lwant)):
             if tuple(face.shape) != shape or face.dtype != psi_s.dtype or face.device != psi_s.device:
                 raise ValueError(f"a face along {mu} must be {shape} {psi_s.dtype} on "
@@ -418,30 +445,45 @@ def _check_faces(psi_s, u_s, faces, link_faces):
                 raise ValueError("the halo mode's faces must be contiguous and 16-byte aligned")
 
 
+def face_args(faces, link_faces, chained: bool):
+    """The halo entry points' face arguments: (the partition mask, the array of 12 face
+    pointers (lo, hi, link of each axis), and with ``chained`` the array of their 12 chain
+    strides in elements, else None)."""
+    ptrs, strides = [None] * 12, [0] * 12
+    for mu, (lo, hi) in faces.items():
+        for k, f in enumerate((lo, hi, link_faces[mu])):
+            ptrs[4 * k + mu] = f.data_ptr()
+            strides[4 * k + mu] = f[0].numel() if chained else 0
+    return (sum(1 << mu for mu in faces), (ctypes.c_void_p * 12)(*ptrs),
+            (ctypes.c_longlong * 12)(*strides) if chained else None)
+
+
 def hop_packed_halo(u_t, u_s, psi_s, target_parity: int, faces, link_faces, r=1.0):
     """H psi_s at Wilson r on this rank's block of a process grid: ``faces`` {mu: (lo,
     hi)} holds, for each cut axis mu, the -mu neighbour's last and the +mu neighbour's
     first slab of psi_s with axis mu removed, ``link_faces`` {mu: the -mu neighbour's last
-    slab of u_s[mu]}. The kernel's halo mode on CUDA (one launch; its r mode at r != 1),
-    the plain version on the CPU."""
-    global halo_launches, r_halo_launches
+    slab of u_s[mu]}. The kernel's halo mode on CUDA (one launch; its r mode at r != 1;
+    with a leading chain axis, on fields and faces alike, its chain-halo mode, one launch
+    for all chains), the plain version on the CPU."""
+    global halo_launches, r_halo_launches, chain_halo_launches
     if psi_s.device.type == "cpu":
         return hop_packed_halo_reference(u_t, u_s, psi_s, target_parity, faces, link_faces, r)
-    _check(psi_s, u_t, u_s, kernel="wilson_hop_packed")
+    chained = psi_s.ndim == 7
+    _check(psi_s, u_t, u_s, kernel="wilson_hop_packed", chains=chained)
     _check_faces(psi_s, u_s, faces, link_faces)
-    ptrs = [None] * 12
-    for mu, (lo, hi) in faces.items():
-        ptrs[mu], ptrs[4 + mu], ptrs[8 + mu] = lo.data_ptr(), hi.data_ptr(), link_faces[mu].data_ptr()
+    mask, ptrs, strides = face_args(faces, link_faces, chained)
     out = torch.empty_like(psi_s)
-    entry, r_arg = _r_mode("wilson_hop_halo", r)
+    entry, r_arg = _r_mode("wilson_hop_halo_chains" if chained else "wilson_hop_halo", r)
+    chains = (*chain_args(psi_s, u_t, 2), strides) if chained else ()
     fn = _fn("wilson_hop_packed", entry, psi_s.dtype)
     with torch.cuda.device(psi_s.device):
         err = fn(u_t.data_ptr(), u_s.data_ptr(), psi_s.data_ptr(), out.data_ptr(),
-                 *psi_s.shape[:4], int(target_parity), sum(1 << mu for mu in faces),
-                 (ctypes.c_void_p * 12)(*ptrs), torch.cuda.current_stream().cuda_stream, *r_arg)
+                 *psi_s.shape[-6:-2], int(target_parity), *chains, mask, ptrs,
+                 torch.cuda.current_stream().cuda_stream, *r_arg)
     _raise_on_error(err, "wilson_hop_packed", entry)
     halo_launches += 1
     r_halo_launches += r != 1.0
+    chain_halo_launches += chained
     return out
 
 
@@ -449,12 +491,14 @@ _LINK_FACES: dict = {}
 
 
 def link_faces(u_s, grid):
-    """{mu: the -mu neighbour's last slab of u_s[mu]} for each cut axis: exchanged once
-    per link tensor and kept while it lives and is not changed in place."""
+    """{mu: the -mu neighbour's last slab of u_s[mu]} for each cut axis (with a leading
+    chain axis every chain's, in one message): exchanged once per link tensor and kept
+    while it lives and is not changed in place."""
     hit = _LINK_FACES.get(id(u_s))
     if hit is not None and hit[0]() is u_s and hit[1] == u_s._version:
         return hit[2]
-    faces = mesh.pass_slabs({mu: u_s[mu].select(mu, u_s.shape[1 + mu] - 1)
+    lead = u_s.ndim - 7
+    faces = mesh.pass_slabs({mu: u_s.select(lead, mu).select(lead + mu, u_s.shape[lead + 1 + mu] - 1)
                              for mu in grid.partitioned}, +1, grid)
     key = id(u_s)
     _LINK_FACES[key] = (weakref.ref(u_s, lambda _, k=key: _LINK_FACES.pop(k, None)),
@@ -464,11 +508,9 @@ def link_faces(u_s, grid):
 
 def _grid_hop(u_t, u_s, psi_s, target_parity, grid, r=1.0):
     """(H psi_s at Wilson r, the faces of psi_s) on a block of ``grid``: the faces
-    exchanged, then the halo mode."""
-    if psi_s.ndim != 6:
-        raise NotImplementedError("a chain axis under a process grid is not ported yet "
-                                  "(ROADMAP A14b)")
-    faces = mesh.exchange_faces(psi_s, grid)
+    exchanged (every chain's in one message per direction and cut axis), then the halo
+    mode."""
+    faces = mesh.exchange_faces(psi_s, grid, lead=psi_s.ndim - 6)
     return (hop_packed_halo(u_t, u_s, psi_s, target_parity, faces, link_faces(u_s, grid), r),
             faces)
 
@@ -487,26 +529,31 @@ def split_backward(bwd, psi_s, target_parity):
 def halo_link_grads(g, psi_s, target_parity, faces, r=1.0):
     """The link gradients of Re<g, H psi_s> at Wilson r on a block, from the faces of
     psi_s: (d u_t, moving, staying), the gradients of the backward links split by
-    ``split_backward``."""
+    ``split_backward``; per chain over a leading chain axis."""
+    if psi_s.ndim == 7:
+        return torch.func.vmap(lambda a, b, f: halo_link_grads(a, b, target_parity, f, r))(
+            g, psi_s, faces)
     gplus, gminus, _ = halo_gathers(psi_s, target_parity, faces, {})
     fwd, bwd = _link_grads(g, psi_s, gplus, gminus, r)
     return (torch.stack(fwd),) + tuple(split_backward(bwd, psi_s, target_parity))
 
 
-def scatter_halo(moving, staying, heads):
+def scatter_halo(moving, staying, heads, lead=0):
     """d u_s from halo_link_grads' parts: moving[mu] shifted to x - mu, its slab past the
     block's end from ``heads`` {mu: the +mu neighbour's first slab of moving[mu]} (an
-    axis without a head wraps), plus the part that stays."""
-    d_us = [_shift(moving[mu], mu, -1, heads.get(mu)) for mu in range(DIRS)]
+    axis without a head wraps), plus the part that stays; the lattice axes at lead..lead
+    + 3 (after a chain axis, d u_s [n, 4, ...])."""
+    d_us = [_shift(moving[mu], lead + mu, -1, heads.get(mu)) for mu in range(DIRS)]
     d_us[0] = d_us[0] + staying
-    return torch.stack(d_us)
+    return torch.stack(d_us, dim=lead)
 
 
-def scatter_across_faces(moving, staying, grid):
+def scatter_across_faces(moving, staying, grid, lead=0):
     """d u_s on a block of ``grid`` from split_backward's parts: the heads of ``moving``
-    come from the +mu neighbours, one slab per cut axis."""
-    heads = mesh.pass_slabs({mu: moving[mu].select(mu, 0) for mu in grid.partitioned}, -1, grid)
-    return scatter_halo(moving, staying, heads)
+    come from the +mu neighbours, one slab per cut axis (every chain's in it)."""
+    heads = mesh.pass_slabs({mu: moving[mu].select(lead + mu, 0) for mu in grid.partitioned},
+                            -1, grid)
+    return scatter_halo(moving, staying, heads, lead)
 
 
 def _grid_link_grads(g, psi_s, target_parity, faces, grid, r=1.0):
@@ -514,7 +561,7 @@ def _grid_link_grads(g, psi_s, target_parity, faces, grid, r=1.0):
     the gradients of the backward links move across the block's faces by one more slab
     per cut axis."""
     d_ut, moving, staying = halo_link_grads(g, psi_s, target_parity, faces, r)
-    return d_ut, scatter_across_faces(moving, staying, grid)
+    return d_ut, scatter_across_faces(moving, staying, grid, psi_s.ndim - 6)
 
 
 def hop_packed_site(u_t, u_s, psi_s, target_parity: int):

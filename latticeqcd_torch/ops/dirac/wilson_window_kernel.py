@@ -32,12 +32,16 @@ spinor's boundary slabs are exchanged with the neighbours first (two
 messages per cut axis), the backward links' faces once per link tensor
 (wilson_kernel.link_faces), and the kernel, or on the CPU its plain
 version ``wilson_kernel.dslash_halo_reference``, reads the neighbours
-outside the block from these face buffers.
+outside the block from these face buffers. A leading chain axis there
+(HMC.step_batched on a grid) runs the chain-halo mode (the
+``wilson_window_halo_chains`` entry points): every chain's faces in one
+message per direction and cut axis, one launch for all chains.
 
 ``launches`` counts kernel launches outside the halo mode (forward and
 backward alike, at any r, with or without a chain axis), ``halo_launches``
 those of the halo mode; ``r_launches`` and ``r_halo_launches`` count those
-of the r mode among them, ``chain_launches`` those with a chain axis.
+of the r mode among them, ``chain_launches`` those with a chain axis
+outside the halo mode and ``chain_halo_launches`` those in it.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ halo_launches = 0
 r_launches = 0
 r_halo_launches = 0
 chain_launches = 0
+chain_halo_launches = 0
 
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
 _LIB = None
@@ -66,16 +71,20 @@ def _lib():
         lib = _nvcc.load("wilson_window")
         vp, ci, ll, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
         chains = [vp, vp, vp, ci, ci, ci, ci, ci, ll, ll, cd]
+        halo_chains = [vp, vp, vp, ci, ci, ci, ci, ci, ll, ll, vp, cd]
         # the r mode's entry points (_r) take the Wilson r after kappa; the chains entry points
-        # the chain count and the links' and spinors' chain strides after the extents
+        # the chain count and the links' and spinors' chain strides after the extents, the
+        # chain-halo mode's also the array of the faces' chain strides
         for suffix in _SUFFIX.values():
             for entry, argtypes in (
                     ("wilson_window", [vp, vp, vp, ci, ci, ci, ci, cd, vp]),
                     ("wilson_window_halo", [vp, vp, vp, ci, ci, ci, ci, cd, ci, vp, vp]),
                     ("wilson_window_chains", chains + [vp]),
+                    ("wilson_window_halo_chains", halo_chains + [ci, vp, vp]),
                     ("wilson_window_r", [vp, vp, vp, ci, ci, ci, ci, cd, cd, vp]),
                     ("wilson_window_halo_r", [vp, vp, vp, ci, ci, ci, ci, cd, cd, ci, vp, vp]),
-                    ("wilson_window_chains_r", chains + [cd, vp])):
+                    ("wilson_window_chains_r", chains + [cd, vp]),
+                    ("wilson_window_halo_chains_r", halo_chains + [cd, ci, vp, vp])):
                 fn = getattr(lib, f"{entry}_{suffix}")
                 fn.argtypes, fn.restype = argtypes, ci
         _LIB = lib
@@ -86,27 +95,29 @@ def dslash_halo(u, psi, kappa, faces, link_faces, r=1.0):
     """D psi at Wilson r on this rank's block of a process grid: ``faces`` {mu: (lo, hi)}
     holds, for each cut axis mu, the -mu neighbour's last and the +mu neighbour's first
     slab of psi with axis mu removed, ``link_faces`` {mu: the -mu neighbour's last slab
-    of u[mu]}. The kernel's halo mode on CUDA (one launch; its r mode at r != 1), the
-    plain version on the CPU."""
-    global halo_launches, r_halo_launches
+    of u[mu]}. The kernel's halo mode on CUDA (one launch; its r mode at r != 1; with a
+    leading chain axis, on fields and faces alike, its chain-halo mode, one launch for all
+    chains), the plain version on the CPU."""
+    global halo_launches, r_halo_launches, chain_halo_launches
     if psi.device.type == "cpu":
         return wilson_kernel.dslash_halo_reference(u, psi, kappa, faces, link_faces, r)
-    wilson_kernel._check(psi, u, kernel="wilson_window")
+    chained = psi.ndim == 7
+    wilson_kernel._check(psi, u, kernel="wilson_window", chains=chained)
     wilson_kernel._check_faces(psi, u, faces, link_faces)
-    ptrs = [None] * 12
-    for mu, (lo, hi) in faces.items():
-        ptrs[mu], ptrs[4 + mu], ptrs[8 + mu] = lo.data_ptr(), hi.data_ptr(), link_faces[mu].data_ptr()
+    mask, ptrs, strides = wilson_kernel.face_args(faces, link_faces, chained)
     out = torch.empty_like(psi)
-    entry, r_arg = wilson_kernel._r_mode("wilson_window_halo", r)
+    entry, r_arg = wilson_kernel._r_mode(
+        "wilson_window_halo_chains" if chained else "wilson_window_halo", r)
+    chains = (*wilson_kernel.chain_args(psi, u, 2), strides) if chained else ()
     fn = getattr(_lib(), f"{entry}_{_SUFFIX[psi.dtype]}")
     with torch.cuda.device(psi.device):
-        err = fn(u.data_ptr(), psi.data_ptr(), out.data_ptr(), *psi.shape[:4], float(kappa),
-                 *r_arg, sum(1 << mu for mu in faces), (ctypes.c_void_p * 12)(*ptrs),
-                 torch.cuda.current_stream().cuda_stream)
+        err = fn(u.data_ptr(), psi.data_ptr(), out.data_ptr(), *psi.shape[-6:-2], *chains,
+                 float(kappa), *r_arg, mask, ptrs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     halo_launches += 1
     r_halo_launches += r != 1.0
+    chain_halo_launches += chained
     return out
 
 
@@ -114,10 +125,7 @@ def _dslash(u, psi, kappa, r=1.0):
     global launches, r_launches, chain_launches
     grid = mesh.sharded()
     if grid is not None:
-        if psi.ndim != 6:
-            raise NotImplementedError("wilson_window with a chain axis under a process grid "
-                                      "is not ported yet (ROADMAP A14b)")
-        return dslash_halo(u, psi, kappa, mesh.exchange_faces(psi, grid),
+        return dslash_halo(u, psi, kappa, mesh.exchange_faces(psi, grid, lead=psi.ndim - 6),
                            wilson_kernel.link_faces(u, grid), r)
     if psi.device.type == "cpu":
         return wilson_kernel.dslash_reference(u, psi, kappa, r)

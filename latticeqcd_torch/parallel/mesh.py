@@ -22,15 +22,36 @@ communication out:
   site asks ``global_all``, and a dense matrix whose rows are split over
   the ranks (the dense log det's) is gathered whole on every rank in one
   collective (``gather_blocks``);
-* ``global_sum`` all-reduces scalars only. Each rank writes its partial
-  sum into its own slot of a vector of nprocs entries, the vector is
-  all-reduced (a sum of one value with zeros is exact), and every rank
-  adds the slots in rank order: the result is bitwise the same on every
+* ``global_sum`` all-reduces scalars only (or one per chain). Each rank
+  writes its partial sum into its own slot of a vector of nprocs entries,
+  the vector is all-reduced (a sum of one value with zeros is exact), and
+  every rank adds the slots in rank order: the result is bitwise the same on every
   rank whatever the backend's reduction order, so CG exits and the
   Metropolis decision, which branch on it, agree everywhere;
 * the backend is an explicit argument. ``gloo`` stages faces and sums
   through host memory (the CPU tests; several ranks on one card);
-  ``nccl`` sends device buffers and needs a card per rank.
+  ``nccl`` sends device buffers and needs a card per rank;
+* independent chains (HMC.step_batched) may be split over groups of
+  ranks: nprocs = (chain groups) x prod(PEs), world rank g prod(PEs) + r
+  for grid rank r of chain group g. A ``ProcessGrid`` always means one
+  group's lattice grid: it holds the group's own communicator (``group``,
+  None for the whole world) and its members' world ranks, every collective
+  passes ``group=`` and every message is addressed to a member's world
+  rank, so a chain split changes nothing that a lattice-side function
+  computes; ``sharded()`` is None exactly when the lattice is not cut. Its
+  ``chains`` (a ``ChainGroups``) says how many groups there are, which is
+  this rank's and which share of n chains it runs (contiguous, equal);
+  ``chain_split()`` returns it while a grid with more than one group is
+  active. Chains of different groups never talk: a chain split sends
+  nothing;
+* a field may lead with a chain axis (``lead``: its lattice axes at
+  lead..lead + 3): ``exchange_faces``, ``pass_slabs`` and ``roll_axis``
+  carry the faces of all its chains in one message per direction and cut
+  axis, and ``global_sum`` of a per-chain vector gives per-chain totals in
+  one all-reduce. ``_GlobalSum`` has a vmap rule (moves the batch dimension
+  to the front, one all-reduce for all chains), as ops/rolls.py's
+  ``ShardedRoll`` has, so that the gauge side that HMC.step_batched maps
+  over the chains with torch.func.vmap stays one collective per call.
 
 Every local extent must be even: then every local origin is even and the
 even-odd row parity (y + z + t) mod 2 (ops/dirac/eo_pack.py) is the same
@@ -44,8 +65,8 @@ import datetime
 import math
 import os
 import socket
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -152,20 +173,47 @@ def println_rank0(*vals) -> None:
 
 
 @dataclass(frozen=True)
+class ChainGroups:
+    """How independent chains are split over groups of ranks: ``groups`` groups, this
+    rank's ``index``; each runs a contiguous, equal share of the n chains."""
+
+    groups: int = 1
+    index: int = 0
+
+    def __post_init__(self):
+        if self.groups < 1 or not 0 <= self.index < self.groups:
+            raise ValueError(f"chain group {self.index} of {self.groups}")
+
+    def share(self, n: int) -> slice:
+        """This group's chains among n: contiguous and equal (n divisible by the groups)."""
+        if n % self.groups:
+            raise ValueError(f"{n} chains do not split evenly over {self.groups} chain groups")
+        k = n // self.groups
+        return slice(self.index * k, (self.index + 1) * k)
+
+
+@dataclass(frozen=True)
 class ProcessGrid:
     """This rank's place in a 4D process grid over a global ``lattice``.
 
     ``backend`` names how its messages travel ("gloo" or "nccl") and
-    ``device`` is where this rank's fields live. Construction checks the
-    geometry only (the extents divide, every local extent is even); it sends
-    nothing, so a grid can be built for any rank to inspect its layout.
-    ``make_process_grid`` builds this process's grid from the process group."""
+    ``device`` is where this rank's fields live. ``rank`` is the rank within
+    the grid; ``group`` is the communicator of the grid's processes (None: the
+    whole process group) and ``members`` their world ranks in grid-rank order
+    (empty: the grid ranks are the world ranks); ``chains`` is the chain split
+    the grid is one group of. Construction checks the geometry only (the
+    extents divide, every local extent is even); it sends nothing, so a grid
+    can be built for any rank to inspect its layout. ``make_process_grid``
+    builds this process's grid from the process group."""
 
     pes: tuple
     lattice: tuple
     rank: int = 0
     backend: str = "gloo"
     device: torch.device = torch.device("cuda")
+    group: Any = field(default=None, compare=False, repr=False)
+    members: tuple = ()
+    chains: "ChainGroups" = None
 
     def __post_init__(self):
         pes = tuple(int(p) for p in self.pes)
@@ -189,6 +237,16 @@ class ProcessGrid:
         object.__setattr__(self, "lattice", lattice)
         object.__setattr__(self, "rank", int(self.rank))
         object.__setattr__(self, "device", torch.device(self.device))
+        object.__setattr__(self, "members", tuple(int(m) for m in self.members))
+        if self.members and len(self.members) != math.prod(pes):
+            raise ValueError(f"a grid of {math.prod(pes)} processes needs as many members, got "
+                             f"{self.members}")
+        if self.chains is None:
+            object.__setattr__(self, "chains", ChainGroups())
+
+    def world_rank(self, rank: int) -> int:
+        """The world rank of the grid's process ``rank`` (its peer in a message)."""
+        return self.members[rank] if self.members else int(rank)
 
     @property
     def nprocs(self) -> int:
@@ -245,26 +303,56 @@ class ProcessGrid:
         return torch.device("cpu") if self.backend == "gloo" else self.device
 
 
-def make_process_grid(pes, lattice, device, backend: Optional[str] = None) -> ProcessGrid:
-    """This process's grid over the initialised process group. The PEs must
-    multiply to the group's size; under nccl every rank needs its own card."""
+_SUBGROUPS: dict = {}
+
+
+def _subgroups(ngroups: int, size: int):
+    """The communicators of ngroups groups of ``size`` consecutive world ranks, made once
+    per layout (dist.new_group is collective: every rank makes every group, in order)."""
+    key = (ngroups, size)
+    if key not in _SUBGROUPS:
+        _SUBGROUPS[key] = [dist.new_group(list(range(g * size, (g + 1) * size)))
+                           for g in range(ngroups)]
+    return _SUBGROUPS[key]
+
+
+def make_process_grid(pes, lattice, device, backend: Optional[str] = None,
+                      chain_groups: int = 1) -> ProcessGrid:
+    """This process's grid over the initialised process group. The group's size must be
+    chain_groups times the product of the PEs: world rank g prod(PEs) + r is grid rank r
+    of chain group g, and each chain group's grid talks on a communicator of its own.
+    Under nccl every rank needs its own card."""
+    chain_groups = int(chain_groups)
+    if chain_groups < 1:
+        raise ValueError(f"chain_groups must be >= 1, got {chain_groups}")
     if not dist.is_initialized():
-        if math.prod(pes) != 1:
-            raise ValueError(f"PEs {tuple(pes)} need a process group of {math.prod(pes)}: "
-                             "call init_process_grid first")
+        if math.prod(pes) * chain_groups != 1:
+            raise ValueError(f"PEs {tuple(pes)} and {chain_groups} chain groups need a process "
+                             f"group of {math.prod(pes) * chain_groups}: call "
+                             "init_process_grid first")
         return ProcessGrid(pes, lattice, 0, backend or "gloo", device)
     group_backend = dist.get_backend()
     if backend is not None and backend != group_backend:
         raise ValueError(f"the process group runs {group_backend}, not {backend}")
-    if math.prod(pes) != dist.get_world_size():
-        raise ValueError(f"PEs {tuple(pes)} do not match {dist.get_world_size()} processes")
-    grid = ProcessGrid(pes, lattice, dist.get_rank(), group_backend, device)
+    size = math.prod(pes)
+    if size * chain_groups != dist.get_world_size():
+        raise ValueError(f"PEs {tuple(pes)} and {chain_groups} chain groups do not match "
+                         f"{dist.get_world_size()} processes")
+    world = dist.get_rank()
+    if chain_groups == 1:
+        grid = ProcessGrid(pes, lattice, world, group_backend, device)
+    else:
+        index = world // size
+        grid = ProcessGrid(pes, lattice, world % size, group_backend, device,
+                           group=_subgroups(chain_groups, size)[index],
+                           members=tuple(range(index * size, (index + 1) * size)),
+                           chains=ChainGroups(chain_groups, index))
     if group_backend == "nccl":
         if grid.device.type != "cuda":
             raise ValueError(f"nccl sends device buffers: the fields must live on a card, "
                              f"not {grid.device}")
         torch.cuda.set_device(grid.device)
-        places = [None] * grid.nprocs
+        places = [None] * dist.get_world_size()
         dist.all_gather_object(places, (socket.gethostname(), torch.cuda.current_device()))
         if len(set(places)) != len(places):
             raise ValueError(f"nccl needs one card per rank, but ranks share cards: {places}; "
@@ -292,8 +380,20 @@ def use_grid(grid: Optional[ProcessGrid]):
 
 
 def sharded() -> Optional[ProcessGrid]:
-    """The active grid if it has more than one process, else None."""
+    """The active grid if it cuts the lattice (more than one process), else None."""
     return _ACTIVE if _ACTIVE is not None and _ACTIVE.nprocs > 1 else None
+
+
+def chain_split() -> Optional[ChainGroups]:
+    """The active grid's chain split if it has more than one chain group, else None."""
+    return _ACTIVE.chains if _ACTIVE is not None and _ACTIVE.chains.groups > 1 else None
+
+
+def chain_share(chains):
+    """This rank's share of the stacked chains (a tensor with a leading chain axis, or a
+    list of per-chain items) under the active chain split; all of them without one."""
+    split = chain_split()
+    return chains if split is None else chains[split.share(len(chains))]
 
 
 def refuse_under_grid(what: str) -> None:
@@ -346,18 +446,25 @@ def _staged(t: torch.Tensor, grid: ProcessGrid) -> torch.Tensor:
     return t.detach().to(grid.comm_device).contiguous()
 
 
+def _group(grid: ProcessGrid) -> dict:
+    """The group= argument of a collective on ``grid`` (none for the whole world)."""
+    return {} if grid.group is None else {"group": grid.group}
+
+
 class _GlobalSum(torch.autograd.Function):
     """The sum over ranks of a small tensor; the gradient of the total with respect to
-    each rank's part is the identity."""
+    each rank's part is the identity. Under torch.func.vmap (the gauge side of
+    HMC.step_batched) the batch dimension goes to the front and one all-reduce sums
+    every chain's part."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(x):
         grid = _ACTIVE
         parts = torch.view_as_real(x) if x.is_complex() else x
         flat = _staged(parts, grid).reshape(-1)
         slots = torch.zeros((grid.nprocs, flat.numel()), dtype=flat.dtype, device=flat.device)
         slots[grid.rank] = flat
-        dist.all_reduce(slots)
+        dist.all_reduce(slots, **_group(grid))
         total = slots[0]
         for r in range(1, grid.nprocs):  # rank order on every rank: bitwise the same result
             total = total + slots[r]
@@ -365,13 +472,24 @@ class _GlobalSum(torch.autograd.Function):
         return torch.view_as_complex(total) if x.is_complex() else total
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
     def backward(ctx, g):
         return g
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        if in_dims[0] is None:
+            return _GlobalSum.apply(x), None
+        return _GlobalSum.apply(x.movedim(in_dims[0], 0)), 0
 
 
 def global_sum(x):
     """The sum of x over the ranks of the active grid, bitwise the same on every rank;
-    x itself without a grid. x is a scalar or a few scalars, never a field."""
+    x itself without a grid. x is a scalar or a few scalars (one per chain), never a
+    field."""
     if sharded() is None or not torch.is_tensor(x):
         return x
     return _GlobalSum.apply(x)
@@ -384,7 +502,7 @@ def global_all(flag: bool) -> bool:
     if grid is None:
         return bool(flag)
     t = torch.tensor([0 if flag else 1], dtype=torch.int64, device=grid.comm_device)
-    dist.all_reduce(t)
+    dist.all_reduce(t, **_group(grid))
     return int(t) == 0
 
 
@@ -399,12 +517,14 @@ def global_volume(local_lattice) -> int:
 
 def _exchange(grid: ProcessGrid, sends, recv_like):
     """One batch of point-to-point messages: ``sends`` [(peer, tag, tensor)],
-    ``recv_like`` [(peer, tag, template)]; returns the received tensors on the
-    templates' device, in order. The order of posting is the same on every rank,
-    which pairs the messages under nccl; the tags pair them under gloo."""
-    ops = [dist.P2POp(dist.isend, _staged(t, grid), peer, tag=tag) for peer, tag, t in sends]
+    ``recv_like`` [(peer, tag, template)], peers by grid rank; returns the received
+    tensors on the templates' device, in order. The order of posting is the same on
+    every rank, which pairs the messages under nccl; the tags pair them under gloo."""
+    kw = _group(grid)
+    ops = [dist.P2POp(dist.isend, _staged(t, grid), grid.world_rank(peer), tag=tag, **kw)
+           for peer, tag, t in sends]
     bufs = [torch.empty(t.shape, dtype=t.dtype, device=grid.comm_device) for _, _, t in recv_like]
-    ops += [dist.P2POp(dist.irecv, b, peer, tag=tag)
+    ops += [dist.P2POp(dist.irecv, b, grid.world_rank(peer), tag=tag, **kw)
             for (peer, tag, _), b in zip(recv_like, bufs)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
@@ -413,7 +533,8 @@ def _exchange(grid: ProcessGrid, sends, recv_like):
 
 def pass_slabs(slabs: dict, step: int, grid: ProcessGrid) -> dict:
     """{mu: slab}: each slab goes to the neighbour at ``step`` (+-1) along mu, and the
-    one from the neighbour at -step comes back, in one batch."""
+    one from the neighbour at -step comes back, in one batch (a slab with a chain axis
+    carries every chain's in its one message)."""
     mus = sorted(slabs)
     tag = lambda mu: 16 + 2 * mu + (step > 0)  # noqa: E731
     got = _exchange(grid, [(grid.neighbour(mu, step), tag(mu), slabs[mu]) for mu in mus],
@@ -421,34 +542,38 @@ def pass_slabs(slabs: dict, step: int, grid: ProcessGrid) -> dict:
     return dict(zip(mus, got))
 
 
-def roll_axis(x: torch.Tensor, shift: int, mu: int, grid: ProcessGrid) -> torch.Tensor:
-    """torch.roll of the global field by ``shift`` along lattice axis mu (tensor dim mu),
-    on this rank's block: the slabs that leave the block go to the neighbour, those that
-    enter come from the other one. A shift longer than the block moves in pieces."""
-    n = x.shape[mu]
+def roll_axis(x: torch.Tensor, shift: int, mu: int, grid: ProcessGrid,
+              lead: int = 0) -> torch.Tensor:
+    """torch.roll of the global field by ``shift`` along lattice axis mu (tensor dim
+    lead + mu), on this rank's block: the slabs that leave the block go to the neighbour,
+    those that enter come from the other one. A shift longer than the block moves in
+    pieces."""
+    d = lead + mu
+    n = x.shape[d]
     shift = shift % (n * grid.pes[mu])
     if shift > n * grid.pes[mu] // 2:
         shift -= n * grid.pes[mu]
     while shift != 0:
         s = max(-n, min(n, shift))
         if s > 0:  # out[i] = x[i - s]: the first s slabs come from the -mu neighbour
-            head = pass_slabs({mu: x.narrow(mu, n - s, s)}, +1, grid)[mu]
-            x = torch.cat([head, x.narrow(mu, 0, n - s)], dim=mu)
+            head = pass_slabs({mu: x.narrow(d, n - s, s)}, +1, grid)[mu]
+            x = torch.cat([head, x.narrow(d, 0, n - s)], dim=d)
         else:  # out[i] = x[i + k]: the last k slabs come from the +mu neighbour
-            tail = pass_slabs({mu: x.narrow(mu, 0, -s)}, -1, grid)[mu]
-            x = torch.cat([x.narrow(mu, -s, n + s), tail], dim=mu)
+            tail = pass_slabs({mu: x.narrow(d, 0, -s)}, -1, grid)[mu]
+            x = torch.cat([x.narrow(d, -s, n + s), tail], dim=d)
         shift -= s
     return x
 
 
-def exchange_faces(f: torch.Tensor, grid: ProcessGrid) -> dict:
-    """Face buffers of a site field (lattice axes 0..3) for each partitioned axis mu:
-    {mu: (lo, hi)}, lo the -mu neighbour's last slab and hi the +mu neighbour's first
-    slab, each contiguous with axis mu removed (so a row along t is contiguous). Two
-    messages per partitioned axis, all in one batch."""
+def exchange_faces(f: torch.Tensor, grid: ProcessGrid, lead: int = 0) -> dict:
+    """Face buffers of a site field (lattice axes lead..lead + 3) for each partitioned
+    axis mu: {mu: (lo, hi)}, lo the -mu neighbour's last slab and hi the +mu neighbour's
+    first slab, each contiguous with axis mu removed (so a row along t is contiguous;
+    with a chain axis, chain after chain). Two messages per partitioned axis, all in one
+    batch, whatever the chains."""
     sends, recvs = [], []
     for mu in grid.partitioned:
-        first, last = f.select(mu, 0), f.select(mu, f.shape[mu] - 1)
+        first, last = f.select(lead + mu, 0), f.select(lead + mu, f.shape[lead + mu] - 1)
         sends += [(grid.neighbour(mu, +1), 2 * mu, last), (grid.neighbour(mu, -1), 2 * mu + 1, first)]
         recvs += [(grid.neighbour(mu, -1), 2 * mu, last), (grid.neighbour(mu, +1), 2 * mu + 1, first)]
     got = _exchange(grid, sends, recvs)
@@ -476,7 +601,7 @@ def gather_blocks(x: torch.Tensor, lead: int = 0, grid: Optional[ProcessGrid] = 
         return x
     block = _staged(x, grid)
     blocks = [torch.empty_like(block) for _ in range(grid.nprocs)]
-    dist.all_gather(blocks, block)
+    dist.all_gather(blocks, block, **_group(grid))
     return _assemble(blocks, grid, lead).to(x.device)
 
 

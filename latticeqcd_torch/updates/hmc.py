@@ -41,6 +41,16 @@ runs as in ``step``. What has no batched form yet (staggered on a lattice
 with an odd extent, an action without ``*_batched`` forms) raises before
 any work (ROADMAP B3c, A12.7b).
 
+``step_batched`` also runs under a process grid (parallel/mesh.py), in
+three layouts: the chains split over groups of ranks (a grid with more
+than one chain group: each rank runs its share of the chains on the
+whole lattice and sends nothing; the caller passes the generators or
+draws of all n chains and each rank takes its own, so chain i evolves as
+in one process's step_batched over all n), the lattice cut over ranks
+with a leading chain axis (every face exchange carries all chains' faces
+in one message, every halo launch serves all chains, every sum is one
+all-reduce of per-chain values), or both.
+
 The random numbers of one trajectory are a ``Draws``: the momentum
 normals, the pseudofermion normals and the Metropolis uniform, in the
 order the JAX package splits its key (k_mom, k_ferm, k_acc). They come
@@ -55,7 +65,7 @@ Sexton-Weingarten split), two-flavour domain-wall HMC and
 staggered HMC/RHMC, each with or without stout smearing (its staples
 through the sharded rolls, whose backward carries the force's chain
 rule across the faces), run there; every other action raises before any
-draw (ROADMAP A14b), and so does ``step_batched``. The draws are those
+draw (ROADMAP A14b). The draws are those
 of the global lattice: every rank draws the global normals from the
 run's generator, which has the same seed on every rank, and keeps its
 block, so a sharded trajectory draws what one process draws (at 16^3 x
@@ -294,8 +304,12 @@ class HMC:
         own solves (a chain whose residual meets its target is frozen while the
         others run) and its own Metropolis decision. Each entry of stats but
         ``cg`` is a CPU tensor with a leading chain axis; ``cg`` holds one record
-        per batched solve, with ``rhs`` the number of chains."""
-        mesh.refuse_under_grid("HMC.step_batched")
+        per batched solve, with ``rhs`` the number of chains.
+
+        Under a process grid us is this rank's block of its chains' links: under a
+        chain split (mesh.chain_split) its share of the chains, while generators or
+        draws are those of all the chains, of which it takes its share
+        (mesh.chain_share); us' and stats are its share's."""
         self._validate()
         if us.ndim != 8:
             raise ValueError(f"us must be [nchain, 4, X, Y, Z, T, NC, NC], got shape "
@@ -305,12 +319,26 @@ class HMC:
             raise NotImplementedError(f"step_batched: {what} has no batched form yet; "
                                       "run step per chain")
         n = us.shape[0]
+        given = draws if draws is not None else generators
+        split = mesh.chain_split()
+        if split is not None and given is not None:
+            share = split.share(len(given))
+            if share.stop - share.start != n:
+                raise ValueError(f"under {split.groups} chain groups this rank runs "
+                                 f"{share.stop - share.start} of the {len(given)} chains, but "
+                                 f"us holds {n}")
+            given = given[share]
         if draws is None:
-            if generators is None or len(generators) != n:
+            if given is None or len(given) != n:
                 raise ValueError(f"step_batched needs {n} generators or {n} draws")
-            draws = [Draws.sample(self, us[i], generators[i]) for i in range(n)]
+            draws = [Draws.sample(self, us[i], given[i]) for i in range(n)]
+        else:
+            draws = given
         if len(draws) != n:
             raise ValueError(f"step_batched needs {n} draws, got {len(draws)}")
+        grid = mesh.sharded()
+        if grid is not None:
+            draws = [d.block(grid, noise_lead(self.fermi_action)) for d in draws]
         stack = lambda parts: tuple(torch.stack(p) for p in zip(*parts))  # noqa: E731
         h = sun.random_hermitian_momentum(us.shape[:-2], us.shape[-1], dtype=us.dtype,
                                           device=us.device, normals=stack(d.mom for d in draws))

@@ -6,9 +6,12 @@ torch.roll of the global field, bit for bit, forward and backward, along
 every axis and across several at once; the shard and gather round trip;
 the boundary phases; the global sum, bitwise the same on every rank.
 Without processes: default_pes pinned to the JAX function, the grid's
-local extents and neighbours, odd local extents refused, and every path
-outside the slice refusing under a grid (ROADMAP A14b) before any draw
-or message.
+local extents and neighbours, odd local extents refused, the one path
+outside the slice (wilson_hop's full mode) refusing under a grid (ROADMAP
+A14b) before any draw or message, and the batched forms that once refused
+there running under a mock two-process grid: step_batched (quenched,
+Wilson, staggered) on a mirror grid whose other block is this one, and
+the three kernels' chain-halo forms on faces cut from the global fields.
 """
 
 import os
@@ -353,42 +356,18 @@ def test_odd_or_ragged_local_extents_refused(pes, lattice):
 
 def _refusal_cases():
     """name -> a callable that must raise NotImplementedError naming A14b under a grid."""
-    from latticeqcd_torch.ops import fields, gauge_action as ga
-    from latticeqcd_torch.ops.dirac import staggered_kernel, wilson_kernel, wilson_window_kernel
-    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
-    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
-    from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
-    from latticeqcd_torch.updates.hmc import HMC
+    from latticeqcd_torch.ops import fields
+    from latticeqcd_torch.ops.dirac import wilson_kernel
 
-    act = ga.wilson_gauge_action(3, 6.0)
     local = (4, 4, 4, 4)
-    gen = torch.Generator().manual_seed(1)
     u = lambda: fields.cold_start(local, 3, device="cpu")  # noqa: E731
-    hmc = lambda fa=None, **kw: HMC(action=act, dtau=0.1, md_steps=2, fermi_action=fa, **kw)  # noqa: E731
-    wilson = WilsonDirac(kappa=0.12)
-    packed = torch.zeros((1, 2, 4, 4, 4, 4, 3), dtype=torch.complex128)
-
     return {
-        "step_batched": lambda: hmc().step_batched(u()[None], [gen]),
-        "step_batched Wilson": lambda: hmc(WilsonFermiAction(wilson)).step_batched(u()[None], [gen]),
-        "step_batched staggered": lambda: hmc(StaggeredFermiAction(
-            StaggeredDirac(0.5, local), nf=4)).step_batched(u()[None], [gen]),
-        "staggered_w with a chain axis": lambda: staggered_kernel.staggered_w(
-            u()[None, :, :2], u()[None, :, :2],
-            torch.zeros((1, 2, 4, 4, 4, 3), dtype=torch.complex128), 0.5),
-        "wilson_hop_packed with a chain axis": lambda: wilson_kernel.wilson_hop_packed(
-            u()[None, :, :2], u()[None, :, :2], packed, 0),
-        "wilson_window with a chain axis": lambda: wilson_window_kernel.wilson_window(
-            u()[None], torch.zeros((1,) + local + (4, 3), dtype=torch.complex128), 0.12),
         "wilson_hop full mode": lambda: wilson_kernel.wilson_dslash(
             u(), torch.zeros(local + (4, 3), dtype=torch.complex128), 0.12),
     }
 
 
-REFUSALS = [
-    "step_batched", "step_batched Wilson", "step_batched staggered",
-    "staggered_w with a chain axis", "wilson_hop_packed with a chain axis",
-    "wilson_window with a chain axis", "wilson_hop full mode"]
+REFUSALS = ["wilson_hop full mode"]
 
 
 def _no_messages_or_draws(grid):
@@ -533,8 +512,160 @@ def test_wilson_r_half_runs_under_a_grid(what):
     faces, links = block_faces(grid, psi, u_s)
     spy = mock.Mock(wraps=getattr(wk, plain))
     with _no_messages_or_draws(grid), mock.patch.object(wk, plain, spy), \
-            mock.patch.object(mesh, "exchange_faces", lambda f, grid: faces), \
+            mock.patch.object(mesh, "exchange_faces", lambda f, grid, lead=0: faces), \
             mock.patch.object(wk, "link_faces", lambda u, grid: links):
         got = run()
     assert spy.call_count == 1 and spy.call_args.args[-1] == 0.5
     assert float((got - grid.block(ref)).abs().max()) < 1e-12
+
+
+# ------------------------------------------------------ batched forms on the grid
+
+BATCHED = [
+    "step_batched", "step_batched Wilson", "step_batched staggered",
+    "staggered_w with a chain axis", "wilson_hop_packed with a chain axis",
+    "wilson_window with a chain axis"]
+
+
+def _mirror(grid, sent):
+    """The mock grid's communication as if the other block were this one (a global field
+    that repeats with the block's period along t): a message brings back what this rank
+    sent (``sent`` records each one's leading extent), an all-reduce adds this rank's slot
+    to the other's."""
+    from contextlib import ExitStack
+
+    def exchange(grid, sends, recv_like):
+        sent.extend(t.shape[0] for _, _, t in sends)
+        return [t.clone() for _, _, t in sends]
+
+    def all_reduce(slots, **kw):
+        slots[1 - grid.rank] = slots[grid.rank]
+
+    stack = ExitStack()
+    stack.enter_context(mesh.use_grid(grid))
+    stack.enter_context(mock.patch.object(mesh, "_exchange", exchange))
+    stack.enter_context(mock.patch.object(torch.distributed, "all_reduce", all_reduce))
+    stack.enter_context(mock.patch.object(torch, "randn", side_effect=AssertionError("a draw")))
+    return stack
+
+
+def _batched_step(kind):
+    """step_batched of 2 chains on the mock grid (1, 1, 1, 2) over 4x4x4x8 served by
+    ``_mirror``, against one process's step_batched on the global links (each chain's block
+    twice along t, periodic boundary conditions) from the same global draws: (the largest
+    dH difference, the largest link difference, the leading extents of the messages)."""
+    from latticeqcd_torch.ops import fields, gauge_action as ga
+    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import StaggeredFermiAction, WilsonFermiAction
+    from latticeqcd_torch.updates.hmc import HMC, Draws
+
+    local, lat, bc = (4, 4, 4, 4), (4, 4, 4, 8), (1, 1, 1, 1)
+
+    def hmc(lattice):
+        fa = {"step_batched": None,
+              "step_batched Wilson": WilsonFermiAction(WilsonDirac(kappa=0.12, bc=bc),
+                                                       eps_cg=1e-22),
+              "step_batched staggered": StaggeredFermiAction(StaggeredDirac(0.5, lattice, bc),
+                                                             nf=4, eps_cg=1e-22)}[kind]
+        return HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.05, md_steps=2, fermi_action=fa)
+
+    tile = lambda x, lead: torch.cat([x, x], dim=lead + 3)  # noqa: E731
+    us = torch.stack([fields.hot_start(local, 3, seed=s, device="cpu") for s in (61, 62)])
+    lead = getattr(hmc(local).fermi_action, "noise_lead", 0)
+    draws = []
+    for i in range(2):
+        d = Draws.sample(hmc(local), us[i], torch.Generator().manual_seed(63 + i))
+        draws.append(Draws(tuple(tile(m, 1) for m in d.mom),
+                           None if d.xi is None else tuple(tile(x, lead) for x in d.xi),
+                           d.uniform))
+    u_ref, st_ref = hmc(lat).step_batched(tile(us, 2), draws=draws)
+    sent = []
+    grid = mesh.ProcessGrid((1, 1, 1, 2), lat, rank=0)
+    with _mirror(grid, sent):
+        u, st = hmc(local).step_batched(us, draws=draws)
+    return (float((st["dH"] - st_ref["dH"]).abs().max()),
+            float((u - u_ref[..., :local[3], :, :]).abs().max()), sent)
+
+
+def _chain_faces(grid, psi, u_s):
+    """test_torch_hop_packed.block_faces of each chain, stacked chain after chain."""
+    from test_torch_hop_packed import block_faces
+
+    per = [block_faces(grid, p, u) for p, u in zip(psi, u_s)]
+    faces = {mu: tuple(torch.stack([f[0][mu][k] for f in per]) for k in (0, 1))
+             for mu in per[0][0]}
+    return faces, {mu: torch.stack([f[1][mu] for f in per]) for mu in per[0][1]}
+
+
+def _batched_kernel(kind):
+    """The kernel wrapper of ``kind`` on 2 chains of a block of the mock grid (1, 1, 1, 2),
+    the exchanges cut from the global fields: (its largest difference from the block of
+    the global plain version, per chain, and the calls of the plain chain-halo version)."""
+    from latticeqcd_torch.ops import fields
+    from latticeqcd_torch.ops.dirac import eo_pack
+    from latticeqcd_torch.ops.dirac import staggered_kernel as sk
+    from latticeqcd_torch.ops.dirac import wilson_kernel as wk
+    from latticeqcd_torch.ops.dirac import wilson_window_kernel as ww
+    from latticeqcd_torch.ops.dirac.wilson import apply_boundary_phases
+
+    lat = (4, 4, 4, 8)
+    grid = mesh.ProcessGrid((1, 1, 1, 2), lat, rank=1)
+    u = torch.stack([apply_boundary_phases(fields.hot_start(lat, 3, seed=s, device="cpu"))
+                     for s in (71, 72)])
+    g = np.random.default_rng(73)
+    site = (3,) if kind.startswith("staggered") else (4, 3)
+    packed = not kind.startswith("wilson_window")
+    shape = (2, lat[0] // 2 if packed else lat[0]) + lat[1:] + site
+    psi = torch.from_numpy(g.standard_normal(shape) + 1j * g.standard_normal(shape))
+    if packed:
+        u_t, u_s = torch.func.vmap(lambda v: eo_pack.pack_links(v, lat))(u)
+    else:
+        u_t = u_s = u
+    if kind.startswith("staggered"):
+        ref = sk.staggered_w(u_t, u_s, psi, 0.5)
+        plain, module = "hop_packed_halo_reference", sk
+        run = lambda b: sk.staggered_w(b[0], b[1], b[2], 0.5)  # noqa: E731
+        # the W's second launch reads the faces of d1: both exchanges served from the globals
+        d1 = sk.staggered_hop_packed_reference(u_s, u_t, psi, 1)
+        exchanges = [_chain_faces(grid, psi, u_t)[0], _chain_faces(grid, d1, u_s)[0]]
+        link_faces = [_chain_faces(grid, psi, u_t)[1], _chain_faces(grid, d1, u_s)[1]]
+    elif packed:
+        ref = wk.wilson_hop_packed(u_t, u_s, psi, 0)
+        plain, module = "hop_packed_halo_reference", wk
+        run = lambda b: wk.wilson_hop_packed(b[0], b[1], b[2], 0)  # noqa: E731
+        exchanges, link_faces = [_chain_faces(grid, psi, u_s)[0]], [_chain_faces(grid, psi, u_s)[1]]
+    else:
+        ref = ww.wilson_window(u, psi, 0.12)
+        plain, module = "dslash_halo_reference", wk
+        run = lambda b: ww.wilson_window(b[0], b[2], 0.12)  # noqa: E731
+        exchanges, link_faces = [_chain_faces(grid, psi, u)[0]], [_chain_faces(grid, psi, u)[1]]
+    blocks = [grid.block(u_t, 2).contiguous(), grid.block(u_s, 2).contiguous(),
+              grid.block(psi, 1).contiguous()]
+    spy = mock.Mock(wraps=getattr(module, plain))
+    served, served_links = iter(exchanges), iter(link_faces)
+    with _no_messages_or_draws(grid), mock.patch.object(module, plain, spy), \
+            mock.patch.object(mesh, "exchange_faces", lambda f, grid, lead=0: next(served)), \
+            mock.patch.object(wk, "link_faces", lambda u, grid: next(served_links)):
+        got = run(blocks)
+    # the calls on all chains (the plain version maps itself over them)
+    calls = sum(c.args[0].ndim == 8 for c in spy.call_args_list)
+    return float((got - grid.block(ref, 1)).abs().max()), calls
+
+
+@pytest.mark.parametrize("what", BATCHED)
+def test_batched_runs_under_a_grid(what):
+    """What refused under a grid before the batched chains came to it now runs there, on
+    a mock two-process grid (no rank group): step_batched of 2 chains (quenched, Wilson,
+    staggered Nf = 4) on a mirror grid matches one process's step_batched on the global
+    links per chain (dH 1e-10, links 1e-12), every message carrying both chains and no
+    draw from a generator; each kernel wrapper with a chain axis runs its plain
+    chain-halo form once on the block, every exchange served from the global fields,
+    and matches the block of the global result (1e-12)."""
+    if what.startswith("step_batched"):
+        d_dh, d_u, sent = _batched_step(what)
+        assert d_dh < 1e-10 and d_u < 1e-12, (d_dh, d_u)
+        assert sent and set(sent) == {2}, sent
+    else:
+        err, calls = _batched_kernel(what)
+        assert err < 1e-12 and calls == (2 if what.startswith("staggered") else 1), (err, calls)

@@ -25,7 +25,20 @@ elements), every all-reduce, all-gather and gather. The pins:
 * a dense log det (Wilson D, staggered W) on a grid of the same PEs over
   2x2x4x4 exchanges the faces of each column once per hop (one exchange per
   column for D, two for W) and its links' faces once, and gathers the row
-  slabs in one all_gather.
+  slabs in one all_gather;
+* with a chain axis of 2 (HMC.step_batched on a grid) a packed hop, a
+  window D and a staggered W send per cut axis the messages of one chain,
+  each with both chains' faces (twice the elements), and a batched CG
+  iteration adds to its hops' faces only the two per-chain scalar
+  all-reduces;
+* a mixed-MD Wilson trajectory sends no message of a field's size and
+  all-reduces scalars only, as the plain one;
+* the chains split over the 4 ranks (4 chain groups of one process, one
+  chain each) make a step that sends no message and no all-reduce;
+* both at once (2 chain groups, each a grid (1, 1, 1, 2) over 4x4x4x8):
+  each group's messages stay among its own ranks, and 4 Wilson chains, 2
+  per group, equal one process's step_batched over the 4 (dH 1e-8, links
+  1e-10).
 """
 
 import os
@@ -48,8 +61,13 @@ NPROCS = 4
 DW_L5 = 2
 PHASES = ("dhat_fresh", "dhat_again", "cg3", "cg4", "trajectory", "save", "dw_fresh", "dw_again",
           "heatbath", "overrelax", "stout_forward", "stout_backward", "dense_wilson",
-          "dense_staggered")
+          "dense_staggered", "batched_dhat", "batched_window", "batched_w", "cg_multi3",
+          "cg_multi4", "mixed_trajectory", "chain_split", "both")
 DENSE_LAT = (2, 2, 4, 4)
+NCHAIN = 2  # the chain axis of the batched phases
+SPLIT_LAT = (4, 4, 4, 4)  # the chain split's lattice, uncut
+BOTH_PES = (1, 1, 1, 2)  # each chain group's grid when both are split
+BOTH_SEEDS = (81, 82, 83, 84)
 
 
 class CountingCommunicator:
@@ -119,6 +137,7 @@ def _case_audit(grid, savedir):
     Savedata("NPZ", savedir, 1, "HMC", VerbosePrint(level=0, myid=grid.rank)).save(u_new, 1, gen)
     out.update(_domainwall_and_heatbath(comm, u, gen))
     out.update(_stout_and_dense(comm, u, grid))
+    out.update(_batched(comm, u, gen))
     for phase in PHASES:
         events = comm.events(phase)
         out[phase] = np.array(sorted(f"{k}={n}" for k, n in events.items()))
@@ -204,6 +223,79 @@ def _stout_and_dense(comm, u, grid):
     return {"stout_errors": np.array(errors)}
 
 
+def _both_hmc():
+    from latticeqcd_torch.ops import gauge_action as ga
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac
+    from latticeqcd_torch.ops.fermion_action import WilsonFermiAction
+    from latticeqcd_torch.updates.hmc import HMC
+
+    return HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.1, md_steps=2,
+               fermi_action=WilsonFermiAction(WilsonDirac(kappa=0.141139), eps_cg=1e-22))
+
+
+def _both_chains(lat, seeds):
+    from latticeqcd_torch.ops import fields
+
+    return torch.stack([fields.hot_start(lat, 3, seed=s, device="cpu") for s in seeds])
+
+
+def _batched(comm, u, gen):
+    """The batched phases: on the audit's grid a batched Dhat, window D and staggered W
+    (NCHAIN chains, on links whose faces were exchanged once before) and 3 and 4
+    iterations of a batched CG; a mixed-MD trajectory; then a chain-split step on 4 chain
+    groups of one process and the Wilson chains of BOTH_SEEDS on 2 chain groups of a grid
+    BOTH_PES each."""
+    from latticeqcd_torch.ops import gauge_action as ga, solvers
+    from latticeqcd_torch.ops.dirac.staggered import StaggeredDirac
+    from latticeqcd_torch.ops.dirac.wilson import WilsonDirac, apply_boundary_phases
+    from latticeqcd_torch.updates.hmc import HMC
+    from test_torch_grid_hmc import _hmc
+
+    d = WilsonDirac(kappa=0.141139)
+    us = torch.stack([u, u.conj()])  # two chains with different links
+    up = apply_boundary_phases(us)
+    ueo = d.packed_links(up)
+    rn = lambda shape, lead: torch.complex(*(mesh.randn_block(shape, lead, gen, torch.float64,  # noqa: E731
+                                                              "cpu") for _ in range(2)))
+    x = rn((NCHAIN, LOCAL[0] // 2) + LOCAL[1:] + (4, 3), 1)
+    psi = rn((NCHAIN,) + LOCAL + (4, 3), 1)
+    st = StaggeredDirac(0.5, LOCAL)
+    seo = torch.func.vmap(st.packed_links)(up)
+    chi = rn((NCHAIN, LOCAL[0] // 2) + LOCAL[1:] + (3,), 1)
+    for phase, op in (("batched_dhat", lambda: d.apply_dhat(ueo, x)),
+                      ("batched_window", lambda: d.apply(up, psi)),
+                      ("batched_w", lambda: st.apply_w_packed(seo, chi))):
+        comm.phase = "warm"
+        op()  # the links' faces exchanged once
+        comm.phase = phase
+        op()
+    for n in (3, 4):
+        comm.phase = f"cg_multi{n}"
+        solvers.cg_multi(lambda v: d.apply_dhat_ddag(ueo, v), x, eps=1e-300, maxiter=n)
+    comm.phase = "mixed_trajectory"
+    hmc = _hmc(True)
+    HMC(action=hmc.action, dtau=0.1, md_steps=2, fermi_action=hmc.fermi_action,
+        md_precision="mixed").step(u, gen)
+    comm.phase = "setup"
+    split = mesh.make_process_grid((1, 1, 1, 1), SPLIT_LAT, "cpu", chain_groups=NPROCS)
+    both = mesh.make_process_grid(BOTH_PES, LAT, "cpu", chain_groups=2)
+    with mesh.use_grid(split):
+        chains = mesh.chain_share(list(BOTH_SEEDS))
+        gens = [torch.Generator().manual_seed(s) for s in BOTH_SEEDS]
+        comm.phase = "chain_split"
+        HMC(action=ga.wilson_gauge_action(3, 5.7), dtau=0.05, md_steps=3).step_batched(
+            _both_chains(SPLIT_LAT, chains), gens)
+    with mesh.use_grid(both):
+        chains = mesh.chain_share(list(BOTH_SEEDS))
+        gens = [torch.Generator().manual_seed(s) for s in BOTH_SEEDS]
+        comm.phase = "both"
+        u_b, st_b = _both_hmc().step_batched(_both_chains(LAT, chains), gens)
+        comm.phase = "done"
+        return {"both_group": np.asarray(both.chains.index), "both_dh": st_b["dH"].numpy(),
+                "both_accepted": st_b["accepted"].numpy(),
+                "both_u": mesh.to_host_global(u_b, lead=2, all_ranks=True)}
+
+
 def _rank_main(argv):
     rank_main(argv, {"audit": _case_audit})
 
@@ -220,6 +312,8 @@ def audit(tmp_path_factory):
                        for phase in PHASES})
         parsed[-1]["heatbath_tries"] = int(res["heatbath_tries"])
         parsed[-1]["stout_errors"] = res["stout_errors"]
+        parsed[-1].update({k: res[k] for k in ("both_group", "both_dh", "both_accepted",
+                                                "both_u")})
     return parsed, save
 
 
@@ -436,3 +530,100 @@ def test_dense_logdet_exchanges_each_column_and_gathers_once(audit, kind):
             want[f"recv:{link(mu)}:{lo}"] += links
         want[f"all_gather:{rows * dim}"] += 1
         assert res[f"dense_{kind}"] == want, (rank, kind)
+
+
+def _face_of(local, mu, site_elems):
+    """Elements of a face along mu of a field on ``local`` sites with site_elems per site."""
+    return int(np.prod(local)) // local[mu] * site_elems
+
+
+@pytest.mark.parametrize("phase,hops,local,site", [
+    ("batched_dhat", 2, (LOCAL[0] // 2,) + LOCAL[1:], 12),
+    ("batched_window", 1, LOCAL, 12),
+    ("batched_w", 2, (LOCAL[0] // 2,) + LOCAL[1:], 3)], ids=["packed_hop", "window", "staggered_w"])
+def test_batched_operator_sends_one_chains_messages(audit, phase, hops, local, site):
+    """With a chain axis of NCHAIN, on links whose faces were exchanged: each hop sends per
+    cut axis the 2 messages of one chain (to the +mu neighbour its last slab, to the -mu
+    neighbour its first), each holding every chain's face, NCHAIN times one chain's
+    elements, and nothing else."""
+    ranks, _ = audit
+    for rank, res in enumerate(ranks):
+        want = Counter()
+        for mu, (lo, hi) in _neighbours(rank).items():
+            face = NCHAIN * _face_of(local, mu, site)
+            want[(face, hi)] += hops
+            want[(face, lo)] += hops
+        assert _sends(res[phase]) == want, (rank, phase)
+        assert not [k for k in res[phase] if not k.startswith(("send", "recv"))], rank
+
+
+def test_batched_cg_iteration_adds_per_chain_scalar_all_reduces(audit):
+    """One more iteration of a batched CG over NCHAIN chains: 4 hops' face messages, each
+    holding every chain's face, and the two all-reduces of per-chain scalars (p.Ap and
+    |r|^2, NCHAIN real slots per rank), nothing else."""
+    ranks, _ = audit
+    for rank, res in enumerate(ranks):
+        extra = res["cg_multi4"] - res["cg_multi3"]
+        want = Counter()
+        for mu, (lo, hi) in _neighbours(rank).items():
+            face = NCHAIN * _face(mu, 12)
+            for peer in (lo, hi):
+                want[f"send:{face}:{peer}"] += 4
+                want[f"recv:{face}:{peer}"] += 4
+        want[f"all_reduce:{NCHAIN * NPROCS}"] += 2
+        assert extra == want, (rank, extra)
+
+
+def test_mixed_trajectory_has_no_field_sized_traffic(audit):
+    """A mixed-MD Wilson trajectory on the grid: every message at most one slab of a 3x3
+    link field, no gather, and all-reduces of one slot per rank (re and im) only."""
+    ranks, _ = audit
+    slab = int(np.prod(LOCAL)) // min(LOCAL) * 9
+    for rank, res in enumerate(ranks):
+        events = res["mixed_trajectory"]
+        assert events, rank
+        for key in events:
+            kind, *rest = key.split(":")
+            assert kind in ("send", "recv", "all_reduce"), key
+            assert int(rest[0]) <= (2 * NPROCS if kind == "all_reduce" else slab), key
+
+
+def test_chain_split_step_sends_nothing(audit):
+    """The chains split over the 4 ranks (one chain each, the lattice uncut): the step makes
+    no message, no all-reduce and no gather."""
+    ranks, _ = audit
+    for rank, res in enumerate(ranks):
+        assert res["chain_split"] == Counter(), (rank, res["chain_split"])
+
+
+def test_both_layouts_talk_within_each_chain_group(audit):
+    """Two chain groups of a grid (1, 1, 1, 2) each: every message goes to the other rank
+    of the sender's own group, every all-reduce is of one group's slots (2 ranks, per-chain
+    or scalar values)."""
+    ranks, _ = audit
+    for rank, res in enumerate(ranks):
+        mate = rank ^ 1  # world ranks 2g and 2g + 1 form group g
+        assert int(res["both_group"]) == rank // 2, rank
+        assert res["both"], rank
+        for key in res["both"]:
+            kind, *rest = key.split(":")
+            assert kind in ("send", "recv", "all_reduce"), key
+            if kind == "all_reduce":
+                assert int(rest[0]) <= 2 * 2 * NCHAIN, key
+            else:
+                assert int(rest[1]) == mate, key
+
+
+def test_both_layouts_equal_one_process(audit):
+    """The 4 Wilson chains of BOTH_SEEDS, 2 per chain group, each group's lattice cut along
+    t: per chain dH 1e-8, the decisions and links 1e-10 against one process's step_batched
+    over the 4 from the same generators; the ranks of a group bitwise equal."""
+    ranks, _ = audit
+    gens = [torch.Generator().manual_seed(s) for s in BOTH_SEEDS]
+    u_ref, st_ref = _both_hmc().step_batched(_both_chains(LAT, BOTH_SEEDS), gens)
+    for rank, res in enumerate(ranks):
+        sl = slice(2 * (rank // 2), 2 * (rank // 2) + 2)
+        assert np.abs(res["both_dh"] - st_ref["dH"].numpy()[sl]).max() < 1e-8, rank
+        assert np.array_equal(res["both_accepted"], st_ref["accepted"].numpy()[sl]), rank
+        assert np.abs(res["both_u"] - u_ref.numpy()[sl]).max() < 1e-10, rank
+        assert res["both_dh"].tobytes() == ranks[rank ^ 1]["both_dh"].tobytes(), rank

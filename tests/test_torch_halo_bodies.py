@@ -16,6 +16,12 @@ halo version, at 1e-12 (complex128) and 1e-5 (complex64):
 * wilson_window: the full D at the tiles of the C entry points and at a
   ragged 2 x 2-row tile over t segments of at most 4 sites, x cut into
   chunks; at r = 1 and in the r mode at r = 0.5.
+
+Each halo mode's chain form (the chain-halo mode) runs the same blocks as
+two chains with different links and fields in one launch, compiled into
+the same executable, its face buffers holding both chains' faces chain
+after chain: each chain against the plain halo version and bit for bit
+against the one-chain halo mode on that chain's block and faces.
 """
 
 import os
@@ -74,48 +80,67 @@ def _face_bytes(faces, links):
 # ---------------------------------------------------------------- staggered_w
 
 # mode 0, 1: the halo hop onto target parity mode; mode 2: m2 phi - D psi onto the even sites
-# (W's second launch); the threads one at a time, 128 to a block, as the launch function
+# (W's second launch); the threads one at a time, 128 to a block, as the launch function, over
+# n chains (its last argument, 1 unless given)
 _STAGGERED_HARNESS = """
 #include <cstdio>
 #include <cstdlib>
 #include <vector>
 #include "body.inc"
+// the launch function's choice: for more than one chain the chain-halo mode (chain blockIdx.y)
+template <typename R, bool AXPY>
+void site(int n, const typename Vec<R>::type* ut, const typename Vec<R>::type* us,
+          const typename Vec<R>::type* psi, const typename Vec<R>::type* phi,
+          typename Vec<R>::type* out, int x2, int ly, int lz, int lt, int parity, R m2,
+          const Halo<typename Vec<R>::type>& halo, long long u_chain, long long psi_chain,
+          const FaceChains& fc) {
+  if (n == 1)
+    staggered_hop_halo_kernel<R, AXPY>(ut, us, psi, phi, out, x2, ly, lz, lt, parity, m2, halo);
+  else
+    staggered_hop_halo_kernel<R, AXPY, true>(ut, us, psi, phi, out, x2, ly, lz, lt, parity, m2,
+                                             halo, u_chain, psi_chain, fc);
+}
 template <typename R>
-int run(int x2, int ly, int lz, int lt, int mode, int mask, double m2) {
+int run(int x2, int ly, int lz, int lt, int mode, int mask, double m2, int n) {
   using V = typename Vec<R>::type;
   const long vol = (long)x2 * ly * lz * lt;
-  std::vector<V> ut(36 * vol), us(36 * vol), psi(3 * vol), phi(3 * vol), out(3 * vol);
+  std::vector<V> ut(36 * vol * n), us(36 * vol * n), psi(3 * vol * n), phi(3 * vol * n),
+      out(3 * vol * n);
   for (auto* f : {&ut, &us, &psi})
     if (fread(f->data(), sizeof(V), f->size(), stdin) != f->size()) return 1;
   if (mode == 2 && fread(phi.data(), sizeof(V), phi.size(), stdin) != phi.size()) return 1;
   const int ext[4] = {x2, ly, lz, lt};
   std::vector<V> faces[12];
   Halo<V> halo{mask, {}, {}, {}};
+  FaceChains fc{};
   for (int mu = 0; mu < 4; ++mu) {
     if (!(mask >> mu & 1)) continue;
     for (int k = 0; k < 3; ++k) {
       auto& f = faces[4 * k + mu];
-      f.resize((k == 2 ? 9 : 3) * vol / ext[mu]);
+      f.resize((k == 2 ? 9 : 3) * vol / ext[mu] * n);
       if (fread(f.data(), sizeof(V), f.size(), stdin) != f.size()) return 1;
     }
     halo.lo[mu] = faces[mu].data();
     halo.hi[mu] = faces[4 + mu].data();
     halo.link[mu] = faces[8 + mu].data();
+    fc.lo[mu] = fc.hi[mu] = 3 * vol / ext[mu];
+    fc.link[mu] = 9 * vol / ext[mu];
   }
   std::memset(out.data(), 0xff, out.size() * sizeof(V));  // a site never written shows as NaN
   const int threads = 128, blocks = (vol + threads - 1) / threads;
   blockDim = dim3{(unsigned)threads, 1, 1};
-  for (int b = 0; b < blocks; ++b)
-    for (int t = 0; t < threads; ++t) {
-      blockIdx = dim3{(unsigned)b, 0, 0};
-      threadIdx = dim3{(unsigned)t, 0, 0};
-      if (mode == 2)
-        staggered_hop_halo_kernel<R, true>(ut.data(), us.data(), psi.data(), phi.data(),
-                                           out.data(), x2, ly, lz, lt, 0, R(m2), halo);
-      else
-        staggered_hop_halo_kernel<R, false>(ut.data(), us.data(), psi.data(), nullptr, out.data(),
-                                            x2, ly, lz, lt, mode, R(0), halo);
-    }
+  for (int c = 0; c < n; ++c)
+    for (int b = 0; b < blocks; ++b)
+      for (int t = 0; t < threads; ++t) {
+        blockIdx = dim3{(unsigned)b, (unsigned)c, 0};
+        threadIdx = dim3{(unsigned)t, 0, 0};
+        if (mode == 2)
+          site<R, true>(n, ut.data(), us.data(), psi.data(), phi.data(), out.data(), x2, ly, lz,
+                        lt, 0, R(m2), halo, 36 * vol, 3 * vol, fc);
+        else
+          site<R, false>(n, ut.data(), us.data(), psi.data(), nullptr, out.data(), x2, ly, lz,
+                         lt, mode, R(0), halo, 36 * vol, 3 * vol, fc);
+      }
   fwrite(out.data(), sizeof(V), out.size(), stdout);
   return 0;
 }
@@ -123,8 +148,9 @@ int main(int argc, char** argv) {
   const int x2 = atoi(argv[1]), ly = atoi(argv[2]), lz = atoi(argv[3]), lt = atoi(argv[4]);
   const int mode = atoi(argv[5]), c128 = atoi(argv[6]), mask = atoi(argv[7]);
   const double m2 = atof(argv[8]);
-  return c128 ? run<double>(x2, ly, lz, lt, mode, mask, m2)
-              : run<float>(x2, ly, lz, lt, mode, mask, m2);
+  const int n = argc > 9 ? atoi(argv[9]) : 1;
+  return c128 ? run<double>(x2, ly, lz, lt, mode, mask, m2, n)
+              : run<float>(x2, ly, lz, lt, mode, mask, m2, n);
 }
 """
 
@@ -175,6 +201,64 @@ def test_staggered_halo_body_on_the_cpu(staggered_halo_exe, lat, dtype, cut):
             assert float(np.abs(got - to_numpy(plain)).max()) < bar, (cut, rank, mode)
 
 
+def _chain_faces(grid, fields, links):
+    """block_faces of each chain (fields[c], links[c]), stacked chain after chain, and each
+    chain's own."""
+    per = [block_faces(grid, f, u) for f, u in zip(fields, links)]
+    faces = {mu: tuple(torch.stack([p[0][mu][k] for p in per]) for k in (0, 1))
+             for mu in per[0][0]}
+    return faces, {mu: torch.stack([p[1][mu] for p in per]) for mu in per[0][1]}, per
+
+
+def _chain_links(lat, dtype):
+    """Two chains' links with different hot starts."""
+    return torch.stack([tw.apply_boundary_phases(fields.hot_start(
+        lat, 3, seed=sum(lat) + c, device="cpu")).to(dtype) for c in range(2)])
+
+
+@pytest.mark.parametrize("cut", list(HALO_CUTS))
+@pytest.mark.parametrize("lat", HALO_LATTICES, ids=LAT_IDS)
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_staggered_chain_halo_body_on_the_cpu(staggered_halo_exe, lat, dtype, cut):
+    """staggered_w.cu's chain-halo mode on two chains of every block: the hop onto both
+    target parities and the grid W's axpy launch, each chain against the plain halo
+    version and bit for bit against the one-chain halo mode."""
+    tdt = getattr(torch, dtype)
+    bar = 1e-12 if dtype == "complex128" else 1e-5
+    u_e, u_o = torch.func.vmap(lambda v: eo_pack.pack_links(v, lat))(_chain_links(lat, tdt))
+    half = (lat[0] // 2,) + lat[1:]
+    x = torch.randn((2,) + half + (3,), dtype=tdt, generator=torch.Generator().manual_seed(8))
+    d1 = sk.staggered_hop_packed_reference(u_o, u_e, x, 1)
+    pes = HALO_CUTS[cut]
+
+    def body(blocks, faces, links, mode, n, phi=None):
+        data = [to_numpy(f).tobytes() for f in blocks] + (
+            [] if phi is None else [to_numpy(phi).tobytes()])
+        out = subprocess.run(
+            [staggered_halo_exe, *map(str, blocks[2].shape[-5:-1]), str(mode),
+             str(int(dtype == "complex128")), str(sum(1 << mu for mu in faces)),
+             repr(MASS ** 2), str(n)],
+            input=b"".join(data + _face_bytes(faces, links)), capture_output=True, check=True)
+        return np.frombuffer(out.stdout, dtype=np.dtype(dtype)).reshape(blocks[2].shape)
+
+    for mode, u_t, u_s, src in ((0, u_e, u_o, x), (1, u_o, u_e, x), (2, u_e, u_o, d1)):
+        for rank in range(int(np.prod(pes))):
+            grid = mesh.ProcessGrid(pes, lat, rank=rank)
+            faces, links, per = _chain_faces(grid, src, u_s)
+            blocks = [grid.block(f, lead=2).contiguous() for f in (u_t, u_s)] + [
+                grid.block(src, lead=1).contiguous()]
+            phi = grid.block(x, lead=1).contiguous() if mode == 2 else None
+            got = body(blocks, faces, links, mode, 2, phi)
+            plain = sk.hop_packed_halo_reference(*blocks, mode % 2, faces, links)
+            if mode == 2:
+                plain = MASS ** 2 * phi - plain
+            assert float(np.abs(got - to_numpy(plain)).max()) < bar, (cut, rank, mode)
+            for c in range(2):
+                one = body([b[c] for b in blocks], *per[c], mode, 1,
+                           None if phi is None else phi[c])
+                assert np.array_equal(got[c], one), (cut, rank, mode, c)
+
+
 # -------------------------------------------------------------- wilson_window
 
 _WINDOW_HARNESS = """
@@ -184,39 +268,49 @@ _WINDOW_HARNESS = """
 #include "body.inc"
 namespace { alignas(16) unsigned char smem[1 << 20]; }
 template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH, bool GENERIC_R>
-int run(int lx, int ly, int lz, int lt, int chunk, double kappa, int mask, double r) {
+int run(int lx, int ly, int lz, int lt, int chunk, double kappa, int mask, double r, int n) {
   using V = typename Vec<R>::type;
   const long vol = (long)lx * ly * lz * lt;
-  std::vector<V> u(36 * vol), psi(12 * vol), out(12 * vol);
+  std::vector<V> u(36 * vol * n), psi(12 * vol * n), out(12 * vol * n);
   if (fread(u.data(), sizeof(V), u.size(), stdin) != u.size()) return 1;
   if (fread(psi.data(), sizeof(V), psi.size(), stdin) != psi.size()) return 1;
   const int ext[4] = {lx, ly, lz, lt};
   std::vector<V> faces[12];
   Halo<V> halo{mask, {}, {}, {}};
+  FaceChains fc{};
   for (int mu = 0; mu < 4; ++mu) {
     if (!(mask >> mu & 1)) continue;
     for (int k = 0; k < 3; ++k) {
       auto& f = faces[4 * k + mu];
-      f.resize((k == 2 ? 9 : 12) * vol / ext[mu]);
+      f.resize((k == 2 ? 9 : 12) * vol / ext[mu] * n);
       if (fread(f.data(), sizeof(V), f.size(), stdin) != f.size()) return 1;
     }
     halo.lo[mu] = faces[mu].data();
     halo.hi[mu] = faces[4 + mu].data();
     halo.link[mu] = faces[8 + mu].data();
+    fc.lo[mu] = fc.hi[mu] = 12 * vol / ext[mu];
+    fc.link[mu] = 9 * vol / ext[mu];
   }
   std::memset(out.data(), 0xff, out.size() * sizeof(V));  // a site never written shows as NaN
   const int nts = (lt + TSMAX - 1) / TSMAX, ts = (lt + nts - 1) / nts;
   const int blocks = ((lx + chunk - 1) / chunk) * ((ly + BY - 1) / BY) * ((lz + BZ - 1) / BZ) * nts;
   const int threads = 3 * BY * BZ * ts;
+  for (int c = 0; c < n; ++c)
   for (int b = 0; b < blocks; ++b) {
     MockBarrier bar(threads);
     block_barrier = &bar;
     std::memset(smem, 0xff, sizeof smem);  // a slot read before it is copied shows as NaN
     run_block(threads, [&](int tid) {
       threadIdx = dim3{(unsigned)tid, 1, 1};
-      blockIdx = dim3{(unsigned)b, 1, 1};
-      wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, true, GENERIC_R>(
-          u.data(), psi.data(), out.data(), lx, ly, lz, lt, ts, chunk, (R)kappa, halo, (R)r);
+      blockIdx = dim3{(unsigned)b, (unsigned)c, 1};
+      // the launch function's choice: the chain-halo mode for more than one chain
+      if (n == 1)
+        wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, true, GENERIC_R>(
+            u.data(), psi.data(), out.data(), lx, ly, lz, lt, ts, chunk, (R)kappa, halo, (R)r);
+      else
+        wilson_window_kernel<R, BY, BZ, TSMAX, MINB, PREFETCH, true, GENERIC_R, true>(
+            u.data(), psi.data(), out.data(), lx, ly, lz, lt, ts, chunk, (R)kappa, halo, (R)r,
+            36 * vol, 12 * vol, fc);
     });
   }
   fwrite(out.data(), sizeof(V), out.size(), stdout);
@@ -224,12 +318,12 @@ int run(int lx, int ly, int lz, int lt, int chunk, double kappa, int mask, doubl
 }
 // at r != 1 the r mode
 template <typename R, int BY, int BZ, int TSMAX, int MINB, bool PREFETCH>
-int run_at(const int (&l)[5], double kappa, int mask, double r) {
+int run_at(const int (&l)[5], double kappa, int mask, double r, int n) {
   return r == 1.0
              ? run<R, BY, BZ, TSMAX, MINB, PREFETCH, false>(l[0], l[1], l[2], l[3], l[4], kappa,
-                                                            mask, r)
+                                                            mask, r, n)
              : run<R, BY, BZ, TSMAX, MINB, PREFETCH, true>(l[0], l[1], l[2], l[3], l[4], kappa,
-                                                           mask, r);
+                                                           mask, r, n);
 }
 int main(int argc, char** argv) {
   int l[5];
@@ -237,12 +331,13 @@ int main(int argc, char** argv) {
   const double kappa = atof(argv[6]);
   const int c128 = atoi(argv[7]), tile = atoi(argv[8]), mask = atoi(argv[9]);
   const double r = argc > 10 ? atof(argv[10]) : 1.0;
+  const int n = argc > 11 ? atoi(argv[11]) : 1;  // chains
   if (tile == 0)  // the tiles of the C entry points
-    return c128 ? run_at<double, WILSON_WINDOW_TILE_C128>(l, kappa, mask, r)
-                : run_at<float, WILSON_WINDOW_TILE_C64>(l, kappa, mask, r);
+    return c128 ? run_at<double, WILSON_WINDOW_TILE_C128>(l, kappa, mask, r, n)
+                : run_at<float, WILSON_WINDOW_TILE_C64>(l, kappa, mask, r, n);
   // 2 x 2 rows over t segments of at most 4 sites
-  return c128 ? run_at<double, 2, 2, 4, 1, true>(l, kappa, mask, r)
-              : run_at<float, 2, 2, 4, 1, true>(l, kappa, mask, r);
+  return c128 ? run_at<double, 2, 2, 4, 1, true>(l, kappa, mask, r, n)
+              : run_at<float, 2, 2, 4, 1, true>(l, kappa, mask, r, n);
 }
 """
 
@@ -294,6 +389,41 @@ def _window_halo_body(exe, lat, dtype, cut, tile, r):
         assert float(np.abs(got - to_numpy(grid.block(ref))).max()) < bar, (cut, rank)
         plain = wk.dslash_halo_reference(u_b, psi_b, KAPPA, faces, links, r)
         assert float(np.abs(got - to_numpy(plain)).max()) < bar, (cut, rank)
+
+
+@pytest.mark.parametrize("r", [1.0, 0.5], ids=["r1", "r_mode"])
+@pytest.mark.parametrize("tile", ["entry", "ragged"])
+@pytest.mark.parametrize("cut", list(HALO_CUTS))
+@pytest.mark.parametrize("lat", HALO_LATTICES, ids=LAT_IDS)
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_window_chain_halo_body_on_the_cpu(window_halo_exe, lat, dtype, cut, tile, r):
+    """wilson_window.cu's chain-halo mode on two chains of every block (x cut into chunks
+    of 3), each chain against the plain halo D and bit for bit against the one-chain
+    halo mode on that chain's block and faces."""
+    tdt = getattr(torch, dtype)
+    bar = 1e-12 if dtype == "complex128" else 1e-5
+    u = _chain_links(lat, tdt)
+    psi = torch.randn((2,) + lat + (4, 3), dtype=tdt, generator=torch.Generator().manual_seed(4))
+    pes = HALO_CUTS[cut]
+
+    def body(u_b, psi_b, faces, links, n):
+        out = subprocess.run(
+            [window_halo_exe, *map(str, psi_b.shape[-6:-2]), "3", repr(KAPPA),
+             str(int(dtype == "complex128")), str(["entry", "ragged"].index(tile)),
+             str(sum(1 << mu for mu in faces)), repr(r), str(n)],
+            input=b"".join([to_numpy(u_b).tobytes(), to_numpy(psi_b).tobytes()]
+                           + _face_bytes(faces, links)), capture_output=True, check=True)
+        return np.frombuffer(out.stdout, dtype=np.dtype(dtype)).reshape(psi_b.shape)
+
+    for rank in range(int(np.prod(pes))):
+        grid = mesh.ProcessGrid(pes, lat, rank=rank)
+        faces, links, per = _chain_faces(grid, psi, u)
+        u_b, psi_b = grid.block(u, lead=2).contiguous(), grid.block(psi, lead=1).contiguous()
+        got = body(u_b, psi_b, faces, links, 2)
+        plain = wk.dslash_halo_reference(u_b, psi_b, KAPPA, faces, links, r)
+        assert float(np.abs(got - to_numpy(plain)).max()) < bar, (cut, rank)
+        for c in range(2):
+            assert np.array_equal(got[c], body(u_b[c], psi_b[c], *per[c], 1)), (cut, rank, c)
 
 
 @pytest.mark.gpu

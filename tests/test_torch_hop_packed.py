@@ -14,7 +14,10 @@ lattices with different links (the grid's y axis), each chain against its
 own plain hop; and in its halo mode (a block of a process grid): a global
 lattice cut in two along each axis (and along x and t at once), each
 block's hop with the face buffers built from the global field against
-the block of the global plain hop and against the plain halo hop. On the
+the block of the global plain hop and against the plain halo hop; and in
+its chain-halo mode, two chains of such blocks in one launch (each face
+buffer holding both chains' faces), each chain against the plain halo
+hop and bit for bit against the one-chain halo mode on it. On the
 card the kernel itself is checked by the ``gpu`` tests in
 test_torch_wilson.py and test_torch_grid_hmc.py and by chip_smoke.py.
 """
@@ -140,9 +143,9 @@ inline void mbar_wait(uint64_t*, unsigned) { block_barrier->arrive_and_wait(); }
 inline void prefetch_l2(const void*, unsigned) {}
 """
 # run<R, BY, BZ, TSMAX, MINB, GENERIC_R>: the launch function's grid and block for nchain
-# chains, one block at a time; with a partition mask, the halo mode of one lattice block, its
-# face buffers read after the fields (lo, hi and link of each cut axis in turn); at r != 1 the
-# r mode
+# chains, one block at a time; with a partition mask, the halo mode of one lattice block (of
+# nchain chains: the chain-halo mode), its face buffers read after the fields (lo, hi and link
+# of each cut axis in turn, each every chain's, chain after chain); at r != 1 the r mode
 _HARNESS = """
 #include <cstdio>
 #include <cstdlib>
@@ -160,16 +163,19 @@ int run(int x2, int ly, int lz, int lt, int parity, int nchain, int mask, double
   const int ext[4] = {x2, ly, lz, lt};
   std::vector<V> faces[12];
   Halo<V> halo{mask, {}, {}, {}};
+  FaceChains fc{};
   for (int mu = 0; mu < 4; ++mu) {
     if (!(mask >> mu & 1)) continue;
     for (int k = 0; k < 3; ++k) {
       auto& f = faces[4 * k + mu];
-      f.resize((k == 2 ? 9 : 12) * vol / ext[mu]);
+      f.resize((k == 2 ? 9 : 12) * vol / ext[mu] * nchain);
       if (fread(f.data(), sizeof(V), f.size(), stdin) != f.size()) return 1;
     }
     halo.lo[mu] = faces[mu].data();
     halo.hi[mu] = faces[4 + mu].data();
     halo.link[mu] = faces[8 + mu].data();
+    fc.lo[mu] = fc.hi[mu] = 12 * vol / ext[mu];
+    fc.link[mu] = 9 * vol / ext[mu];
   }
   std::memset(out.data(), 0xff, out.size() * sizeof(V));  // a site never written shows as NaN
   const int nts = (lt + TSMAX - 1) / TSMAX, ts = ((lt + nts - 1) / nts + 1) / 2 * 2;
@@ -183,14 +189,16 @@ int run(int x2, int ly, int lz, int lt, int parity, int nchain, int mask, double
     run_block(threads, [&](int tid) {
       threadIdx = dim3{(unsigned)tid, 1, 1};
       blockIdx = dim3{(unsigned)b, (unsigned)c, 0};
-      // the launch function's choice: the halo mode for a mask, else the kernel without the
-      // chain offsets for one chain
+      // the launch function's choice: for a mask the halo mode (its chain form for more than
+      // one chain), else the kernel without the chain offsets for one chain
       auto kernel =
-          mask ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, true, GENERIC_R>
+          mask ? (nchain == 1
+                      ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, true, GENERIC_R>
+                      : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true, true, GENERIC_R>)
           : nchain == 1 ? wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, false, false, GENERIC_R>
                         : wilson_hop_brick_kernel<R, BY, BZ, TSMAX, MINB, true, false, GENERIC_R>;
       kernel(ut.data(), us.data(), psi.data(), out.data(), x2, ly, lz, lt, ts, parity, 36 * vol,
-             12 * vol, halo, (R)r);
+             12 * vol, halo, (R)r, fc);
     });
   }
   fwrite(out.data(), sizeof(V), out.size(), stdout);
@@ -403,6 +411,56 @@ def _halo_body(exe, lat, dtype, cut, brick, r):
             assert float(np.abs(got - want).max()) < bar, (cut, rank, parity)
             plain = wk.hop_packed_halo_reference(*blocks, parity, faces, links, r)
             assert float(np.abs(got - to_numpy(plain)).max()) < bar, (cut, rank, parity)
+
+
+@pytest.mark.parametrize("r", [1.0, R_MODE], ids=["r1", "r_mode"])
+@pytest.mark.parametrize("brick", BRICKS)
+@pytest.mark.parametrize("cut", list(HALO_CUTS))
+@pytest.mark.parametrize("lat", HALO_LATTICES, ids=["8x4x4x8", "4x8x12x4"])
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_brick_kernel_body_chain_halo_mode(brick_body_exe, lat, dtype, cut, brick, r):
+    """The kernel's chain-halo mode, thread by thread: two chains (different links and
+    spinors) of every block of a global lattice cut along one axis (or x and t), both
+    target parities, in one launch whose face buffers hold both chains' faces, chain after
+    chain; each chain against the plain halo hop, and bit for bit against the one-chain
+    halo mode on that chain's block and faces."""
+    from latticeqcd_torch.parallel import mesh
+
+    tdt = getattr(torch, dtype)
+    packed = [[f.to(tdt) for f in eo_pack.pack_links(tw.apply_boundary_phases(to_torch(
+        np.asarray(jfields.hot_start(lat, 3, seed=sum(lat) + c)))), lat)] for c in range(2)]
+    half = (lat[0] // 2,) + lat[1:]
+    x = torch.randn((2,) + half + (4, 3), dtype=tdt, generator=torch.Generator().manual_seed(9))
+    pes = HALO_CUTS[cut]
+
+    def body(blocks, faces, links, nchain, mask, parity):
+        data = [to_numpy(f).tobytes() for f in blocks]
+        for mu in sorted(faces):
+            data += [to_numpy(f).tobytes() for f in (*faces[mu], links[mu])]
+        out = subprocess.run(
+            [brick_body_exe, *map(str, blocks[2].shape[-6:-2]), str(parity),
+             str(int(dtype == "complex128")), str(BRICKS.index(brick)), str(nchain), str(mask),
+             repr(r)], input=b"".join(data), capture_output=True, check=True)
+        return np.frombuffer(out.stdout, dtype=np.dtype(dtype)).reshape(blocks[2].shape)
+
+    for parity in (0, 1):
+        u_t = torch.stack([p[parity] for p in packed])
+        u_s = torch.stack([p[1 - parity] for p in packed])
+        for rank in range(int(np.prod(pes))):
+            grid = mesh.ProcessGrid(pes, lat, rank=rank)
+            per = [block_faces(grid, x[c], u_s[c]) for c in range(2)]
+            faces = {mu: tuple(torch.stack([p[0][mu][k] for p in per]) for k in (0, 1))
+                     for mu in per[0][0]}
+            links = {mu: torch.stack([p[1][mu] for p in per]) for mu in per[0][1]}
+            mask = sum(1 << mu for mu in faces)
+            blocks = [grid.block(f, lead=2).contiguous() for f in (u_t, u_s)] + [
+                grid.block(x, lead=1).contiguous()]
+            got = body(blocks, faces, links, 2, mask, parity)
+            plain = to_numpy(wk.hop_packed_halo_reference(*blocks, parity, faces, links, r))
+            assert float(np.abs(got - plain).max()) < BODY_BARS[dtype], (cut, rank, parity)
+            for c in range(2):
+                one = body([b[c] for b in blocks], *per[c], 1, mask, parity)
+                assert np.array_equal(got[c], one), (cut, rank, parity, c)
 
 
 @pytest.mark.gpu
